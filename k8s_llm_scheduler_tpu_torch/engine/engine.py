@@ -1,0 +1,588 @@
+"""The inference engine's decision path: shared-prefix prefill and decision
+waves (the port of the JAX package's engine/engine.py, decision subset).
+
+- **Shared-prefix (cascade) prefill**: a scheduling burst shares its
+  (system + cluster-state) prompt prefix (core/prompt.py). The prefix
+  prefills ONCE per cluster snapshot into a dense KV buffer and every wave
+  decodes against it. Prefixes longer than one chunk prefill blockwise
+  (`_prefill_prefix_chunked`), each chunk attending the KV accumulated so
+  far, seeded from the cached prefix with the longest common prefix
+  (`_best_lcp_seed`). Recent prefixes stay cached on device under a byte
+  budget.
+- **Decision waves** (`submit_wave` / `harvest_wave`): the whole batch's
+  suffix prefill, then grammar-accelerated block decode to completion. Each
+  iteration samples one token from the carried logits, expands the forced
+  run that follows through DFA table lookups (no model call), and runs one
+  block-wide mini-prefill (models/llama.forward_block_decode). The JAX
+  package's `lax.while_loop` is a Python loop bounded by `n_iters` that
+  stops as soon as no row is alive (one host sync per iteration).
+- **Sparse grammar tables** (engine/constrained.py): sampling in K-space,
+  vocab-independent.
+
+The paged general-completion path, packed admission, the persistent loop
+and speculative decoding of the JAX engine are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from k8s_llm_scheduler_tpu_torch.engine.constrained import (
+    DecisionDFA,
+    sparse_tables,
+    wave_iterations,
+)
+from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer, Tokenizer
+from k8s_llm_scheduler_tpu_torch.models.configs import LlamaConfig
+from k8s_llm_scheduler_tpu_torch.models.llama import (
+    Params,
+    forward_block_decode,
+    forward_prefill,
+    forward_prefill_suffix_dense,
+)
+from k8s_llm_scheduler_tpu_torch.ops.attention import NEG_INF
+
+logger = logging.getLogger(__name__)
+
+# Length of the all-zero prefix buffer used when no prefix is installed
+# (the JAX engine's page size).
+EMPTY_PREFIX_SLOTS = 64
+
+
+def _pick(masked, gen, temperature):
+    """temperature > 0 -> categorical, else argmax (first maximum), over
+    masked f32 logits."""
+    if temperature > 0:
+        probs = torch.softmax(masked / max(temperature, 1e-6), dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0].int()
+    return torch.argmax(masked, dim=-1).int()
+
+
+def _sample_unconstrained(logits, pad_id, gen, temperature, vocab_limit=None):
+    """Full-vocab sampling with pad excluded (pad is the idle-row emission
+    sentinel); `vocab_limit` also masks ids the tokenizer cannot decode."""
+    V = logits.shape[-1]
+    ids = torch.arange(V, device=logits.device)[None, :]
+    bad = ids == pad_id
+    if vocab_limit is not None and vocab_limit < V:
+        bad = bad | (ids >= vocab_limit)
+    return _pick(torch.where(bad, NEG_INF, logits), gen, temperature)
+
+
+def _sample_sparse(logits, tok_rows, next_rows, gen, temperature):
+    """Grammar sampling in K-space: gather the allowed tokens' logits, pick
+    among them, map back to (token id, next DFA state).
+
+    logits [R, V]; tok_rows/next_rows [R, K] (-1 padded)."""
+    gathered = torch.gather(logits, 1, tok_rows.clamp(min=0).long())
+    masked = torch.where(tok_rows >= 0, gathered, NEG_INF)
+    k = _pick(masked, gen, temperature).long()[:, None]
+    tok = torch.gather(tok_rows, 1, k)[:, 0]
+    nxt = torch.gather(next_rows, 1, k)[:, 0]
+    return tok.int(), nxt.int()
+
+
+@torch.no_grad()
+def _wave_impl(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens,        # [R, Ss] suffix tokens, left-aligned, padded
+    suffix_lens,   # [R] int32 (0 on padding rows)
+    prefix_k, prefix_v,  # [L, Sp, n_kv, hd] shared dense prefix KV
+    prefix_len,    # 0-dim int32
+    max_new,       # [R] int32 total emission budget (0 on padding rows)
+    sp_tokens, sp_next, forced, forced_next, done_state: int, eos_id: int,
+    pad_id: int, dfa_start: int,
+    gen, temperature: float,
+    n_iters: int,  # worst-case block iterations (wave_iterations)
+    F: int,        # block width (sampled token + forced run)
+    cap: int,      # generated-KV capacity, >= max(max_new)
+    constrained: bool,
+    vocab_limit: int | None = None,
+):
+    """One whole decision wave with grammar-accelerated block decoding.
+
+    Suffix prefill against the shared dense prefix, then at most `n_iters`
+    block iterations, each (a) sampling ONE token from the carried logits,
+    (b) expanding the forced run that follows via DFA table lookups, and
+    (c) running one F-wide mini-prefill over the block. The loop stops early
+    once no row is alive. Every row finishes: the per-row budget gates each
+    emission.
+
+    Returns (emitted [R, n_iters*F] with pad_id holes, active [R],
+    iterations run)."""
+    last_logits, k_sfx, v_sfx = forward_prefill_suffix_dense(
+        params, cfg, tokens, suffix_lens, prefix_k, prefix_v, prefix_len,
+    )
+    dev = tokens.device
+    R = tokens.shape[0]
+    st = torch.full((R,), dfa_start, dtype=torch.int32, device=dev)
+    act = suffix_lens > 0
+    # emitted doubles as the generated-KV write tail.
+    emitted = torch.zeros(R, dtype=torch.int32, device=dev)
+    pos_next = prefix_len + suffix_lens
+    gk = torch.zeros(
+        (cfg.n_layers, R, cap + 1, cfg.n_kv_heads, cfg.head_dim),
+        dtype=prefix_k.dtype, device=dev,
+    )
+    gv = torch.zeros_like(gk)
+    jcol = torch.arange(F, device=dev, dtype=torch.int32)
+    out = torch.full((R, n_iters * F), pad_id, dtype=tokens.dtype, device=dev)
+    logits = last_logits
+
+    i = 0
+    while i < n_iters and bool(act.any()):
+        # (a) sample the block's first token from the carried logits
+        if constrained:
+            t0, s_t0 = _sample_sparse(
+                logits, sp_tokens[st], sp_next[st], gen, temperature
+            )
+        else:
+            t0 = _sample_unconstrained(logits, pad_id, gen, temperature, vocab_limit)
+            s_t0 = st
+        emit0 = act & (emitted < max_new)
+        s_cur = torch.where(emit0, s_t0, st)
+        fin0 = (t0 == eos_id) | (s_cur == done_state)
+        blk = [torch.where(emit0, t0, pad_id)]
+        valid = [emit0]
+        alive = emit0 & ~fin0 & (emitted + 1 < max_new)
+        # (b) forced-run expansion: table lookups, no model call
+        for j in range(1, F):
+            ft = forced[s_cur]
+            emit_j = alive & (ft >= 0)
+            t_j = torch.where(emit_j, ft, pad_id)
+            s_cur = torch.where(emit_j, forced_next[s_cur], s_cur)
+            fin_j = (t_j == eos_id) | (s_cur == done_state)
+            blk.append(t_j)
+            valid.append(emit_j)
+            # paused-at-choice rows (ft < 0) stay alive for the next
+            # iteration's sample; emitted rows continue unless finished or
+            # out of budget
+            alive = torch.where(
+                emit_j, ~fin_j & (emitted + j + 1 < max_new), alive & (ft < 0)
+            )
+        blk_tok = torch.stack(blk, dim=1)
+        blk_valid = torch.stack(valid, dim=1)
+        blk_len = blk_valid.sum(dim=1, dtype=torch.int32)
+        positions = pos_next[:, None] + jcol[None, :]
+        # (c) one model call for the whole block
+        logits, gk, gv = forward_block_decode(
+            params, cfg, blk_tok, blk_valid, blk_len, positions,
+            k_sfx, v_sfx, suffix_lens, gk, gv, emitted,
+            prefix_k, prefix_v, prefix_len,
+        )
+        out[:, i * F:(i + 1) * F] = blk_tok
+        st, act = s_cur, alive
+        emitted = emitted + blk_len
+        pos_next = pos_next + blk_len
+        i += 1
+    return out, act, i
+
+
+@dataclasses.dataclass
+class _PrefixKV:
+    """Dense KV of a burst-shared prompt prefix, prefilled once."""
+
+    k: torch.Tensor  # [L, Sp_bucket, n_kv, hd]
+    v: torch.Tensor
+    length: int
+    token_ids: tuple[int, ...]
+
+
+@dataclasses.dataclass
+class Finished:
+    req_id: int
+    token_ids: list[int]
+    text: str
+    latency_ms: float
+
+
+@dataclasses.dataclass
+class WaveHandle:
+    """A decision wave whose device work has been issued. The wave loop
+    syncs once per block iteration for its early exit, so by submit's return
+    only the last iteration may still be running."""
+
+    toks_d: torch.Tensor  # [R, n_iters*F] emitted tokens (pad_id holes)
+    iters: int            # model calls actually run (early exit)
+    n: int                # real prompts in this wave (<= R)
+    max_new_tokens: int
+    req_ids: list[int]
+    submitted_at: float  # perf_counter at submit
+
+
+class InferenceEngine:
+    """Single-owner (one thread) engine over one model on one device; the
+    device is where the params lie."""
+
+    DFA_STATE_CAPACITY = 4096
+    # On-device prefix KV cache budget, in BYTES: at least one entry (the
+    # active prefix) is always kept.
+    PREFIX_CACHE_BYTES = 1 << 30
+
+    def __init__(
+        self,
+        params: Params,
+        cfg: LlamaConfig,
+        tokenizer: Tokenizer | None = None,
+        *,
+        max_slots: int = 8,
+        prefill_buckets: tuple[int, ...] = (128, 256, 512, 1024, 2048, 4096, 8192),
+        temperature: float = 0.3,
+        rng_seed: int = 0,
+        prefix_chunk: int = 2048,
+    ) -> None:
+        self.cfg = cfg
+        self.params = params
+        self.device = params["embed"].device
+        self.tokenizer = tokenizer or ByteTokenizer()
+        if self.tokenizer.vocab_size > cfg.vocab_size:
+            raise ValueError(
+                f"tokenizer vocab {self.tokenizer.vocab_size} > model vocab "
+                f"{cfg.vocab_size} — the tokenizer would emit ids past the "
+                f"embedding table"
+            )
+        # Unconstrained sampling masks ids past a smaller tokenizer's table.
+        self._vocab_limit: int | None = (
+            self.tokenizer.vocab_size
+            if self.tokenizer.vocab_size < cfg.vocab_size
+            else None
+        )
+        self.prefill_buckets = tuple(sorted(prefill_buckets))
+        # Block width of the chunked long-prefix prefill: bounds the
+        # per-layer attention work at O(prefix_chunk x prefix).
+        self.prefix_chunk = int(prefix_chunk)
+        self.temperature = float(temperature)
+        self.max_slots = max_slots
+        # Block width of grammar-accelerated wave decoding: 1 sampled + up
+        # to wave_block-1 forced tokens per model call.
+        self.wave_block = 24
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(rng_seed)
+        self.set_grammar(None)
+
+        self._prefix: _PrefixKV | None = None
+        self._prefix_cache: OrderedDict[tuple[int, ...], _PrefixKV] = OrderedDict()
+        self._empty_prefix: _PrefixKV | None = None
+        self._req_counter = 0
+        self.stats = {
+            "requests": 0,
+            "completed": 0,
+            "prefill_tokens": 0,
+            "prefix_prefills": 0,
+            "prefix_hits": 0,
+            "prefix_reused_tokens": 0,
+            "decode_tokens": 0,
+            "waves": 0,
+            "wave_model_calls": 0,
+            # host wall time, device work included (both end in a sync)
+            "prefix_prefill_ms": 0.0,
+            "wave_ms": 0.0,
+        }
+
+    # ------------------------------------------------------------- grammar
+    def set_grammar(self, dfa: DecisionDFA | None) -> None:
+        """Install (or clear) the decision grammar as SPARSE device tables,
+        states padded to DFA_STATE_CAPACITY (doubled until it fits).
+        Unconstrained mode samples the full vocab minus pad."""
+        dev = self.device
+        if dfa is None:
+            self._constrained = False
+            self._sp_tokens = torch.full((1, 1), -1, dtype=torch.int32, device=dev)
+            self._sp_next = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+            self._forced = torch.full((1,), -1, dtype=torch.int32, device=dev)
+            self._forced_next = torch.zeros((1,), dtype=torch.int32, device=dev)
+            self._done_state = -1  # unconstrained: nothing reaches done
+            self._dfa_start = 0
+            self._grammar_wave_iters = None
+            return
+        cap = self.DFA_STATE_CAPACITY
+        while cap < dfa.n_states:
+            cap *= 2
+        t = sparse_tables(dfa)
+        K = t.k_width
+        sp_tokens = np.full((cap, K), -1, dtype=np.int32)
+        sp_next = np.zeros((cap, K), dtype=np.int32)
+        forced = np.full((cap,), -1, dtype=np.int32)
+        forced_next = np.zeros((cap,), dtype=np.int32)
+        sp_tokens[: t.n_states] = t.sp_tokens
+        sp_next[: t.n_states] = t.sp_next
+        forced[: t.n_states] = t.forced
+        forced_next[: t.n_states] = t.forced_next
+        self._constrained = True
+        self._sp_tokens = torch.from_numpy(sp_tokens).to(dev)
+        self._sp_next = torch.from_numpy(sp_next).to(dev)
+        self._forced = torch.from_numpy(forced).to(dev)
+        self._forced_next = torch.from_numpy(forced_next).to(dev)
+        self._done_state = int(dfa.done_state)
+        self._dfa_start = int(dfa.start_state)
+        self._grammar_wave_iters = wave_iterations(dfa, self.wave_block)
+
+    # -------------------------------------------------------------- prefix
+    def _zeros_kv(self, slots: int) -> torch.Tensor:
+        cfg = self.cfg
+        return torch.zeros(
+            (cfg.n_layers, slots, cfg.n_kv_heads, cfg.head_dim),
+            dtype=cfg.dtype, device=self.device,
+        )
+
+    def _get_empty_prefix(self) -> _PrefixKV:
+        if self._empty_prefix is None:
+            self._empty_prefix = _PrefixKV(
+                k=self._zeros_kv(EMPTY_PREFIX_SLOTS),
+                v=self._zeros_kv(EMPTY_PREFIX_SLOTS),
+                length=0,
+                token_ids=(),
+            )
+        return self._empty_prefix
+
+    def set_prefix(self, prompt_ids: list[int] | None) -> None:
+        """Install the burst-shared prompt prefix, prefilling it once if it
+        is not cached on device. Prefixes longer than
+        min(prefix_chunk, largest bucket) take the chunked path."""
+        if not prompt_ids:
+            self._prefix = self._get_empty_prefix()
+            return
+        t0 = time.perf_counter()
+        self._set_prefix_inner(prompt_ids)
+        if self.device.type == "cuda":
+            # a group switch is rare; the wave after it needs the KV anyway
+            torch.cuda.synchronize(self.device)
+        self.stats["prefix_prefill_ms"] += (time.perf_counter() - t0) * 1000.0
+
+    @torch.no_grad()
+    def _set_prefix_inner(self, prompt_ids: list[int]) -> None:
+        key = tuple(prompt_ids)
+        cached = self._prefix_cache.get(key)
+        if cached is not None:
+            self._prefix_cache.move_to_end(key)
+            self._prefix = cached
+            self.stats["prefix_hits"] += 1
+            return
+        n = len(prompt_ids)
+        if n > self.cfg.max_seq_len:
+            # Advisory: RoPE extrapolates beyond the trained window.
+            logger.warning(
+                "prefix of %d tokens exceeds model max_seq_len %d; "
+                "quality may degrade", n, self.cfg.max_seq_len,
+            )
+        prefilled = n
+        if n > min(self.prefix_chunk, self.prefill_buckets[-1]):
+            seed = self._best_lcp_seed(key)
+            k, v = self._prefill_prefix_chunked(prompt_ids, seed=seed)
+            if seed is not None:
+                prefilled = n - seed[2]
+        else:
+            bucket = self._bucket_for(n)
+            tokens = torch.full(
+                (1, bucket), self.tokenizer.pad_id, dtype=torch.int32
+            )
+            tokens[0, :n] = torch.tensor(prompt_ids, dtype=torch.int32)
+            _, k_all, v_all = forward_prefill(
+                self.params, self.cfg, tokens.to(self.device),
+                torch.tensor([n], dtype=torch.int32, device=self.device),
+                return_logits=False,
+            )
+            k, v = k_all[:, 0], v_all[:, 0]
+        pfx = _PrefixKV(k=k, v=v, length=n, token_ids=key)
+        self._prefix_cache[key] = pfx
+
+        def nbytes(p: _PrefixKV) -> int:
+            return p.k.numel() * p.k.element_size() * 2
+
+        total = sum(nbytes(p) for p in self._prefix_cache.values())
+        for old in list(self._prefix_cache):
+            if total <= self.PREFIX_CACHE_BYTES or len(self._prefix_cache) <= 1:
+                break
+            if old == key:
+                continue
+            total -= nbytes(self._prefix_cache.pop(old))
+        self._prefix = pfx
+        self.stats["prefix_prefills"] += 1
+        self.stats["prefill_tokens"] += prefilled
+
+    def _best_lcp_seed(self, key: tuple[int, ...]):
+        """(k, v, reuse_len) of the cached prefix sharing the longest common
+        token prefix with `key`, or None below a small threshold. Causal
+        attention makes the KV of every token before the first changed one
+        identical, so only the changed tail is prefilled again."""
+        chunk = min(self.prefix_chunk, self.prefill_buckets[-1])
+        threshold = max(chunk // 2, 64)
+        key_arr = np.asarray(key, dtype=np.int64)
+        best: _PrefixKV | None = None
+        best_reuse = 0
+        for old_key, pfx in self._prefix_cache.items():
+            m = min(len(old_key), len(key))
+            if m < threshold:
+                continue
+            old_arr = np.asarray(old_key[:m], dtype=np.int64)
+            mismatch = np.nonzero(old_arr != key_arr[:m])[0]
+            lcp = int(mismatch[0]) if mismatch.size else m
+            if lcp > best_reuse:
+                best_reuse, best = lcp, pfx
+        if best is None or best_reuse < threshold:
+            return None
+        return best.k, best.v, best_reuse
+
+    @torch.no_grad()
+    def _prefill_prefix_chunked(self, prompt_ids: list[int], seed=None):
+        """Blockwise prefill: each chunk attends the dense KV accumulated so
+        far (K1) plus causally within itself (K2), then its KV is appended.
+        `seed` = (k, v, reuse_len) copies the first reuse_len tokens' KV
+        from a cached buffer and resumes there.
+
+        Returns (k, v) [L, cap, n_kv, hd]. cap keeps one chunk of headroom
+        beyond the rounded length, as the JAX engine does: an unaligned
+        resume writes chunk-wide blocks past n, and seeded and fresh
+        prefills of one length share one buffer shape."""
+        chunk = min(self.prefix_chunk, self.prefill_buckets[-1])
+        n = len(prompt_ids)
+        cap = -(-n // chunk) * chunk + chunk
+        done = 0 if seed is None else seed[2]
+        pad = self.tokenizer.pad_id
+        k_buf = self._zeros_kv(cap)
+        v_buf = self._zeros_kv(cap)
+        if seed is not None:
+            seed_k, seed_v, reuse = seed
+            k_buf[:, :reuse] = seed_k[:, :reuse]
+            v_buf[:, :reuse] = seed_v[:, :reuse]
+            self.stats["prefix_reused_tokens"] += reuse
+        ids = torch.tensor(prompt_ids, dtype=torch.int32)
+        for start in range(done, n, chunk):
+            m = min(chunk, n - start)
+            tokens = torch.full((1, chunk), pad, dtype=torch.int32)
+            tokens[0, :m] = ids[start:start + m]
+            _, k_c, v_c = forward_prefill_suffix_dense(
+                self.params, self.cfg, tokens.to(self.device),
+                torch.tensor([m], dtype=torch.int32, device=self.device),
+                k_buf, v_buf,
+                torch.tensor(done, dtype=torch.int32, device=self.device),
+            )
+            # the headroom guarantees start + chunk <= cap: slicing never
+            # clamps the way a JAX dynamic_update_slice would
+            k_buf[:, start:start + chunk] = k_c[:, 0]
+            v_buf[:, start:start + chunk] = v_c[:, 0]
+            done += m
+        return k_buf, v_buf
+
+    @property
+    def prefix_len(self) -> int:
+        return self._prefix.length if self._prefix else 0
+
+    def _bucket_for(self, n: int) -> int:
+        for bkt in self.prefill_buckets:
+            if n <= bkt:
+                return bkt
+        raise ValueError(
+            f"prompt of {n} tokens exceeds largest prefill bucket "
+            f"{self.prefill_buckets[-1]}"
+        )
+
+    # ---------------------------------------------------------------- waves
+    def _wave_geometry(self, n_prompts: int, max_new_tokens: int) -> tuple[int, int, int]:
+        """(R, n_iters, F) for a wave of `n_prompts`: two row buckets (half
+        and full max_slots); with a grammar, wave_iterations(dfa) block
+        iterations of width wave_block, else one token per iteration;
+        n_iters rounded up to a multiple of 4 (the JAX engine's compile
+        buckets, kept so both engines run the same geometry)."""
+        half = self.max_slots // 2
+        R = half if 0 < n_prompts <= half else self.max_slots
+        if self._constrained and self._grammar_wave_iters is not None:
+            F = self.wave_block
+            n_iters = min(self._grammar_wave_iters, max_new_tokens)
+        else:
+            F = 1
+            n_iters = max_new_tokens
+        n_iters = max(4, -(-n_iters // 4) * 4)
+        return R, n_iters, F
+
+    def submit_wave(
+        self, prompts: list[list[int]], max_new_tokens: int = 200
+    ) -> WaveHandle:
+        """Run a whole batch's decode-to-completion (_wave_impl) against the
+        installed prefix and grammar; harvest_wave reads the result."""
+        if not prompts:
+            raise ValueError("empty wave")
+        if any(not p for p in prompts):
+            raise ValueError("empty prompt")
+        if len(prompts) > self.max_slots:
+            raise RuntimeError(
+                f"wave of {len(prompts)} exceeds max_slots={self.max_slots}"
+            )
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        prefix = self._prefix or self._get_empty_prefix()
+        self._prefix = prefix
+        submitted_at = time.perf_counter()
+
+        bucket = self._bucket_for(max(len(p) for p in prompts))
+        R, n_iters, F = self._wave_geometry(len(prompts), max_new_tokens)
+        pad = self.tokenizer.pad_id
+        tokens = np.full((R, bucket), pad, dtype=np.int32)
+        suffix_lens = np.zeros(R, dtype=np.int32)
+        max_new = np.zeros(R, dtype=np.int32)
+        for row, ids in enumerate(prompts):
+            tokens[row, : len(ids)] = ids
+            suffix_lens[row] = len(ids)
+            max_new[row] = max_new_tokens
+        dev = self.device
+        toks_d, _, iters = _wave_impl(
+            self.params, self.cfg,
+            torch.from_numpy(tokens).to(dev), torch.from_numpy(suffix_lens).to(dev),
+            prefix.k, prefix.v,
+            torch.tensor(prefix.length, dtype=torch.int32, device=dev),
+            torch.from_numpy(max_new).to(dev),
+            self._sp_tokens, self._sp_next, self._forced, self._forced_next,
+            self._done_state, self.tokenizer.eos_id, pad, self._dfa_start,
+            self._gen, self.temperature,
+            n_iters, F, max_new_tokens, self._constrained,
+            vocab_limit=self._vocab_limit,
+        )
+        req_ids = list(range(self._req_counter, self._req_counter + len(prompts)))
+        self._req_counter += len(prompts)
+        self.stats["waves"] += 1
+        self.stats["prefill_tokens"] += int(suffix_lens.sum())
+        self.stats["requests"] += len(prompts)
+        return WaveHandle(
+            toks_d=toks_d, iters=iters, n=len(prompts),
+            max_new_tokens=max_new_tokens, req_ids=req_ids,
+            submitted_at=submitted_at,
+        )
+
+    def harvest_wave(self, handle: WaveHandle) -> list[Finished]:
+        """Copy one wave's tokens to the host (waits for the device)."""
+        toks_np = handle.toks_d.cpu().numpy()
+        self.stats["wave_model_calls"] += handle.iters
+        pad = self.tokenizer.pad_id
+        latency_ms = (time.perf_counter() - handle.submitted_at) * 1000.0
+        self.stats["wave_ms"] += latency_ms
+        out: list[Finished] = []
+        for row in range(handle.n):
+            ids = [int(t) for t in toks_np[row] if t != pad]
+            ids = ids[: handle.max_new_tokens]
+            self.stats["completed"] += 1
+            self.stats["decode_tokens"] += len(ids)
+            out.append(
+                Finished(
+                    req_id=handle.req_ids[row],
+                    token_ids=ids,
+                    text=self.tokenizer.decode(ids),
+                    latency_ms=latency_ms,
+                )
+            )
+        return out
+
+    def decide_wave(
+        self, prompts: list[list[int]], max_new_tokens: int = 200
+    ) -> list[Finished]:
+        """Synchronous wave: submit + harvest."""
+        return self.harvest_wave(self.submit_wave(prompts, max_new_tokens))
+
+    def get_stats(self) -> dict:
+        return dict(self.stats)

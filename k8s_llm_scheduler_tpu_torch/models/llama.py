@@ -1,0 +1,338 @@
+"""Llama 3.x in PyTorch for the decision path: RMSNorm, RoPE, GQA, SwiGLU.
+
+The port of the JAX package's models/llama.py, keeping its parameter layout
+so weights convert one to one (models/convert.py): a dict with `embed`
+[V, D], `final_norm` [D], optional `lm_head` [D, V], and `layers` holding
+STACKED [L, ...] tensors (attn_norm, wq, wk, wv, wo, mlp_norm, w_gate, w_up,
+w_down; projections stored [in, out]). A forward walks the layers in a
+Python loop over views of the stacks.
+
+Only the entry points of the decision path are here: `forward_prefill`
+(single-shot prefix prefill, KV-only mode too), the cascade suffix prefill
+`forward_prefill_suffix_dense` and the dense branch of
+`forward_block_decode`. bf16 weights and activations; norms, RoPE, softmax
+and the LM head accumulate in f32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from k8s_llm_scheduler_tpu_torch.device import resolve_device
+from k8s_llm_scheduler_tpu_torch.models.configs import LlamaConfig
+from k8s_llm_scheduler_tpu_torch.ops.attention import (
+    attend_part,
+    causal_prefill_attention,
+    chunk_attention_with_prefix,
+    merge_attention_parts,
+)
+from k8s_llm_scheduler_tpu_torch.ops.prefix_attention import (
+    flash_prefix_attention_parts,
+)
+
+Params = dict
+
+LAYER_KEYS = (
+    "attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down",
+)
+
+
+# --------------------------------------------------------------------- norm
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in f32, result back in the input dtype, times the weight."""
+    xf = x.float()
+    scale = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (xf * scale).to(x.dtype) * weight
+
+
+# --------------------------------------------------------------------- rope
+def rope_inv_freq(cfg: LlamaConfig, device=None) -> torch.Tensor:
+    """Inverse RoPE frequencies (f32) with optional llama3 scaling."""
+    hd = cfg.head_dim
+    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    inv = 1.0 / (cfg.rope_theta ** exps)
+    s = cfg.rope_scaling
+    if s is None:
+        return inv
+    # llama3 scheme: low-freq bands divided by factor, high-freq kept,
+    # smooth interpolation in between.
+    wavelen = 2.0 * math.pi / inv
+    low_wl = s.original_max_position / s.low_freq_factor
+    high_wl = s.original_max_position / s.high_freq_factor
+    smooth = (s.original_max_position / wavelen - s.low_freq_factor) / (
+        s.high_freq_factor - s.low_freq_factor
+    )
+    smooth = smooth.clamp(0.0, 1.0)
+    return torch.where(
+        wavelen > low_wl,
+        inv / s.factor,
+        torch.where(
+            wavelen < high_wl, inv, (1 - smooth) * inv / s.factor + smooth * inv
+        ),
+    )
+
+
+def apply_rope(
+    x: torch.Tensor,  # [..., n_heads, head_dim]
+    positions: torch.Tensor,  # broadcastable to x's leading dims
+    inv_freq: torch.Tensor,  # [head_dim // 2]
+) -> torch.Tensor:
+    """Rotary embedding at absolute positions (half-split layout)."""
+    angles = positions[..., None].float() * inv_freq
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------- init
+def init_params(
+    cfg: LlamaConfig, seed: int = 0, device: str | torch.device = "cuda"
+) -> Params:
+    """Random weights from a seeded torch.Generator, allocated on `device`
+    (the JAX package's init_params scheme: N(0, 0.02) embeddings, N(0,
+    1/fan_in) projections, unit norms). Each stacked layer weight is filled
+    one layer at a time, so the f32 transient is one layer's matrix."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    L, D, Fd, hd = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.head_dim
+
+    def normal(shape, std):
+        w = torch.empty(shape, dtype=cfg.dtype, device=dev)
+        for i in range(shape[0]):
+            w[i] = (
+                torch.randn(shape[1:], generator=gen, dtype=torch.float32,
+                            device=dev) * std
+            ).to(cfg.dtype)
+        return w
+
+    def dense(shape, in_dim):
+        return normal(shape, in_dim**-0.5)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=cfg.dtype, device=dev)
+
+    params: Params = {
+        "embed": normal((cfg.vocab_size, D), 0.02),
+        "final_norm": ones((D,)),
+        "layers": {
+            "attn_norm": ones((L, D)),
+            "wq": dense((L, D, cfg.n_heads * hd), D),
+            "wk": dense((L, D, cfg.n_kv_heads * hd), D),
+            "wv": dense((L, D, cfg.n_kv_heads * hd), D),
+            "wo": dense((L, cfg.n_heads * hd, D), cfg.n_heads * hd),
+            "mlp_norm": ones((L, D)),
+            "w_gate": dense((L, D, Fd), D),
+            "w_up": dense((L, D, Fd), D),
+            "w_down": dense((L, Fd, D), Fd),
+        },
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((D, cfg.vocab_size), D)
+    return params
+
+
+def _layer(layers: Params, i: int) -> Params:
+    return {k: layers[k][i] for k in LAYER_KEYS}
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [K, N] with f32 accumulation AND an f32 result, from
+    operands in their own dtype: casting a 128k-vocab head to f32 would be
+    a multi-GB transient per call."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.float32:
+        out = x2 @ w.float()
+    elif x.is_cuda:
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        out = x2.float() @ w.float()
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _logits(params: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    """LM head (tied or untied), f32 logits."""
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    if cfg.tie_embeddings:
+        return _matmul_f32(x, params["embed"].t())
+    return _matmul_f32(x, params["lm_head"])
+
+
+def _dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Dense projection x [..., in] @ w [in, out] (bf16 weights; int8 pairs
+    come with models/quant.py)."""
+    return torch.matmul(x, w)
+
+
+def _mlp(lp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+    gate = _dense(h, lp["w_gate"])
+    up = _dense(h, lp["w_up"])
+    fused = F.silu(gate.float()).to(x.dtype) * up
+    return _dense(fused, lp["w_down"])
+
+
+def _qkv(lp, cfg, x, positions, inv_freq):
+    B, S = x.shape[:2]
+    hd = cfg.head_dim
+    h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+    q = _dense(h, lp["wq"]).reshape(B, S, cfg.n_heads, hd)
+    k = _dense(h, lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v = _dense(h, lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    return apply_rope(q, positions, inv_freq), apply_rope(k, positions, inv_freq), v
+
+
+def _kv_stacks(cfg, B, S, dtype, device):
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+    return (
+        torch.empty(shape, dtype=dtype, device=device),
+        torch.empty(shape, dtype=dtype, device=device),
+    )
+
+
+# ------------------------------------------------------------------ prefill
+@torch.no_grad()
+def forward_prefill(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, S] int, left-aligned, padded
+    seq_lens: torch.Tensor,  # [B]
+    return_logits: bool = True,  # False skips the LM head (KV-only)
+):
+    """Full-prompt forward pass: (logits [B, S, V] f32 or None,
+    k_all [L, B, S, n_kv, hd], v_all)."""
+    B, S = tokens.shape
+    dev = tokens.device
+    inv_freq = rope_inv_freq(cfg, dev)
+    positions = torch.arange(S, device=dev).expand(B, S)
+    x = params["embed"][tokens]
+    k_all, v_all = _kv_stacks(cfg, B, S, x.dtype, dev)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        q, k, v = _qkv(lp, cfg, x, positions, inv_freq)
+        attn = causal_prefill_attention(q, k, v, seq_lens)
+        x = x + _dense(attn.reshape(B, S, -1), lp["wo"])
+        x = x + _mlp(lp, cfg, x)
+        k_all[i], v_all[i] = k, v
+    logits = _logits(params, cfg, x) if return_logits else None
+    return logits, k_all, v_all
+
+
+# ------------------------------------------------- suffix prefill (cascade)
+def _suffix_layer(
+    lp, cfg, x, positions, suffix_lens, pk, pv, prefix_len, inv_freq
+):
+    """One layer of cascade suffix prefill: attends the shared dense prefix
+    (K1) and causally within the suffix (K2). Returns (x_out, k, v)."""
+    B, S = x.shape[:2]
+    q, k, v = _qkv(lp, cfg, x, positions, inv_freq)
+    attn = chunk_attention_with_prefix(q, k, v, suffix_lens, pk, pv, prefix_len)
+    x = x + _dense(attn.reshape(B, S, -1), lp["wo"])
+    x = x + _mlp(lp, cfg, x)
+    return x, k, v
+
+
+def _last_valid_logits(params, cfg, x, lens):
+    """Logits at each row's final valid token ([B, S, D], [B] -> [B, V]);
+    rows with len 0 read position 0."""
+    last_idx = torch.clamp(lens.long() - 1, min=0)
+    x_last = x[torch.arange(x.shape[0], device=x.device), last_idx]
+    return _logits(params, cfg, x_last)
+
+
+@torch.no_grad()
+def forward_prefill_suffix_dense(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, Ss] int — per-request suffix, left-aligned
+    suffix_lens: torch.Tensor,  # [B] int32 valid suffix tokens (0 = unused)
+    prefix_k_all: torch.Tensor,  # [L, Sp, n_kv, hd] shared dense prefix KV
+    prefix_v_all: torch.Tensor,
+    prefix_len: torch.Tensor,  # 0-dim int32 on the device
+):
+    """Batched suffix prefill against a shared dense prefix, KV kept dense:
+    (last_logits [B, V] f32, k_sfx [L, B, Ss, n_kv, hd], v_sfx)."""
+    B, S = tokens.shape
+    dev = tokens.device
+    inv_freq = rope_inv_freq(cfg, dev)
+    positions = prefix_len + torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
+    x = params["embed"][tokens]
+    k_sfx, v_sfx = _kv_stacks(cfg, B, S, x.dtype, dev)
+    for i in range(cfg.n_layers):
+        x, k_sfx[i], v_sfx[i] = _suffix_layer(
+            _layer(params["layers"], i), cfg, x, positions, suffix_lens,
+            prefix_k_all[i], prefix_v_all[i], prefix_len, inv_freq,
+        )
+    return _last_valid_logits(params, cfg, x, suffix_lens), k_sfx, v_sfx
+
+
+@torch.no_grad()
+def forward_block_decode(
+    params: Params,
+    cfg: LlamaConfig,
+    blk_tok: torch.Tensor,  # [R, F] int — this iteration's token block
+    blk_valid: torch.Tensor,  # [R, F] bool — left-aligned valid tokens
+    blk_len: torch.Tensor,  # [R] int — number of valid tokens
+    positions: torch.Tensor,  # [R, F] absolute positions
+    k_sfx: torch.Tensor,  # [L, R, Ss, n_kv, hd] dense suffix KV
+    v_sfx: torch.Tensor,
+    suffix_lens: torch.Tensor,  # [R]
+    gen_k: torch.Tensor,  # [L, R, cap+1, n_kv, hd] generated-token KV
+    gen_v: torch.Tensor,
+    tail: torch.Tensor,  # [R] tokens already in gen_k/gen_v
+    prefix_k_all: torch.Tensor,  # [L, Sp, n_kv, hd] shared dense prefix
+    prefix_v_all: torch.Tensor,
+    prefix_len: torch.Tensor,  # 0-dim int32 on the device
+):
+    """One grammar-accelerated decode iteration (dense branch): an F-wide
+    mini-prefill where every valid block token attends the shared prefix
+    (K1), its row's dense suffix, the generated-so-far buffer and causally
+    within the block. The block's K/V is written into gen_k/gen_v IN PLACE
+    AFTER each layer's attention (in-block attention uses the fresh k/v);
+    invalid block slots write to the trash slot at index cap.
+
+    Returns (logits [R, V] f32 at each row's last valid block position,
+    gen_k, gen_v)."""
+    R, Fw = blk_tok.shape
+    hd = cfg.head_dim
+    dev = blk_tok.device
+    cap1 = gen_k.shape[2]
+    Ss = k_sfx.shape[2]
+    inv_freq = rope_inv_freq(cfg, dev)
+    x = params["embed"][blk_tok]
+
+    sfx_mask = (torch.arange(Ss, device=dev)[None, :] < suffix_lens[:, None])[
+        :, None, None, None, :
+    ]
+    gen_mask = (torch.arange(cap1, device=dev)[None, :] < tail[:, None])[
+        :, None, None, None, :
+    ]
+    j = torch.arange(Fw, device=dev)
+    blk_mask = (
+        (j[:, None] >= j[None, :])[None, :, :] & blk_valid[:, None, :]
+    )[:, None, None, :, :]
+    dest = torch.where(blk_valid, tail[:, None] + j[None, :], cap1 - 1).long()
+    row = torch.arange(R, device=dev)[:, None]
+
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        q, k, v = _qkv(lp, cfg, x, positions, inv_freq)
+        qg = (q.float() * hd**-0.5).reshape(R, Fw, cfg.n_kv_heads, cfg.q_per_kv, hd)
+        parts = [
+            flash_prefix_attention_parts(q, prefix_k_all[i], prefix_v_all[i], prefix_len),
+            attend_part(qg, k_sfx[i], v_sfx[i], sfx_mask, "bqkgh,bskh->bkgqs"),
+            attend_part(qg, gen_k[i], gen_v[i], gen_mask, "bqkgh,bskh->bkgqs"),
+            attend_part(qg, k, v, blk_mask, "bqkgh,bskh->bkgqs"),
+        ]
+        attn = merge_attention_parts(parts)  # [R, n_kv, g, F, hd]
+        attn = torch.movedim(attn, 3, 1).reshape(R, Fw, cfg.n_heads * hd)
+        x = x + _dense(attn.to(x.dtype), lp["wo"])
+        x = x + _mlp(lp, cfg, x)
+        gen_k[i][row, dest] = k.to(gen_k.dtype)
+        gen_v[i][row, dest] = v.to(gen_v.dtype)
+    return _last_valid_logits(params, cfg, x, blk_len), gen_k, gen_v

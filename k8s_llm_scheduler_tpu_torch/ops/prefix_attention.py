@@ -1,0 +1,204 @@
+"""Flash-attention partials for the decision path: K1 (shared prefix) and K2
+(causal in-chunk), as hand-written CUDA kernels with their plain twins.
+
+Ports the two TPU kernels of the JAX package's ops/pallas_prefix_attention.py
+(`_prefix_kernel`, `_causal_kernel`). Both return UNNORMALIZED flash partials
+(o [B, n_kv, g, S, hd] f32, m and l [B, n_kv, g, S] f32) that
+ops/attention.merge_attention_parts folds with the other parts of a cascade.
+A row with no valid key reports m = -1e30, l = 0, o = 0.
+
+Each wrapper dispatches on where its tensors lie: on the CPU it computes the
+plain PyTorch version; on a CUDA tensor it launches the kernel
+(csrc/prefix_attention.cu, csrc/causal_attention.cu) or raises — there is no
+fallback. The kernels take bf16 operands (q, k, v), head dims 64 and 128,
+any sequence lengths, and read `prefix_len` / `lens` from device memory.
+Every launch adds one to the wrapper's `launches` count.
+
+The plain versions round exactly where the kernels do: q is scaled in f32
+and rounded to the operand dtype, scores accumulate in f32, and the
+probabilities are rounded to the operand dtype before the product with V
+while l sums them unrounded. With f32 operands they are the JAX package's
+einsum path (ops/attention.attend_part) with the masked probabilities
+zeroed.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from k8s_llm_scheduler_tpu_torch.ops import kernels
+
+NEG_INF = -1e30
+HEAD_DIMS = (64, 128)
+
+
+def _masked_parts(logits, mask, v, pv_eq):
+    """(o, m, l) of masked f32 logits; masked probabilities are zero."""
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=-1)
+    p = torch.where(mask, torch.exp(logits - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum(pv_eq, p.to(v.dtype).float(), v.float())
+    return o, m, l
+
+
+def _scaled_queries(q, operand_dtype):
+    """q scaled by hd**-0.5 in f32, rounded to the operand dtype, back in
+    f32 (the kernels' order of operations)."""
+    hd = q.shape[-1]
+    return (q.float() * hd**-0.5).to(operand_dtype).float()
+
+
+def prefix_attention_parts_plain(q, prefix_k, prefix_v, prefix_len):
+    """Plain PyTorch K1: partials of q [B, S, n_heads, hd] against the shared
+    prefix [Sp, n_kv, hd], keys < prefix_len (a 0-dim int tensor)."""
+    B, S, n_heads, hd = q.shape
+    Sp, n_kv, _ = prefix_k.shape
+    g = n_heads // n_kv
+    qs = _scaled_queries(q, prefix_k.dtype).reshape(B, S, n_kv, g, hd)
+    logits = torch.einsum("bqkgh,skh->bkgqs", qs, prefix_k.float())
+    valid = torch.arange(Sp, device=q.device) < prefix_len
+    return _masked_parts(
+        logits, valid[None, None, None, None, :], prefix_v, "bkgqs,skh->bkgqh"
+    )
+
+
+def causal_attention_parts_plain(q, k, v, lens):
+    """Plain PyTorch K2: causal partials of q [B, S, n_heads, hd] against the
+    chunk's own k/v [B, S, n_kv, hd], keys < lens[b] (int [B])."""
+    B, S, n_heads, hd = q.shape
+    n_kv = k.shape[2]
+    g = n_heads // n_kv
+    qs = _scaled_queries(q, k.dtype).reshape(B, S, n_kv, g, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qs, k.float())
+    pos = torch.arange(S, device=q.device)
+    causal = pos[:, None] >= pos[None, :]
+    valid = pos[None, :] < lens[:, None]
+    mask = causal[None, None, None, :, :] & valid[:, None, None, None, :]
+    return _masked_parts(logits, mask, v, "bkgqs,bskh->bkgqh")
+
+
+def _check_cuda(name, q, kv_tensors, n_kv, limit, limit_shape):
+    tensors = (q, *kv_tensors)
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: the kernel takes bf16 operands, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous tensors")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+    hd = q.shape[-1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd} not in {HEAD_DIMS}")
+    if q.shape[2] % n_kv:
+        raise ValueError(f"{name}: {q.shape[2]} heads over {n_kv} kv heads")
+    if (
+        limit.device != q.device
+        or limit.dtype != torch.int32
+        or tuple(limit.shape) != limit_shape
+        or not limit.is_contiguous()
+    ):
+        raise ValueError(
+            f"{name}: length must be a contiguous int32 tensor of shape "
+            f"{limit_shape} on {q.device}, got {limit.dtype} "
+            f"{tuple(limit.shape)} on {limit.device}"
+        )
+
+
+def _outputs(B, S, n_kv, g, hd, device):
+    o = torch.empty((B, n_kv, g, S, hd), dtype=torch.float32, device=device)
+    m = torch.empty((B, n_kv, g, S), dtype=torch.float32, device=device)
+    l = torch.empty((B, n_kv, g, S), dtype=torch.float32, device=device)
+    return o, m, l
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+@functools.cache
+def _entry(lib: str, symbol: str, n_ints: int):
+    """The C entry point `symbol` of csrc/<lib>.cu: 7 pointers (q, k, v,
+    lengths, o, m, l), `n_ints` ints, the scale and the stream."""
+    fn = getattr(kernels.library(lib), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * n_ints
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    return fn
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc == -1:
+        raise ValueError(f"{name}: unsupported head dim")
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
+def flash_prefix_attention_parts(q, prefix_k, prefix_v, prefix_len):
+    """K1. q [B, S, n_heads, hd] post-RoPE and unscaled; prefix_k/v
+    [Sp, n_kv, hd]; prefix_len a 0-dim int32 tensor on q's device."""
+    if q.device.type == "cpu":
+        return prefix_attention_parts_plain(q, prefix_k, prefix_v, prefix_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_prefix_attention_parts: no kernel for {q.device}")
+    B, S, n_heads, hd = q.shape
+    Sp, n_kv, _ = prefix_k.shape
+    _check_cuda("flash_prefix_attention_parts", q, (prefix_k, prefix_v), n_kv,
+                prefix_len, ())
+    if tuple(prefix_v.shape) != tuple(prefix_k.shape) or prefix_k.shape[2] != hd:
+        raise ValueError("flash_prefix_attention_parts: prefix k/v shapes differ")
+    g = n_heads // n_kv
+    o, m, l = _outputs(B, S, n_kv, g, hd, q.device)
+    with torch.cuda.device(q.device):  # launch on q's card
+        rc = _entry("prefix_attention", "k8s_flash_prefix_parts", 6)(
+            _ptr(q), _ptr(prefix_k), _ptr(prefix_v), _ptr(prefix_len),
+            _ptr(o), _ptr(m), _ptr(l), B, S, n_kv, g, Sp, hd,
+            ctypes.c_float(hd**-0.5), _stream(q.device),
+        )
+    _raise_on(rc, "flash_prefix_attention_parts")
+    flash_prefix_attention_parts.launches += 1
+    return o, m, l
+
+
+def flash_causal_attention_parts(q, k, v, lens):
+    """K2. q [B, S, n_heads, hd] post-RoPE and unscaled; k/v
+    [B, S, n_kv, hd]; lens [B] int32 on q's device."""
+    if q.device.type == "cpu":
+        return causal_attention_parts_plain(q, k, v, lens)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_causal_attention_parts: no kernel for {q.device}")
+    B, S, n_heads, hd = q.shape
+    n_kv = k.shape[2]
+    _check_cuda("flash_causal_attention_parts", q, (k, v), n_kv, lens, (B,))
+    if tuple(k.shape) != (B, S, n_kv, hd) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError("flash_causal_attention_parts: k/v must be [B, S, n_kv, hd]")
+    g = n_heads // n_kv
+    o, m, l = _outputs(B, S, n_kv, g, hd, q.device)
+    with torch.cuda.device(q.device):  # launch on q's card
+        rc = _entry("causal_attention", "k8s_flash_causal_parts", 5)(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(lens), _ptr(o), _ptr(m), _ptr(l),
+            B, S, n_kv, g, hd, ctypes.c_float(hd**-0.5), _stream(q.device),
+        )
+    _raise_on(rc, "flash_causal_attention_parts")
+    flash_causal_attention_parts.launches += 1
+    return o, m, l
+
+
+flash_prefix_attention_parts.launches = 0
+flash_causal_attention_parts.launches = 0
+
+
+def reset_launch_counts() -> None:
+    flash_prefix_attention_parts.launches = 0
+    flash_causal_attention_parts.launches = 0
