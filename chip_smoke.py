@@ -8,7 +8,7 @@ line) when no CUDA device is visible or the port is not beside it.
 
 Phases, each of which must pass:
 
-1. Build: compiles the hand-written CUDA kernels of the decision path from
+1. Build: compiles the four hand-written CUDA kernels from
    k8s_llm_scheduler_tpu_torch/csrc (one nvcc per source, in parallel).
 2. Kernels: K1 (shared-prefix flash partials) and K2 (causal in-chunk flash
    partials) on random bf16 inputs at every shape the decision phase gives
@@ -18,19 +18,44 @@ Phases, each of which must pass:
    so that attention is peaked; the normalized output o/l must agree
    within 3e-2 of the reference's RMS, m within 1e-4 (1 + max |m|), l within
    1e-4 relative, and rows without a valid key must be exactly m = -1e30,
-   l = 0. Median times over CUDA events for the kernel, its plain version
-   and one PyTorch library call (scaled_dot_product_attention) on the same
-   inputs.
+   l = 0. Times for the kernel, its plain version and one PyTorch library
+   call (scaled_dot_product_attention) on the same inputs are device times:
+   back-to-back calls captured in a CUDA graph, replayed between CUDA
+   events (`_time_ms`).
 3. Reference: the main path at TINY width on the card (kernels) against the
    same weights on the CPU (plain versions): chunked prefix prefill, then a
    suffix prefill; logits within 5e-2 of the largest logit (bf16).
+   Also, at TINY with the same weights: block decode with int8 weights and
+   ragged matmuls (K3), the general path's buffered decode step with K4
+   partials, and the manual-page decode step with K4 normalized.
 4. Decision: a LocalLLMBackend with full-width, full-depth Llama-3.1-8B
    (random bf16 weights from a seed; built before phase 2, whose shapes it
    gives) serves 4 single decisions and a batch
    of 8 for a 32-node synthetic cluster (a 5,488-token prefix: the chunked
    prefix prefill). Every decision must parse, name a feasible node and
-   carry a confidence in [0, 1]; both kernels must have launched on this
-   run (their counts are zeroed just before it).
+   carry a confidence in [0, 1]; K1 and K2 must have launched on this run
+   (every count is zeroed just before it).
+5. Path A: the same 8B weights quantized to int8 on the card, in an engine
+   with decode_matmul="ragged", serve single decisions and a batch of 8 on
+   the same cluster; all feasible, K3 and K1 launched. The valid tokens of
+   every block-decode call are recorded for phase 7.
+6. Path B: the bf16 8B weights in an engine with paged_attn="pallas",
+   max_slots 8, pages of 64: the cluster prefix installed, 8 suffixes
+   admitted (unconstrained, greedy, 64 new tokens), step() until all
+   finish, then one generate(). Every request finishes with 1-64 tokens,
+   K4 launched, and every page is returned.
+7. K3 at the seven 8B weight shapes, int8 pairs and bf16, x [R*24, K] for
+   R = 4 and 8, and totals 0, R*24 and the smallest, median and largest
+   that path A ran: rows below `total` within 6e-2 of the reference's RMS
+   (the error's RMS within 5e-3 of it), rows from ceil(total/64)*64 on
+   exactly zero. Library yardstick:
+   torch.matmul of the computed rows against a bf16 weight (for int8 a
+   dequantized copy made beforehand, so it reads twice the weight bytes).
+8. K4 at the shapes of path B's step, taken from its engine (its page
+   geometry, its page tables padded with the trash row, its own-token
+   lengths with the trash row's negative one), both modes, held like K1/K2
+   (empty rows exactly m = -1e30, l = 0, o = 0). Library yardstick: SDPA on
+   KV gathered beforehand (the gather is not timed).
 
 The last lines are a JSON object with per-kernel numbers, the card's name
 and power limit, and {"ok": true, "device": {...}}.
@@ -52,8 +77,21 @@ sys.path.insert(0, str(ROOT))
 # H100 SXM published peaks (dense): bf16 tensor cores and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
+DEVICE = "cuda"  # where the K3/K4 cases run
 NEG_INF = -1e30
 N_SINGLES = 4  # single decisions before the batch of 8
+BLOCK_F = 24  # the engine's wave block width
+PATH_B_NEW_TOKENS = 64
+# K3 against its plain version: both sum exact bf16 products in f32 and
+# round once; they differ in the order of the sums, so an output element
+# may round to a neighbouring bf16 value (one ulp: up to 1/128 of its
+# size, 3.1e-2 of the RMS at the largest outputs of the first chip run).
+# Held to 6e-2 of the reference's RMS for the largest error and 5e-3 for
+# the RMS of the error (rounding alone leaves ~1e-3; a dropped 32-wide K
+# step of 4096 leaves ~9e-2).
+TOL_K3_RMS = 6e-2
+TOL_K3_ERR_RMS = 5e-3
 
 
 def _smi() -> str:
@@ -65,21 +103,44 @@ def _smi() -> str:
 
 
 def _time_ms(fn, reps: int) -> float:
-    """Median device time of one call over `reps` timed calls (after two
-    warm-up calls), from CUDA events around each call."""
+    """Device time of one call: after two warm-up calls, `reps` calls are
+    captured back to back in a CUDA graph, and the median of three replays
+    between CUDA events, over `reps`, is the time. Host launch overhead is
+    left out, as it is in no kernel's bound. A call that cannot be captured
+    is timed as `reps` eager calls back to back (host gaps included; the
+    line printed says so)."""
     import torch
 
-    for _ in range(2):
-        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        run = graph.replay
+    except RuntimeError as exc:
+        print(f"  not capturable, timed eagerly: {exc}", flush=True)
+        graph = None
+
+        def run():
+            for _ in range(reps):
+                fn()
     times = []
-    for _ in range(reps):
+    for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        run()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
+    del graph
     return statistics.median(times)
 
 
@@ -209,8 +270,8 @@ def _library_ms(fn) -> float | None:
         return None
 
 
-def _bound(flops: float, nbytes: float) -> dict:
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return {
         "bound_ms": max(t_ops, t_bytes),
@@ -281,6 +342,219 @@ def kernel_phase(k1_cases, k2_cases) -> tuple[bool, list[dict], list[dict]]:
     return all(r["ok"] for r in k1 + k2), k1, k2
 
 
+# ------------------------------------------------------------- K3 phase
+def k3_weights(cfg):
+    """(name, K, N) of the seven matmuls K3 runs in each layer."""
+    D, Fd, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    H, KV = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    return [("wq", D, H), ("wk", D, KV), ("wv", D, KV), ("wo", H, D),
+            ("w_gate", D, Fd), ("w_up", D, Fd), ("w_down", Fd, D)]
+
+
+def _compare_k3(got, want, total):
+    """K3 against its plain version: rows below `total` by the largest
+    error and the error's RMS, both relative to the reference's RMS; rows
+    from the end of the last computed 64-row tile exactly zero."""
+    import torch
+
+    end = min(-(-total // 64) * 64, got.shape[0])
+    if total > 0:
+        ref = want[:total].float()
+        diff = got[:total].float() - ref
+        rms = ref.square().mean().sqrt().item()
+        err = diff.abs().max().item()
+        err_rms = diff.square().mean().sqrt().item()
+    else:
+        rms = err = err_rms = 0.0
+    zero_ok = bool((got[end:] == 0).all())
+    finite = bool(torch.isfinite(got.float()).all())
+    ok = (err <= TOL_K3_RMS * rms and err_rms <= TOL_K3_ERR_RMS * rms
+          and zero_ok and finite)
+    return ok, {"max_abs_err": err, "err_rms": err_rms, "ref_rms": rms,
+                "zero_tail_exact": zero_ok}
+
+
+def _k3_case(gen, name, K, N, R, total, int8):
+    import torch
+    from k8s_llm_scheduler_tpu_torch.models.quant import quantize_weight
+    from k8s_llm_scheduler_tpu_torch.ops.ragged_matmul import (
+        BM,
+        ragged_matmul,
+        ragged_matmul_plain,
+    )
+
+    dev = DEVICE
+    M = R * BLOCK_F
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    w_bf16 = (torch.randn((K, N), generator=gen, device=dev) * K**-0.5).to(torch.bfloat16)
+    w = quantize_weight(w_bf16) if int8 else w_bf16
+    total_d = torch.tensor(total, dtype=torch.int32, device=dev)
+    got = ragged_matmul(x, w, total_d)
+    want = ragged_matmul_plain(x, w, total_d)
+    torch.cuda.synchronize()
+    end = min(-(-total // BM) * BM, M)
+    ok, cmp = _compare_k3(got, want, total)
+    wbytes = K * N * (1 if int8 else 2) + (4 * N if int8 else 0)
+    nbytes = (wbytes + end * K * 2 if end else 0) + M * N * 2
+    rec = {
+        "step": f"R={R}", "weight": name, "int8": int8, "total": total,
+        "shape": f"x[{M},{K}] @ {'int8' if int8 else 'bf16'} w[{K},{N}] total={total}",
+        **cmp, "ok": ok,
+        "ms": _time_ms(lambda: ragged_matmul(x, w, total_d), 20),
+        "plain_ms": _time_ms(lambda: ragged_matmul_plain(x, w, total_d), 5),
+        **_bound(2.0 * end * K * N, nbytes),
+    }
+    if end:
+        # the yardstick reads a bf16 weight: for int8 a dequantized copy,
+        # twice the int8 pair's weight bytes
+        w_lib = (w["q"].float() * w["scale"]).to(torch.bfloat16) if int8 else w
+        xs = x[:end]
+        rec["library_ms"] = _library_ms(lambda: torch.matmul(xs, w_lib))
+    else:
+        rec["library_ms"] = None
+    return ok, rec
+
+
+def k3_phase(cfg, totals_by_r) -> tuple[bool, list[dict]]:
+    """K3 at every weight shape of path A, both weight forms, for each row
+    bucket R and its totals (0, the path's smallest/median/largest, R*F)."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(3)
+    recs = []
+    for R, seen in sorted(totals_by_r.items()):
+        if seen:
+            picks = {0, min(seen), int(statistics.median_low(seen)), max(seen), R * BLOCK_F}
+        else:
+            picks = {0, R * BLOCK_F}
+        for name, K, N in k3_weights(cfg):
+            for int8 in (True, False):
+                for total in sorted(picks):
+                    ok, rec = _k3_case(gen, name, K, N, R, total, int8)
+                    rec["median_total"] = bool(seen) and total == int(statistics.median_low(seen))
+                    recs.append(rec)
+                    print(f"K3 {rec['shape']}: ok={ok} err={rec['max_abs_err']:.3g} "
+                          f"err_rms={rec['err_rms']:.3g} (rms {rec['ref_rms']:.3g}) "
+                          f"zero_tail={rec['zero_tail_exact']} "
+                          f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+                          f"bound_ms={rec['bound_ms']:.4f} library_ms={rec['library_ms']}",
+                          flush=True)
+            torch.cuda.empty_cache()
+    return all(r["ok"] for r in recs), recs
+
+
+# ------------------------------------------------------------- K4 phase
+def _k4_case(gen, step, q_shape, pages_shape, tables, lens, normalize):
+    import torch
+    import torch.nn.functional as F
+    from k8s_llm_scheduler_tpu_torch.ops import paged_attention as pg
+    from k8s_llm_scheduler_tpu_torch.ops.attention import gather_pages
+
+    dev = DEVICE
+    B, H, hd = q_shape
+    _, ps, n_kv, _ = pages_shape
+    q = (Q_SCALE * torch.randn(q_shape, generator=gen, device=dev)).to(torch.bfloat16)
+    kc = torch.randn(pages_shape, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(pages_shape, generator=gen, device=dev).to(torch.bfloat16)
+    tables = tables.to(dev).contiguous()
+    lens = lens.to(dev).contiguous()
+    kernel = pg.paged_decode_attention if normalize else pg.paged_decode_attention_parts
+    plain = pg.paged_attention_plain if normalize else pg.paged_attention_parts_plain
+    got = kernel(q, kc, vc, tables, lens)
+    want = plain(q, kc, vc, tables, lens)
+    torch.cuda.synchronize()
+    valid = (lens > 0)[:, None].expand(B, H)
+    if normalize:
+        vr = valid
+        if vr.any():
+            ref = want[vr].float()
+            rms = ref.square().mean().sqrt().item()
+            err = (got[vr].float() - ref).abs().max().item()
+        else:
+            rms = err = 0.0
+        dead_ok = bool((got[~vr] == 0).all())
+        ok = err <= TOL_O_RMS * rms and dead_ok and bool(torch.isfinite(got.float()).all())
+        rec = {"max_abs_err": err, "ref_rms": rms, "masked_rows_exact": dead_ok}
+    else:
+        vr = valid.reshape(B, n_kv, H // n_kv)
+        # the partials carry no S axis: add one for the shared comparison
+        ok, rec = _compare(
+            tuple(t.unsqueeze(-2) if t.dim() == 4 else t.unsqueeze(-1) for t in got),
+            tuple(t.unsqueeze(-2) if t.dim() == 4 else t.unsqueeze(-1) for t in want),
+            vr.unsqueeze(-1),
+        )
+        dead = ~vr
+        ok = ok and bool((got[0][dead] == 0).all())
+    n_tok = int(lens.clamp(min=0).sum())
+    n_pages = sum(-(-max(int(n), 0) // ps) for n in lens.tolist())
+    out_bytes = B * H * hd * 2 if normalize else B * H * hd * 4 + 2 * B * H * 4
+    nbytes = (B * H * hd * 2 + 2 * n_tok * n_kv * hd * 2 + 4 * n_pages + 4 * B
+              + out_bytes)
+    rec.update(
+        step=step, mode="normalized" if normalize else "parts", ok=ok,
+        shape=(f"q[{B},{H},{hd}] pages{list(pages_shape)} tables{list(tables.shape)} "
+               f"lens={lens.tolist()}"),
+        ms=_time_ms(lambda: kernel(q, kc, vc, tables, lens), 20),
+        plain_ms=_time_ms(lambda: plain(q, kc, vc, tables, lens), 5),
+        **_bound(4.0 * n_tok * H * hd, nbytes, PEAK_F32_FLOPS),
+    )
+    # yardstick: SDPA on the KV gathered beforehand (the gather is untimed)
+    span = -(-max(int(lens.max()), 1) // ps) * ps
+    kg = gather_pages(kc, tables)[:, :span].transpose(1, 2)
+    vg = gather_pages(vc, tables)[:, :span].transpose(1, 2)
+    mask = (torch.arange(span, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    qt = q[:, :, None, :]
+    rec["library_ms"] = _library_ms(
+        lambda: F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask, enable_gqa=True)
+    )
+    rec["library_note"] = "SDPA on KV gathered beforehand; the gather is not timed"
+    return ok, rec
+
+
+def k4_phase(cases) -> tuple[bool, list[dict]]:
+    import torch
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4)
+    recs = []
+    for step, q_shape, pages_shape, tables, lens in cases:
+        for normalize in (False, True):
+            ok, rec = _k4_case(gen, step, q_shape, pages_shape, tables, lens, normalize)
+            recs.append(rec)
+            print(f"K4 {rec['mode']} {step} {rec['shape']}: ok={ok} "
+                  f"err={rec['max_abs_err']:.3g} (rms {rec['ref_rms']:.3g}) "
+                  f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+                  f"bound_ms={rec['bound_ms']:.4f} library_ms={rec['library_ms']}",
+                  flush=True)
+        torch.cuda.empty_cache()
+    return all(r["ok"] for r in recs), recs
+
+
+def _launch_counts() -> dict:
+    from k8s_llm_scheduler_tpu_torch.ops import paged_attention as pg
+    from k8s_llm_scheduler_tpu_torch.ops import prefix_attention as pa
+    from k8s_llm_scheduler_tpu_torch.ops.ragged_matmul import ragged_matmul
+
+    return {
+        "K1": pa.flash_prefix_attention_parts.launches,
+        "K2": pa.flash_causal_attention_parts.launches,
+        "K3": ragged_matmul.launches,
+        "K4": pg.paged_decode_attention_parts.launches + pg.paged_decode_attention.launches,
+    }
+
+
+def _zero_launch_counts() -> None:
+    from k8s_llm_scheduler_tpu_torch.ops import paged_attention as pg
+    from k8s_llm_scheduler_tpu_torch.ops import prefix_attention as pa
+    from k8s_llm_scheduler_tpu_torch.ops.ragged_matmul import ragged_matmul
+
+    pa.reset_launch_counts()
+    ragged_matmul.launches = 0
+    pg.paged_decode_attention_parts.launches = 0
+    pg.paged_decode_attention.launches = 0
+
+
 # ---------------------------------------------------------- reference phase
 def reference_phase() -> tuple[bool, dict]:
     """TINY main path on the card (kernels) vs the same weights on the CPU
@@ -326,7 +600,125 @@ def reference_phase() -> tuple[bool, dict]:
     print(f"reference: TINY chunked prefix ({len(prefix)} tokens) + suffix, "
           f"cuda vs cpu logits err={err:.4g} (max |logit| {scale:.4g}) ok={ok}",
           flush=True)
+    for name, fn in (
+        ("block_decode_int8_ragged", _tiny_block_decode_ragged),
+        ("decode_buffered_pallas", _tiny_decode_buffered),
+        ("decode_pallas", _tiny_decode),
+    ):
+        out = {dev: fn(cpu_params, dev).float().cpu() for dev in ("cuda", "cpu")}
+        e = (out["cuda"] - out["cpu"]).abs().max().item()
+        sc = out["cpu"].abs().max().item()
+        good = bool(torch.isfinite(out["cuda"]).all()) and e <= 5e-2 * sc
+        rec[name] = {"max_abs_err": e, "max_logit": sc, "ok": good}
+        ok = ok and good
+        print(f"reference: TINY {name}, cuda vs cpu logits err={e:.4g} "
+              f"(max |logit| {sc:.4g}) ok={good}", flush=True)
     return ok, rec
+
+
+def _on(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _on(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _tiny_block_decode_ragged(cpu_params, dev):
+    """One block-decode iteration at TINY with int8 weights and K3 matmuls;
+    logits of the rows with valid tokens."""
+    import numpy as np
+    import torch
+    from k8s_llm_scheduler_tpu_torch.models.configs import TINY
+    from k8s_llm_scheduler_tpu_torch.models.llama import forward_block_decode
+    from k8s_llm_scheduler_tpu_torch.models.quant import quantize_params
+
+    rng = np.random.default_rng(5)
+    L, kv, hd = TINY.n_layers, TINY.n_kv_heads, TINY.head_dim
+    R, F, Ss, cap, Sp, plen = 4, BLOCK_F, 32, 48, 64, 50
+    blk_len = np.asarray([24, 3, 0, 11], np.int32)
+    blk_valid = np.arange(F)[None, :] < blk_len[:, None]
+    blk_tok = (rng.integers(1, 256, size=(R, F)) * blk_valid).astype(np.int32)
+    suffix_lens = np.asarray([32, 20, 0, 7], np.int32)
+    tail = np.asarray([5, 0, 0, 12], np.int32)
+    positions = (plen + suffix_lens + tail)[:, None] + np.arange(F)[None, :]
+
+    def kvs(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            dtype=TINY.dtype, device=dev)
+
+    def ints(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int32)).to(dev)
+
+    params = _on(quantize_params(cpu_params), dev)
+    logits, _, _ = forward_block_decode(
+        params, TINY, ints(blk_tok), torch.from_numpy(blk_valid).to(dev),
+        ints(blk_len), ints(positions), kvs(L, R, Ss, kv, hd), kvs(L, R, Ss, kv, hd),
+        ints(suffix_lens), kvs(L, R, cap + 1, kv, hd), kvs(L, R, cap + 1, kv, hd),
+        ints(tail), kvs(L, Sp, kv, hd), kvs(L, Sp, kv, hd),
+        torch.tensor(plen, dtype=torch.int32, device=dev), ragged=True,
+    )
+    return logits[torch.from_numpy(blk_len > 0).to(dev)]
+
+
+def _tiny_paged_inputs(dev, rng):
+    import numpy as np
+    import torch
+    from k8s_llm_scheduler_tpu_torch.models.configs import TINY
+
+    L, kv, hd = TINY.n_layers, TINY.n_kv_heads, TINY.head_dim
+    shape = (L, 16, 16, kv, hd)  # 16 pages of 16 tokens
+    kc = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    vc = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    tables = torch.tensor([[3, 9, 1, 14], [7, 2, 0, 0], [0, 0, 0, 0]], dtype=torch.int32)
+    return (kc.to(dtype=TINY.dtype, device=dev), vc.to(dtype=TINY.dtype, device=dev),
+            tables.to(dev))
+
+
+def _tiny_decode_buffered(cpu_params, dev):
+    """One chunked-decode step at TINY with own-token attention through K4
+    partials; one slot empty and the trash-like row negative."""
+    import numpy as np
+    import torch
+    from k8s_llm_scheduler_tpu_torch.models.configs import TINY
+    from k8s_llm_scheduler_tpu_torch.models.llama import forward_decode_buffered
+
+    rng = np.random.default_rng(6)
+    L, kv, hd = TINY.n_layers, TINY.n_kv_heads, TINY.head_dim
+    kc, vc, tables = _tiny_paged_inputs(dev, rng)
+    Sp, plen, n_steps = 64, 50, 4
+    own = torch.tensor([40, 0, -50], dtype=torch.int32, device=dev)
+    tail = torch.tensor([1, 0, 2], dtype=torch.int32, device=dev)
+    pos = (plen + own.clamp(min=0) + tail).to(torch.int32)
+
+    def kvs(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            dtype=TINY.dtype, device=dev)
+
+    logits, _, _ = forward_decode_buffered(
+        _on(cpu_params, dev), TINY, torch.tensor([65, 66, 67], device=dev), pos,
+        kc, vc, own, kvs(L, 3, n_steps, kv, hd), kvs(L, 3, n_steps, kv, hd), tail,
+        kvs(L, Sp, kv, hd), kvs(L, Sp, kv, hd),
+        torch.tensor(plen, dtype=torch.int32, device=dev),
+        page_tables=tables, own_impl="pallas",
+    )
+    return logits
+
+
+def _tiny_decode(cpu_params, dev):
+    """One manual-page decode step at TINY through K4 normalized; the third
+    slot is inactive."""
+    import numpy as np
+    import torch
+    from k8s_llm_scheduler_tpu_torch.models.configs import TINY
+    from k8s_llm_scheduler_tpu_torch.models.llama import forward_decode
+
+    rng = np.random.default_rng(7)
+    kc, vc, tables = _tiny_paged_inputs(dev, rng)
+    logits, _, _ = forward_decode(
+        _on(cpu_params, dev), TINY, torch.tensor([70, 71, 72], device=dev),
+        torch.tensor([40, 17, 3], dtype=torch.int32, device=dev), kc, vc, tables,
+        torch.tensor([True, True, False], device=dev), paged_attn="pallas",
+    )
+    return logits
 
 
 # ----------------------------------------------------------- decision phase
@@ -348,11 +740,10 @@ def build_backend():
 def decision_phase(backend, build_s, nodes, pods) -> tuple[bool, dict]:
     import torch
     from k8s_llm_scheduler_tpu_torch.core.validation import feasible_nodes
-    from k8s_llm_scheduler_tpu_torch.ops import prefix_attention as pa
 
     decisions = []
     torch.cuda.reset_peak_memory_stats()
-    pa.reset_launch_counts()
+    _zero_launch_counts()
     t_main = time.perf_counter()
     singles = []
     for pod in pods[:N_SINGLES]:
@@ -364,10 +755,7 @@ def decision_phase(backend, build_s, nodes, pods) -> tuple[bool, dict]:
     batch = backend.get_scheduling_decisions_batch(pods, nodes)
     batch_ms = (time.perf_counter() - t) * 1000.0
     main_s = time.perf_counter() - t_main
-    launches = {
-        "K1": pa.flash_prefix_attention_parts.launches,
-        "K2": pa.flash_causal_attention_parts.launches,
-    }
+    launches = _launch_counts()
     stats = backend.get_stats()
     for pod, d in zip(pods, batch):
         if isinstance(d, Exception):
@@ -402,6 +790,155 @@ def decision_phase(backend, build_s, nodes, pods) -> tuple[bool, dict]:
     ok = ok and launches["K1"] > 0 and launches["K2"] > 0
     print("decision: " + json.dumps(rec), flush=True)
     return ok, rec
+
+
+def _serve(backend, nodes, pods, n_singles):
+    """n_singles single decisions, then the batch; (singles ms, batch ms,
+    [(pod, decision)], valid tokens of each block call by row bucket R)."""
+    eng = backend.engine
+    eng.block_tokens.clear()
+    out, singles = [], []
+    for pod in pods[:n_singles]:
+        t = time.perf_counter()
+        out.append((pod, backend.get_scheduling_decision(pod, nodes)))
+        singles.append((time.perf_counter() - t) * 1000.0)
+    totals = {eng.max_slots // 2: list(eng.block_tokens)}
+    eng.block_tokens.clear()
+    t = time.perf_counter()
+    batch = backend.get_scheduling_decisions_batch(pods, nodes)
+    batch_ms = (time.perf_counter() - t) * 1000.0
+    totals[eng.max_slots] = list(eng.block_tokens)
+    for pod, d in zip(pods, batch):
+        if isinstance(d, Exception):
+            raise d
+        out.append((pod, d))
+    return singles, batch_ms, out, totals
+
+
+def _feasible(nodes, decisions) -> bool:
+    from k8s_llm_scheduler_tpu_torch.core.validation import feasible_nodes
+
+    ok = True
+    for pod, d in decisions:
+        names = {n.name for n in feasible_nodes(pod, nodes)}
+        good = d.selected_node in names and 0.0 <= d.confidence <= 1.0
+        ok = ok and good
+        print(f"  {pod.name}: {d.selected_node} conf={d.confidence} "
+              f"reasoning_len={len(d.reasoning)} ok={good}", flush=True)
+    return ok
+
+
+def path_a_phase(backend, nodes, pods):
+    """int8 weights (quantized on the card from the bf16 8B params) and
+    ragged block-decode matmuls (K3) on the decision path."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
+    from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
+    from k8s_llm_scheduler_tpu_torch.models.quant import param_bytes, quantize_params
+
+    cfg = backend.engine.cfg
+    t0 = time.perf_counter()
+    params = quantize_params(backend.engine.params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    engine = InferenceEngine(params, cfg, ByteTokenizer(), temperature=0.0,
+                             decode_matmul="ragged")
+    b = LocalLLMBackend(engine, request_timeout_s=600.0)
+    try:
+        _zero_launch_counts()
+        singles, batch_ms, decisions, totals = _serve(b, nodes, pods, N_SINGLES)
+        launches = _launch_counts()
+        stats = b.get_stats()
+    finally:
+        b.close()
+    ok = _feasible(nodes, decisions) and launches["K3"] > 0 and launches["K1"] > 0
+    n = len(decisions)
+    rec = {
+        "model": "llama-3.1-8b-instruct int8 weight-only, decode_matmul=ragged",
+        "quantize_s": quant_s,
+        "int8_param_gib": param_bytes(params) / 2**30,
+        "decisions": n,
+        "launches": launches,
+        "launches_per_decision": {k: v / n for k, v in launches.items()},
+        "single_decision_ms": singles,
+        "batch_of_8_ms": batch_ms,
+        "decisions_per_s_batch": 8 / (batch_ms / 1000.0),
+        "wave_model_calls": stats["wave_model_calls"],
+        "waves": stats["waves"],
+        "wave_ms_total": stats["wave_ms"],
+        "block_tokens": {str(r): t for r, t in totals.items()},
+    }
+    print("path A: " + json.dumps({k: v for k, v in rec.items() if k != "block_tokens"}),
+          flush=True)
+    return ok, rec, totals
+
+
+def path_b_phase(backend, nodes, pods):
+    """General completion on the bf16 8B params: set_prefix, add_requests,
+    step() to completion, then generate(), own-token attention through K4."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    cfg = backend.engine.cfg
+    eng = InferenceEngine(backend.engine.params, cfg, ByteTokenizer(), temperature=0.0,
+                          paged_attn="pallas", max_slots=8, page_size=64)
+    items = [backend._prepare_item(p, nodes) for p in pods]
+    suffixes = [it.suffix_ids for it in items]
+    eng.set_prefix(items[0].prefix_ids)
+    pages0 = eng.kv.pages_free
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    ids = eng.add_requests(suffixes, max_new_tokens=PATH_B_NEW_TOKENS)
+    plen = eng.prefix_len
+    shapes = [("step after admission", eng._padded_tables().clone(),
+               (eng._state.pos - plen).clone())]
+    fins = []
+    while eng.has_active:
+        fins += eng.step()
+        if len(shapes) == 1:
+            shapes.append(("step after one chunk", eng._padded_tables().clone(),
+                           (eng._state.pos - plen).clone()))
+    batch_s = time.perf_counter() - t0
+    chunks_batch = eng.stats["chunks"]
+    t1 = time.perf_counter()
+    gen = eng.generate(suffixes[0], max_new_tokens=PATH_B_NEW_TOKENS)
+    gen_s = time.perf_counter() - t1
+    launches = _launch_counts()
+    pages_end = eng.kv.pages_free
+    done = {f.req_id: len(f.token_ids) for f in fins}
+    ok = (sorted(done) == sorted(ids)
+          and all(1 <= n <= PATH_B_NEW_TOKENS for n in done.values())
+          and 1 <= len(gen.token_ids) <= PATH_B_NEW_TOKENS
+          and launches["K4"] > 0 and pages_end == pages0)
+    n_tok = sum(done.values())
+    steps = chunks_batch * eng.chunk_steps
+    rec = {
+        "model": "llama-3.1-8b-instruct bf16, paged_attn=pallas",
+        "prefix_tokens": plen,
+        "suffix_tokens": [len(sfx) for sfx in suffixes],
+        "requests": len(ids),
+        "tokens_per_request": [done[i] for i in ids],
+        "batch_wall_s": batch_s,
+        "batch_tokens_per_s": n_tok / batch_s,
+        "chunks": chunks_batch,
+        "ms_per_decode_step": batch_s * 1000.0 / steps,
+        "generate_tokens": len(gen.token_ids),
+        "generate_wall_s": gen_s,
+        "generate_tokens_per_s": len(gen.token_ids) / gen_s,
+        "launches": launches,
+        "launches_per_decode_step": launches["K4"] / (eng.stats["chunks"] * eng.chunk_steps),
+        "pages_free_start": pages0,
+        "pages_free_end": pages_end,
+        "ok": ok,
+    }
+    print("path B: " + json.dumps(rec), flush=True)
+    q_shape = (eng.max_slots + 1, cfg.n_heads, cfg.head_dim)
+    pages_shape = tuple(eng.kv.k.shape[1:])
+    cases = [(step, q_shape, pages_shape, t.cpu(), l.cpu()) for step, t, l in shapes]
+    return ok, rec, cases
 
 
 def main() -> int:
@@ -445,13 +982,18 @@ def main() -> int:
         k_ok, k1, k2 = kernel_phase(k1_cases, k2_cases)
         r_ok, ref = reference_phase()
         d_ok, dec = decision_phase(backend, backend_s, nodes, pods)
+        a_ok, path_a, totals = path_a_phase(backend, nodes, pods)
+        torch.cuda.empty_cache()
+        b_ok, path_b, k4_cases = path_b_phase(backend, nodes, pods)
+        cfg = backend.engine.cfg
     finally:
         backend.close()
+    del backend
+    torch.cuda.empty_cache()
+    k3_ok, k3 = k3_phase(cfg, totals)
+    k4_ok, k4 = k4_phase(k4_cases)
 
-    def entry(name, recs, source, replaces, launches):
-        # headline: the batch's suffix prefill, the widest call of the waves
-        main = max((r for r in recs if r["step"] == "suffix prefill"),
-                   key=lambda r: r["flops"])
+    def entry(name, recs, source, replaces, launches, main):
         return {
             "name": name,
             "route": "cuda",
@@ -468,31 +1010,48 @@ def main() -> int:
             "shapes": recs,
         }
 
+    def widest_suffix_prefill(recs):
+        # K1/K2 headline: the batch's suffix prefill, the widest wave call
+        return max((r for r in recs if r["step"] == "suffix prefill"),
+                   key=lambda r: r["flops"])
+
+    # K3 headline: int8 w_gate at R=8 and the batch's median total; K4:
+    # partials at the step shape after one chunk
+    k3_main = next((r for r in k3 if r["int8"] and r["weight"] == "w_gate"
+                    and r["step"] == "R=8" and r["median_total"]),
+                   max(k3, key=lambda r: r["flops"]))
+    k4_main = next(r for r in k4 if r["mode"] == "parts"
+                   and r["step"] == "step after one chunk")
     line = {
         "kernels": [
             entry("flash_prefix_attention_parts", k1,
                   "k8s_llm_scheduler_tpu_torch/csrc/prefix_attention.cu",
                   "k8s_llm_scheduler_tpu/ops/pallas_prefix_attention.py:365",
-                  dec["launches"]["K1"]),
+                  dec["launches"]["K1"], widest_suffix_prefill(k1)),
             entry("flash_causal_attention_parts", k2,
                   "k8s_llm_scheduler_tpu_torch/csrc/causal_attention.cu",
                   "k8s_llm_scheduler_tpu/ops/pallas_prefix_attention.py:285",
-                  dec["launches"]["K2"]),
+                  dec["launches"]["K2"], widest_suffix_prefill(k2)),
+            entry("ragged_matmul", k3,
+                  "k8s_llm_scheduler_tpu_torch/csrc/ragged_matmul.cu",
+                  "k8s_llm_scheduler_tpu/ops/ragged_matmul.py:108",
+                  path_a["launches"]["K3"], k3_main),
+            entry("paged_decode_attention", k4,
+                  "k8s_llm_scheduler_tpu_torch/csrc/paged_attention.cu",
+                  "k8s_llm_scheduler_tpu/ops/pallas_paged_attention.py:276",
+                  path_b["launches"]["K4"], k4_main),
         ],
-        "not_ported": [
-            {"name": "ragged_matmul",
-             "replaces": "k8s_llm_scheduler_tpu/ops/ragged_matmul.py:108"},
-            {"name": "paged_decode_attention",
-             "replaces": "k8s_llm_scheduler_tpu/ops/pallas_paged_attention.py:276"},
-        ],
+        "not_ported": [],
     }
+    phases = {"kernels": k_ok, "reference": r_ok, "decision": d_ok, "path_a": a_ok,
+              "path_b": b_ok, "k3": k3_ok, "k4": k4_ok}
     record = {"device": kind, "smi": smi, "build_s": build_s, "kernels": line,
-              "reference": ref, "decision": dec,
-              "phases_ok": {"kernels": k_ok, "reference": r_ok, "decision": d_ok}}
+              "reference": ref, "decision": dec, "path_a": path_a, "path_b": path_b,
+              "phases_ok": phases}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))
-    if not (k_ok and r_ok and d_ok):
+    if not all(phases.values()):
         print(f"chip_smoke: FAILED phases {record['phases_ok']}", file=sys.stderr)
         return 1
     print(json.dumps(line))

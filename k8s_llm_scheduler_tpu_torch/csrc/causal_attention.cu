@@ -16,6 +16,7 @@
 // -fPIC; bound to Python with ctypes (ops/prefix_attention.py).
 
 #include "flash_parts.cuh"
+#include "launch_utils.cuh"
 
 namespace {
 
@@ -73,8 +74,7 @@ int launch(const void* q, const void* k, const void* v, const void* lens,
            void* o, void* m, void* l, int B, int S, int n_kv, int g, float scale,
            cudaStream_t stream) {
   constexpr int smem = flash::smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      causal_parts_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = allow_smem_once<causal_parts_kernel<HD>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(static_cast<unsigned>((S * g + flash::kRows - 1) / flash::kRows),
             static_cast<unsigned>(n_kv), static_cast<unsigned>(B));

@@ -16,6 +16,7 @@
 // -fPIC; bound to Python with ctypes (ops/prefix_attention.py).
 
 #include "flash_parts.cuh"
+#include "launch_utils.cuh"
 
 namespace {
 
@@ -67,8 +68,7 @@ int launch(const void* q, const void* k, const void* v, const void* prefix_len,
            void* o, void* m, void* l, int B, int S, int n_kv, int g, int Sp,
            float scale, cudaStream_t stream) {
   constexpr int smem = flash::smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      prefix_parts_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = allow_smem_once<prefix_parts_kernel<HD>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_rows = static_cast<long long>(B) * S * g;
   dim3 grid(static_cast<unsigned>((n_rows + flash::kRows - 1) / flash::kRows),

@@ -1,26 +1,37 @@
-"""The inference engine's decision path: shared-prefix prefill and decision
-waves (the port of the JAX package's engine/engine.py, decision subset).
+"""The inference engine: shared-prefix prefill, decision waves and the
+paged general-completion path (the port of the JAX package's
+engine/engine.py).
 
 - **Shared-prefix (cascade) prefill**: a scheduling burst shares its
   (system + cluster-state) prompt prefix (core/prompt.py). The prefix
   prefills ONCE per cluster snapshot into a dense KV buffer and every wave
-  decodes against it. Prefixes longer than one chunk prefill blockwise
-  (`_prefill_prefix_chunked`), each chunk attending the KV accumulated so
-  far, seeded from the cached prefix with the longest common prefix
-  (`_best_lcp_seed`). Recent prefixes stay cached on device under a byte
-  budget.
+  or decode step attends it. Prefixes longer than one chunk prefill
+  blockwise (`_prefill_prefix_chunked`), each chunk attending the KV
+  accumulated so far, seeded from the cached prefix with the longest common
+  prefix (`_best_lcp_seed`). Recent prefixes stay cached under a byte budget.
 - **Decision waves** (`submit_wave` / `harvest_wave`): the whole batch's
   suffix prefill, then grammar-accelerated block decode to completion. Each
   iteration samples one token from the carried logits, expands the forced
   run that follows through DFA table lookups (no model call), and runs one
-  block-wide mini-prefill (models/llama.forward_block_decode). The JAX
-  package's `lax.while_loop` is a Python loop bounded by `n_iters` that
-  stops as soon as no row is alive (one host sync per iteration).
+  block-wide mini-prefill (models/llama.forward_block_decode; with
+  decode_matmul="ragged" its matmuls run K3 over the valid tokens only).
+  The JAX package's `lax.while_loop` is a Python loop bounded by `n_iters`
+  that stops as soon as no row is alive (one host sync per iteration).
+- **General completion** (`add_requests` / `step` / `generate`): a fixed
+  decode batch of `max_slots` slots over the paged KV cache
+  (engine/kv_cache.py). Admission prefills a batch of suffixes against the
+  prefix, scatters their KV into pages and samples each first token; a step
+  runs `chunk_steps` decode steps with the new KV in a small chunk buffer,
+  flushed into pages once per chunk, then syncs once. Own-token attention
+  either gathers the pages once per chunk (paged_attn="gather") or streams
+  them through K4 every step (paged_attn="pallas"). Per-slot state lives on
+  the device with a trash row M = max_slots that admission padding writes.
 - **Sparse grammar tables** (engine/constrained.py): sampling in K-space,
   vocab-independent.
 
-The paged general-completion path, packed admission, the persistent loop
-and speculative decoding of the JAX engine are not ported yet.
+Packed admission, the fused and persistent decode loops and speculative
+decoding of the JAX engine are not ported; `generate` drains through
+`step()`, as the JAX engine does with fused_decode=False.
 """
 
 from __future__ import annotations
@@ -28,7 +39,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 
 import numpy as np
 import torch
@@ -38,12 +49,15 @@ from k8s_llm_scheduler_tpu_torch.engine.constrained import (
     sparse_tables,
     wave_iterations,
 )
+from k8s_llm_scheduler_tpu_torch.engine.kv_cache import PagedKVCache
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer, Tokenizer
 from k8s_llm_scheduler_tpu_torch.models.configs import LlamaConfig
 from k8s_llm_scheduler_tpu_torch.models.llama import (
     Params,
     forward_block_decode,
+    forward_decode_buffered,
     forward_prefill,
+    forward_prefill_suffix,
     forward_prefill_suffix_dense,
 )
 from k8s_llm_scheduler_tpu_torch.ops.attention import NEG_INF
@@ -88,6 +102,150 @@ def _sample_sparse(logits, tok_rows, next_rows, gen, temperature):
     return tok.int(), nxt.int()
 
 
+@dataclasses.dataclass
+class _SlotState:
+    """Per-slot decode state on the device, [max_slots + 1] each: row M is
+    the trash row that admission padding writes and that never activates."""
+
+    tok: torch.Tensor    # int32 current token
+    pos: torch.Tensor    # int32 absolute position of that token
+    act: torch.Tensor    # bool active
+    st: torch.Tensor     # int32 DFA state
+    budget: torch.Tensor  # int32 tokens it may still emit
+    first: torch.Tensor  # int32 first token sampled at admission
+
+    @classmethod
+    def zeros(cls, rows: int, device) -> "_SlotState":
+        def z(dtype=torch.int32):
+            return torch.zeros(rows, dtype=dtype, device=device)
+
+        return cls(z(), z(), z(torch.bool), z(), z(), z())
+
+
+@torch.no_grad()
+def _admit_impl(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens,        # [R, Ss] suffix tokens (R = admission-row bucket)
+    suffix_lens,   # [R] int32 (0 on padding rows)
+    prefix_k, prefix_v,  # [L, Sp, n_kv, hd] shared dense prefix KV
+    prefix_len,    # 0-dim int32
+    k_cache, v_cache,    # paged caches, updated IN PLACE
+    page_ids,      # [R, Ss/page_size] scatter destinations (0 = scratch)
+    slot_ids,      # [R] target slot per row (trash row M on padding)
+    state: _SlotState,   # updated IN PLACE
+    new_budgets,   # [R] budget of admitted rows (max_new - 1; 0 on padding)
+    sp_tokens, sp_next, done_state: int, eos_id: int, pad_id: int,
+    dfa_start: int, gen, temperature: float, constrained: bool,
+    vocab_limit: int | None = None,
+):
+    """Batched admission: suffix prefill with the KV scattered into pages,
+    then the first token of each row sampled and its slot's state set.
+    Padding rows land in the trash row and stay inactive."""
+    last_logits, _, _ = forward_prefill_suffix(
+        params, cfg, tokens, suffix_lens, prefix_k, prefix_v, prefix_len,
+        k_cache, v_cache, page_ids,
+    )
+    R = tokens.shape[0]
+    start_vec = torch.full((R,), dfa_start, dtype=torch.int32, device=tokens.device)
+    if constrained:
+        first_new, st_new = _sample_sparse(
+            last_logits, sp_tokens[start_vec], sp_next[start_vec], gen, temperature
+        )
+    else:
+        first_new = _sample_unconstrained(
+            last_logits, pad_id, gen, temperature, vocab_limit
+        )
+        st_new = start_vec
+    finished = (first_new == eos_id) | (st_new == done_state)
+    real = suffix_lens > 0  # padding rows must never activate the trash row
+    rows = slot_ids.long()
+    state.tok[rows] = first_new
+    state.pos[rows] = (prefix_len + suffix_lens).to(torch.int32)
+    state.act[rows] = real & ~finished
+    state.st[rows] = st_new
+    state.budget[rows] = new_budgets
+    state.first[rows] = first_new
+
+
+@torch.no_grad()
+def _decode_chunk_impl(
+    params: Params,
+    cfg: LlamaConfig,
+    k_cache, v_cache,  # paged caches, updated IN PLACE by the flush
+    page_tables,       # [M, P] own-page tables (trash row included)
+    prefix_k, prefix_v,  # [L, Sp, n_kv, hd]
+    prefix_len,        # 0-dim int32
+    state: _SlotState,  # updated IN PLACE
+    sp_tokens, sp_next, done_state: int, eos_id: int, pad_id: int,
+    gen, temperature: float,
+    n_steps: int,
+    constrained: bool,
+    paged_attn: str = "gather",
+    vocab_limit: int | None = None,
+):
+    """`n_steps` decode steps; each emits one sampled token per slot, and
+    finished, exhausted or idle slots emit pad_id. The pages are frozen for
+    the chunk: new K/V goes to a small chunk buffer and flushes into pages
+    in one scatter at the end. Own-token attention either gathers the pages
+    to a dense buffer once ("gather") or streams them through K4 every step
+    ("pallas"). Returns the emitted tokens [M, n_steps]."""
+    M, P = page_tables.shape
+    L, _, ps, n_kv, hd = k_cache.shape
+    dev = k_cache.device
+    own_start = state.pos - prefix_len  # [M] tokens already in own pages
+    if paged_attn == "pallas":
+        k_own, v_own = k_cache, v_cache
+    else:
+        tables = page_tables.long()
+        k_own = k_cache[:, tables].reshape(L, M, P * ps, n_kv, hd)
+        v_own = v_cache[:, tables].reshape(L, M, P * ps, n_kv, hd)
+    ck = torch.zeros((L, M, n_steps, n_kv, hd), dtype=k_cache.dtype, device=dev)
+    cv = torch.zeros_like(ck)
+    tail = torch.zeros(M, dtype=torch.int32, device=dev)
+    tok, pos, act, st, budget = state.tok, state.pos, state.act, state.st, state.budget
+    toks = []
+    for _ in range(n_steps):
+        act_eff = act & (budget > 0)
+        logits, ck, cv = forward_decode_buffered(
+            params, cfg, tok, pos, k_own, v_own, own_start,
+            ck, cv, tail, prefix_k, prefix_v, prefix_len,
+            page_tables=page_tables,
+            own_impl="pallas" if paged_attn == "pallas" else "dense",
+        )
+        if constrained:
+            nxt, new_st = _sample_sparse(
+                logits, sp_tokens[st], sp_next[st], gen, temperature
+            )
+        else:
+            nxt = _sample_unconstrained(logits, pad_id, gen, temperature, vocab_limit)
+            new_st = st
+        tok = torch.where(act_eff, nxt, pad_id)
+        new_st = torch.where(act_eff, new_st, st)
+        finished = (new_st == done_state) | (nxt == eos_id)
+        act = act_eff & ~finished
+        budget = torch.where(act_eff, budget - 1, budget)
+        pos = torch.where(act_eff, pos + 1, pos)
+        tail = torch.where(act_eff, tail + 1, tail)
+        st = new_st
+        toks.append(tok)
+
+    # Flush the chunk buffer into pages: entry j of slot m lands at own
+    # position own_start[m] + j; invalid entries (j >= tail) go to scratch
+    # page 0 (duplicates there are harmless: nothing reads it).
+    j = torch.arange(n_steps, device=dev)
+    own_pos = own_start[:, None].long() + j[None, :]
+    valid = j[None, :] < tail[:, None]
+    page_slot = torch.clamp(own_pos // ps, 0, P - 1)
+    page_ids = torch.gather(page_tables.long(), 1, page_slot)
+    page_ids = torch.where(valid, page_ids, 0)
+    offs = torch.where(valid, own_pos % ps, 0)
+    k_cache[:, page_ids, offs] = ck
+    v_cache[:, page_ids, offs] = cv
+    state.tok, state.pos, state.act, state.st, state.budget = tok, pos, act, st, budget
+    return torch.stack(toks, dim=1)
+
+
 @torch.no_grad()
 def _wave_impl(
     params: Params,
@@ -105,6 +263,7 @@ def _wave_impl(
     cap: int,      # generated-KV capacity, >= max(max_new)
     constrained: bool,
     vocab_limit: int | None = None,
+    ragged: bool = False,  # K3 matmuls over the valid block tokens
 ):
     """One whole decision wave with grammar-accelerated block decoding.
 
@@ -116,7 +275,8 @@ def _wave_impl(
     emission.
 
     Returns (emitted [R, n_iters*F] with pad_id holes, active [R],
-    iterations run)."""
+    iterations run, valid tokens of each model call [iterations] int32 on
+    the device)."""
     last_logits, k_sfx, v_sfx = forward_prefill_suffix_dense(
         params, cfg, tokens, suffix_lens, prefix_k, prefix_v, prefix_len,
     )
@@ -135,6 +295,7 @@ def _wave_impl(
     jcol = torch.arange(F, device=dev, dtype=torch.int32)
     out = torch.full((R, n_iters * F), pad_id, dtype=tokens.dtype, device=dev)
     logits = last_logits
+    blk_tokens = []
 
     i = 0
     while i < n_iters and bool(act.any()):
@@ -175,14 +336,18 @@ def _wave_impl(
         logits, gk, gv = forward_block_decode(
             params, cfg, blk_tok, blk_valid, blk_len, positions,
             k_sfx, v_sfx, suffix_lens, gk, gv, emitted,
-            prefix_k, prefix_v, prefix_len,
+            prefix_k, prefix_v, prefix_len, ragged=ragged,
         )
+        blk_tokens.append(blk_len.sum(dtype=torch.int32))
         out[:, i * F:(i + 1) * F] = blk_tok
         st, act = s_cur, alive
         emitted = emitted + blk_len
         pos_next = pos_next + blk_len
         i += 1
-    return out, act, i
+    counts = torch.stack(blk_tokens) if blk_tokens else torch.zeros(
+        0, dtype=torch.int32, device=dev
+    )
+    return out, act, i, counts
 
 
 @dataclasses.dataclass
@@ -193,6 +358,17 @@ class _PrefixKV:
     v: torch.Tensor
     length: int
     token_ids: tuple[int, ...]
+
+
+@dataclasses.dataclass
+class _Request:
+    req_id: int
+    slot: int
+    prompt_len: int
+    max_new_tokens: int
+    generated: list[int] = dataclasses.field(default_factory=list)
+    first_pending: bool = True  # first token not yet harvested from device
+    submitted_at: float = dataclasses.field(default_factory=time.perf_counter)
 
 
 @dataclasses.dataclass
@@ -211,6 +387,7 @@ class WaveHandle:
 
     toks_d: torch.Tensor  # [R, n_iters*F] emitted tokens (pad_id holes)
     iters: int            # model calls actually run (early exit)
+    blk_tokens_d: torch.Tensor  # [iters] valid tokens of each model call
     n: int                # real prompts in this wave (<= R)
     max_new_tokens: int
     req_ids: list[int]
@@ -218,8 +395,8 @@ class WaveHandle:
 
 
 class InferenceEngine:
-    """Single-owner (one thread) engine over one model on one device; the
-    device is where the params lie."""
+    """Single-owner (one thread) engine over one model and one paged KV
+    cache on one device; the device is where the params lie."""
 
     DFA_STATE_CAPACITY = 4096
     # On-device prefix KV cache budget, in BYTES: at least one entry (the
@@ -232,11 +409,17 @@ class InferenceEngine:
         cfg: LlamaConfig,
         tokenizer: Tokenizer | None = None,
         *,
+        num_pages: int = 512,
+        page_size: int = 64,
         max_slots: int = 8,
+        max_pages_per_seq: int = 64,
         prefill_buckets: tuple[int, ...] = (128, 256, 512, 1024, 2048, 4096, 8192),
+        chunk_steps: int = 16,
         temperature: float = 0.3,
         rng_seed: int = 0,
         prefix_chunk: int = 2048,
+        paged_attn: str = "gather",
+        decode_matmul: str = "dense",
     ) -> None:
         self.cfg = cfg
         self.params = params
@@ -253,6 +436,27 @@ class InferenceEngine:
             self.tokenizer.vocab_size
             if self.tokenizer.vocab_size < cfg.vocab_size
             else None
+        )
+        bad = [bkt for bkt in prefill_buckets if bkt % page_size]
+        if bad:
+            raise ValueError(f"prefill buckets {bad} not multiples of page_size={page_size}")
+        # Own-token attention of the general path's chunked decode: "gather"
+        # (pages gathered to a dense buffer once per chunk) or "pallas" (K4
+        # streams them every step).
+        if paged_attn not in ("gather", "pallas"):
+            raise ValueError(f"paged_attn must be 'gather' or 'pallas', got {paged_attn!r}")
+        # Block-decode matmuls of decision waves: "dense" or "ragged" (K3
+        # over the valid tokens only).
+        if decode_matmul not in ("dense", "ragged"):
+            raise ValueError(
+                f"unknown decode_matmul {decode_matmul!r} (expected 'dense' or 'ragged')"
+            )
+        self.paged_attn = paged_attn
+        self.decode_matmul = decode_matmul
+        self.chunk_steps = int(chunk_steps)
+        self.kv = PagedKVCache(
+            cfg, num_pages=num_pages, page_size=page_size, max_slots=max_slots,
+            max_pages_per_seq=max_pages_per_seq, device=self.device,
         )
         self.prefill_buckets = tuple(sorted(prefill_buckets))
         # Block width of the chunked long-prefix prefill: bounds the
@@ -271,6 +475,20 @@ class InferenceEngine:
         self._prefix_cache: OrderedDict[tuple[int, ...], _PrefixKV] = OrderedDict()
         self._empty_prefix: _PrefixKV | None = None
         self._req_counter = 0
+        # General path: requests by slot, the device slot state (row M is
+        # the trash row) with host mirrors of act/budget from the last sync,
+        # finished records parked for the next step(), and the page tables
+        # padded with the trash row.
+        self._by_slot: dict[int, _Request] = {}
+        self._state = _SlotState.zeros(max_slots + 1, self.device)
+        self._act_np = np.zeros(max_slots + 1, dtype=bool)
+        self._budget_np = np.zeros(max_slots + 1, dtype=np.int32)
+        self._pending_finished: list[Finished] = []
+        self._tables_src: torch.Tensor | None = None
+        self._tables_padded: torch.Tensor | None = None
+        # Valid tokens of each recent block-decode model call (K3's `total`
+        # with decode_matmul="ragged"), booked at harvest.
+        self.block_tokens: deque[int] = deque(maxlen=4096)
         self.stats = {
             "requests": 0,
             "completed": 0,
@@ -281,6 +499,9 @@ class InferenceEngine:
             "decode_tokens": 0,
             "waves": 0,
             "wave_model_calls": 0,
+            "prefills": 0,
+            "chunks": 0,
+            "syncs": 0,
             # host wall time, device work included (both end in a sync)
             "prefix_prefill_ms": 0.0,
             "wave_ms": 0.0,
@@ -532,7 +753,7 @@ class InferenceEngine:
             suffix_lens[row] = len(ids)
             max_new[row] = max_new_tokens
         dev = self.device
-        toks_d, _, iters = _wave_impl(
+        toks_d, _, iters, blk_tokens_d = _wave_impl(
             self.params, self.cfg,
             torch.from_numpy(tokens).to(dev), torch.from_numpy(suffix_lens).to(dev),
             prefix.k, prefix.v,
@@ -543,6 +764,7 @@ class InferenceEngine:
             self._gen, self.temperature,
             n_iters, F, max_new_tokens, self._constrained,
             vocab_limit=self._vocab_limit,
+            ragged=self.decode_matmul == "ragged",
         )
         req_ids = list(range(self._req_counter, self._req_counter + len(prompts)))
         self._req_counter += len(prompts)
@@ -550,7 +772,7 @@ class InferenceEngine:
         self.stats["prefill_tokens"] += int(suffix_lens.sum())
         self.stats["requests"] += len(prompts)
         return WaveHandle(
-            toks_d=toks_d, iters=iters, n=len(prompts),
+            toks_d=toks_d, iters=iters, blk_tokens_d=blk_tokens_d, n=len(prompts),
             max_new_tokens=max_new_tokens, req_ids=req_ids,
             submitted_at=submitted_at,
         )
@@ -558,6 +780,7 @@ class InferenceEngine:
     def harvest_wave(self, handle: WaveHandle) -> list[Finished]:
         """Copy one wave's tokens to the host (waits for the device)."""
         toks_np = handle.toks_d.cpu().numpy()
+        self.block_tokens.extend(handle.blk_tokens_d.tolist())
         self.stats["wave_model_calls"] += handle.iters
         pad = self.tokenizer.pad_id
         latency_ms = (time.perf_counter() - handle.submitted_at) * 1000.0
@@ -584,5 +807,206 @@ class InferenceEngine:
         """Synchronous wave: submit + harvest."""
         return self.harvest_wave(self.submit_wave(prompts, max_new_tokens))
 
+    # ------------------------------------------------------ general path
+    @property
+    def free_slots(self) -> int:
+        return self.max_slots - len(self._by_slot)
+
+    @property
+    def has_active(self) -> bool:
+        return bool(self._by_slot)
+
+    def max_suffix_tokens(self, max_new_tokens: int) -> int:
+        """Longest admissible prompt/suffix for the paged path: bounded by
+        the page-table width and the largest prefill bucket."""
+        by_pages = self.kv.max_pages_per_seq * self.kv.page_size - (max_new_tokens + 1)
+        return min(by_pages, self.prefill_buckets[-1])
+
+    def _padded_tables(self) -> torch.Tensor:
+        """The kv page tables plus the all-zeros trash row, cached per
+        table build."""
+        src = self.kv.page_tables()
+        if src is not self._tables_src:
+            self._tables_src = src
+            self._tables_padded = torch.cat(
+                [src, torch.zeros((1, src.shape[1]), dtype=src.dtype, device=src.device)]
+            )
+        return self._tables_padded
+
+    def add_request(self, prompt_ids: list[int], max_new_tokens: int = 200) -> int:
+        """Single-request admission; see add_requests."""
+        return self.add_requests([prompt_ids], max_new_tokens)[0]
+
+    def add_requests(
+        self, prompts: list[list[int]], max_new_tokens: int = 200
+    ) -> list[int]:
+        """Admit a batch of requests in one admission pass (no host sync).
+        Each prompt is the per-request SUFFIX if a prefix is installed
+        (set_prefix), else the whole prompt; all pad to one bucket. One
+        request is admitted in a 1-row batch, more in a max_slots-row batch
+        whose padding rows write the trash row. Each slot reserves pages for
+        its prompt and max_new_tokens + 1 more. Decoding starts at the next
+        step()."""
+        if not prompts:
+            return []
+        if any(not p for p in prompts):
+            raise ValueError("empty prompt")
+        if len(prompts) > self.free_slots:
+            raise RuntimeError(
+                f"no free slots for {len(prompts)} request(s) "
+                f"({self.free_slots} free) — backpressure the caller"
+            )
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        prefix = self._prefix or self._get_empty_prefix()
+        self._prefix = prefix
+
+        ps = self.kv.page_size
+        bucket = self._bucket_for(max(len(p) for p in prompts))
+        n_blocks = bucket // ps
+        pad = self.tokenizer.pad_id
+        R = 1 if len(prompts) == 1 else self.max_slots
+        trash = self.max_slots
+        tokens = np.full((R, bucket), pad, dtype=np.int32)
+        suffix_lens = np.zeros(R, dtype=np.int32)
+        page_ids = np.zeros((R, n_blocks), dtype=np.int32)
+        slot_ids = np.full(R, trash, dtype=np.int32)
+        new_budgets = np.zeros(R, dtype=np.int32)
+
+        reqs: list[_Request] = []
+        slots: list[int] = []
+        dev = self.device
+        try:
+            for row, ids in enumerate(prompts):
+                n = len(ids)
+                slot = self.kv.allocate_slot(n, reserve_decode=max_new_tokens + 1)
+                slots.append(slot)
+                pages = self.kv.slot_pages(slot)
+                used = self.kv.pages_needed(n)
+                tokens[row, :n] = ids
+                suffix_lens[row] = n
+                slot_ids[row] = slot
+                new_budgets[row] = max_new_tokens - 1
+                for j in range(min(used, n_blocks)):
+                    page_ids[row, j] = pages[j]
+                reqs.append(_Request(
+                    req_id=self._req_counter, slot=slot, prompt_len=n,
+                    max_new_tokens=max_new_tokens,
+                ))
+                self._req_counter += 1
+            _admit_impl(
+                self.params, self.cfg,
+                torch.from_numpy(tokens).to(dev), torch.from_numpy(suffix_lens).to(dev),
+                prefix.k, prefix.v,
+                torch.tensor(prefix.length, dtype=torch.int32, device=dev),
+                self.kv.k, self.kv.v,
+                torch.from_numpy(page_ids).to(dev), torch.from_numpy(slot_ids).to(dev),
+                self._state, torch.from_numpy(new_budgets).to(dev),
+                self._sp_tokens, self._sp_next, self._done_state,
+                self.tokenizer.eos_id, pad, self._dfa_start,
+                self._gen, self.temperature, self._constrained,
+                vocab_limit=self._vocab_limit,
+            )
+        except Exception:
+            # these slots are not in _by_slot yet: nothing else frees them
+            for s in slots:
+                self.kv.free_slot(s)
+            raise
+        for req in reqs:
+            self._by_slot[req.slot] = req
+            # optimistic mirrors until the next sync tells the truth
+            self._act_np[req.slot] = True
+            self._budget_np[req.slot] = max_new_tokens - 1
+        self.stats["requests"] += len(reqs)
+        self.stats["prefills"] += 1
+        self.stats["prefill_tokens"] += int(suffix_lens.sum())
+        return [r.req_id for r in reqs]
+
+    def step(self, chunks: int = 1) -> list[Finished]:
+        """Run `chunks` decode chunks back to back, then ONE host sync;
+        returns the requests that finished (and any parked earlier)."""
+        pend = self._pending_finished
+        self._pending_finished = []
+        if not self._by_slot:
+            return pend
+        return pend + self._step_inner(chunks)
+
+    def _chunk_dispatch(self, prefix: _PrefixKV) -> torch.Tensor:
+        """One decode chunk (no host sync); the emitted tokens
+        [max_slots + 1, chunk_steps] on the device."""
+        dev = self.device
+        toks = _decode_chunk_impl(
+            self.params, self.cfg, self.kv.k, self.kv.v, self._padded_tables(),
+            prefix.k, prefix.v, torch.tensor(prefix.length, dtype=torch.int32, device=dev),
+            self._state, self._sp_tokens, self._sp_next, self._done_state,
+            self.tokenizer.eos_id, self.tokenizer.pad_id,
+            self._gen, self.temperature, self.chunk_steps,
+            self._constrained, self.paged_attn, vocab_limit=self._vocab_limit,
+        )
+        self.stats["chunks"] += 1
+        return toks
+
+    def _step_inner(self, chunks: int) -> list[Finished]:
+        prefix = self._prefix or self._get_empty_prefix()
+        emissions: list[torch.Tensor] = []
+        any_active = bool(
+            (self._act_np & (self._budget_np > 0))[list(self._by_slot)].any()
+        )
+        if any_active:
+            for _ in range(max(1, chunks)):
+                emissions.append(self._chunk_dispatch(prefix))
+        # ONE host sync: emitted tokens, post-chunk state, first tokens.
+        emitted_np = [e.cpu().numpy() for e in emissions]
+        act_np = self._state.act.cpu().numpy()
+        budget_np = self._state.budget.cpu().numpy()
+        first_np = self._state.first.cpu().numpy()
+        self.stats["syncs"] += 1
+        return self._finish_harvest(emitted_np, act_np, budget_np, first_np)
+
+    def _finish_harvest(self, emitted_np, act_np, budget_np, first_np) -> list[Finished]:
+        """Resolve harvested emissions into per-request token streams and
+        Finished records. Token accounting is exact: pad is never sampled
+        for an active slot, so the non-pad emissions are what ran."""
+        self._act_np = np.array(act_np)
+        self._budget_np = np.array(budget_np)
+        toks = (
+            np.concatenate(emitted_np, axis=1) if emitted_np
+            else np.zeros((self.max_slots + 1, 0), dtype=np.int32)
+        )
+        finished: list[Finished] = []
+        pad = self.tokenizer.pad_id
+        for slot, req in list(self._by_slot.items()):
+            if req.first_pending:
+                req.generated.append(int(first_np[slot]))
+                req.first_pending = False
+            emitted = [int(t) for t in toks[slot] if t != pad]
+            req.generated.extend(emitted)
+            self.stats["decode_tokens"] += len(emitted)
+            if not self._act_np[slot] or self._budget_np[slot] <= 0:
+                self.kv.free_slot(slot)
+                del self._by_slot[slot]
+                ids = req.generated[: req.max_new_tokens]
+                finished.append(Finished(
+                    req_id=req.req_id,
+                    token_ids=ids,
+                    text=self.tokenizer.decode(ids),
+                    latency_ms=(time.perf_counter() - req.submitted_at) * 1000.0,
+                ))
+                self.stats["completed"] += 1
+        return finished
+
+    def generate(self, prompt_ids: list[int], max_new_tokens: int = 200) -> Finished:
+        """Synchronous single-request generation: admit, then step() until
+        it finishes. Other requests that finish meanwhile are parked for
+        the next step()."""
+        req_id = self.add_request(prompt_ids, max_new_tokens)
+        while True:
+            fins = self.step()
+            mine = [f for f in fins if f.req_id == req_id]
+            self._pending_finished.extend(f for f in fins if f.req_id != req_id)
+            if mine:
+                return mine[0]
+
     def get_stats(self) -> dict:
-        return dict(self.stats)
+        return {**self.stats, "pages_free": self.kv.pages_free,
+                "slots_free": self.free_slots}

@@ -42,6 +42,7 @@ from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer, Tokenizer
 from k8s_llm_scheduler_tpu_torch.models.configs import get_config
 from k8s_llm_scheduler_tpu_torch.models.llama import init_params
+from k8s_llm_scheduler_tpu_torch.models.quant import init_params_int8_host
 from k8s_llm_scheduler_tpu_torch.types import (
     DecisionSource,
     NodeMetrics,
@@ -322,13 +323,26 @@ def build_local_backend(
     seed: int = 0,
     *,
     request_timeout_s: float = 60.0,
+    quantize: str | None = None,
+    decode_matmul: str = "dense",
 ) -> LocalLLMBackend:
     """The local stack with random weights from `seed` on `device`: params,
     byte tokenizer, a greedy engine and a grammar-constrained backend, all
-    other settings at their defaults."""
+    other settings at their defaults. `quantize="int8"` draws and quantizes
+    the weights on the host (models/quant.init_params_int8_host), so only
+    int8 weights reach the device; `decode_matmul="ragged"` runs block
+    decode's matmuls through K3."""
     dev = resolve_device(device)
+    if quantize is not None and quantize != "int8":
+        raise ValueError(f"unknown quantization {quantize!r} (only 'int8')")
     cfg = get_config(model)
-    params = init_params(cfg, seed=seed, device=dev)
+    if quantize == "int8":
+        params = init_params_int8_host(seed, cfg, device=dev)
+    else:
+        params = init_params(cfg, seed=seed, device=dev)
     tokenizer = ByteTokenizer()
-    engine = InferenceEngine(params, cfg, tokenizer, temperature=0.0, rng_seed=seed)
+    engine = InferenceEngine(
+        params, cfg, tokenizer, temperature=0.0, rng_seed=seed,
+        decode_matmul=decode_matmul,
+    )
     return LocalLLMBackend(engine, tokenizer, request_timeout_s=request_timeout_s)

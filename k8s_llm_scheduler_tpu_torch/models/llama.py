@@ -7,10 +7,15 @@ STACKED [L, ...] tensors (attn_norm, wq, wk, wv, wo, mlp_norm, w_gate, w_up,
 w_down; projections stored [in, out]). A forward walks the layers in a
 Python loop over views of the stacks.
 
-Only the entry points of the decision path are here: `forward_prefill`
-(single-shot prefix prefill, KV-only mode too), the cascade suffix prefill
-`forward_prefill_suffix_dense` and the dense branch of
-`forward_block_decode`. bf16 weights and activations; norms, RoPE, softmax
+Entry points: `forward_prefill` (single-shot prefix prefill, KV-only mode
+too); the cascade suffix prefills `forward_prefill_suffix_dense` (decision
+waves) and `forward_prefill_suffix` (KV into pages, the general path);
+`forward_block_decode` (decision waves; `ragged=True` runs every projection
+and MLP matmul through K3); and the paged decode steps
+`forward_decode_buffered` (the general path's chunked decode; own-token
+attention through K4 with own_impl="pallas") and `forward_decode` (the
+manual-page API; K4 normalized with paged_attn="pallas"). bf16 weights and
+activations, or int8 weight pairs (models/quant.py); norms, RoPE, softmax
 and the LM head accumulate in f32.
 """
 
@@ -28,10 +33,16 @@ from k8s_llm_scheduler_tpu_torch.ops.attention import (
     causal_prefill_attention,
     chunk_attention_with_prefix,
     merge_attention_parts,
+    paged_decode_attention,
+)
+from k8s_llm_scheduler_tpu_torch.ops.paged_attention import (
+    paged_decode_attention as paged_decode_attention_kernel,
+    paged_decode_attention_parts,
 )
 from k8s_llm_scheduler_tpu_torch.ops.prefix_attention import (
     flash_prefix_attention_parts,
 )
+from k8s_llm_scheduler_tpu_torch.ops.ragged_matmul import ragged_matmul
 
 Params = dict
 
@@ -138,7 +149,12 @@ def init_params(
 
 
 def _layer(layers: Params, i: int) -> Params:
-    return {k: layers[k][i] for k in LAYER_KEYS}
+    """Layer i's weights: views of the stacks, int8 pairs sliced per part."""
+    return {
+        k: {kk: vv[i] for kk, vv in layers[k].items()}
+        if isinstance(layers[k], dict) else layers[k][i]
+        for k in LAYER_KEYS
+    }
 
 
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -163,9 +179,14 @@ def _logits(params: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     return _matmul_f32(x, params["lm_head"])
 
 
-def _dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Dense projection x [..., in] @ w [in, out] (bf16 weights; int8 pairs
-    come with models/quant.py)."""
+def _dense(x: torch.Tensor, w) -> torch.Tensor:
+    """Dense projection x [..., in] @ w [in, out]. An int8 pair
+    {"q", "scale"} (models/quant.py) computes x @ q in x's dtype, ROUNDED to
+    x's dtype, then times the f32 per-channel scale and rounded again: the
+    JAX package's two roundings (K3 rounds once; each path keeps its own)."""
+    if isinstance(w, dict):
+        out = torch.matmul(x, w["q"].to(x.dtype))
+        return (out.float() * w["scale"]).to(x.dtype)
     return torch.matmul(x, w)
 
 
@@ -272,6 +293,63 @@ def forward_prefill_suffix_dense(
 
 
 @torch.no_grad()
+def forward_prefill_suffix(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, Ss] int — per-request suffix, left-aligned
+    suffix_lens: torch.Tensor,  # [B] int32 valid suffix tokens (0 = unused)
+    prefix_k_all: torch.Tensor,  # [L, Sp, n_kv, hd] shared dense prefix KV
+    prefix_v_all: torch.Tensor,
+    prefix_len: torch.Tensor,  # 0-dim int32 on the device
+    k_cache: torch.Tensor,  # [L, num_pages, page_size, n_kv, hd], updated IN PLACE
+    v_cache: torch.Tensor,
+    page_ids: torch.Tensor,  # [B, Ss/page_size] dest page per block (0 = scratch)
+):
+    """Batched suffix prefill against a shared dense prefix with the suffix
+    K/V scattered into the paged cache, page block by page block (padding
+    blocks go to scratch page 0, whose content nothing reads).
+
+    Returns (last_logits [B, V] f32, k_cache, v_cache)."""
+    B, S = tokens.shape
+    dev = tokens.device
+    ps = k_cache.shape[2]
+    n_blocks = S // ps
+    inv_freq = rope_inv_freq(cfg, dev)
+    positions = prefix_len + torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
+    pages = page_ids.long()
+    x = params["embed"][tokens]
+    for i in range(cfg.n_layers):
+        x, k, v = _suffix_layer(
+            _layer(params["layers"], i), cfg, x, positions, suffix_lens,
+            prefix_k_all[i], prefix_v_all[i], prefix_len, inv_freq,
+        )
+        shape = (B, n_blocks, ps, cfg.n_kv_heads, cfg.head_dim)
+        k_cache[i][pages] = k.reshape(shape).to(k_cache.dtype)
+        v_cache[i][pages] = v.reshape(shape).to(v_cache.dtype)
+    return _last_valid_logits(params, cfg, x, suffix_lens), k_cache, v_cache
+
+
+def _block_attention(cfg, q, k, v, i, masks, k_sfx, v_sfx, gen_k, gen_v,
+                     prefix_k_all, prefix_v_all, prefix_len):
+    """Block decode's four-part cascade for layer i: the shared prefix (K1),
+    the row's dense suffix, the generated-so-far buffer and the block
+    itself, merged. Returns [R, F, n_heads * hd] f32."""
+    R, Fw = q.shape[:2]
+    hd = cfg.head_dim
+    sfx_mask, gen_mask, blk_mask = masks
+    qg = (q.float() * hd**-0.5).reshape(R, Fw, cfg.n_kv_heads, cfg.q_per_kv, hd)
+    eq = "bqkgh,bskh->bkgqs"
+    parts = [
+        flash_prefix_attention_parts(q, prefix_k_all[i], prefix_v_all[i], prefix_len),
+        attend_part(qg, k_sfx[i], v_sfx[i], sfx_mask, eq),
+        attend_part(qg, gen_k[i], gen_v[i], gen_mask, eq),
+        attend_part(qg, k, v, blk_mask, eq),
+    ]
+    attn = merge_attention_parts(parts)  # [R, n_kv, g, F, hd]
+    return torch.movedim(attn, 3, 1).reshape(R, Fw, cfg.n_heads * hd)
+
+
+@torch.no_grad()
 def forward_block_decode(
     params: Params,
     cfg: LlamaConfig,
@@ -288,13 +366,24 @@ def forward_block_decode(
     prefix_k_all: torch.Tensor,  # [L, Sp, n_kv, hd] shared dense prefix
     prefix_v_all: torch.Tensor,
     prefix_len: torch.Tensor,  # 0-dim int32 on the device
+    ragged: bool = False,
 ):
-    """One grammar-accelerated decode iteration (dense branch): an F-wide
-    mini-prefill where every valid block token attends the shared prefix
-    (K1), its row's dense suffix, the generated-so-far buffer and causally
-    within the block. The block's K/V is written into gen_k/gen_v IN PLACE
-    AFTER each layer's attention (in-block attention uses the fresh k/v);
-    invalid block slots write to the trash slot at index cap.
+    """One grammar-accelerated decode iteration: an F-wide mini-prefill
+    where every valid block token attends the shared prefix (K1), its row's
+    dense suffix, the generated-so-far buffer and causally within the block.
+    The block's K/V is written into gen_k/gen_v IN PLACE AFTER each layer's
+    attention (in-block attention uses the fresh k/v); invalid block slots
+    write to the trash slot at index cap.
+
+    `ragged=True` runs every projection and MLP matmul through K3
+    (ops/ragged_matmul.py): the valid tokens are compacted to the front of
+    the flattened [R*F] axis once (a stable argsort shared by all layers),
+    the residual stream stays compacted through the layers, and each matmul
+    works on whole 64-row tiles up to the valid-token count, read on the
+    device. Attention and the K/V writes stay in the [R, F] layout: q/k/v
+    scatter back through the inverse permutation and the attention output
+    gathers forward through the permutation. Dead compacted rows carry
+    zeros or garbage that every consumer masks.
 
     Returns (logits [R, V] f32 at each row's last valid block position,
     gen_k, gen_v)."""
@@ -316,23 +405,181 @@ def forward_block_decode(
     blk_mask = (
         (j[:, None] >= j[None, :])[None, :, :] & blk_valid[:, None, :]
     )[:, None, None, :, :]
+    masks = (sfx_mask, gen_mask, blk_mask)
     dest = torch.where(blk_valid, tail[:, None] + j[None, :], cap1 - 1).long()
     row = torch.arange(R, device=dev)[:, None]
+    attn_args = (k_sfx, v_sfx, gen_k, gen_v, prefix_k_all, prefix_v_all, prefix_len)
+
+    if ragged:
+        perm = torch.argsort((~blk_valid).reshape(R * Fw).int(), stable=True)
+        inv_perm = torch.argsort(perm)
+        total = blk_len.sum(dtype=torch.int32)
+        # last valid token of row r in compacted order (rows with len 0 clamp
+        # to 0; their logits are never consumed)
+        last_c = torch.clamp(torch.cumsum(blk_len, 0) - 1, min=0)
+        xc = x.reshape(R * Fw, -1)[perm]
+
+        def proj(h, w, n_heads):
+            return ragged_matmul(h, w, total)[inv_perm].reshape(R, Fw, n_heads, hd)
+
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            h = rms_norm(xc, lp["attn_norm"], cfg.rms_eps)
+            q = apply_rope(proj(h, lp["wq"], cfg.n_heads), positions, inv_freq)
+            k = apply_rope(proj(h, lp["wk"], cfg.n_kv_heads), positions, inv_freq)
+            v = proj(h, lp["wv"], cfg.n_kv_heads)
+            attn = _block_attention(cfg, q, k, v, i, masks, *attn_args)
+            attn_c = attn.reshape(R * Fw, -1)[perm].to(xc.dtype)
+            xc = xc + ragged_matmul(attn_c, lp["wo"], total)
+            h2 = rms_norm(xc, lp["mlp_norm"], cfg.rms_eps)
+            gate = ragged_matmul(h2, lp["w_gate"], total)
+            up = ragged_matmul(h2, lp["w_up"], total)
+            fused = F.silu(gate.float()).to(xc.dtype) * up
+            xc = xc + ragged_matmul(fused, lp["w_down"], total)
+            gen_k[i][row, dest] = k.to(gen_k.dtype)
+            gen_v[i][row, dest] = v.to(gen_v.dtype)
+        return _logits(params, cfg, xc[last_c]), gen_k, gen_v
 
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         q, k, v = _qkv(lp, cfg, x, positions, inv_freq)
-        qg = (q.float() * hd**-0.5).reshape(R, Fw, cfg.n_kv_heads, cfg.q_per_kv, hd)
-        parts = [
-            flash_prefix_attention_parts(q, prefix_k_all[i], prefix_v_all[i], prefix_len),
-            attend_part(qg, k_sfx[i], v_sfx[i], sfx_mask, "bqkgh,bskh->bkgqs"),
-            attend_part(qg, gen_k[i], gen_v[i], gen_mask, "bqkgh,bskh->bkgqs"),
-            attend_part(qg, k, v, blk_mask, "bqkgh,bskh->bkgqs"),
-        ]
-        attn = merge_attention_parts(parts)  # [R, n_kv, g, F, hd]
-        attn = torch.movedim(attn, 3, 1).reshape(R, Fw, cfg.n_heads * hd)
+        attn = _block_attention(cfg, q, k, v, i, masks, *attn_args)
         x = x + _dense(attn.to(x.dtype), lp["wo"])
         x = x + _mlp(lp, cfg, x)
         gen_k[i][row, dest] = k.to(gen_k.dtype)
         gen_v[i][row, dest] = v.to(gen_v.dtype)
     return _last_valid_logits(params, cfg, x, blk_len), gen_k, gen_v
+
+
+# ------------------------------------------------------------------- decode
+def _decode_qkv(lp, cfg, x, positions, inv_freq):
+    """One token per row ([B, D], [B]): q [B, n_heads, hd], k/v [B, n_kv, hd]."""
+    q, k, v = _qkv(lp, cfg, x[:, None], positions[:, None], inv_freq)
+    return q[:, 0], k[:, 0], v[:, 0]
+
+
+@torch.no_grad()
+def forward_decode_buffered(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B] int — one new token per slot
+    positions: torch.Tensor,  # [B] ABSOLUTE position of that token
+    k_own: torch.Tensor,  # own-token KV, layout per own_impl (see below)
+    v_own: torch.Tensor,
+    own_lens: torch.Tensor,  # [B] int32 valid own tokens (may be <= 0)
+    chunk_k: torch.Tensor,  # [L, B, n_steps, n_kv, hd] this chunk's new KV
+    chunk_v: torch.Tensor,
+    tail_len: torch.Tensor,  # [B] entries already in the chunk buffer
+    prefix_k_all: torch.Tensor,  # [L, Sp, n_kv, hd] shared dense prefix
+    prefix_v_all: torch.Tensor,
+    prefix_len: torch.Tensor,  # 0-dim int32
+    page_tables: torch.Tensor | None = None,  # [B, P] (own_impl="pallas" only)
+    own_impl: str = "dense",  # "dense" pre-gathered | "pallas" K4
+):
+    """One decode step against (prefix | own tokens | chunk buffer), the
+    general path's chunked decode. The current token's K/V is written into
+    the chunk buffer (IN PLACE) BEFORE attention, so it attends itself
+    (the tail mask is `<=`). Attention is a three-part cascade merged by
+    log-sum-exp:
+      A. the shared dense prefix,
+      B. the slot's own tokens — own_impl="dense": pre-gathered dense KV
+         [L, B, L_own, n_kv, hd]; own_impl="pallas": the paged caches
+         [L, num_pages, ps, n_kv, hd] and page_tables, streamed page by page
+         by K4 (ops/paged_attention.paged_decode_attention_parts),
+      C. the chunk buffer.
+    Returns (logits [B, V] f32, chunk_k, chunk_v)."""
+    if own_impl not in ("dense", "pallas"):
+        raise ValueError(f"own_impl must be 'dense' or 'pallas', got {own_impl!r}")
+    B = tokens.shape[0]
+    dev = tokens.device
+    hd = cfg.head_dim
+    n_steps = chunk_k.shape[2]
+    inv_freq = rope_inv_freq(cfg, dev)
+    x = params["embed"][tokens]
+    row = torch.arange(B, device=dev)
+    tail = tail_len.long()
+
+    Sp = prefix_k_all.shape[1]
+    pre_mask = (torch.arange(Sp, device=dev) < prefix_len)[None, None, None, :]
+    if own_impl == "dense":
+        L_own = k_own.shape[2]
+        own_mask = (torch.arange(L_own, device=dev)[None, :] < own_lens[:, None])[
+            :, None, None, :
+        ]
+    # the current token attends itself: include the entry written this step
+    tail_mask = (torch.arange(n_steps, device=dev)[None, :] <= tail_len[:, None])[
+        :, None, None, :
+    ]
+
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        q, k, v = _decode_qkv(lp, cfg, x, positions, inv_freq)
+        chunk_k[i][row, tail] = k.to(chunk_k.dtype)
+        chunk_v[i][row, tail] = v.to(chunk_v.dtype)
+        qg = (q.float() * hd**-0.5).reshape(B, cfg.n_kv_heads, cfg.q_per_kv, hd)
+        if own_impl == "pallas":
+            own_part = paged_decode_attention_parts(
+                q, k_own[i], v_own[i], page_tables, own_lens
+            )
+        else:
+            own_part = attend_part(qg, k_own[i], v_own[i], own_mask, "bkgh,blkh->bkgl")
+        parts = [
+            attend_part(qg, prefix_k_all[i], prefix_v_all[i], pre_mask, "bkgh,skh->bkgs"),
+            own_part,
+            attend_part(qg, chunk_k[i], chunk_v[i], tail_mask, "bkgh,blkh->bkgl"),
+        ]
+        attn = merge_attention_parts(parts).reshape(B, cfg.n_heads * hd).to(x.dtype)
+        x = x + _dense(attn, lp["wo"])
+        x = x + _mlp(lp, cfg, x)
+    return _logits(params, cfg, x), chunk_k, chunk_v
+
+
+@torch.no_grad()
+def forward_decode(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B] int — one new token per slot
+    positions: torch.Tensor,  # [B] 0-indexed position of the new token
+    k_cache: torch.Tensor,  # [L, num_pages, page_size, n_kv, hd], updated IN PLACE
+    v_cache: torch.Tensor,
+    page_tables: torch.Tensor,  # [B, max_pages] int32
+    active: torch.Tensor,  # [B] bool — inactive slots neither write nor matter
+    paged_attn: str = "xla",  # "xla" gather path | "pallas" K4
+):
+    """One autoregressive decode step over the paged KV cache (the manual
+    page API: engine/kv_cache.py write_prefill / ensure_capacity /
+    note_token_appended). Scatters the new token's K/V into its page, then
+    attends over every cached token including it. Inactive slots write to
+    scratch page 0, offset 0, never through their (possibly recycled) page
+    table. paged_attn="pallas" attends through K4 normalized
+    (ops/paged_attention.paged_decode_attention); "xla" gathers the pages
+    and attends densely (ops/attention.paged_decode_attention).
+
+    Returns (logits [B, V] f32, k_cache, v_cache)."""
+    if paged_attn not in ("xla", "pallas"):
+        raise ValueError(f"paged_attn must be 'xla' or 'pallas', got {paged_attn!r}")
+    attn_fn = (
+        paged_decode_attention_kernel if paged_attn == "pallas"
+        else paged_decode_attention
+    )
+    B = tokens.shape[0]
+    dev = tokens.device
+    ps = k_cache.shape[2]
+    inv_freq = rope_inv_freq(cfg, dev)
+    positions = positions.to(torch.int32)
+    # an inactive slot may carry any position: clamp its table lookup
+    page_slot = torch.clamp(positions.long() // ps, 0, page_tables.shape[1] - 1)
+    page_ids = torch.gather(page_tables.long(), 1, page_slot[:, None])[:, 0]
+    page_ids = torch.where(active, page_ids, 0)
+    offsets = torch.where(active, positions.long() % ps, 0)
+    seq_lens = (positions + 1).to(torch.int32)
+    x = params["embed"][tokens]
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        q, k, v = _decode_qkv(lp, cfg, x, positions, inv_freq)
+        k_cache[i][page_ids, offsets] = k.to(k_cache.dtype)
+        v_cache[i][page_ids, offsets] = v.to(v_cache.dtype)
+        attn = attn_fn(q, k_cache[i], v_cache[i], page_tables, seq_lens)
+        x = x + _dense(attn.reshape(B, cfg.n_heads * cfg.head_dim), lp["wo"])
+        x = x + _mlp(lp, cfg, x)
+    return _logits(params, cfg, x), k_cache, v_cache

@@ -1,8 +1,10 @@
-"""Attention ops of the decision path (the port of ops/attention.py).
+"""Attention ops (the port of ops/attention.py).
 
 Plain PyTorch versions of the JAX package's einsum paths — `attend_part`,
 `merge_attention_parts`, `causal_prefill_attention`,
-`chunk_attention_with_prefix`. The JAX package's `prefix_attend_parts` and
+`chunk_attention_with_prefix`, and the gather-then-attend paged decode
+`paged_decode_attention` (whose streaming kernel K4 is in
+ops/paged_attention.py). The JAX package's `prefix_attend_parts` and
 `causal_chunk_attend_parts` are the wrappers of the flash kernels K1 and K2
 in ops/prefix_attention.py (`flash_prefix_attention_parts`,
 `flash_causal_attention_parts`): they launch the CUDA kernel for CUDA tensors
@@ -83,3 +85,30 @@ def chunk_attention_with_prefix(
     out = merge_attention_parts([(o_p, m_p, l_p), (o_c, m_c, l_c)])
     out = torch.movedim(out, 3, 1)  # [B, S, n_kv, g, hd]
     return out.reshape(B, S, n_heads, hd).to(q.dtype)
+
+
+def gather_pages(cache, page_table):
+    """Each sequence's pages as one contiguous view: cache [num_pages, ps,
+    n_kv, hd], page_table [B, max_pages] -> [B, max_pages * ps, n_kv, hd]."""
+    gathered = cache[page_table.long()]  # [B, P, ps, n_kv, hd]
+    B, P, ps, n_kv, hd = gathered.shape
+    return gathered.reshape(B, P * ps, n_kv, hd)
+
+
+def paged_decode_attention(q, k_cache, v_cache, page_table, seq_lens):
+    """One decode step of attention against the paged KV cache, gather then
+    attend (the JAX package's XLA path). q [B, n_heads, hd] (one new token a
+    sequence, its K/V already in the cache); seq_lens [B] counts it. f32
+    softmax, output in q's dtype."""
+    B, n_heads, hd = q.shape
+    n_kv = k_cache.shape[2]
+    k = gather_pages(k_cache, page_table)
+    v = gather_pages(v_cache, page_table)
+    L = k.shape[1]
+    qg = q.reshape(B, n_kv, n_heads // n_kv, hd)
+    logits = torch.einsum("bkgh,blkh->bkgl", qg.float() * hd**-0.5, k.float())
+    valid = torch.arange(L, device=q.device)[None, :] < seq_lens[:, None]
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    weights = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgl,blkh->bkgh", weights, v.float())
+    return out.reshape(B, n_heads, hd).to(q.dtype)

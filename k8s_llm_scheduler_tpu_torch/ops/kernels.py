@@ -23,7 +23,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("prefix_attention", "causal_attention")
+SOURCES = ("prefix_attention", "causal_attention", "ragged_matmul", "paged_attention")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -89,6 +89,18 @@ def build_all() -> dict[str, str]:
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return reports
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device address as a ctypes pointer (None: a null pointer)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def stream(device) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on `device`, where every kernel launches."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -117,14 +117,6 @@ def _outputs(B, S, n_kv, g, hd, device):
     return o, m, l
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
 @functools.cache
 def _entry(lib: str, symbol: str, n_ints: int):
     """The C entry point `symbol` of csrc/<lib>.cu: 7 pointers (q, k, v,
@@ -162,9 +154,9 @@ def flash_prefix_attention_parts(q, prefix_k, prefix_v, prefix_len):
     o, m, l = _outputs(B, S, n_kv, g, hd, q.device)
     with torch.cuda.device(q.device):  # launch on q's card
         rc = _entry("prefix_attention", "k8s_flash_prefix_parts", 6)(
-            _ptr(q), _ptr(prefix_k), _ptr(prefix_v), _ptr(prefix_len),
-            _ptr(o), _ptr(m), _ptr(l), B, S, n_kv, g, Sp, hd,
-            ctypes.c_float(hd**-0.5), _stream(q.device),
+            *map(kernels.ptr, (q, prefix_k, prefix_v, prefix_len, o, m, l)),
+            B, S, n_kv, g, Sp, hd,
+            ctypes.c_float(hd**-0.5), kernels.stream(q.device),
         )
     _raise_on(rc, "flash_prefix_attention_parts")
     flash_prefix_attention_parts.launches += 1
@@ -187,8 +179,8 @@ def flash_causal_attention_parts(q, k, v, lens):
     o, m, l = _outputs(B, S, n_kv, g, hd, q.device)
     with torch.cuda.device(q.device):  # launch on q's card
         rc = _entry("causal_attention", "k8s_flash_causal_parts", 5)(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(lens), _ptr(o), _ptr(m), _ptr(l),
-            B, S, n_kv, g, hd, ctypes.c_float(hd**-0.5), _stream(q.device),
+            *map(kernels.ptr, (q, k, v, lens, o, m, l)),
+            B, S, n_kv, g, hd, ctypes.c_float(hd**-0.5), kernels.stream(q.device),
         )
     _raise_on(rc, "flash_causal_attention_parts")
     flash_causal_attention_parts.launches += 1

@@ -226,6 +226,29 @@ class TestBackend:
             build_local_backend("tiny")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_local_backend()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_local_backend("tiny", quantize="int8")
+        with pytest.raises(ValueError, match="unknown quantization"):
+            build_local_backend("tiny", device="cpu", quantize="int4")
+        from k8s_llm_scheduler_tpu_torch.engine.kv_cache import PagedKVCache
+        from k8s_llm_scheduler_tpu_torch.models.llama import init_params
+        from k8s_llm_scheduler_tpu_torch.models.quant import init_params_int8_host
+
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_params_int8_host(0, tconfigs.TINY)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PagedKVCache(tconfigs.TINY)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TEngine(init_params(tconfigs.TINY), tconfigs.TINY, paged_attn="pallas")
+
+    def test_engine_refuses_unknown_settings(self, tiny_params):
+        _, tp = tiny_params
+        with pytest.raises(ValueError, match="paged_attn"):
+            TEngine(tp, TTINY, paged_attn="xla")
+        with pytest.raises(ValueError, match="decode_matmul"):
+            TEngine(tp, TTINY, decode_matmul="sparse")
+        with pytest.raises(ValueError, match="multiples of page_size"):
+            TEngine(tp, TTINY, prefill_buckets=(100,))
 
 
 def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
@@ -233,7 +256,11 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import sys, json\n"
         "import k8s_llm_scheduler_tpu_torch as p\n"
         "import k8s_llm_scheduler_tpu_torch.engine.local, "
+        "k8s_llm_scheduler_tpu_torch.engine.kv_cache, "
         "k8s_llm_scheduler_tpu_torch.models.convert, "
+        "k8s_llm_scheduler_tpu_torch.models.quant, "
+        "k8s_llm_scheduler_tpu_torch.ops.paged_attention, "
+        "k8s_llm_scheduler_tpu_torch.ops.ragged_matmul, "
         "k8s_llm_scheduler_tpu_torch.testing\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'k8s_llm_scheduler_tpu' or m.startswith('k8s_llm_scheduler_tpu.'))\n"
