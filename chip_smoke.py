@@ -14,14 +14,21 @@ Phases, each of which must pass:
    partials) on random bf16 inputs at every shape the decision phase gives
    them (taken from the engine's bucket and wave geometry for the smoke's
    own prompts: prefix chunks, suffix prefills, block decodes), each held
-   against its plain PyTorch version on the same inputs. Queries are scaled
+   against its plain PyTorch version on the same inputs (K1 at its planned
+   key splits, so the combine kernel is held too; K1 also, untimed, at
+   TINY's head dim 64 and g = 2, at 32-64 key splits mostly past
+   prefix_len, at a buffer that is not whole key tiles and at an empty
+   prefix: `K1_EDGE_CASES`). Queries are scaled
    so that attention is peaked; the normalized output o/l must agree
    within 3e-2 of the reference's RMS, m within 1e-4 (1 + max |m|), l within
    1e-4 relative, and rows without a valid key must be exactly m = -1e30,
    l = 0. Times for the kernel, its plain version and one PyTorch library
    call (scaled_dot_product_attention) on the same inputs are device times:
    back-to-back calls captured in a CUDA graph, replayed between CUDA
-   events (`_time_ms`).
+   events (`_time_ms`). K1 and its SDPA yardstick are timed with a cold L2
+   as the path meets it (the captured calls rotate over >= 4 distinct
+   prefix buffers, 134 MB, since each layer reads its own prefix K/V) and
+   again hot (one buffer replayed).
 3. Reference: the main path at TINY width on the card (kernels) against the
    same weights on the CPU (plain versions): chunked prefix prefill, then a
    suffix prefill; logits within 5e-2 of the largest logit (bf16).
@@ -34,7 +41,9 @@ Phases, each of which must pass:
    of 8 for a 32-node synthetic cluster (a 5,488-token prefix: the chunked
    prefix prefill). Every decision must parse, name a feasible node and
    carry a confidence in [0, 1]; K1 and K2 must have launched on this run
-   (every count is zeroed just before it).
+   (every count is zeroed just before it). K1's launches are also counted
+   by step (prefix chunks, suffix prefills, block decodes), around each of
+   the engine's model calls, and must add up to its total.
 5. Path A: the same 8B weights quantized to int8 on the card, in an engine
    with decode_matmul="ragged", serve single decisions and a batch of 8 on
    the same cluster; all feasible, K3 and K1 launched. The valid tokens of
@@ -64,6 +73,9 @@ and power limit, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
+import itertools
 import json
 import statistics
 import subprocess
@@ -78,6 +90,9 @@ sys.path.insert(0, str(ROOT))
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
+# Bytes of distinct prefix K/V that K1's cold-L2 timing rotates over: four
+# layers' worth at Sp 8192 (33.5 MB each), well past the 50 MB L2.
+COLD_BYTES = 134_217_728
 DEVICE = "cuda"  # where the K3/K4 cases run
 NEG_INF = -1e30
 N_SINGLES = 4  # single decisions before the batch of 8
@@ -92,6 +107,19 @@ PATH_B_NEW_TOKENS = 64
 # step of 4096 leaves ~9e-2).
 TOL_K3_RMS = 6e-2
 TOL_K3_ERR_RMS = 5e-3
+
+
+def print_ptxas(reports) -> None:
+    """The ptxas report of each library built: registers, spills and errors;
+    for K1 (prefix_attention) every kernel's full report and warnings."""
+    for name, log in reports.items():
+        for line in log.splitlines():
+            low = line.lower()
+            full = name == "prefix_attention" and (
+                "entry function" in low or "stack frame" in low or "warning" in low
+                or "smem" in low)
+            if full or "registers" in line or "spill" in line or "error" in low:
+                print(f"  {name}: {line.strip()}", flush=True)
 
 
 def _smi() -> str:
@@ -186,9 +214,9 @@ def _compare(got, want, valid_rows):
                 "l_rel_err": err_l, "masked_rows_exact": dead_ok}
 
 
-def _prefix_case(gen, step, B, S, Sp, plen, H=32, n_kv=8, hd=128):
+def _prefix_check(gen, step, B, S, Sp, plen, H=32, n_kv=8, hd=128):
+    """K1 against its plain version on random inputs: (ok, rec, inputs)."""
     import torch
-    import torch.nn.functional as F
     from k8s_llm_scheduler_tpu_torch.ops import prefix_attention as pa
 
     dev = "cuda"
@@ -201,25 +229,62 @@ def _prefix_case(gen, step, B, S, Sp, plen, H=32, n_kv=8, hd=128):
     torch.cuda.synchronize()
     valid = torch.full(want[1].shape, plen > 0, dtype=torch.bool, device=dev)
     ok, rec = _compare(got, want, valid)
+    rec.update(step=step, splits=_k1_splits(B, S, Sp, H, n_kv, hd),
+               shape=f"q[{B},{S},{H},{hd}] prefix[{Sp},{n_kv},{hd}] prefix_len={plen}")
+    return ok, rec, (q, k, v, plen_d)
+
+
+def _prefix_case(gen, step, B, S, Sp, plen, H=32, n_kv=8, hd=128):
+    """K1 held against its plain version, then timed with a cold and a hot
+    L2 beside its plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from k8s_llm_scheduler_tpu_torch.ops import prefix_attention as pa
+
+    ok, rec, (q, k, v, plen_d) = _prefix_check(gen, step, B, S, Sp, plen, H, n_kv, hd)
     flops = 4.0 * B * S * H * plen * hd
     nbytes = (B * S * H * hd * 2 + 2 * plen * n_kv * hd * 2 + 4
               + B * H * S * hd * 4 + 2 * B * H * S * 4)
+    # Cold L2, as the path meets it: each layer reads its own prefix K/V, so
+    # the timed calls rotate over distinct buffers (>= COLD_BYTES in all).
+    n_buf = max(4, -(-COLD_BYTES // (k.nbytes + v.nbytes)))
+    bufs = [(k, v)] + [
+        (torch.randn_like(k, dtype=torch.float32).to(torch.bfloat16),
+         torch.randn_like(v, dtype=torch.float32).to(torch.bfloat16))
+        for _ in range(n_buf - 1)
+    ]
+    kernel_bufs = itertools.cycle(bufs)
+
+    def kernel_cold():
+        kb, vb = next(kernel_bufs)
+        pa.flash_prefix_attention_parts(q, kb, vb, plen_d)
+
     rec.update(
-        step=step,
-        shape=f"q[{B},{S},{H},{hd}] prefix[{Sp},{n_kv},{hd}] prefix_len={plen}",
-        ms=_time_ms(lambda: pa.flash_prefix_attention_parts(q, k, v, plen_d), 20),
+        ms=_time_ms(kernel_cold, 20),
+        ms_hot=_time_ms(lambda: pa.flash_prefix_attention_parts(q, k, v, plen_d), 20),
         plain_ms=_time_ms(lambda: pa.prefix_attention_parts_plain(q, k, v, plen_d), 5),
+        cold_buffers=n_buf,
         **_bound(flops, nbytes),
     )
     if plen > 0:
         qt = q.transpose(1, 2)
-        kt = k[:plen].permute(1, 0, 2).unsqueeze(0).expand(B, n_kv, plen, hd)
-        vt = v[:plen].permute(1, 0, 2).unsqueeze(0).expand(B, n_kv, plen, hd)
-        rec["library_ms"] = _library_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+        views = [
+            tuple(t[:plen].permute(1, 0, 2).unsqueeze(0).expand(B, n_kv, plen, hd)
+                  for t in kv)
+            for kv in bufs
+        ]
+        lib_bufs = itertools.cycle(views)
+
+        def sdpa_cold():
+            kt, vt = next(lib_bufs)
+            F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+
+        rec["library_ms"] = _library_ms(sdpa_cold)
+        rec["library_ms_hot"] = _library_ms(
+            lambda: F.scaled_dot_product_attention(qt, *views[0], enable_gqa=True)
         )
     else:
-        rec["library_ms"] = None
+        rec["library_ms"] = rec["library_ms_hot"] = None
     return ok, rec
 
 
@@ -315,12 +380,34 @@ def path_shapes(backend, nodes, pods, n_singles):
             [(step, *key) for key, step in k2.items()])
 
 
-def kernel_phase(k1_cases, k2_cases) -> tuple[bool, list[dict], list[dict]]:
+# K1 off the 8B path's shapes, held but not timed: (step, B, S, Sp,
+# prefix_len, H, n_kv, hd). TINY's head dim 64 with g = 2 (the reference
+# phase's width); many key splits, most of them past prefix_len, at hd 64 and
+# 128 (the combine over 32-64 splits); a buffer that is not a whole number
+# of key tiles; a block-decode call with an empty prefix (every split empty).
+K1_EDGE_CASES = [
+    ("TINY", 1, 37, 64, 50, 4, 2, 64),
+    ("TINY many splits", 2, 3, 4096, 3000, 4, 2, 64),
+    ("hd 128 many splits", 1, 5, 4096, 130, 8, 2, 128),
+    ("ragged buffer end", 2, 70, 1000, 1000, 8, 2, 128),
+    ("empty prefix", 8, 24, 8192, 0, 32, 8, 128),
+]
+
+
+def kernel_phase(k1_cases, k2_cases, k1_edge_cases=K1_EDGE_CASES
+                 ) -> tuple[bool, list[dict], list[dict]]:
+    """K1 and K2 held against their plain versions and timed at the path's
+    shapes; K1 also held at `k1_edge_cases`."""
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     k1, k2 = [], []
+    for case in k1_edge_cases:
+        ok, rec, _ = _prefix_check(gen, *case)
+        rec["ok"] = ok
+        k1.append(rec)
+        torch.cuda.empty_cache()
     for case in k1_cases:
         ok, rec = _prefix_case(gen, *case)
         rec["ok"] = ok
@@ -333,13 +420,32 @@ def kernel_phase(k1_cases, k2_cases) -> tuple[bool, list[dict], list[dict]]:
         torch.cuda.empty_cache()
     for name, recs in (("K1", k1), ("K2", k2)):
         for rec in recs:
-            print(f"{name} {rec['step']} {rec['shape']}: ok={rec['ok']} "
-                  f"err={rec['max_abs_err']:.3g} (rms {rec['ref_rms']:.3g}) "
-                  f"m_err={rec['m_err']:.3g} l_rel_err={rec['l_rel_err']:.3g} "
-                  f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-                  f"bound_ms={rec['bound_ms']:.4f} library_ms={rec['library_ms']}",
-                  flush=True)
+            _print_attention_case(name, rec)
     return all(r["ok"] for r in k1 + k2), k1, k2
+
+
+def _k1_splits(B, S, Sp, H=32, n_kv=8, hd=128) -> int:
+    """Key splits K1's wrapper plans for this call on this card."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.ops import kernels
+    from k8s_llm_scheduler_tpu_torch.ops import prefix_attention as pa
+
+    sms = kernels.sm_count(torch.device("cuda"))
+    return pa.kv_splits(B * S * (H // n_kv), n_kv, Sp, hd, sms)[0]
+
+
+def _print_attention_case(name, rec):
+    line = (f"{name} {rec['step']} {rec['shape']}: ok={rec['ok']} "
+            f"err={rec['max_abs_err']:.3g} (rms {rec['ref_rms']:.3g}) "
+            f"m_err={rec['m_err']:.3g} l_rel_err={rec['l_rel_err']:.3g}")
+    if "splits" in rec:
+        line += f" splits={rec['splits']}"
+    if "ms" in rec:
+        line += (f" ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+                 f"bound_ms={rec['bound_ms']:.4f} library_ms={rec['library_ms']}")
+    if "ms_hot" in rec:
+        line += f" (hot L2: ms={rec['ms_hot']:.4f} library_ms={rec['library_ms_hot']})"
+    print(line, flush=True)
 
 
 # ------------------------------------------------------------- K3 phase
@@ -544,6 +650,53 @@ def _launch_counts() -> dict:
     }
 
 
+@contextlib.contextmanager
+def k1_launches_by_step(engine):
+    """Measures K1's launches by step of the decision path: the engine's
+    chunked prefix prefill, the waves' suffix prefills and their block
+    decodes are wrapped to read K1's count before and after each call (an
+    inner wrapped call inside an outer one counts for the outer). A wave's
+    steps are keyed by its row count R (the rows of the call's tokens).
+    Yields the dict of counts, filled as the calls run; the wrappers go on
+    exit."""
+    from k8s_llm_scheduler_tpu_torch.engine import engine as eng_mod
+    from k8s_llm_scheduler_tpu_torch.ops import prefix_attention as pa
+
+    counts: dict[str, int] = {}
+    depth = [0]
+
+    def counted(step, fn, by_rows):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            n0 = pa.flash_prefix_attention_parts.launches
+            depth[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    # (params, cfg, tokens [R, ...], ...)
+                    key = f"{step} R={args[2].shape[0]}" if by_rows else step
+                    counts[key] = (counts.get(key, 0)
+                                   + pa.flash_prefix_attention_parts.launches - n0)
+        return call
+
+    saved = {name: getattr(eng_mod, name)
+             for name in ("forward_prefill_suffix_dense", "forward_block_decode")}
+    eng_mod.forward_prefill_suffix_dense = counted(
+        "suffix prefill", saved["forward_prefill_suffix_dense"], True)
+    eng_mod.forward_block_decode = counted(
+        "block decode", saved["forward_block_decode"], True)
+    engine._prefill_prefix_chunked = counted(
+        "prefix chunk", engine._prefill_prefix_chunked, False)
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(eng_mod, name, fn)
+        del engine._prefill_prefix_chunked
+
+
 def _zero_launch_counts() -> None:
     from k8s_llm_scheduler_tpu_torch.ops import paged_attention as pg
     from k8s_llm_scheduler_tpu_torch.ops import prefix_attention as pa
@@ -743,19 +896,20 @@ def decision_phase(backend, build_s, nodes, pods) -> tuple[bool, dict]:
 
     decisions = []
     torch.cuda.reset_peak_memory_stats()
-    _zero_launch_counts()
-    t_main = time.perf_counter()
-    singles = []
-    for pod in pods[:N_SINGLES]:
+    with k1_launches_by_step(backend.engine) as by_step:
+        _zero_launch_counts()
+        t_main = time.perf_counter()
+        singles = []
+        for pod in pods[:N_SINGLES]:
+            t = time.perf_counter()
+            d = backend.get_scheduling_decision(pod, nodes)
+            singles.append((time.perf_counter() - t) * 1000.0)
+            decisions.append((pod, d))
         t = time.perf_counter()
-        d = backend.get_scheduling_decision(pod, nodes)
-        singles.append((time.perf_counter() - t) * 1000.0)
-        decisions.append((pod, d))
-    t = time.perf_counter()
-    batch = backend.get_scheduling_decisions_batch(pods, nodes)
-    batch_ms = (time.perf_counter() - t) * 1000.0
-    main_s = time.perf_counter() - t_main
-    launches = _launch_counts()
+        batch = backend.get_scheduling_decisions_batch(pods, nodes)
+        batch_ms = (time.perf_counter() - t) * 1000.0
+        main_s = time.perf_counter() - t_main
+        launches = _launch_counts()
     stats = backend.get_stats()
     for pod, d in zip(pods, batch):
         if isinstance(d, Exception):
@@ -787,7 +941,10 @@ def decision_phase(backend, build_s, nodes, pods) -> tuple[bool, dict]:
         "backend_build_s": build_s,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    ok = ok and launches["K1"] > 0 and launches["K2"] > 0
+    # measured by step; every K1 launch of the run falls in one of them
+    rec["k1_launches_by_step"] = dict(by_step)
+    ok = (ok and launches["K1"] > 0 and launches["K2"] > 0
+          and sum(by_step.values()) == launches["K1"])
     print("decision: " + json.dumps(rec), flush=True)
     return ok, rec
 
@@ -967,10 +1124,7 @@ def main() -> int:
     reports = kernels.build_all()
     build_s = time.perf_counter() - t0
     print(f"build: {len(reports)} libraries in {build_s:.1f} s", flush=True)
-    for name, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                print(f"  {name}: {line.strip()}", flush=True)
+    print_ptxas(reports)
 
     from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
 
@@ -993,7 +1147,7 @@ def main() -> int:
     k3_ok, k3 = k3_phase(cfg, totals)
     k4_ok, k4 = k4_phase(k4_cases)
 
-    def entry(name, recs, source, replaces, launches, main):
+    def entry(name, recs, source, replaces, launches, main, **extra):
         return {
             "name": name,
             "route": "cuda",
@@ -1007,6 +1161,7 @@ def main() -> int:
             "bound_by": main["bound_by"],
             "library_ms": main["library_ms"],
             "shape": main["shape"],
+            **extra,
             "shapes": recs,
         }
 
@@ -1020,6 +1175,7 @@ def main() -> int:
     k3_main = next((r for r in k3 if r["int8"] and r["weight"] == "w_gate"
                     and r["step"] == "R=8" and r["median_total"]),
                    max(k3, key=lambda r: r["flops"]))
+    k1_main = widest_suffix_prefill(k1)
     k4_main = next(r for r in k4 if r["mode"] == "parts"
                    and r["step"] == "step after one chunk")
     line = {
@@ -1027,7 +1183,9 @@ def main() -> int:
             entry("flash_prefix_attention_parts", k1,
                   "k8s_llm_scheduler_tpu_torch/csrc/prefix_attention.cu",
                   "k8s_llm_scheduler_tpu/ops/pallas_prefix_attention.py:365",
-                  dec["launches"]["K1"], widest_suffix_prefill(k1)),
+                  dec["launches"]["K1"], k1_main, ms_hot=k1_main["ms_hot"],
+                  library_ms_hot=k1_main["library_ms_hot"], cold_l2=True,
+                  launches_by_step=dec["k1_launches_by_step"]),
             entry("flash_causal_attention_parts", k2,
                   "k8s_llm_scheduler_tpu_torch/csrc/causal_attention.cu",
                   "k8s_llm_scheduler_tpu/ops/pallas_prefix_attention.py:285",

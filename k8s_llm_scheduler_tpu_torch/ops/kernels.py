@@ -13,6 +13,7 @@ module on a machine with no `nvcc`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -101,6 +102,14 @@ def stream(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+@functools.cache
+def sm_count(device) -> int:
+    """Streaming multiprocessors of `device`: the wave a grid should fill."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def library(name: str) -> ctypes.CDLL:

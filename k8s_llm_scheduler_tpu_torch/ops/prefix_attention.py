@@ -14,6 +14,13 @@ fallback. The kernels take bf16 operands (q, k, v), head dims 64 and 128,
 any sequence lengths, and read `prefix_len` / `lens` from device memory.
 Every launch adds one to the wrapper's `launches` count.
 
+K1 is a Hopper kernel (wgmma fed by a TMA ring). Where its query rows are
+too few to fill the card (block decode), `kv_splits` splits the prefix keys
+over blocks from the shapes alone; the splits' f32 partials go to a
+workspace and a second kernel folds them in split order
+(`combine_splits_plain` is its twin). K2 keeps the warp-level body of
+csrc/flash_parts.cuh.
+
 The plain versions round exactly where the kernels do: q is scaled in f32
 and rounded to the operand dtype, scores accumulate in f32, and the
 probabilities are rounded to the operand dtype before the product with V
@@ -33,6 +40,11 @@ from k8s_llm_scheduler_tpu_torch.ops import kernels
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
+# K1's tiling (csrc/prefix_attention.cu kRows, kKeys): query rows of one kv
+# head per block, and keys per tile (the unit of a key split). The wrapper
+# checks them against the built kernel's before its first launch.
+ROWS_PER_BLOCK = 128
+KEYS_PER_TILE = 128
 
 
 def _masked_parts(logits, mask, v, pv_eq):
@@ -118,13 +130,14 @@ def _outputs(B, S, n_kv, g, hd, device):
 
 
 @functools.cache
-def _entry(lib: str, symbol: str, n_ints: int):
-    """The C entry point `symbol` of csrc/<lib>.cu: 7 pointers (q, k, v,
-    lengths, o, m, l), `n_ints` ints, the scale and the stream."""
+def _entry(lib: str, symbol: str, n_ptrs: int, n_ints: int):
+    """The C entry point `symbol` of csrc/<lib>.cu: `n_ptrs` pointers (q,
+    k, v, lengths, o, m, l, then any workspace), `n_ints` ints, the scale
+    and the stream."""
     fn = getattr(kernels.library(lib), symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * n_ints
+        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
         + [ctypes.c_float, ctypes.c_void_p]
     )
     return fn
@@ -133,8 +146,77 @@ def _entry(lib: str, symbol: str, n_ints: int):
 def _raise_on(rc: int, name: str) -> None:
     if rc == -1:
         raise ValueError(f"{name}: unsupported head dim")
+    if rc == -2:
+        raise RuntimeError(f"{name}: the prefix's TMA tensor maps cannot be encoded")
+    if rc == -3:
+        raise RuntimeError(f"{name}: the key-split plan is not whole key tiles")
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
+@functools.cache
+def _check_tiling() -> None:
+    """Raises unless the built K1 tiles as ROWS_PER_BLOCK and KEYS_PER_TILE
+    say, which the split plan assumes."""
+    fn = kernels.library("prefix_attention").k8s_flash_prefix_tiling
+    fn.restype = None
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    rows, keys = ctypes.c_int(), ctypes.c_int()
+    fn(ctypes.byref(rows), ctypes.byref(keys))
+    if (rows.value, keys.value) != (ROWS_PER_BLOCK, KEYS_PER_TILE):
+        raise RuntimeError(
+            f"flash_prefix_attention_parts: the kernel tiles {rows.value} rows x "
+            f"{keys.value} keys, the split plan {ROWS_PER_BLOCK} x {KEYS_PER_TILE}"
+        )
+
+
+def kv_splits(rows: int, n_kv: int, Sp: int, hd: int, sm_count: int) -> tuple[int, int]:
+    """(splits, keys_per_split) of K1's prefix keys over blocks, from the
+    shapes the host knows (never prefix_len, which lives on the device).
+
+    A block owns ROWS_PER_BLOCK query rows of one kv head (`rows` = B*S*g
+    per kv head). Where those blocks cannot fill the card's SMs once, the
+    Sp keys are split into whole tiles so that they do, as far as the
+    workspace cap allows; keys_per_split is a multiple of KEYS_PER_TILE."""
+    key_tiles = max(1, -(-Sp // KEYS_PER_TILE))
+    blocks = -(-rows // ROWS_PER_BLOCK) * n_kv
+    splits = 1
+    if 0 < blocks < sm_count:
+        per_split = rows * n_kv * (hd + 2) * 4
+        cap = max(1, workspace_cap_bytes(Sp, n_kv, hd) // per_split)
+        splits = min(-(-sm_count // blocks), key_tiles, cap)
+    per = -(-key_tiles // splits)
+    return -(-key_tiles // per), per * KEYS_PER_TILE
+
+
+def workspace_cap_bytes(Sp: int, n_kv: int, hd: int) -> int:
+    """The most f32 split workspace a K1 call may use: half the bytes of its
+    bf16 K/V buffers, so the workspace (written and read once) never costs
+    more traffic than the keys it splits."""
+    return Sp * n_kv * hd * 2
+
+
+def split_prefix_parts_plain(q, prefix_k, prefix_v, prefix_len, splits, keys_per_split):
+    """Plain twin of the split kernel's workspace: K1's partials over each
+    key range [s*keys_per_split, (s+1)*keys_per_split), stacked on a leading
+    split axis. A range at or past prefix_len gives m = -1e30, l = 0, o = 0."""
+    Sp = prefix_k.shape[0]
+    parts = []
+    for s in range(splits):
+        begin, end = s * keys_per_split, min((s + 1) * keys_per_split, Sp)
+        local = torch.clamp(prefix_len - begin, 0, end - begin)
+        parts.append(prefix_attention_parts_plain(
+            q, prefix_k[begin:end], prefix_v[begin:end], local))
+    return tuple(torch.stack(t) for t in zip(*parts))
+
+
+def combine_splits_plain(o, m, l):
+    """Plain twin of the combine kernel: folds split partials (leading split
+    axis) into one unnormalized partial, m = max m_s, l = sum l_s e^(m_s-m),
+    o = sum o_s e^(m_s-m). All-empty rows stay m = -1e30, l = 0, o = 0."""
+    m_all = m.amax(dim=0)
+    w = torch.exp(m - m_all)
+    return (o * w[..., None]).sum(dim=0), m_all, (l * w).sum(dim=0)
 
 
 def flash_prefix_attention_parts(q, prefix_k, prefix_v, prefix_len):
@@ -151,11 +233,18 @@ def flash_prefix_attention_parts(q, prefix_k, prefix_v, prefix_len):
     if tuple(prefix_v.shape) != tuple(prefix_k.shape) or prefix_k.shape[2] != hd:
         raise ValueError("flash_prefix_attention_parts: prefix k/v shapes differ")
     g = n_heads // n_kv
+    _check_tiling()
     o, m, l = _outputs(B, S, n_kv, g, hd, q.device)
+    splits, per = kv_splits(B * S * g, n_kv, Sp, hd, kernels.sm_count(q.device))
+    ws = (
+        torch.empty(splits * B * S * n_heads * (hd + 2), dtype=torch.float32,
+                    device=q.device)
+        if splits > 1 else None
+    )
     with torch.cuda.device(q.device):  # launch on q's card
-        rc = _entry("prefix_attention", "k8s_flash_prefix_parts", 6)(
-            *map(kernels.ptr, (q, prefix_k, prefix_v, prefix_len, o, m, l)),
-            B, S, n_kv, g, Sp, hd,
+        rc = _entry("prefix_attention", "k8s_flash_prefix_parts", 8, 8)(
+            *map(kernels.ptr, (q, prefix_k, prefix_v, prefix_len, o, m, l, ws)),
+            B, S, n_kv, g, Sp, hd, splits, per,
             ctypes.c_float(hd**-0.5), kernels.stream(q.device),
         )
     _raise_on(rc, "flash_prefix_attention_parts")
@@ -178,7 +267,7 @@ def flash_causal_attention_parts(q, k, v, lens):
     g = n_heads // n_kv
     o, m, l = _outputs(B, S, n_kv, g, hd, q.device)
     with torch.cuda.device(q.device):  # launch on q's card
-        rc = _entry("causal_attention", "k8s_flash_causal_parts", 5)(
+        rc = _entry("causal_attention", "k8s_flash_causal_parts", 7, 5)(
             *map(kernels.ptr, (q, k, v, lens, o, m, l)),
             B, S, n_kv, g, hd, ctypes.c_float(hd**-0.5), kernels.stream(q.device),
         )

@@ -62,11 +62,6 @@ def _entry():
     return fn
 
 
-@functools.cache
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def k_splits(N: int, K: int, sm_count: int) -> tuple[int, int]:
     """(splits, k_per_split) of K over blocks: a weight with fewer 128-column
     tiles than the card has SMs splits K so that the blocks fill the SMs
@@ -117,7 +112,7 @@ def ragged_matmul(x: torch.Tensor, w, total: torch.Tensor) -> torch.Tensor:
     _check_cuda(x, mat, scale, total)
     M, K = x.shape
     N = mat.shape[1]
-    splits, k_per_split = k_splits(N, K, _sm_count(x.device))
+    splits, k_per_split = k_splits(N, K, kernels.sm_count(x.device))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     part = (
         torch.empty((splits, M, N), dtype=torch.float32, device=x.device)

@@ -27,9 +27,11 @@ from k8s_llm_scheduler_tpu_torch.ops import kernels
 from k8s_llm_scheduler_tpu_torch.ops.prefix_attention import (
     NEG_INF,
     causal_attention_parts_plain,
+    combine_splits_plain,
     flash_causal_attention_parts,
     flash_prefix_attention_parts,
     prefix_attention_parts_plain,
+    split_prefix_parts_plain,
 )
 
 F32 = dict(rtol=2e-5, atol=2e-5)
@@ -238,7 +240,8 @@ class TestSmokeComparison:
     peaked queries and tolerances a few times the kernels' own error. Here
     the same comparison, on the CPU, must pass an exact copy and refuse
     outputs of a broken kernel: a mask off by one key, a dropped key tile,
-    a P.V product 10% off, V rounded to fp8."""
+    a P.V product 10% off, V rounded to fp8, and of a broken key split: a
+    middle split's keys missing, splits folded without e^(m_s - m)."""
 
     @staticmethod
     def _smoke():
@@ -251,8 +254,21 @@ class TestSmokeComparison:
         spec.loader.exec_module(mod)
         return mod
 
+    SPLIT_KEYS = 256  # four splits of the 1,024-key buffer; PLEN ends in the third
+
+    def _split_dropped(self, q, k, v, plen):
+        o, m, l = split_prefix_parts_plain(q, k, v, plen, 4, self.SPLIT_KEYS)
+        o[1], m[1], l[1] = 0.0, NEG_INF, 0.0  # split 1 never ran
+        return combine_splits_plain(o, m, l)
+
+    def _split_not_rescaled(self, q, k, v, plen):
+        o, m, l = split_prefix_parts_plain(q, k, v, plen, 4, self.SPLIT_KEYS)
+        return o.sum(dim=0), m.amax(dim=0), l.sum(dim=0)
+
     @pytest.mark.parametrize(
-        "mutation", ["none", "mask_plus_one", "tile_dropped", "pv_scaled", "v_fp8"]
+        "mutation",
+        ["none", "mask_plus_one", "tile_dropped", "pv_scaled", "v_fp8",
+         "split_dropped", "split_not_rescaled"],
     )
     def test_comparison_refuses_broken_kernels(self, mutation):
         cs = self._smoke()
@@ -273,6 +289,60 @@ class TestSmokeComparison:
             "v_fp8": lambda: prefix_attention_parts_plain(
                 q, k, v.to(torch.float8_e4m3fn).bfloat16(), plen
             ),
+            "split_dropped": lambda: self._split_dropped(q, k, v, plen),
+            "split_not_rescaled": lambda: self._split_not_rescaled(q, k, v, plen),
         }[mutation]()
         ok, _ = cs._compare(got, want, torch.ones(want[1].shape, dtype=torch.bool))
         assert ok == (mutation == "none")
+
+
+class TestSmokeStepLaunches:
+    """chip_smoke.py counts K1's launches by step of the decision path
+    (prefix chunks, suffix prefills, block decodes) around the engine's
+    model calls. On the CPU the wrapper launches no kernel, so here K1's
+    call sites add one to its count per call: the steps must add up to the
+    total, one launch per layer of each model call, and the engine must be
+    left unwrapped."""
+
+    def test_steps_add_up_to_the_total(self, monkeypatch):
+        from k8s_llm_scheduler_tpu_torch.engine import engine as eng_mod
+        from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
+        from k8s_llm_scheduler_tpu_torch.models import llama
+        from k8s_llm_scheduler_tpu_torch.ops import attention, prefix_attention
+        from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
+
+        def counting(fn):
+            def call(*args):
+                fn.launches += 1
+                return fn(*args)
+            return call
+
+        for mod in (llama, attention):
+            monkeypatch.setattr(mod, "flash_prefix_attention_parts",
+                                counting(flash_prefix_attention_parts))
+        cs = TestSmokeComparison._smoke()
+        originals = (eng_mod.forward_prefill_suffix_dense, eng_mod.forward_block_decode)
+        backend = build_local_backend("tiny", device="cpu")
+        try:
+            eng = backend.engine
+            eng.prefix_chunk = 256  # the 4-node prefix takes the chunked prefill
+            nodes = synthetic_nodes(4)
+            n_prefix = len(backend._prepare_item(fixture_pods(1)[0], nodes).prefix_ids)
+            with cs.k1_launches_by_step(eng) as by_step:
+                cs._zero_launch_counts()
+                backend.get_scheduling_decision(fixture_pods(1)[0], nodes)
+                total = cs._launch_counts()["K1"]
+            stats = backend.get_stats()
+        finally:
+            backend.close()
+            prefix_attention.reset_launch_counts()
+        L = eng.cfg.n_layers
+        R = eng.max_slots // 2  # a single decision's wave
+        assert by_step == {
+            "prefix chunk": -(-n_prefix // 256) * L,
+            f"suffix prefill R={R}": stats["waves"] * L,
+            f"block decode R={R}": stats["wave_model_calls"] * L,
+        }
+        assert sum(by_step.values()) == total > 0
+        assert (eng_mod.forward_prefill_suffix_dense, eng_mod.forward_block_decode) == originals
+        assert "_prefill_prefix_chunked" not in vars(eng)

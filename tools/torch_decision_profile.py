@@ -10,9 +10,10 @@ the cluster's prefix with a first decision (not measured), then measures:
   alone: one prefix-prefill chunk, the wave's suffix prefill and one
   block-decode iteration, as host wall time (ending in a synchronize) and
   device time (CUDA events), median of 5;
-- one whole single-pod decision under torch.profiler: device time by
-  kernel name, the device's busy and idle share of the wall time, and the
-  number of kernel launches per block-decode model call.
+- one whole single-pod decision under torch.profiler: device time and
+  launches by kernel name (every kernel in --out, the top 20 printed), the
+  device's busy and idle share of the wall time, and the number of kernel
+  launches per block-decode model call.
 
 Prints JSON lines; the last one is the summary. Needs one CUDA device.
 """
@@ -120,7 +121,7 @@ def profile_decision(backend, pod, nodes) -> dict:
         acc[0] += e.time_range.elapsed_us() / 1000.0
         acc[1] += 1
     busy_ms = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return {
         "wall_ms": wall_ms,
         "model_calls": calls,
@@ -128,9 +129,9 @@ def profile_decision(backend, pod, nodes) -> dict:
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "kernel_launches": len(gpu_rows),
         "launches_per_model_call": len(gpu_rows) / max(calls, 1),
-        "top": [
+        "by_kernel": [
             {"name": name[:120], "device_ms": ms, "count": n}
-            for name, (ms, n) in top
+            for name, (ms, n) in ranked
         ],
     }
 
@@ -168,10 +169,10 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(rec, indent=1))
-    for row in rec["decision"]["top"]:
+    for row in rec["decision"]["by_kernel"][:20]:
         print(json.dumps(row))
     summary = {k: v for k, v in rec.items() if k != "decision"}
-    summary["decision"] = {k: v for k, v in rec["decision"].items() if k != "top"}
+    summary["decision"] = {k: v for k, v in rec["decision"].items() if k != "by_kernel"}
     print(json.dumps(summary))
     return 0
 
