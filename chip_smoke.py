@@ -53,13 +53,17 @@ Phases, each of which must pass:
    admitted (unconstrained, greedy, 64 new tokens), step() until all
    finish, then one generate(). Every request finishes with 1-64 tokens,
    K4 launched, and every page is returned.
-7. K3 at the seven 8B weight shapes, int8 pairs and bf16, x [R*24, K] for
-   R = 4 and 8, and totals 0, R*24 and the smallest, median and largest
-   that path A ran: rows below `total` within 6e-2 of the reference's RMS
-   (the error's RMS within 5e-3 of it), rows from ceil(total/64)*64 on
-   exactly zero. Library yardstick:
-   torch.matmul of the computed rows against a bf16 weight (for int8 a
-   dequantized copy made beforehand, so it reads twice the weight bytes).
+7. K3, untimed, at `K3_EDGE_CASES` (TINY's widths, N and K not whole
+   tiles, M = 96 and 384, totals 0 / 1 / 64 / 65 / M), then at the seven 8B
+   weight shapes, int8 pairs and bf16, x [R*24, K] for R = 4 and 8, and
+   totals 0, R*24 and the smallest, median and largest that path A ran:
+   rows below `total` within 6e-2 of the reference's RMS (the error's RMS
+   within 5e-3 of it), rows from ceil(total/64)*64 on exactly zero, outputs
+   finite. Timed with a cold L2 (the captured calls rotate over copies of
+   the weight, >= 134 MB in all, as each layer reads its own) and hot.
+   Library yardstick, cold and hot: torch.matmul of the computed rows
+   against a bf16 weight (for int8 a dequantized copy made beforehand, so
+   it reads twice the weight bytes).
 8. K4 at the shapes of path B's step, taken from its engine (its page
    geometry, its page tables padded with the trash row, its own-token
    lengths with the trash row's negative one), both modes, held like K1/K2
@@ -90,8 +94,9 @@ sys.path.insert(0, str(ROOT))
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
-# Bytes of distinct prefix K/V that K1's cold-L2 timing rotates over: four
-# layers' worth at Sp 8192 (33.5 MB each), well past the 50 MB L2.
+# Bytes of distinct prefix K/V (K1) or weights (K3) that a cold-L2 timing
+# rotates over: four layers' worth of K1's prefix at Sp 8192 (33.5 MB
+# each), well past the 50 MB L2.
 COLD_BYTES = 134_217_728
 DEVICE = "cuda"  # where the K3/K4 cases run
 NEG_INF = -1e30
@@ -111,13 +116,13 @@ TOL_K3_ERR_RMS = 5e-3
 
 def print_ptxas(reports) -> None:
     """The ptxas report of each library built: registers, spills and errors;
-    for K1 (prefix_attention) every kernel's full report and warnings."""
+    for the Hopper kernels K1 (prefix_attention) and K3 (ragged_matmul)
+    every line (shared memory, warnings, wgmma serialization notes)."""
     for name, log in reports.items():
         for line in log.splitlines():
             low = line.lower()
-            full = name == "prefix_attention" and (
-                "entry function" in low or "stack frame" in low or "warning" in low
-                or "smem" in low)
+            full = name in ("prefix_attention", "ragged_matmul") and (
+                "ptxas" in low or "stack frame" in low)
             if full or "registers" in line or "spill" in line or "error" in low:
                 print(f"  {name}: {line.strip()}", flush=True)
 
@@ -480,74 +485,160 @@ def _compare_k3(got, want, total):
                 "zero_tail_exact": zero_ok}
 
 
-def _k3_case(gen, name, K, N, R, total, int8):
+def _k3_weight(gen, K, N, int8):
+    """A random [K, N] weight: bf16, or the int8 pair quantized from one."""
     import torch
     from k8s_llm_scheduler_tpu_torch.models.quant import quantize_weight
+
+    w = (torch.randn((K, N), generator=gen, device=DEVICE) * K**-0.5).to(torch.bfloat16)
+    return quantize_weight(w) if int8 else w
+
+
+def _k3_check(gen, w, M, total):
+    """K3 against its plain version on random x [M, K]: (ok, rec, x, total)."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.ops.ragged_matmul import (
+        ragged_matmul,
+        ragged_matmul_plain,
+    )
+
+    K = (w["q"] if isinstance(w, dict) else w).shape[0]
+    x = torch.randn((M, K), generator=gen, device=DEVICE).to(torch.bfloat16)
+    total_d = torch.tensor(total, dtype=torch.int32, device=DEVICE)
+    got = ragged_matmul(x, w, total_d)
+    want = ragged_matmul_plain(x, w, total_d)
+    torch.cuda.synchronize()
+    ok, cmp = _compare_k3(got, want, total)
+    return ok, {**cmp, "ok": ok, "total": total}, x, total_d
+
+
+def _k3_splits(N, K) -> int:
+    """K splits K3's wrapper plans for this weight on this card."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.ops import kernels
+    from k8s_llm_scheduler_tpu_torch.ops import ragged_matmul as rm
+
+    return rm.k_splits(N, K, kernels.sm_count(torch.device(DEVICE)))[0]
+
+
+def _k3_copies(w, n_bytes):
+    """`w` and copies of it (distinct memory), >= COLD_BYTES in all."""
+    n = max(2, -(-COLD_BYTES // n_bytes))
+    if isinstance(w, dict):
+        return [w] + [{"q": w["q"].clone(), "scale": w["scale"].clone()}
+                      for _ in range(n - 1)]
+    return [w] + [w.clone() for _ in range(n - 1)]
+
+
+def _k3_case(gen, name, copies, lib_copies, R, total, int8):
+    """K3 held at x [R*24, K] and `total`, then timed with a cold L2 (the
+    captured calls rotate over `copies`, as each layer reads its own
+    weights) and hot (one weight replayed), beside its plain version and
+    the yardstick: torch.matmul of the computed rows against a bf16 weight
+    (for int8 a dequantized copy made beforehand, so it reads twice the
+    weight bytes), cold over `lib_copies` and hot."""
+    import torch
     from k8s_llm_scheduler_tpu_torch.ops.ragged_matmul import (
         BM,
         ragged_matmul,
         ragged_matmul_plain,
     )
 
-    dev = DEVICE
+    w = copies[0]
+    K, N = (w["q"] if int8 else w).shape
     M = R * BLOCK_F
-    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
-    w_bf16 = (torch.randn((K, N), generator=gen, device=dev) * K**-0.5).to(torch.bfloat16)
-    w = quantize_weight(w_bf16) if int8 else w_bf16
-    total_d = torch.tensor(total, dtype=torch.int32, device=dev)
-    got = ragged_matmul(x, w, total_d)
-    want = ragged_matmul_plain(x, w, total_d)
-    torch.cuda.synchronize()
+    ok, rec, x, total_d = _k3_check(gen, w, M, total)
     end = min(-(-total // BM) * BM, M)
-    ok, cmp = _compare_k3(got, want, total)
     wbytes = K * N * (1 if int8 else 2) + (4 * N if int8 else 0)
     nbytes = (wbytes + end * K * 2 if end else 0) + M * N * 2
-    rec = {
-        "step": f"R={R}", "weight": name, "int8": int8, "total": total,
-        "shape": f"x[{M},{K}] @ {'int8' if int8 else 'bf16'} w[{K},{N}] total={total}",
-        **cmp, "ok": ok,
-        "ms": _time_ms(lambda: ragged_matmul(x, w, total_d), 20),
-        "plain_ms": _time_ms(lambda: ragged_matmul_plain(x, w, total_d), 5),
+    rot = itertools.cycle(copies)
+    rec.update(
+        step=f"R={R}", weight=name, int8=int8, splits=_k3_splits(N, K),
+        shape=f"x[{M},{K}] @ {'int8' if int8 else 'bf16'} w[{K},{N}] total={total}",
+        ms=_time_ms(lambda: ragged_matmul(x, next(rot), total_d), 20),
+        ms_hot=_time_ms(lambda: ragged_matmul(x, w, total_d), 20),
+        plain_ms=_time_ms(lambda: ragged_matmul_plain(x, w, total_d), 5),
+        cold_copies=len(copies),
         **_bound(2.0 * end * K * N, nbytes),
-    }
+    )
     if end:
-        # the yardstick reads a bf16 weight: for int8 a dequantized copy,
-        # twice the int8 pair's weight bytes
-        w_lib = (w["q"].float() * w["scale"]).to(torch.bfloat16) if int8 else w
         xs = x[:end]
-        rec["library_ms"] = _library_ms(lambda: torch.matmul(xs, w_lib))
+        lib_rot = itertools.cycle(lib_copies)
+        rec["library_ms"] = _library_ms(lambda: torch.matmul(xs, next(lib_rot)))
+        rec["library_ms_hot"] = _library_ms(lambda: torch.matmul(xs, lib_copies[0]))
     else:
-        rec["library_ms"] = None
+        rec["library_ms"] = rec["library_ms_hot"] = None
     return ok, rec
 
 
-def k3_phase(cfg, totals_by_r) -> tuple[bool, list[dict]]:
-    """K3 at every weight shape of path A, both weight forms, for each row
-    bucket R and its totals (0, the path's smallest/median/largest, R*F)."""
+# K3 off the 8B path's shapes, held but not timed, for int8 and bf16
+# weights: (name, M, K, N, totals). TINY's widths (d_model 256, q/kv/ff
+# widths 256/128/512) at R = 4; N not a whole 128-column tile; K not a whole
+# 64-deep ring stage; M > 192 (R = 16), two passes over the weights.
+K3_EDGE_CASES = [
+    ("TINY wq", 96, 256, 256, (0, 1, 64, 65, 96)),
+    ("TINY wk", 96, 256, 128, (0, 1, 64, 65, 96)),
+    ("TINY w_gate", 96, 256, 512, (0, 1, 64, 65, 96)),
+    ("N not whole column tiles", 192, 4096, 208, (0, 1, 64, 65, 192)),
+    ("K not whole ring stages", 192, 1000, 256, (0, 1, 64, 65, 192)),
+    ("R=16, M > 192", 384, 4096, 1024, (0, 1, 64, 65, 193, 384)),
+]
+
+
+def k3_phase(cfg, totals_by_r, edge_cases=K3_EDGE_CASES) -> tuple[bool, list[dict]]:
+    """K3 held at `edge_cases`, then at every weight shape of path A, both
+    weight forms, for each row bucket R and its totals (0, the path's
+    smallest/median/largest, R*F), timed there cold and hot."""
     import torch
+
+    from k8s_llm_scheduler_tpu_torch.ops import ragged_matmul as rm
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(3)
+    if hasattr(rm, "SMEM_BYTES"):
+        print(f"K3 dynamic shared memory: {rm.SMEM_BYTES} bytes a block", flush=True)
     recs = []
-    for R, seen in sorted(totals_by_r.items()):
-        if seen:
-            picks = {0, min(seen), int(statistics.median_low(seen)), max(seen), R * BLOCK_F}
-        else:
-            picks = {0, R * BLOCK_F}
-        for name, K, N in k3_weights(cfg):
-            for int8 in (True, False):
+    for name, M, K, N, totals in edge_cases:
+        for int8 in (True, False):
+            w = _k3_weight(gen, K, N, int8)
+            for total in totals:
+                ok, rec, _, _ = _k3_check(gen, w, M, total)
+                rec.update(step="edge", weight=name, int8=int8,
+                           shape=f"x[{M},{K}] @ {'int8' if int8 else 'bf16'} "
+                                 f"w[{K},{N}] total={total}")
+                recs.append(rec)
+                _print_k3(rec)
+    for name, K, N in k3_weights(cfg) if totals_by_r else ():
+        for int8 in (True, False):
+            w = _k3_weight(gen, K, N, int8)
+            copies = _k3_copies(w, K * N * (1 if int8 else 2))
+            w_lib = (w["q"].float() * w["scale"]).to(torch.bfloat16) if int8 else w
+            lib_copies = _k3_copies(w_lib, K * N * 2)
+            for R, seen in sorted(totals_by_r.items()):
+                med = int(statistics.median_low(seen)) if seen else None
+                picks = {0, R * BLOCK_F} | ({min(seen), med, max(seen)} if seen else set())
                 for total in sorted(picks):
-                    ok, rec = _k3_case(gen, name, K, N, R, total, int8)
-                    rec["median_total"] = bool(seen) and total == int(statistics.median_low(seen))
+                    ok, rec = _k3_case(gen, name, copies, lib_copies, R, total, int8)
+                    rec["median_total"] = total == med
                     recs.append(rec)
-                    print(f"K3 {rec['shape']}: ok={ok} err={rec['max_abs_err']:.3g} "
-                          f"err_rms={rec['err_rms']:.3g} (rms {rec['ref_rms']:.3g}) "
-                          f"zero_tail={rec['zero_tail_exact']} "
-                          f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-                          f"bound_ms={rec['bound_ms']:.4f} library_ms={rec['library_ms']}",
-                          flush=True)
+                    _print_k3(rec)
+            del copies, lib_copies
             torch.cuda.empty_cache()
     return all(r["ok"] for r in recs), recs
+
+
+def _print_k3(rec):
+    line = (f"K3 {rec['step']} {rec['shape']}: ok={rec['ok']} "
+            f"err={rec['max_abs_err']:.3g} err_rms={rec['err_rms']:.3g} "
+            f"(rms {rec['ref_rms']:.3g}) zero_tail={rec['zero_tail_exact']}")
+    if "splits" in rec:
+        line += f" splits={rec['splits']}"
+    if "ms" in rec:
+        line += (f" ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+                 f"bound_ms={rec['bound_ms']:.4f} library_ms={rec['library_ms']} "
+                 f"(hot L2: ms={rec['ms_hot']:.4f} "
+                 f"library_ms={rec['library_ms_hot']})")
+    print(line, flush=True)
 
 
 # ------------------------------------------------------------- K4 phase
@@ -1173,8 +1264,8 @@ def main() -> int:
     # K3 headline: int8 w_gate at R=8 and the batch's median total; K4:
     # partials at the step shape after one chunk
     k3_main = next((r for r in k3 if r["int8"] and r["weight"] == "w_gate"
-                    and r["step"] == "R=8" and r["median_total"]),
-                   max(k3, key=lambda r: r["flops"]))
+                    and r["step"] == "R=8" and r.get("median_total")),
+                   max((r for r in k3 if "ms" in r), key=lambda r: r["flops"]))
     k1_main = widest_suffix_prefill(k1)
     k4_main = next(r for r in k4 if r["mode"] == "parts"
                    and r["step"] == "step after one chunk")
@@ -1193,7 +1284,8 @@ def main() -> int:
             entry("ragged_matmul", k3,
                   "k8s_llm_scheduler_tpu_torch/csrc/ragged_matmul.cu",
                   "k8s_llm_scheduler_tpu/ops/ragged_matmul.py:108",
-                  path_a["launches"]["K3"], k3_main),
+                  path_a["launches"]["K3"], k3_main, ms_hot=k3_main["ms_hot"],
+                  library_ms_hot=k3_main["library_ms_hot"], cold_l2=True),
             entry("paged_decode_attention", k4,
                   "k8s_llm_scheduler_tpu_torch/csrc/paged_attention.cu",
                   "k8s_llm_scheduler_tpu/ops/pallas_paged_attention.py:276",

@@ -18,6 +18,14 @@ result, and the output takes x's dtype.
 plain version; on a CUDA tensor it launches the kernel
 (csrc/ragged_matmul.cu) or raises. `total` is never read on the host. Every
 launch adds one to `ragged_matmul.launches`.
+
+The kernel is a Hopper weight stream (TMA ring, swap-AB wgmma). What it does
+beyond the product has plain twins here, which the CPU tests hold against
+`ragged_matmul_plain` and the JAX package's Pallas kernel: the order in which
+an int8 weight's columns land in the accumulator (`fragment_columns`), the
+split of K over blocks (`k_splits`, `split_parts_plain`) and the fixed-order
+sum of the splits with the epilogue that undoes the column order
+(`combine_parts_plain`).
 """
 
 from __future__ import annotations
@@ -30,7 +38,20 @@ import torch
 from k8s_llm_scheduler_tpu_torch.ops import kernels
 
 BM = 64  # rows per M-tile: work is done for whole tiles up to `total`
-_BN, _BK = 128, 64  # the kernel's column tile and K step
+# K3's tiling (csrc/ragged_matmul.cu kBN, kBK, kRowTile, kMaxRows,
+# kMaxSplits, kRingBytes, kSmemBytes): weight columns per block, K per ring
+# stage (the unit of a K split), rows per x tile and per pass over the
+# weights, the most K splits of one column tile, the bytes of the block's
+# ring of stages (at most MAX_STAGES) and its dynamic shared memory (the ring
+# aligned to 1 KB, and a full and an empty barrier per stage). The wrapper
+# checks them against the built kernel's before its first launch.
+COLS_PER_BLOCK = 128
+K_STEP = 64
+MAX_ROWS = 192
+MAX_SPLITS = 16
+RING_BYTES = 224 * 1024
+MAX_STAGES = 16
+SMEM_BYTES = RING_BYTES + 1024 + 2 * MAX_STAGES * 8
 
 
 def _pair(w):
@@ -62,15 +83,87 @@ def _entry():
     return fn
 
 
+@functools.cache
+def _check_tiling() -> None:
+    """Raises unless the built K3 tiles as the constants above say, which
+    the split plan and the twins assume."""
+    fn = kernels.library("ragged_matmul").k8s_ragged_tiling
+    fn.restype = None
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 7
+    got = [ctypes.c_int() for _ in range(7)]
+    fn(*map(ctypes.byref, got))
+    want = (COLS_PER_BLOCK, K_STEP, BM, MAX_ROWS, MAX_SPLITS, RING_BYTES, SMEM_BYTES)
+    if tuple(v.value for v in got) != want:
+        raise RuntimeError(
+            f"ragged_matmul: the kernel tiles {[v.value for v in got]}, the split "
+            f"plan (columns, K step, row tile, rows per pass, splits, ring and "
+            f"shared-memory bytes) {list(want)}"
+        )
+
+
 def k_splits(N: int, K: int, sm_count: int) -> tuple[int, int]:
-    """(splits, k_per_split) of K over blocks: a weight with fewer 128-column
+    """(splits, k_per_split) of K over blocks: a weight with fewer column
     tiles than the card has SMs splits K so that the blocks fill the SMs
-    once; k_per_split is a whole number of the kernel's K steps."""
-    n_tiles = -(-N // _BN)
-    k_steps = max(1, -(-K // _BK))
-    splits = 1 if n_tiles >= sm_count else min(k_steps, sm_count // n_tiles)
+    once, in at most MAX_SPLITS splits; k_per_split is a whole number of the
+    kernel's K steps, and no split starts past K."""
+    n_tiles = -(-N // COLS_PER_BLOCK)
+    k_steps = max(1, -(-K // K_STEP))
+    splits = 1 if n_tiles >= sm_count else min(k_steps, sm_count // n_tiles, MAX_SPLITS)
     per = -(-k_steps // splits)
-    return -(-k_steps // per), per * _BK
+    return -(-k_steps // per), per * K_STEP
+
+
+def fragment_columns(N: int) -> torch.Tensor:
+    """The weight column behind each accumulator row of the kernel for an
+    int8 weight: `ldmatrix.trans` hands each lane two neighbouring columns,
+    so in every 16 the rows hold columns 0, 2, .., 14, then 1, 3, .., 15.
+    (A bf16 weight's rows hold the columns in order.)"""
+    i = torch.arange(N)
+    r = i % 16
+    return i - r + 2 * (r % 8) + r // 8
+
+
+def split_parts_plain(x, w, total, splits: int, k_per_split: int) -> torch.Tensor:
+    """Twin of the kernel's main loop: for each K split, the f32 product of
+    its K range in swapped form, w^T x^T, with an int8 weight's columns in
+    `fragment_columns` order; [splits, N, M], computed rows only (the rest
+    zero), unscaled."""
+    mat, scale = _pair(w)
+    M, K = x.shape
+    N = mat.shape[1]
+    cols = fragment_columns(N).to(x.device) if scale is not None else torch.arange(N)
+    compute = torch.bfloat16 if scale is not None else mat.dtype
+    wt = mat.to(compute).float().t()[cols]  # [N, K], accumulator row order
+    xt = x.to(compute).float().t()  # [K, M]
+    rows = torch.arange(M, device=x.device) < _active_rows(total, M)
+    parts = []
+    for s in range(splits):
+        k0, k1 = s * k_per_split, min(K, (s + 1) * k_per_split)
+        parts.append(torch.where(rows[None, :], wt[:, k0:k1] @ xt[k0:k1], 0.0))
+    return torch.stack(parts)
+
+
+def combine_parts_plain(parts: torch.Tensor, w, total) -> torch.Tensor:
+    """Twin of the split sum and the epilogue: the splits' partials summed in
+    split order, the scale of each accumulator row's own column applied,
+    the column order undone, rounded once to bf16; rows from
+    ceil(total/64)*64 on exactly zero. Returns [M, N]."""
+    _, scale = _pair(w)
+    N, M = parts.shape[1:]
+    acc = parts[0].clone()
+    for p in parts[1:]:
+        acc = acc + p
+    if scale is not None:
+        cols = fragment_columns(N).to(parts.device)
+        acc = acc * scale.reshape(-1)[cols][:, None]
+        acc = torch.empty_like(acc).index_copy_(0, cols, acc)  # undo the order
+    rows = torch.arange(M, device=parts.device) < _active_rows(total, M)
+    return torch.where(rows[:, None], acc.t(), 0.0).to(torch.bfloat16)
+
+
+def _active_rows(total, M: int):
+    """The rows the kernel computes: whole 64-row tiles up to `total`."""
+    return (torch.clamp(total, 0, M) + BM - 1) // BM * BM
 
 
 def _check_cuda(x, mat, scale, total):
@@ -110,6 +203,7 @@ def ragged_matmul(x: torch.Tensor, w, total: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"ragged_matmul: no kernel for {x.device}")
     mat, scale = _pair(w)
     _check_cuda(x, mat, scale, total)
+    _check_tiling()
     M, K = x.shape
     N = mat.shape[1]
     splits, k_per_split = k_splits(N, K, kernels.sm_count(x.device))
@@ -124,6 +218,10 @@ def ragged_matmul(x: torch.Tensor, w, total: torch.Tensor) -> torch.Tensor:
             M, N, K, splits, k_per_split, int(scale is not None),
             kernels.stream(x.device),
         )
+    if rc == -2:
+        raise RuntimeError("ragged_matmul: the TMA tensor maps cannot be encoded")
+    if rc == -3:
+        raise RuntimeError("ragged_matmul: the split plan is not whole K steps within MAX_SPLITS")
     if rc != 0:
         raise RuntimeError(f"ragged_matmul: kernel launch failed with CUDA error {rc}")
     ragged_matmul.launches += 1

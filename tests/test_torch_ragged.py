@@ -41,9 +41,18 @@ from k8s_llm_scheduler_tpu_torch.models import quant as tquant
 from k8s_llm_scheduler_tpu_torch.models.convert import params_from_jax
 from k8s_llm_scheduler_tpu_torch.ops.ragged_matmul import (
     BM,
+    COLS_PER_BLOCK,
+    K_STEP,
+    MAX_ROWS,
+    MAX_SPLITS,
+    MAX_STAGES,
+    RING_BYTES,
+    combine_parts_plain,
+    fragment_columns,
     k_splits,
     ragged_matmul,
     ragged_matmul_plain,
+    split_parts_plain,
 )
 
 F32 = dict(rtol=1e-4, atol=1e-4)
@@ -184,21 +193,157 @@ class TestRaggedMatmul:
         with pytest.raises(ValueError, match="no kernel"):
             ragged_matmul(x.to("meta"), w.to("meta"), torch.empty((), device="meta"))
 
+
+# Llama-3.1-8B's seven block-decode weights (K, N) on a 132-SM H100.
+WEIGHTS_8B = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024),
+              "wo": (4096, 4096), "w_gate": (4096, 14336), "w_up": (4096, 14336),
+              "w_down": (14336, 4096)}
+H100_SMS = 132
+# HBM's bandwidth times its latency (3.35 TB/s x ~1 us): the weight bytes a
+# call must keep in flight over the card to stream at full rate.
+HBM_IN_FLIGHT_BYTES = 3_350_000
+
+
+def plan(N, K, int8, rows, sm_count):
+    """The grid of a K3 call, the weight bytes it keeps in flight and the
+    split workspace it writes and reads back. A working block streams its
+    [k_per_split, COLS_PER_BLOCK] slice of the weight through its ring
+    (stages of a weight tile [K_STEP, COLS_PER_BLOCK] and the rows' x tile,
+    as many as RING_BYTES hold), so it has the smaller of the two in
+    flight; a split writes f32 partials of the `rows` active rows."""
+    splits, per = k_splits(N, K, sm_count)
+    elem = 1 if int8 else 2
+    stage = K_STEP * COLS_PER_BLOCK * elem + min(rows, MAX_ROWS) * K_STEP * 2
+    ring = min(MAX_STAGES, RING_BYTES // stage) * K_STEP * COLS_PER_BLOCK * elem
+    blocks = -(-N // COLS_PER_BLOCK) * splits
+    return {"blocks": blocks,
+            "in_flight_bytes": blocks * min(min(per, K) * COLS_PER_BLOCK * elem, ring),
+            "workspace_bytes": splits * rows * N * 4 if splits > 1 else 0}
+
+
+class TestSplitPlan:
+    @pytest.mark.parametrize("rows", [64, 192])
+    @pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
+    @pytest.mark.parametrize("name", list(WEIGHTS_8B))
+    def test_k_split_fills_the_sms_once(self, name, int8, rows):
+        """Every 8B shape gets at least 128 of 132 SMs working (each block
+        streams ~20 GB/s, so the time follows the working SMs), or, where N
+        has 112 column tiles and no split (w_gate, w_up), keeps more than
+        HBM's bandwidth-latency product of weight bytes in flight. The
+        workspace of a split holds the active rows only: at most the
+        weight's bytes per 64-row tile, and half the 50 MB L2 it stays in."""
+        K, N = WEIGHTS_8B[name]
+        got = plan(N, K, int8, rows, H100_SMS)
+        assert got["blocks"] <= H100_SMS
+        assert got["blocks"] >= 128 or got["in_flight_bytes"] >= HBM_IN_FLIGHT_BYTES
+        assert got["workspace_bytes"] <= K * N * (1 if int8 else 2) * rows // BM
+        assert got["workspace_bytes"] <= 25_000_000
+
     @pytest.mark.parametrize(
-        "n,k,want", [(14336, 4096, (1, 4096)), (4096, 4096, (4, 1024)),
-                     (1024, 4096, (16, 256)), (4096, 14336, (4, 3584))],
+        "n,k", [(14336, 4096), (4096, 4096), (1024, 4096), (4096, 14336),
+                (128, 256), (256, 256), (512, 256), (208, 4096), (256, 1000),
+                (64, 64), (16, 8)],
     )
-    def test_k_split_fills_the_sms_once(self, n, k, want):
-        """The split the kernel gets for the 8B weights on a 132-SM card."""
-        assert k_splits(n, k, 132) == want
+    def test_splits_are_whole_k_steps_within_k(self, n, k):
+        """Splits are whole K steps, at most MAX_SPLITS, none starts past K,
+        and a call never asks for more blocks than a card has SMs unless
+        its column tiles alone do."""
+        splits, per = k_splits(n, k, H100_SMS)
+        assert 1 <= splits <= MAX_SPLITS and per % K_STEP == 0
+        assert (splits - 1) * per < max(k, 1) <= splits * per
+        tiles = -(-n // COLS_PER_BLOCK)
+        assert tiles * splits <= max(H100_SMS, tiles)
+
+
+class TestKernelTransforms:
+    """Plain twins of what the kernel does beyond the product: the column
+    order of an int8 weight's A fragments and its inverse in the epilogue,
+    the exact int8 -> bf16 convert, and the K split with its fixed-order
+    sum, held against ragged_matmul_plain and the Pallas kernel."""
+
+    @staticmethod
+    def _fragments(tile):
+        """What `ldmatrix.trans` over an int8 [16 k, 16 n] tile viewed as b16
+        pairs, then the byte split, hands wgmma: A [16 rows, 16 k], row gq
+        from lane (gq, tq)'s even column and row gq + 8 from its odd one."""
+        a = np.zeros((16, 16), np.int32)
+        for lane in range(32):
+            gq, tq = lane // 4, lane % 4
+            for half in range(2):  # k rows 0-7, then 8-15 (a0/a1, a2/a3)
+                k0 = 8 * half + 2 * tq
+                b = [tile[k0, 2 * gq], tile[k0, 2 * gq + 1],
+                     tile[k0 + 1, 2 * gq], tile[k0 + 1, 2 * gq + 1]]
+                a[gq, k0:k0 + 2] = (b[0], b[2])  # even pair: row gq
+                a[gq + 8, k0:k0 + 2] = (b[1], b[3])  # odd pair: row gq + 8
+        return a
+
+    def test_fragment_rows_hold_fragment_columns(self):
+        rng = np.random.default_rng(0)
+        tile = rng.integers(-127, 128, size=(16, 16))
+        a = self._fragments(tile)
+        cols = fragment_columns(16).numpy()
+        np.testing.assert_array_equal(a, tile[:, cols].T)
+
+    def test_epilogue_undoes_the_column_order(self):
+        """The kernel writes accumulator row 16w + gq + 8h of a 64-column
+        slice to column 16w + 2gq + h: the inverse of fragment_columns."""
+        cols = fragment_columns(256).numpy()
+        assert sorted(cols) == list(range(256))
+        for slice0 in (0, 64, 128, 192):
+            for w in range(4):
+                for gq in range(8):
+                    for h in range(2):
+                        row = slice0 + 16 * w + gq + 8 * h
+                        assert cols[row] == slice0 + 16 * w + 2 * gq + h
+
+    def test_int8_convert_is_exact(self):
+        """f32 bits 0x4B000000 | (q + 128), less 2^23 + 128, is q for every
+        int8 q; then bf16 holds it exactly."""
+        q = np.arange(-128, 128, dtype=np.int32)
+        bits = (0x4B000000 | ((q + 128) & 0xFF)).astype(np.uint32)
+        f = bits.view(np.float32) - np.float32(8388736.0)
+        np.testing.assert_array_equal(f, q.astype(np.float32))
+        back = torch.from_numpy(f).bfloat16().float().numpy()
+        np.testing.assert_array_equal(back, f)
+
+    @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+    @pytest.mark.parametrize("total", [0, 1, 64, 65, 150])
+    def test_split_twin_matches_plain_and_pallas(self, int8, total):
+        """The twin at the kernel's plan (K split over blocks, partials
+        summed in split order, column order undone) against the plain
+        version and the Pallas kernel in interpret mode: one bf16 rounding
+        apart; rows past the computed tiles exactly zero."""
+        M, K, N = 150, 1000, 208
+        rng = np.random.default_rng(4)
+        xj = jnp.asarray(rng.standard_normal((M, K)), jnp.bfloat16)
+        if int8:
+            wj = {"q": jnp.asarray(rng.integers(-127, 128, size=(K, N)), jnp.int8),
+                  "scale": jnp.asarray(rng.uniform(0.001, 0.01, size=(1, N)), jnp.float32)}
+        else:
+            wj = jnp.asarray(rng.standard_normal((K, N)) * 0.03, jnp.bfloat16)
+        xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).bfloat16()
+        wt = _to_torch(wj)
+        t = torch.tensor(total, dtype=torch.int32)
+        splits, per = k_splits(N, K, H100_SMS)
+        assert splits > 1
+        got = combine_parts_plain(split_parts_plain(xt, wt, t, splits, per), wt, t)
+        want = ragged_matmul_plain(xt, wt, t)
+        pallas = _np(jax_ragged(xj, wj, jnp.int32(total), bm=BM, interpret=True))
+        end = min(-(-total // BM) * BM, M)
+        np.testing.assert_allclose(_tnp(got)[:end], _tnp(want)[:end], rtol=1e-2, atol=1e-2)
+        np.testing.assert_allclose(_tnp(got)[:end], pallas[:end], rtol=1e-2, atol=1e-2)
+        assert (_tnp(got)[end:] == 0).all()
 
 
 class TestSmokeComparison:
     """chip_smoke.py holds K3 against its plain version by the largest error
     and the error's RMS relative to the reference's RMS, and the zero rows
-    exactly. On the CPU the same comparison must pass an exact copy and
-    outputs one bf16 ulp off in places, and refuse a dropped K step, a missing scale, a
-    zero tail one tile short and one row of garbage."""
+    exactly. On the CPU the same comparison must pass an exact copy,
+    outputs one bf16 ulp off in places and the kernel's own transforms done
+    right (the split twin), and refuse a dropped K step, a missing scale, a
+    zero tail one tile short, one row of garbage, and the kernel's
+    transforms done wrong: the column order not undone, each column scaled
+    by its fragment row's neighbour, one K split dropped."""
 
     @staticmethod
     def _smoke():
@@ -212,7 +357,9 @@ class TestSmokeComparison:
         return mod
 
     @pytest.mark.parametrize("mutation", [
-        "none", "ulp_in_places", "k_step_dropped", "scale_missing", "tail_short", "garbage_row",
+        "none", "ulp_in_places", "split_twin", "k_step_dropped", "scale_missing",
+        "tail_short", "garbage_row", "order_not_undone", "scale_wrong_column",
+        "split_dropped",
     ])
     def test_comparison_refuses_broken_kernels(self, mutation):
         cs = self._smoke()
@@ -224,6 +371,18 @@ class TestSmokeComparison:
         want = ragged_matmul_plain(x, w, t)
         cut = {"q": w["q"].clone(), "scale": w["scale"]}
         cut["q"][:32] = 0  # one 32-wide K step missing
+        splits, per = k_splits(N, K, 132)
+        parts = split_parts_plain(x, w, t, splits, per)
+        cols = fragment_columns(N)
+        rows = torch.arange(M) < 128  # the computed tiles at total 70
+
+        def epilogue(acc, scale_rows, undo=True):
+            acc = acc * scale_rows[:, None]
+            if undo:
+                acc = torch.empty_like(acc).index_copy_(0, cols, acc)
+            return torch.where(rows[:, None], acc.t(), 0.0).bfloat16()
+
+        scale = w["scale"].reshape(-1)
         got = {
             "none": lambda: want,
             "ulp_in_places": lambda: torch.where(  # every 16th element rounds up
@@ -234,9 +393,13 @@ class TestSmokeComparison:
             "scale_missing": lambda: ragged_matmul_plain(x, w["q"].bfloat16(), t),
             "tail_short": lambda: ragged_matmul_plain(x, w, t + 64),
             "garbage_row": lambda: torch.cat([want[:5], want[5:6] * 3, want[6:]]),
+            "split_twin": lambda: combine_parts_plain(parts, w, t),
+            "order_not_undone": lambda: epilogue(parts.sum(0), scale[cols], undo=False),
+            "scale_wrong_column": lambda: epilogue(parts.sum(0), scale),
+            "split_dropped": lambda: combine_parts_plain(parts[1:], w, t),
         }[mutation]()
         ok, _ = cs._compare_k3(got, want, total)
-        assert ok == (mutation in ("none", "ulp_in_places"))
+        assert ok == (mutation in ("none", "ulp_in_places", "split_twin"))
 
 
 def _ragged_case(dtype, seed=0):

@@ -1,10 +1,12 @@
 """Where the time of one scheduling decision goes in the PyTorch port, on a GPU.
 
     python3 tools/torch_decision_profile.py [--model llama-3.1-8b-instruct]
-        [--nodes 32] [--out FILE.json]
+        [--path bf16|a] [--nodes 32] [--out FILE.json]
 
-Builds the port's LocalLLMBackend with random weights from a seed, installs
-the cluster's prefix with a first decision (not measured), then measures:
+Builds the port's LocalLLMBackend with random weights from a seed (--path
+a: the same weights quantized to int8 on the card, block-decode matmuls
+through K3, as chip_smoke.py's path A), installs the cluster's prefix with
+a first decision (not measured), then measures:
 
 - each model call of the decision path at the shapes the decision uses,
   alone: one prefix-prefill chunk, the wave's suffix prefill and one
@@ -12,8 +14,9 @@ the cluster's prefix with a first decision (not measured), then measures:
   device time (CUDA events), median of 5;
 - one whole single-pod decision under torch.profiler: device time and
   launches by kernel name (every kernel in --out, the top 20 printed), the
-  device's busy and idle share of the wall time, and the number of kernel
-  launches per block-decode model call.
+  device's busy and idle share of the wall time, the number of kernel
+  launches per block-decode model call, and each hand-written kernel's
+  device time and launches (K1-K4 by their kernels' names).
 
 Prints JSON lines; the last one is the summary. Needs one CUDA device.
 """
@@ -32,11 +35,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import torch  # noqa: E402
 
-from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend  # noqa: E402
+from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine  # noqa: E402
+from k8s_llm_scheduler_tpu_torch.engine.local import (  # noqa: E402
+    LocalLLMBackend,
+    build_local_backend,
+)
+from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer  # noqa: E402
+from k8s_llm_scheduler_tpu_torch.models.configs import get_config  # noqa: E402
 from k8s_llm_scheduler_tpu_torch.models.llama import (  # noqa: E402
     forward_block_decode,
     forward_prefill_suffix_dense,
 )
+from k8s_llm_scheduler_tpu_torch.models.quant import quantize_params  # noqa: E402
 from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes  # noqa: E402
 
 
@@ -95,9 +105,40 @@ def model_calls(engine, suffix_len: int) -> dict:
     pos = (plen + lens + tail)[:, None] + torch.arange(F, device=dev, dtype=torch.int32)
     out["block_decode"] = _timed(lambda: forward_block_decode(
         params, cfg, blk_tok, blk_valid, blk_len, pos, k_sfx, v_sfx, lens,
-        gk, gv, tail, pfx.k, pfx.v, plen,
+        gk, gv, tail, pfx.k, pfx.v, plen, ragged=engine.decode_matmul == "ragged",
     ))
     return {k: {"host_ms": h, "device_ms": d} for k, (h, d) in out.items()}
+
+
+# The hand-written kernels' names as the profiler sees them (csrc/*.cu, each
+# in an anonymous namespace, which keeps PyTorch's own `reduce_kernel` out);
+# a kernel's split or combine pass counts with it.
+KERNEL_NAMES = {
+    key: tuple(f"(anonymous namespace)::{name}" for name in names)
+    for key, names in {
+        "K1": ("prefix_parts_kernel", "combine_kernel"),
+        "K2": ("causal_parts_kernel",),
+        "K3": ("ragged_kernel", "reduce_kernel"),
+        "K4": ("paged_decode_kernel",),
+    }.items()
+}
+
+
+def build(model: str, path: str, seed: int):
+    """The backend of the decision path: bf16, or (path "a") int8 weights
+    quantized on the card with block-decode matmuls through K3."""
+    backend = build_local_backend(model, device="cuda", seed=seed, request_timeout_s=600.0)
+    if path == "bf16":
+        return backend
+    engine = backend.engine
+    params = quantize_params(engine.params)
+    backend.close()
+    del backend, engine
+    torch.cuda.empty_cache()
+    cfg = get_config(model)
+    engine = InferenceEngine(params, cfg, ByteTokenizer(), temperature=0.0, rng_seed=seed,
+                             decode_matmul="ragged")
+    return LocalLLMBackend(engine, request_timeout_s=600.0)
 
 
 def profile_decision(backend, pod, nodes) -> dict:
@@ -122,6 +163,11 @@ def profile_decision(backend, pod, nodes) -> dict:
         acc[1] += 1
     busy_ms = sum(ms for ms, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    kernels = {}
+    for key, marks in KERNEL_NAMES.items():
+        rows = [v for name, v in by_name.items() if any(m in name for m in marks)]
+        kernels[key] = {"device_ms": sum(ms for ms, _ in rows),
+                        "launches": sum(n for _, n in rows)}
     return {
         "wall_ms": wall_ms,
         "model_calls": calls,
@@ -129,6 +175,7 @@ def profile_decision(backend, pod, nodes) -> dict:
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "kernel_launches": len(gpu_rows),
         "launches_per_model_call": len(gpu_rows) / max(calls, 1),
+        "kernels": kernels,
         "by_kernel": [
             {"name": name[:120], "device_ms": ms, "count": n}
             for name, (ms, n) in ranked
@@ -139,6 +186,8 @@ def profile_decision(backend, pod, nodes) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="llama-3.1-8b-instruct")
+    ap.add_argument("--path", choices=("bf16", "a"), default="bf16",
+                    help="bf16 weights, or path A: int8 weights and K3 in block decode")
     ap.add_argument("--nodes", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out")
@@ -150,15 +199,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    backend = build_local_backend(
-        args.model, device="cuda", seed=args.seed, request_timeout_s=600.0
-    )
+    backend = build(args.model, args.path, args.seed)
     try:
         nodes = synthetic_nodes(args.nodes)
         pods = fixture_pods(2)
         backend.get_scheduling_decision(pods[0], nodes)  # installs the prefix
         suffix_len = len(backend._prepare_item(pods[1], nodes).suffix_ids)
-        rec = {"card": smi, "model": args.model, "nodes": args.nodes,
+        rec = {"card": smi, "model": args.model, "path": args.path, "nodes": args.nodes,
                "prefix_tokens": backend.engine.prefix_len,
                "suffix_tokens": suffix_len}
         rec["model_calls"] = model_calls(backend.engine, suffix_len)
