@@ -18,17 +18,22 @@ Phases, each of which must pass:
    key splits, so the combine kernel is held too; K1 also, untimed, at
    TINY's head dim 64 and g = 2, at 32-64 key splits mostly past
    prefix_len, at a buffer that is not whole key tiles and at an empty
-   prefix: `K1_EDGE_CASES`). Queries are scaled
-   so that attention is peaked; the normalized output o/l must agree
-   within 3e-2 of the reference's RMS, m within 1e-4 (1 + max |m|), l within
-   1e-4 relative, and rows without a valid key must be exactly m = -1e30,
-   l = 0. Times for the kernel, its plain version and one PyTorch library
+   prefix: `K1_EDGE_CASES`; K2, untimed, at TINY, chunks that are not
+   whole tiles, g = 1 and 8, lens 0, 1, > S and < 0: `K2_EDGE_CASES`).
+   Queries are scaled so that attention is peaked; the normalized output
+   o/l must agree within 3e-2 of the reference's RMS, m within 1e-4 (1 +
+   max |m|), l within 1e-4 relative, and rows without a valid key must be
+   exactly m = -1e30, l = 0. Times for the kernel, its plain version and one PyTorch library
    call (scaled_dot_product_attention) on the same inputs are device times:
    back-to-back calls captured in a CUDA graph, replayed between CUDA
    events (`_time_ms`). K1 and its SDPA yardstick are timed with a cold L2
    as the path meets it (the captured calls rotate over >= 4 distinct
    prefix buffers, 134 MB, since each layer reads its own prefix K/V) and
-   again hot (one buffer replayed).
+   again hot (one buffer replayed). K2 is timed hot (its inputs are just
+   written by the layer) and cold (rotating input copies), beside SDPA
+   with its dense mask and, where every len is S, SDPA with
+   is_causal=True on each backend that runs it; its ratio is against the
+   faster yardstick.
 3. Reference: the main path at TINY width on the card (kernels) against the
    same weights on the CPU (plain versions): chunked prefix prefill, then a
    suffix prefill; logits within 5e-2 of the largest logit (bf16).
@@ -116,12 +121,13 @@ TOL_K3_ERR_RMS = 5e-3
 
 def print_ptxas(reports) -> None:
     """The ptxas report of each library built: registers, spills and errors;
-    for the Hopper kernels K1 (prefix_attention) and K3 (ragged_matmul)
-    every line (shared memory, warnings, wgmma serialization notes)."""
+    for the Hopper kernels K1 (prefix_attention), K2 (causal_attention) and
+    K3 (ragged_matmul) every line (shared memory, warnings, wgmma
+    serialization notes)."""
     for name, log in reports.items():
         for line in log.splitlines():
             low = line.lower()
-            full = name in ("prefix_attention", "ragged_matmul") and (
+            full = name in ("prefix_attention", "causal_attention", "ragged_matmul") and (
                 "ptxas" in low or "stack frame" in low)
             if full or "registers" in line or "spill" in line or "error" in low:
                 print(f"  {name}: {line.strip()}", flush=True)
@@ -293,9 +299,9 @@ def _prefix_case(gen, step, B, S, Sp, plen, H=32, n_kv=8, hd=128):
     return ok, rec
 
 
-def _causal_case(gen, step, B, S, lens, H=32, n_kv=8, hd=128):
+def _causal_check(gen, step, B, S, lens, H=32, n_kv=8, hd=128):
+    """K2 against its plain version on random inputs: (ok, rec, inputs)."""
     import torch
-    import torch.nn.functional as F
     from k8s_llm_scheduler_tpu_torch.ops import prefix_attention as pa
 
     dev = "cuda"
@@ -308,17 +314,44 @@ def _causal_case(gen, step, B, S, lens, H=32, n_kv=8, hd=128):
     torch.cuda.synchronize()
     valid = (lens_d > 0)[:, None, None, None].expand(want[1].shape)
     ok, rec = _compare(got, want, valid)
-    pairs = sum(sum(min(n, s + 1) for s in range(S)) for n in lens)
+    rec.update(step=step, shape=f"q[{B},{S},{H},{hd}] n_kv={n_kv} lens={list(lens)}")
+    return ok, rec, (q, k, v, lens_d)
+
+
+def _causal_case(gen, step, B, S, lens, H=32, n_kv=8, hd=128):
+    """K2 held against its plain version, then timed hot (as the path meets
+    its inputs, just written by the layer) and cold (the captured calls
+    rotate over >= COLD_BYTES of input copies) beside its plain version and
+    two SDPA yardsticks: with the dense causal-and-length mask (every
+    shape), and with is_causal=True on each backend that takes it (where
+    every len is S, the same function)."""
+    import torch
+    import torch.nn.functional as F
+    from k8s_llm_scheduler_tpu_torch.ops import prefix_attention as pa
+
+    ok, rec, (q, k, v, lens_d) = _causal_check(gen, step, B, S, lens, H, n_kv, hd)
+    pairs = sum(sum(min(max(n, 0), s + 1) for s in range(S)) for n in lens)
     flops = 4.0 * pairs * H * hd
-    nbytes = (B * S * H * hd * 2 + 2 * sum(lens) * n_kv * hd * 2 + 4 * B
-              + B * H * S * hd * 4 + 2 * B * H * S * 4)
+    nbytes = (B * S * H * hd * 2 + 2 * sum(min(max(n, 0), S) for n in lens) * n_kv * hd * 2
+              + 4 * B + B * H * S * hd * 4 + 2 * B * H * S * 4)
+    n_buf = max(4, -(-COLD_BYTES // (q.nbytes + k.nbytes + v.nbytes)))
+    copies = itertools.cycle([(q, k, v)] + [
+        tuple((t.float() + torch.randn(t.shape, generator=gen, device=t.device)
+               ).to(torch.bfloat16) for t in (q, k, v))
+        for _ in range(n_buf - 1)
+    ])
+
+    def kernel_cold():
+        pa.flash_causal_attention_parts(*next(copies), lens_d)
+
     rec.update(
-        step=step,
-        shape=f"q[{B},{S},{H},{hd}] lens={list(lens)}",
         ms=_time_ms(lambda: pa.flash_causal_attention_parts(q, k, v, lens_d), 20),
+        ms_cold=_time_ms(kernel_cold, 20),
         plain_ms=_time_ms(lambda: pa.causal_attention_parts_plain(q, k, v, lens_d), 5),
+        cold_buffers=n_buf,
         **_bound(flops, nbytes),
     )
+    dev = q.device
     pos = torch.arange(S, device=dev)
     mask = (pos[:, None] >= pos[None, :])[None] & (pos[None, :] < lens_d[:, None])[:, None]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -327,7 +360,44 @@ def _causal_case(gen, step, B, S, lens, H=32, n_kv=8, hd=128):
             qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True
         )
     )
+    rec["library_causal"] = (
+        _sdpa_causal_ms(qt, kt, vt) if all(n == S for n in lens) else {}
+    )
+    yardsticks = [t for t in (rec["library_ms"], *rec["library_causal"].values())
+                  if t is not None]
+    rec["ratio"] = rec["ms"] / min(yardsticks) if yardsticks else None
     return ok, rec
+
+
+def _sdpa_causal_ms(qt, kt, vt) -> dict:
+    """{backend: ms} of scaled_dot_product_attention(is_causal=True) on each
+    backend that takes these inputs, GQA as it is or, where a backend
+    refuses it, with K/V expanded to every query head beforehand (the copy
+    is not timed)."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = qt.shape[1] // kt.shape[1]
+    expanded = (kt.repeat_interleave(g, dim=1), vt.repeat_interleave(g, dim=1))
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        for name, kv, extra in ((backend.name, (kt, vt), {"enable_gqa": True}),
+                                (f"{backend.name} (K/V expanded)", expanded, {})):
+            def call(kv=kv, extra=extra, backend=backend):
+                with sdpa_kernel(backend):
+                    F.scaled_dot_product_attention(qt, *kv, is_causal=True, **extra)
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    call()
+            except (RuntimeError, TypeError):
+                continue
+            out[name] = _library_ms(call)
+            break
+    return out
 
 
 def _library_ms(fn) -> float | None:
@@ -399,29 +469,41 @@ K1_EDGE_CASES = [
 ]
 
 
-def kernel_phase(k1_cases, k2_cases, k1_edge_cases=K1_EDGE_CASES
+# K2 off the 8B path's shapes, held but not timed: (step, B, S, lens, H,
+# n_kv, hd). TINY's head dim 64 with g = 2 and an empty row at a chunk that
+# is not whole tiles; S 300 with lens ending inside the second and third
+# key tiles and at 1; g = 8 (Llama-3.3-70B's 64/8 heads); g = 1 at hd 64; a
+# length past S beside a negative one.
+K2_EDGE_CASES = [
+    ("TINY", 2, 37, (37, 0), 4, 2, 64),
+    ("S 300", 3, 300, (300, 129, 1), 32, 8, 128),
+    ("g 8", 1, 520, (520,), 64, 8, 128),
+    ("g 1 hd 64", 2, 300, (300, 200), 8, 8, 64),
+    ("len > S, len < 0", 2, 64, (100, -3), 32, 8, 128),
+]
+
+
+def kernel_phase(k1_cases, k2_cases, k1_edge_cases=K1_EDGE_CASES,
+                 k2_edge_cases=K2_EDGE_CASES, timed=True
                  ) -> tuple[bool, list[dict], list[dict]]:
-    """K1 and K2 held against their plain versions and timed at the path's
-    shapes; K1 also held at `k1_edge_cases`."""
+    """K1 and K2 held against their plain versions at the path's shapes and
+    at their edge cases; timed at the path's shapes unless `timed` is
+    False."""
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     k1, k2 = [], []
-    for case in k1_edge_cases:
-        ok, rec, _ = _prefix_check(gen, *case)
+    runs = (
+        [(k1, _prefix_check, c) for c in k1_edge_cases]
+        + [(k1, _prefix_case if timed else _prefix_check, c) for c in k1_cases]
+        + [(k2, _causal_check, c) for c in k2_edge_cases]
+        + [(k2, _causal_case if timed else _causal_check, c) for c in k2_cases]
+    )
+    for recs, run, case in runs:
+        ok, rec = run(gen, *case)[:2]
         rec["ok"] = ok
-        k1.append(rec)
-        torch.cuda.empty_cache()
-    for case in k1_cases:
-        ok, rec = _prefix_case(gen, *case)
-        rec["ok"] = ok
-        k1.append(rec)
-        torch.cuda.empty_cache()
-    for case in k2_cases:
-        ok, rec = _causal_case(gen, *case)
-        rec["ok"] = ok
-        k2.append(rec)
+        recs.append(rec)
         torch.cuda.empty_cache()
     for name, recs in (("K1", k1), ("K2", k2)):
         for rec in recs:
@@ -450,6 +532,9 @@ def _print_attention_case(name, rec):
                  f"bound_ms={rec['bound_ms']:.4f} library_ms={rec['library_ms']}")
     if "ms_hot" in rec:
         line += f" (hot L2: ms={rec['ms_hot']:.4f} library_ms={rec['library_ms_hot']})"
+    if "ms_cold" in rec:
+        line += (f" (cold L2: ms={rec['ms_cold']:.4f}) is_causal SDPA "
+                 f"{rec['library_causal']} ratio={rec['ratio']}")
     print(line, flush=True)
 
 
@@ -1267,6 +1352,7 @@ def main() -> int:
                     and r["step"] == "R=8" and r.get("median_total")),
                    max((r for r in k3 if "ms" in r), key=lambda r: r["flops"]))
     k1_main = widest_suffix_prefill(k1)
+    k2_main = widest_suffix_prefill(k2)
     k4_main = next(r for r in k4 if r["mode"] == "parts"
                    and r["step"] == "step after one chunk")
     line = {
@@ -1280,7 +1366,8 @@ def main() -> int:
             entry("flash_causal_attention_parts", k2,
                   "k8s_llm_scheduler_tpu_torch/csrc/causal_attention.cu",
                   "k8s_llm_scheduler_tpu/ops/pallas_prefix_attention.py:285",
-                  dec["launches"]["K2"], widest_suffix_prefill(k2)),
+                  dec["launches"]["K2"], k2_main, ms_cold=k2_main["ms_cold"],
+                  ratio=k2_main["ratio"]),
             entry("ragged_matmul", k3,
                   "k8s_llm_scheduler_tpu_torch/csrc/ragged_matmul.cu",
                   "k8s_llm_scheduler_tpu/ops/ragged_matmul.py:108",

@@ -14,12 +14,14 @@ fallback. The kernels take bf16 operands (q, k, v), head dims 64 and 128,
 any sequence lengths, and read `prefix_len` / `lens` from device memory.
 Every launch adds one to the wrapper's `launches` count.
 
-K1 is a Hopper kernel (wgmma fed by a TMA ring). Where its query rows are
-too few to fill the card (block decode), `kv_splits` splits the prefix keys
-over blocks from the shapes alone; the splits' f32 partials go to a
-workspace and a second kernel folds them in split order
-(`combine_splits_plain` is its twin). K2 keeps the warp-level body of
-csrc/flash_parts.cuh.
+Both are Hopper kernels on one body (csrc/flash_hopper.cuh: wgmma fed by
+a TMA ring). Where K1's query rows are too few to fill the card (block
+decode), `kv_splits` splits the prefix keys over blocks from the shapes
+alone; the splits' f32 partials go to a workspace and a second kernel folds
+them in split order (`combine_splits_plain` is its twin). K2's blocks each
+take 128 rows of one batch row and kv head, walk only the key tiles below
+their last row's causal limit and launch each batch row's heaviest first
+(`causal_block_plan` is the twin of that plan).
 
 The plain versions round exactly where the kernels do: q is scaled in f32
 and rounded to the operand dtype, scores accumulate in f32, and the
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -40,11 +43,14 @@ from k8s_llm_scheduler_tpu_torch.ops import kernels
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
-# K1's tiling (csrc/prefix_attention.cu kRows, kKeys): query rows of one kv
-# head per block, and keys per tile (the unit of a key split). The wrapper
-# checks them against the built kernel's before its first launch.
+# K1's and K2's tiling (csrc/flash_hopper.cuh kRows, kKeys): query rows of
+# one kv head per block, and keys per tile (the unit of a key split and of
+# K2's causal walk). Each wrapper checks them against its built kernel's
+# before its first launch. A block's rows are two consumer warpgroups of 64
+# (wgmma's M).
 ROWS_PER_BLOCK = 128
 KEYS_PER_TILE = 128
+ROWS_PER_WARPGROUP = 64
 
 
 def _masked_parts(logits, mask, v, pv_eq):
@@ -147,26 +153,28 @@ def _raise_on(rc: int, name: str) -> None:
     if rc == -1:
         raise ValueError(f"{name}: unsupported head dim")
     if rc == -2:
-        raise RuntimeError(f"{name}: the prefix's TMA tensor maps cannot be encoded")
+        raise RuntimeError(f"{name}: the K/V TMA tensor maps cannot be encoded")
     if rc == -3:
         raise RuntimeError(f"{name}: the key-split plan is not whole key tiles")
+    if rc == -4:
+        raise ValueError(f"{name}: more blocks than a 1-D grid holds")
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
 
 @functools.cache
-def _check_tiling() -> None:
-    """Raises unless the built K1 tiles as ROWS_PER_BLOCK and KEYS_PER_TILE
-    say, which the split plan assumes."""
-    fn = kernels.library("prefix_attention").k8s_flash_prefix_tiling
+def _check_tiling(lib: str, symbol: str, name: str) -> None:
+    """Raises unless the kernel of csrc/<lib>.cu tiles as ROWS_PER_BLOCK and
+    KEYS_PER_TILE say, which K1's split plan and K2's block plan assume."""
+    fn = getattr(kernels.library(lib), symbol)
     fn.restype = None
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     rows, keys = ctypes.c_int(), ctypes.c_int()
     fn(ctypes.byref(rows), ctypes.byref(keys))
     if (rows.value, keys.value) != (ROWS_PER_BLOCK, KEYS_PER_TILE):
         raise RuntimeError(
-            f"flash_prefix_attention_parts: the kernel tiles {rows.value} rows x "
-            f"{keys.value} keys, the split plan {ROWS_PER_BLOCK} x {KEYS_PER_TILE}"
+            f"{name}: the kernel tiles {rows.value} rows x {keys.value} keys, "
+            f"the host plans {ROWS_PER_BLOCK} x {KEYS_PER_TILE}"
         )
 
 
@@ -219,6 +227,46 @@ def combine_splits_plain(o, m, l):
     return (o * w[..., None]).sum(dim=0), m_all, (l * w).sum(dim=0)
 
 
+class CausalBlock(NamedTuple):
+    """One block of K2's grid: batch row b, kv head kv, its query rows of
+    that (b, kv) (row r is position r // g, group member r % g), the key
+    tiles it walks ([0, tiles)) and, per consumer warpgroup, the first tile
+    that takes the masked softmax."""
+
+    b: int
+    kv: int
+    rows: range
+    tiles: int
+    first_masked: tuple[int, ...]
+
+
+def causal_block_plan(S: int, g: int, B: int, lens, n_kv: int = 1) -> list[CausalBlock]:
+    """Twin of K2's device arithmetic (csrc/causal_attention.cu), in launch
+    order: block x takes batch row x // (T*n_kv) (T row tiles), within it
+    row tile T - 1 - (x % (T*n_kv)) // n_kv (the heaviest first) and kv
+    head x % n_kv. lens[b] is clamped to [0, S]; a block walks the tiles
+    below its last row's limit min(len, s_last + 1), and a warpgroup masks
+    from the tile that its first (smallest) row's limit ends in."""
+    rows = S * g
+    row_tiles = -(-rows // ROWS_PER_BLOCK)
+    per_b = row_tiles * n_kv
+    plan = []
+    for x in range(B * per_b):
+        b = x // per_b
+        tile = row_tiles - 1 - x % per_b // n_kv
+        kv = x % n_kv
+        n = min(max(int(lens[b]), 0), S)
+        row0 = tile * ROWS_PER_BLOCK
+        last = min(row0 + ROWS_PER_BLOCK, rows) - 1
+        tiles = -(-min(n, last // g + 1) // KEYS_PER_TILE)
+        first_masked = []
+        for first in range(row0, row0 + ROWS_PER_BLOCK, ROWS_PER_WARPGROUP):
+            mask_from = min(n, first // g + 1) if first < rows else n
+            first_masked.append(mask_from // KEYS_PER_TILE)
+        plan.append(CausalBlock(b, kv, range(row0, last + 1), tiles, tuple(first_masked)))
+    return plan
+
+
 def flash_prefix_attention_parts(q, prefix_k, prefix_v, prefix_len):
     """K1. q [B, S, n_heads, hd] post-RoPE and unscaled; prefix_k/v
     [Sp, n_kv, hd]; prefix_len a 0-dim int32 tensor on q's device."""
@@ -233,7 +281,8 @@ def flash_prefix_attention_parts(q, prefix_k, prefix_v, prefix_len):
     if tuple(prefix_v.shape) != tuple(prefix_k.shape) or prefix_k.shape[2] != hd:
         raise ValueError("flash_prefix_attention_parts: prefix k/v shapes differ")
     g = n_heads // n_kv
-    _check_tiling()
+    _check_tiling("prefix_attention", "k8s_flash_prefix_tiling",
+                  "flash_prefix_attention_parts")
     o, m, l = _outputs(B, S, n_kv, g, hd, q.device)
     splits, per = kv_splits(B * S * g, n_kv, Sp, hd, kernels.sm_count(q.device))
     ws = (
@@ -265,6 +314,8 @@ def flash_causal_attention_parts(q, k, v, lens):
     if tuple(k.shape) != (B, S, n_kv, hd) or tuple(v.shape) != tuple(k.shape):
         raise ValueError("flash_causal_attention_parts: k/v must be [B, S, n_kv, hd]")
     g = n_heads // n_kv
+    _check_tiling("causal_attention", "k8s_flash_causal_tiling",
+                  "flash_causal_attention_parts")
     o, m, l = _outputs(B, S, n_kv, g, hd, q.device)
     with torch.cuda.device(q.device):  # launch on q's card
         rc = _entry("causal_attention", "k8s_flash_causal_parts", 7, 5)(

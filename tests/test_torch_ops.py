@@ -26,6 +26,7 @@ from k8s_llm_scheduler_tpu_torch.ops import attention as tA
 from k8s_llm_scheduler_tpu_torch.ops import kernels
 from k8s_llm_scheduler_tpu_torch.ops.prefix_attention import (
     NEG_INF,
+    _masked_parts,
     causal_attention_parts_plain,
     combine_splits_plain,
     flash_causal_attention_parts,
@@ -241,7 +242,10 @@ class TestSmokeComparison:
     the same comparison, on the CPU, must pass an exact copy and refuse
     outputs of a broken kernel: a mask off by one key, a dropped key tile,
     a P.V product 10% off, V rounded to fp8, and of a broken key split: a
-    middle split's keys missing, splits folded without e^(m_s - m)."""
+    middle split's keys missing, splits folded without e^(m_s - m). For K2,
+    outputs of a broken causal walk: the diagonal one key off, every row of
+    a 128-row block given the block's last row's limit, each row's last
+    partial key tile dropped, batch row b given lens[b - 1]."""
 
     @staticmethod
     def _smoke():
@@ -293,6 +297,50 @@ class TestSmokeComparison:
             "split_not_rescaled": lambda: self._split_not_rescaled(q, k, v, plen),
         }[mutation]()
         ok, _ = cs._compare(got, want, torch.ones(want[1].shape, dtype=torch.bool))
+        assert ok == (mutation == "none")
+
+    @staticmethod
+    def _causal_with_limits(q, k, v, limit):
+        """K2's plain arithmetic with an explicit key limit per query row
+        (limit [B, g, S]: row s of group member gi sees keys j < limit)."""
+        B, S, H, hd = q.shape
+        n_kv = k.shape[2]
+        g = H // n_kv
+        qs = (q.float() * hd**-0.5).to(k.dtype).float().reshape(B, S, n_kv, g, hd)
+        logits = torch.einsum("bqkgh,bskh->bkgqs", qs, k.float())
+        mask = torch.arange(S)[None, None, None, None, :] < limit[:, None, :, :, None]
+        return _masked_parts(logits, mask, v, "bkgqs,bskh->bkgqh")
+
+    @pytest.mark.parametrize(
+        "mutation",
+        ["none", "diagonal_plus_one", "block_last_limit", "last_partial_tile_dropped",
+         "previous_batch_len"],
+    )
+    def test_comparison_refuses_broken_causal_kernels(self, mutation):
+        cs = self._smoke()
+        gen = torch.Generator().manual_seed(1)
+        B, S, H, NKV, HD = 2, 300, 8, 2, 128
+        lens = torch.tensor([300, 130], dtype=torch.int32)
+        G = H // NKV
+        q = (cs.Q_SCALE * torch.randn((B, S, H, HD), generator=gen)).bfloat16()
+        k = torch.randn((B, S, NKV, HD), generator=gen).bfloat16()
+        v = torch.randn((B, S, NKV, HD), generator=gen).bfloat16()
+        want = causal_attention_parts_plain(q, k, v, lens)
+        row = torch.arange(S)[None, :] * G + torch.arange(G)[:, None]  # [g, S]
+        s_pos = row // G
+        block_last = torch.clamp((row // 128) * 128 + 127, max=S * G - 1) // G
+        n = lens[:, None, None]
+        limit = {
+            "none": torch.minimum(n, s_pos + 1),
+            "diagonal_plus_one": torch.minimum(n, s_pos + 2),
+            "block_last_limit": torch.minimum(n, block_last + 1),
+            "last_partial_tile_dropped": torch.minimum(n, s_pos + 1) // 128 * 128,
+            "previous_batch_len": torch.minimum(torch.roll(lens, 1)[:, None, None],
+                                                s_pos + 1),
+        }[mutation]
+        got = self._causal_with_limits(q, k, v, limit)
+        valid = (lens > 0)[:, None, None, None].expand(want[1].shape)
+        ok, _ = cs._compare(got, want, valid)
         assert ok == (mutation == "none")
 
 

@@ -1,7 +1,8 @@
 """Where the time of one scheduling decision goes in the PyTorch port, on a GPU.
 
     python3 tools/torch_decision_profile.py [--model llama-3.1-8b-instruct]
-        [--path bf16|a] [--nodes 32] [--out FILE.json]
+        [--path bf16|a] [--nodes 32] [--repeat N] [--package-root DIR]
+        [--out FILE.json]
 
 Builds the port's LocalLLMBackend with random weights from a seed (--path
 a: the same weights quantized to int8 on the card, block-decode matmuls
@@ -12,6 +13,9 @@ a first decision (not measured), then measures:
   alone: one prefix-prefill chunk, the wave's suffix prefill and one
   block-decode iteration, as host wall time (ending in a synchronize) and
   device time (CUDA events), median of 5;
+- `--repeat` single-pod decisions without the profiler, as host wall time
+  (the end-to-end latency, for a parent/change A/B: --package-root measures
+  the port package of another checkout);
 - one whole single-pod decision under torch.profiler: device time and
   launches by kernel name (every kernel in --out, the top 20 printed), the
   device's busy and idle share of the wall time, the number of kernel
@@ -31,7 +35,15 @@ import sys
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+def _package_root() -> str:
+    """--package-root, read before the port is imported."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--package-root", default=str(Path(__file__).resolve().parent.parent))
+    return str(Path(pre.parse_known_args()[0].package_root).resolve())
+
+
+sys.path.insert(0, _package_root())
 
 import torch  # noqa: E402
 
@@ -190,6 +202,10 @@ def main() -> int:
                     help="bf16 weights, or path A: int8 weights and K3 in block decode")
     ap.add_argument("--nodes", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--repeat", type=int, default=0,
+                    help="single decisions timed without the profiler first")
+    ap.add_argument("--package-root", default=_package_root(),
+                    help="the checkout whose k8s_llm_scheduler_tpu_torch to measure")
     ap.add_argument("--out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -206,10 +222,19 @@ def main() -> int:
         backend.get_scheduling_decision(pods[0], nodes)  # installs the prefix
         suffix_len = len(backend._prepare_item(pods[1], nodes).suffix_ids)
         rec = {"card": smi, "model": args.model, "path": args.path, "nodes": args.nodes,
+               "package": str(Path(sys.modules[InferenceEngine.__module__].__file__)
+                              .resolve().parents[1]),
                "prefix_tokens": backend.engine.prefix_len,
                "suffix_tokens": suffix_len}
         rec["model_calls"] = model_calls(backend.engine, suffix_len)
         print(json.dumps(rec["model_calls"]), flush=True)
+        walls = []
+        for _ in range(args.repeat):
+            t0 = time.perf_counter()
+            backend.get_scheduling_decision(pods[1], nodes)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1000.0)
+        rec["decision_wall_ms"] = walls
         rec["decision"] = profile_decision(backend, pods[1], nodes)
     finally:
         backend.close()
