@@ -69,11 +69,21 @@ Phases, each of which must pass:
    Library yardstick, cold and hot: torch.matmul of the computed rows
    against a bf16 weight (for int8 a dequantized copy made beforehand, so
    it reads twice the weight bytes).
-8. K4 at the shapes of path B's step, taken from its engine (its page
-   geometry, its page tables padded with the trash row, its own-token
-   lengths with the trash row's negative one), both modes, held like K1/K2
-   (empty rows exactly m = -1e30, l = 0, o = 0). Library yardstick: SDPA on
-   KV gathered beforehand (the gather is not timed).
+8. K4, untimed, at `K4_EDGE_CASES` (head dims 64 and 128; g 1, 2, 3, 4
+   and 8; pages of 16 to 256 tokens; lens 0, 1, ps - 1, ps, ps + 1, P*ps,
+   past P*ps and negative; scattered, descending and repeated page ids;
+   one split, more splits planned than pages, and 40 splits), both modes;
+   then at the shapes
+   of path B's step, taken from its engine (its page geometry, its page
+   tables padded with the trash row, its own-token lengths with the trash
+   row's negative one), both modes, and at `K4_LONG` (every slot near 64
+   pages), partials. Held like K1/K2 (empty rows exactly m = -1e30, l = 0,
+   o = 0) and bitwise against a second call. Timed cold (the captured
+   calls rotate over copies of the caches, >= 134 MB of valid K/V in all,
+   since each layer reads its own cache) and, at path B's shapes, hot;
+   after the CUDA-graph replays every split-merge counter must be 0.
+   Library yardstick: SDPA on KV gathered beforehand (the gather is not
+   timed), cold and hot.
 
 The last lines are a JSON object with per-kernel numbers, the card's name
 and power limit, and {"ok": true, "device": {...}}.
@@ -121,13 +131,14 @@ TOL_K3_ERR_RMS = 5e-3
 
 def print_ptxas(reports) -> None:
     """The ptxas report of each library built: registers, spills and errors;
-    for the Hopper kernels K1 (prefix_attention), K2 (causal_attention) and
-    K3 (ragged_matmul) every line (shared memory, warnings, wgmma
-    serialization notes)."""
+    for the Hopper kernels K1 (prefix_attention), K2 (causal_attention), K3
+    (ragged_matmul) and K4 (paged_attention) every line (shared memory,
+    warnings, wgmma serialization notes)."""
     for name, log in reports.items():
         for line in log.splitlines():
             low = line.lower()
-            full = name in ("prefix_attention", "causal_attention", "ragged_matmul") and (
+            full = name in ("prefix_attention", "causal_attention", "ragged_matmul",
+                            "paged_attention") and (
                 "ptxas" in low or "stack frame" in low)
             if full or "registers" in line or "spill" in line or "error" in low:
                 print(f"  {name}: {line.strip()}", flush=True)
@@ -727,11 +738,91 @@ def _print_k3(rec):
 
 
 # ------------------------------------------------------------- K4 phase
-def _k4_case(gen, step, q_shape, pages_shape, tables, lens, normalize):
+# K4 off path B's shapes, held but not timed, both modes: (name, B, H, n_kv,
+# hd, page size, pages in the cache, table width P, lens, table kind). The
+# lens cover 0, 1, ps - 1, ps, ps + 1, P*ps, past P*ps and negative; the
+# tables hold scattered, descending or repeated page ids. Head dims 64 and
+# 128; g 1, 2 (TINY), 3 (rounded up to 4 in the kernel), 4 and 8
+# (Llama-3.3-70B's 64/8 heads); pages of 16, 32, 64, 100, 203 (the largest
+# the first K4 kernel took at hd 128) and 256 tokens, so pages of several boxes
+# and stages of several pages. One sequence on 8 kv heads plans 17 splits
+# (more than its pages); 40 sequences plan one split; one sequence of 40
+# pages of 256 on one kv head takes 40 splits (the fold's 8-split rounds).
+K4_EDGE_CASES = [
+    ("TINY lens 0/1/ps-1/ps/ps+1/<0", 6, 4, 2, 64, 16, 64, 8, (0, 1, 15, 16, 17, -3),
+     "scattered"),
+    ("g 1 hd 64, P*ps and past it", 4, 8, 8, 64, 16, 40, 8, (128, 500, 64, -1),
+     "descending"),
+    ("g 8, repeated pages", 3, 64, 8, 128, 64, 16, 8, (512, 65, 63), "repeated"),
+    ("g 3, ps 32", 3, 12, 4, 128, 32, 16, 4, (100, 31, 128), "scattered"),
+    ("ps 100 hd 64", 2, 16, 4, 64, 100, 12, 5, (500, 101), "descending"),
+    ("ps 203", 3, 32, 8, 128, 203, 24, 6, (1218, 204, 202), "scattered"),
+    ("B 1, splits past the pages", 1, 32, 8, 128, 64, 64, 64, (100,), "scattered"),
+    ("40 sequences, one split", 40, 32, 8, 128, 64, 200, 4,
+     tuple((37 * i) % 260 - 4 for i in range(40)), "scattered"),
+    ("ps 256, 40 splits", 1, 4, 1, 64, 256, 48, 40, (10000,), "descending"),
+]
+# Path B's engine at max_pages_per_seq = 64 with every slot near its end: 8
+# sequences of 3,969-4,032 own tokens (63 pages each, 504 of the 512) and
+# the trash row at -5,488. (step, q shape, cache shape, lens).
+K4_LONG_LENS = (4032, 4025, 4011, 4003, 3994, 3985, 3977, 3969, -5488)
+K4_LONG = ("long: 63 pages a slot", (9, 32, 128), (512, 64, 8, 128), K4_LONG_LENS)
+
+
+def _k4_tables(kind, B, P, num_pages, gen):
+    """[B, P] int32 page ids: distinct and scattered, descending, or few ids
+    reused across and within rows."""
     import torch
-    import torch.nn.functional as F
+
+    if kind == "scattered":
+        ids = torch.randperm(num_pages, generator=gen)
+        ids = ids.repeat(-(-B * P // num_pages))[:B * P]
+    elif kind == "descending":
+        ids = (num_pages - 1 - torch.arange(B * P)) % num_pages
+    else:
+        ids = torch.randint(0, min(4, num_pages), (B * P,), generator=gen)
+    return ids.reshape(B, P).to(torch.int32)
+
+
+def _k4_compare(got, want, lens, normalize):
+    """The smoke's K4 comparison: normalized outputs (and for the partials
+    m and l) as _compare holds K1/K2, and rows of a sequence with len <= 0
+    exactly m = -1e30, l = 0, o = 0 (normalized: 0)."""
+    import torch
+
+    B = lens.shape[0]
+    if normalize:
+        H = got.shape[1]
+        vr = (lens > 0)[:, None].expand(B, H)
+        if vr.any():
+            ref = want[vr].float()
+            rms = ref.square().mean().sqrt().item()
+            err = (got[vr].float() - ref).abs().max().item()
+        else:
+            rms = err = 0.0
+        dead_ok = bool((got[~vr] == 0).all())
+        ok = err <= TOL_O_RMS * rms and dead_ok and bool(torch.isfinite(got.float()).all())
+        return ok, {"max_abs_err": err, "ref_rms": rms, "masked_rows_exact": dead_ok}
+    n_kv, g = got[1].shape[1:]
+    vr = (lens > 0)[:, None, None].expand(B, n_kv, g)
+    # the partials carry no S axis: add one for the shared comparison
+    ok, rec = _compare(
+        tuple(t.unsqueeze(-2) if t.dim() == 4 else t.unsqueeze(-1) for t in got),
+        tuple(t.unsqueeze(-2) if t.dim() == 4 else t.unsqueeze(-1) for t in want),
+        vr.unsqueeze(-1),
+    )
+    o_dead = bool((got[0][~vr] == 0).all())
+    rec["masked_rows_exact"] = rec["masked_rows_exact"] and o_dead
+    return ok and o_dead, rec
+
+
+def _k4_check(gen, step, q_shape, pages_shape, tables, lens, normalize):
+    """K4 against its plain version on random inputs, and against itself
+    (bitwise, run to run): (ok, rec, (kernel, plain, q, k, v, tables,
+    lens))."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.ops import kernels
     from k8s_llm_scheduler_tpu_torch.ops import paged_attention as pg
-    from k8s_llm_scheduler_tpu_torch.ops.attention import gather_pages
 
     dev = DEVICE
     B, H, hd = q_shape
@@ -744,71 +835,141 @@ def _k4_case(gen, step, q_shape, pages_shape, tables, lens, normalize):
     kernel = pg.paged_decode_attention if normalize else pg.paged_decode_attention_parts
     plain = pg.paged_attention_plain if normalize else pg.paged_attention_parts_plain
     got = kernel(q, kc, vc, tables, lens)
+    again = kernel(q, kc, vc, tables, lens)
     want = plain(q, kc, vc, tables, lens)
     torch.cuda.synchronize()
-    valid = (lens > 0)[:, None].expand(B, H)
-    if normalize:
-        vr = valid
-        if vr.any():
-            ref = want[vr].float()
-            rms = ref.square().mean().sqrt().item()
-            err = (got[vr].float() - ref).abs().max().item()
-        else:
-            rms = err = 0.0
-        dead_ok = bool((got[~vr] == 0).all())
-        ok = err <= TOL_O_RMS * rms and dead_ok and bool(torch.isfinite(got.float()).all())
-        rec = {"max_abs_err": err, "ref_rms": rms, "masked_rows_exact": dead_ok}
-    else:
-        vr = valid.reshape(B, n_kv, H // n_kv)
-        # the partials carry no S axis: add one for the shared comparison
-        ok, rec = _compare(
-            tuple(t.unsqueeze(-2) if t.dim() == 4 else t.unsqueeze(-1) for t in got),
-            tuple(t.unsqueeze(-2) if t.dim() == 4 else t.unsqueeze(-1) for t in want),
-            vr.unsqueeze(-1),
-        )
-        dead = ~vr
-        ok = ok and bool((got[0][dead] == 0).all())
-    n_tok = int(lens.clamp(min=0).sum())
-    n_pages = sum(-(-max(int(n), 0) // ps) for n in lens.tolist())
-    out_bytes = B * H * hd * 2 if normalize else B * H * hd * 4 + 2 * B * H * 4
-    nbytes = (B * H * hd * 2 + 2 * n_tok * n_kv * hd * 2 + 4 * n_pages + 4 * B
-              + out_bytes)
+    ok, rec = _k4_compare(got, want, lens, normalize)
+    pairs = zip(got, again) if not normalize else [(got, again)]
+    rec["bitwise_repeat"] = all(torch.equal(a, b) for a, b in pairs)
     rec.update(
-        step=step, mode="normalized" if normalize else "parts", ok=ok,
+        step=step, mode="normalized" if normalize else "parts",
+        ok=ok and rec["bitwise_repeat"],
         shape=(f"q[{B},{H},{hd}] pages{list(pages_shape)} tables{list(tables.shape)} "
                f"lens={lens.tolist()}"),
-        ms=_time_ms(lambda: kernel(q, kc, vc, tables, lens), 20),
+    )
+    if hasattr(pg, "paged_splits"):
+        rec["splits"] = pg.paged_splits(B, n_kv, tables.shape[1], kernels.sm_count(q.device))
+    return rec["ok"], rec, (kernel, plain, q, kc, vc, tables, lens)
+
+
+def _k4_tickets_zero() -> bool | None:
+    """Whether every split-merge counter is 0 (None for a K4 without them)."""
+    from k8s_llm_scheduler_tpu_torch.ops import paged_attention as pg
+
+    counters = getattr(pg, "_tickets", None)
+    if counters is None:
+        return None
+    return all(int(t.abs().sum()) == 0 for t in counters.values())
+
+
+def _k4_case(gen, step, q_shape, pages_shape, tables, lens, normalize, hot=True):
+    """K4 held as _k4_check does, then timed cold (the captured calls
+    rotate over copies of the caches whose valid bytes add up to >=
+    COLD_BYTES, as each layer reads its own cache) and, unless `hot` is
+    False, hot (one cache replayed), beside its plain version and the
+    yardstick: SDPA on KV gathered beforehand (the gather untimed), cold
+    over as many gathered copies and hot."""
+    import torch
+    import torch.nn.functional as F
+    from k8s_llm_scheduler_tpu_torch.ops.attention import gather_pages
+
+    ok, rec, (kernel, plain, q, kc, vc, tables, lens) = _k4_check(
+        gen, step, q_shape, pages_shape, tables, lens, normalize)
+    B, H, hd = q_shape
+    _, ps, n_kv, _ = pages_shape
+    n_tok = int(lens.clamp(min=0, max=tables.shape[1] * ps).sum())
+    n_pages = sum(-(-min(max(int(n), 0), tables.shape[1] * ps) // ps) for n in lens.tolist())
+    out_bytes = B * H * hd * 2 if normalize else B * H * hd * 4 + 2 * B * H * 4
+    kv_bytes = 2 * n_tok * n_kv * hd * 2
+    nbytes = B * H * hd * 2 + kv_bytes + 4 * n_pages + 4 * B + out_bytes
+    n_copies = max(2, -(-COLD_BYTES // max(kv_bytes, 1)))
+    copies = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(n_copies - 1)]
+    rot = itertools.cycle(copies)
+    rec.update(
+        ms=_time_ms(lambda: kernel(q, *next(rot), tables, lens), 20),
+        ms_hot=_time_ms(lambda: kernel(q, kc, vc, tables, lens), 20) if hot else None,
         plain_ms=_time_ms(lambda: plain(q, kc, vc, tables, lens), 5),
+        cold_copies=n_copies,
         **_bound(4.0 * n_tok * H * hd, nbytes, PEAK_F32_FLOPS),
     )
-    # yardstick: SDPA on the KV gathered beforehand (the gather is untimed)
+    del copies, rot
+    rec["tickets_zero_after_replays"] = _k4_tickets_zero()
+    rec["ok"] = ok = ok and rec["tickets_zero_after_replays"] is not False
     span = -(-max(int(lens.max()), 1) // ps) * ps
-    kg = gather_pages(kc, tables)[:, :span].transpose(1, 2)
-    vg = gather_pages(vc, tables)[:, :span].transpose(1, 2)
-    mask = (torch.arange(span, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    gathered = [tuple(gather_pages(c, tables)[:, :span].transpose(1, 2).contiguous()
+                      for c in (kc, vc))]
+    gathered += [tuple(t.clone() for t in gathered[0]) for _ in range(n_copies - 1)]
+    lib_rot = itertools.cycle(gathered)
+    mask = (torch.arange(span, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
     qt = q[:, :, None, :]
-    rec["library_ms"] = _library_ms(
-        lambda: F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask, enable_gqa=True)
-    )
+
+    def sdpa(kv):
+        return F.scaled_dot_product_attention(qt, *kv, attn_mask=mask, enable_gqa=True)
+
+    rec["library_ms"] = _library_ms(lambda: sdpa(next(lib_rot)))
+    rec["library_ms_hot"] = _library_ms(lambda: sdpa(gathered[0])) if hot else None
     rec["library_note"] = "SDPA on KV gathered beforehand; the gather is not timed"
+    del gathered, lib_rot
     return ok, rec
 
 
-def k4_phase(cases) -> tuple[bool, list[dict]]:
+def _print_k4(rec):
+    line = (f"K4 {rec['mode']} {rec['step']} {rec['shape']}: ok={rec['ok']} "
+            f"err={rec['max_abs_err']:.3g} (rms {rec['ref_rms']:.3g}) "
+            f"dead_exact={rec['masked_rows_exact']} bitwise={rec['bitwise_repeat']}")
+    if "splits" in rec:
+        line += f" splits={rec['splits']}"
+    if "ms" in rec:
+        line += (f" ms={rec['ms']:.4f} (cold, {rec['cold_copies']} copies) "
+                 f"ms_hot={rec['ms_hot']} plain_ms={rec['plain_ms']:.4f} "
+                 f"bound_ms={rec['bound_ms']:.4f} library_ms={rec['library_ms']} "
+                 f"library_ms_hot={rec['library_ms_hot']} "
+                 f"tickets_zero={rec['tickets_zero_after_replays']}")
+    print(line, flush=True)
+
+
+def k4_long_case():
+    """K4_LONG as a K4 case: tables [9, 64] with 63 distinct pages (of 1..511)
+    for each live slot, the trash row's all page 0."""
+    import torch
+
+    step, q_shape, pages_shape, lens = K4_LONG
+    gen = torch.Generator().manual_seed(7)
+    ids = (1 + torch.randperm(pages_shape[0] - 1, generator=gen))[:8 * 63].reshape(8, 63)
+    tables = torch.zeros((len(lens), 64), dtype=torch.int32)
+    tables[:8, :63] = ids.to(torch.int32)
+    return step, q_shape, pages_shape, tables, torch.tensor(lens, dtype=torch.int32)
+
+
+def k4_phase(cases, edge_cases=K4_EDGE_CASES, long_cases=(), timed=True
+             ) -> tuple[bool, list[dict]]:
+    """K4 held at `edge_cases`, both modes, then at path B's `cases` (both
+    modes) and `long_cases` (partials), timed there unless `timed` is
+    False: path B's shapes cold and hot, the long ones cold."""
     import torch
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(4)
+    cpu_gen = torch.Generator().manual_seed(4)
     recs = []
-    for step, q_shape, pages_shape, tables, lens in cases:
+    for name, B, H, n_kv, hd, ps, num_pages, P, lens, kind in edge_cases:
+        tables = _k4_tables(kind, B, P, num_pages, cpu_gen)
+        lens_t = torch.tensor(lens, dtype=torch.int32)
         for normalize in (False, True):
-            ok, rec = _k4_case(gen, step, q_shape, pages_shape, tables, lens, normalize)
+            _, rec, _ = _k4_check(gen, f"edge: {name}", (B, H, hd), (num_pages, ps, n_kv, hd),
+                                  tables, lens_t, normalize)
             recs.append(rec)
-            print(f"K4 {rec['mode']} {step} {rec['shape']}: ok={ok} "
-                  f"err={rec['max_abs_err']:.3g} (rms {rec['ref_rms']:.3g}) "
-                  f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-                  f"bound_ms={rec['bound_ms']:.4f} library_ms={rec['library_ms']}",
-                  flush=True)
+            _print_k4(rec)
+        torch.cuda.empty_cache()
+    runs = [(c, m, True) for c in cases for m in (False, True)]
+    runs += [(c, False, False) for c in long_cases]
+    for (step, q_shape, pages_shape, tables, lens), normalize, hot in runs:
+        if timed:
+            _, rec = _k4_case(gen, step, q_shape, pages_shape, tables, lens, normalize, hot)
+        else:
+            _, rec, _ = _k4_check(gen, step, q_shape, pages_shape, tables, lens, normalize)
+        recs.append(rec)
+        _print_k4(rec)
         torch.cuda.empty_cache()
     return all(r["ok"] for r in recs), recs
 
@@ -1321,7 +1482,7 @@ def main() -> int:
     del backend
     torch.cuda.empty_cache()
     k3_ok, k3 = k3_phase(cfg, totals)
-    k4_ok, k4 = k4_phase(k4_cases)
+    k4_ok, k4 = k4_phase(k4_cases, long_cases=[k4_long_case()])
 
     def entry(name, recs, source, replaces, launches, main, **extra):
         return {
@@ -1347,7 +1508,7 @@ def main() -> int:
                    key=lambda r: r["flops"])
 
     # K3 headline: int8 w_gate at R=8 and the batch's median total; K4:
-    # partials at the step shape after one chunk
+    # partials at the step shape after one chunk, beside the long shape
     k3_main = next((r for r in k3 if r["int8"] and r["weight"] == "w_gate"
                     and r["step"] == "R=8" and r.get("median_total")),
                    max((r for r in k3 if "ms" in r), key=lambda r: r["flops"]))
@@ -1355,6 +1516,7 @@ def main() -> int:
     k2_main = widest_suffix_prefill(k2)
     k4_main = next(r for r in k4 if r["mode"] == "parts"
                    and r["step"] == "step after one chunk")
+    k4_long = next(r for r in k4 if r["step"] == K4_LONG[0])
     line = {
         "kernels": [
             entry("flash_prefix_attention_parts", k1,
@@ -1376,7 +1538,11 @@ def main() -> int:
             entry("paged_decode_attention", k4,
                   "k8s_llm_scheduler_tpu_torch/csrc/paged_attention.cu",
                   "k8s_llm_scheduler_tpu/ops/pallas_paged_attention.py:276",
-                  path_b["launches"]["K4"], k4_main),
+                  path_b["launches"]["K4"], k4_main, status="redesigned PR 7",
+                  ms_hot=k4_main["ms_hot"], library_ms_hot=k4_main["library_ms_hot"],
+                  cold_l2=True, splits=k4_main.get("splits"),
+                  long={k: k4_long[k] for k in ("shape", "ms", "bound_ms", "library_ms",
+                                                "splits") if k in k4_long}),
         ],
         "not_ported": [],
     }

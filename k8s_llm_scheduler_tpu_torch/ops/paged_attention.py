@@ -17,6 +17,12 @@ exactly m = -1e30, l = 0, o = 0. Each wrapper dispatches on where q lies:
 on the CPU the plain version (gather the pages, mask, attend); on a CUDA
 tensor the kernel, or it raises. Every launch adds one to the wrapper's
 `launches` count.
+
+The kernel splits each sequence's pages over blocks (`paged_splits` picks
+the count from shapes, `split_page_ranges` is the ranges the blocks find
+on the device) and merges the splits in split order in the same launch;
+`split_paged_parts_plain` and `merge_paged_splits_plain` are the plain
+twins of its workspace and of that merge.
 """
 
 from __future__ import annotations
@@ -32,26 +38,37 @@ from k8s_llm_scheduler_tpu_torch.ops.attention import gather_pages
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8  # query heads per kv head the kernel takes
-SMEM_LIMIT = 227 * 1024
+MIN_TICKETS = 4096  # split-merge counters kept per card (grown on demand)
+# Fewest tokens a split takes: below that, one block's walk over the pages
+# costs less than merging more splits (the workspace, the ticket and the
+# last block's fold), so a short sequence gets fewer splits than planned.
+MIN_SPLIT_TOKENS = 256
 
 
-def paged_attention_parts_plain(q, k_cache, v_cache, page_table, seq_lens):
-    """Plain PyTorch K4 partials: q [B, n_heads, hd]; caches [num_pages, ps,
-    n_kv, hd]; page_table [B, P]; seq_lens [B] (any sign)."""
+def _parts_over(q, k_cache, v_cache, page_table, lo, hi):
+    """Partials over the gathered token positions [lo[b], hi[b]) of each
+    sequence (the plain arithmetic of both twins below)."""
     B, n_heads, hd = q.shape
     n_kv = k_cache.shape[2]
     k = gather_pages(k_cache, page_table).float()  # [B, P*ps, n_kv, hd]
     v = gather_pages(v_cache, page_table).float()
     qs = (q.float() * hd**-0.5).reshape(B, n_kv, n_heads // n_kv, hd)
     logits = torch.einsum("bkgh,blkh->bkgl", qs, k)
-    valid = torch.arange(k.shape[1], device=q.device)[None, :] < seq_lens[:, None]
-    mask = valid[:, None, None, :]
+    pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = ((pos >= lo[:, None]) & (pos < hi[:, None]))[:, None, None, :]
     logits = torch.where(mask, logits, NEG_INF)
     m = logits.amax(dim=-1)
     p = torch.where(mask, torch.exp(logits - m[..., None]), 0.0)
     l = p.sum(dim=-1)
     o = torch.einsum("bkgl,blkh->bkgh", p, v)
     return o, m, l
+
+
+def paged_attention_parts_plain(q, k_cache, v_cache, page_table, seq_lens):
+    """Plain PyTorch K4 partials: q [B, n_heads, hd]; caches [num_pages, ps,
+    n_kv, hd]; page_table [B, P]; seq_lens [B] (any sign)."""
+    return _parts_over(q, k_cache, v_cache, page_table,
+                       torch.zeros_like(seq_lens), seq_lens)
 
 
 def paged_attention_plain(q, k_cache, v_cache, page_table, seq_lens):
@@ -61,17 +78,87 @@ def paged_attention_plain(q, k_cache, v_cache, page_table, seq_lens):
     return out.reshape(q.shape).to(q.dtype)
 
 
+def paged_splits(B: int, n_kv: int, P: int, sm_count: int) -> int:
+    """Splits of each sequence's pages over K4's blocks, from the shapes the
+    host knows (never seq_lens, which live on the device, so no sync).
+
+    The grid is B * n_kv * splits blocks: the fewest splits that give each
+    of the card's SMs a block, and never more splits than the table has
+    pages (9 sequences x 8 kv heads on 132 SMs: 2)."""
+    return max(1, min(P, -(-sm_count // max(1, B * n_kv))))
+
+
+def min_split_pages(ps: int) -> int:
+    """Fewest pages a split takes: MIN_SPLIT_TOKENS, rounded up to pages."""
+    return max(1, -(-MIN_SPLIT_TOKENS // ps))
+
+
+def split_page_ranges(seq_lens, ps: int, P: int, splits: int):
+    """Token ranges [lo, hi) of each split as the kernel finds them on the
+    device from len = clamp(seq_lens, 0, P*ps): pages [s*c, (s+1)*c) of
+    the n_pages = ceil(len / ps) valid pages, c = max(ceil(n_pages /
+    splits), min_split_pages(ps)), cut at len. Returns (lo, hi), each
+    [splits, B]; an empty range has lo >= hi."""
+    n = torch.clamp(seq_lens.long(), 0, P * ps)
+    per = torch.clamp(-(-(-(-n // ps)) // splits), min=min_split_pages(ps))
+    s = torch.arange(splits, device=seq_lens.device)[:, None]
+    lo = s * per * ps
+    return lo, torch.minimum((s + 1) * per * ps, n[None, :])
+
+
+def split_paged_parts_plain(q, k_cache, v_cache, page_table, seq_lens, splits):
+    """Plain twin of the split kernel's workspace: each split's partials
+    over its device-style page range (split_page_ranges), stacked on a
+    leading split axis. An empty range gives m = -1e30, l = 0, o = 0."""
+    ps, P = k_cache.shape[1], page_table.shape[1]
+    lo, hi = split_page_ranges(seq_lens, ps, P, splits)
+    parts = [_parts_over(q, k_cache, v_cache, page_table, lo[s], hi[s])
+             for s in range(splits)]
+    return tuple(torch.stack(t) for t in zip(*parts))
+
+
+def merge_paged_splits_plain(o, m, l):
+    """Plain twin of the last block's merge: the splits' partials (leading
+    split axis) folded in split order, m = max m_s, l = sum l_s e^(m_s - m),
+    o = sum o_s e^(m_s - m). Empty splits weigh 0; all empty stays
+    m = -1e30, l = 0, o = 0. (The kernel folds 8 splits at a time and
+    rescales to each new maximum: the same within f32 rounding.)"""
+    m_all = m.amax(dim=0)
+    o_acc, l_acc = torch.zeros_like(o[0]), torch.zeros_like(l[0])
+    for s in range(m.shape[0]):
+        w = torch.exp(m[s] - m_all)
+        o_acc = o_acc + o[s] * w[..., None]
+        l_acc = l_acc + l[s] * w
+    return o_acc, m_all, l_acc
+
+
 @functools.cache
 def _entry():
-    lib = kernels.library("paged_attention")
-    fn = lib.k8s_paged_decode
+    fn = kernels.library("paged_attention").k8s_paged_decode
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
     )
-    lib.k8s_paged_decode_smem.restype = ctypes.c_int
-    lib.k8s_paged_decode_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    return fn, lib.k8s_paged_decode_smem
+    return fn
+
+
+_tickets: dict[int, torch.Tensor] = {}
+
+
+def _ticket_counters(dev, n: int) -> torch.Tensor:
+    """The card's split-merge counters: zero between calls (each call's last
+    block sets its counters back), so they are allocated once, outside any
+    CUDA-graph capture, and shared by the calls on that card's stream."""
+    t = _tickets.get(dev.index)
+    if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged decode attention: make one call before capturing a CUDA graph "
+                "(its split counters are allocated outside the capture)"
+            )
+        t = torch.zeros(max(n, MIN_TICKETS), dtype=torch.int32, device=dev)
+        _tickets[dev.index] = t
+    return t
 
 
 def _check_cuda(name, q, k_cache, v_cache, page_table, seq_lens):
@@ -85,7 +172,7 @@ def _check_cuda(name, q, k_cache, v_cache, page_table, seq_lens):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel takes contiguous 16-byte aligned tensors")
     B, n_heads, hd = q.shape
-    _, ps, n_kv, hd_k = k_cache.shape
+    num_pages, ps, n_kv, hd_k = k_cache.shape
     if hd not in HEAD_DIMS or hd_k != hd or tuple(v_cache.shape) != tuple(k_cache.shape):
         raise ValueError(f"{name}: q {tuple(q.shape)} and caches {tuple(k_cache.shape)}")
     if n_heads % n_kv or n_heads // n_kv > MAX_GROUP:
@@ -94,17 +181,18 @@ def _check_cuda(name, q, k_cache, v_cache, page_table, seq_lens):
         raise ValueError(f"{name}: page_table must be int32 [{B}, P]")
     if seq_lens.dtype != torch.int32 or tuple(seq_lens.shape) != (B,):
         raise ValueError(f"{name}: seq_lens must be int32 [{B}]")
+    if B > 65535 or n_kv > 65535 or num_pages * ps >= 2**31 or page_table.shape[1] * ps >= 2**31:
+        raise ValueError(f"{name}: {B} sequences of {num_pages} pages of {ps} exceed the grid")
 
 
 def _launch(name, q, k_cache, v_cache, page_table, seq_lens, normalize):
     _check_cuda(name, q, k_cache, v_cache, page_table, seq_lens)
     B, n_heads, hd = q.shape
-    _, ps, n_kv, _ = k_cache.shape
+    num_pages, ps, n_kv, _ = k_cache.shape
+    P = page_table.shape[1]
     g = n_heads // n_kv
-    fn, smem = _entry()
-    if smem(hd, ps) > SMEM_LIMIT:
-        raise ValueError(f"{name}: pages of {ps} tokens do not fit shared memory")
     dev = q.device
+    splits = paged_splits(B, n_kv, P, kernels.sm_count(dev))
     if normalize:
         o = torch.empty((B, n_heads, hd), dtype=q.dtype, device=dev)
         m = l = None
@@ -112,14 +200,23 @@ def _launch(name, q, k_cache, v_cache, page_table, seq_lens, normalize):
         o = torch.empty((B, n_kv, g, hd), dtype=torch.float32, device=dev)
         m = torch.empty((B, n_kv, g), dtype=torch.float32, device=dev)
         l = torch.empty((B, n_kv, g), dtype=torch.float32, device=dev)
+    ws = (torch.empty(splits * B * n_heads * (hd + 2), dtype=torch.float32, device=dev)
+          if splits > 1 else None)
     with torch.cuda.device(dev):  # launch on q's card
-        rc = fn(
-            *map(kernels.ptr, (q, k_cache, v_cache, page_table, seq_lens, o, m, l)),
-            B, n_kv, g, ps, page_table.shape[1], hd, int(normalize),
+        tickets = _ticket_counters(torch.device("cuda", torch.cuda.current_device()),
+                                   B * n_kv)
+        rc = _entry()(
+            *map(kernels.ptr, (q, k_cache, v_cache, page_table, seq_lens, o, m, l, ws,
+                               tickets)),
+            B, n_kv, g, ps, P, num_pages, hd, splits, min_split_pages(ps), int(normalize),
             ctypes.c_float(hd**-0.5), kernels.stream(dev),
         )
     if rc == -1:
-        raise ValueError(f"{name}: unsupported head dim")
+        raise ValueError(f"{name}: unsupported head dim or group")
+    if rc == -2:
+        raise RuntimeError(f"{name}: the K/V TMA tensor maps cannot be encoded")
+    if rc == -3:
+        raise RuntimeError(f"{name}: {splits} page splits for a table of {P} pages")
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
     return o if normalize else (o, m, l)

@@ -24,6 +24,11 @@ from k8s_llm_scheduler_tpu.ops.pallas_prefix_attention import (
 )
 from k8s_llm_scheduler_tpu_torch.ops import attention as tA
 from k8s_llm_scheduler_tpu_torch.ops import kernels
+from k8s_llm_scheduler_tpu_torch.ops.paged_attention import (
+    merge_paged_splits_plain,
+    paged_attention_parts_plain,
+    split_paged_parts_plain,
+)
 from k8s_llm_scheduler_tpu_torch.ops.prefix_attention import (
     NEG_INF,
     _masked_parts,
@@ -245,7 +250,12 @@ class TestSmokeComparison:
     middle split's keys missing, splits folded without e^(m_s - m). For K2,
     outputs of a broken causal walk: the diagonal one key off, every row of
     a 128-row block given the block's last row's limit, each row's last
-    partial key tile dropped, batch row b given lens[b - 1]."""
+    partial key tile dropped, batch row b given lens[b - 1]. For K4 (its
+    comparison, `_k4_compare`, in both modes), outputs of a broken split
+    merge or page walk: a split dropped, splits folded without
+    e^(m_s - m), a page one off in the table, the last partial page's mask
+    one key off, sequence b given lens[b - 1], and the trash row's partials
+    not exactly (-1e30, 0, 0)."""
 
     @staticmethod
     def _smoke():
@@ -341,6 +351,67 @@ class TestSmokeComparison:
         got = self._causal_with_limits(q, k, v, limit)
         valid = (lens > 0)[:, None, None, None].expand(want[1].shape)
         ok, _ = cs._compare(got, want, valid)
+        assert ok == (mutation == "none")
+
+
+    # K4: a sequence of 63 pages of 16 (three splits of 21), two of one
+    # split with partial last pages, and the trash row
+    K4_LENS = (1000, 77, 45, -300)
+    K4_SPLITS = 3
+
+    def _k4_inputs(self, cs):
+        gen = torch.Generator().manual_seed(4)
+        B, H, NKV, HD, PAGES, PS, P = len(self.K4_LENS), 8, 2, 128, 300, 16, 64
+        q = (cs.Q_SCALE * torch.randn((B, H, HD), generator=gen)).bfloat16()
+        k = torch.randn((PAGES, PS, NKV, HD), generator=gen).bfloat16()
+        v = torch.randn((PAGES, PS, NKV, HD), generator=gen).bfloat16()
+        table = torch.randperm(PAGES, generator=gen)[:B * P].reshape(B, P).to(torch.int32)
+        return q, k, v, table, torch.tensor(self.K4_LENS, dtype=torch.int32)
+
+    def _k4_broken(self, mutation, q, k, v, table, lens):
+        """The (o, m, l) partials a broken K4 would give."""
+        split = split_paged_parts_plain(q, k, v, table, lens, self.K4_SPLITS)
+        if mutation == "none":
+            return merge_paged_splits_plain(*split)
+        if mutation == "split_dropped":
+            o, m, l = (t.clone() for t in split)
+            o[1], m[1], l[1] = 0.0, NEG_INF, 0.0  # split 1 never ran
+            return merge_paged_splits_plain(o, m, l)
+        if mutation == "split_not_rescaled":
+            o, m, l = split
+            return o.sum(dim=0), m.amax(dim=0), l.sum(dim=0)
+        if mutation == "page_one_off":
+            bad = table.clone()
+            bad[0, 5] = (bad[0, 5] + 1) % k.shape[0]
+            return paged_attention_parts_plain(q, k, v, bad, lens)
+        if mutation == "last_page_mask_plus_one":
+            return paged_attention_parts_plain(q, k, v, table, torch.where(lens > 0, lens + 1, lens))
+        if mutation == "previous_batch_len":
+            return paged_attention_parts_plain(q, k, v, table, torch.roll(lens, 1))
+        # the trash row as a kernel that gave its one masked key weight
+        # exp(-1e30 - -1e30) = 1 would leave it
+        o, m, l = (t.clone() for t in paged_attention_parts_plain(q, k, v, table, lens))
+        l[-1] = 1.0
+        o[-1] = v[table[-1, 0], 0].float()[:, None, :]  # [n_kv, g, hd]
+        return o, m, l
+
+    @pytest.mark.parametrize("mode", ["parts", "normalized"])
+    @pytest.mark.parametrize(
+        "mutation",
+        ["none", "split_dropped", "split_not_rescaled", "page_one_off",
+         "last_page_mask_plus_one", "previous_batch_len", "trash_row_not_empty"],
+    )
+    def test_comparison_refuses_broken_paged_kernels(self, mutation, mode):
+        cs = self._smoke()
+        q, k, v, table, lens = self._k4_inputs(cs)
+        want = paged_attention_parts_plain(q, k, v, table, lens)
+        got = self._k4_broken(mutation, q, k, v, table, lens)
+        if mode == "normalized":
+            def norm(parts):
+                o, _, l = parts
+                return (o / l.clamp(min=1e-30)[..., None]).reshape(q.shape).bfloat16()
+            got, want = norm(got), norm(want)
+        ok, _ = cs._k4_compare(got, want, lens, mode == "normalized")
         assert ok == (mutation == "none")
 
 

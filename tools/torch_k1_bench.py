@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """One kernel's phase of chip_smoke.py alone on one NVIDIA GPU, for A/B runs.
 
-    python3 tools/torch_k1_bench.py [--kernel K1|K2|K3] [--untimed]
+    python3 tools/torch_k1_bench.py [--kernel K1|K2|K3|K4] [--untimed]
         [--package-root DIR] [--out FILE.json]
 
 Runs chip_smoke.py's phase of one kernel without the 8B model: builds the
@@ -20,9 +20,15 @@ shapes and times it there, cold and hot L2, beside its library yardstick.
   bf16, x [R*24, K] for R = 4 and 8, at `K3_TOTALS` (the path's valid-token
   counts are data; chip_smoke.py measures them); yardstick torch.matmul on
   a bf16 (for int8, dequantized) weight.
+- K4 (paged decode attention): its `K4_EDGE_CASES`, then path B's decode
+  step, q[9,32,128] against pages [512,64,8,128] through tables [9,64],
+  after admission (own-token lens 226-231, the smoke's suffixes) and after
+  one 16-step chunk, both modes, cold and hot, and the smoke's long shape
+  (`K4_LONG`: 63 pages a slot), partials, cold; yardstick SDPA on KV
+  gathered beforehand.
 
---untimed only holds the kernel: K1 and K2 at their edge cases and the 8B
-path's shapes, K3 at its edge cases and at the 8B shapes (R = 8), the
+--untimed only holds the kernel: K1, K2 and K4 at their edge cases and the
+8B path's shapes, K3 at its edge cases and at the 8B shapes (R = 8), the
 first call after a change to a kernel. --package-root measures
 the port package of another checkout (say the parent commit, unpacked into
 a git-ignored directory), so that two versions can be compared in one call
@@ -63,11 +69,29 @@ K2_CASES = [
 # path A run: 1 and 8 (one 64-row tile; 8 is the batch's median in the
 # smoke), 65 (two tiles); chip_smoke.py adds 0 and R*24.
 K3_TOTALS = {4: [1, 8, 65], 8: [1, 8, 65]}
+# K4's own-token lens on path B after admission (the smoke's suffixes; the
+# trash row at -prefix_len); one 16-step chunk later each is 16 longer
+K4_ADMITTED = (226, 228, 226, 231, 230, 230, 229, 228)
+
+
+def k4_cases():
+    """Path B's decode-step K4 calls: 8 slots and the trash row, pages of 64
+    in a 512-page cache, tables [9, 64] with 4 scattered pages a slot."""
+    import torch
+
+    gen = torch.Generator().manual_seed(6)
+    tables = torch.zeros((9, 64), dtype=torch.int32)
+    tables[:8, :4] = (1 + torch.randperm(511, generator=gen))[:32].reshape(8, 4).to(torch.int32)
+    out = []
+    for step, extra in (("step after admission", 0), ("step after one chunk", 16)):
+        lens = torch.tensor([n + extra for n in K4_ADMITTED] + [-PLEN], dtype=torch.int32)
+        out.append((step, (9, 32, 128), (512, 64, 8, 128), tables, lens))
+    return out
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=("K1", "K2", "K3"), default="K1")
+    parser.add_argument("--kernel", choices=("K1", "K2", "K3", "K4"), default="K1")
     parser.add_argument("--untimed", action="store_true",
                         help="hold the kernel at its cases without timing it")
     parser.add_argument("--package-root", default=str(ROOT),
@@ -95,7 +119,7 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     lib = {"K1": "prefix_attention", "K2": "causal_attention",
-           "K3": "ragged_matmul"}[args.kernel]
+           "K3": "ragged_matmul", "K4": "paged_attention"}[args.kernel]
     reports = kernels.build_all()
     cs.print_ptxas({k: v for k, v in reports.items() if k == lib})
     if args.kernel == "K1":
@@ -104,6 +128,9 @@ def main() -> int:
     elif args.kernel == "K2":
         good, _, recs = cs.kernel_phase([], K2_CASES, k1_edge_cases=[],
                                         timed=not args.untimed)
+    elif args.kernel == "K4":
+        good, recs = cs.k4_phase(k4_cases(), long_cases=[cs.k4_long_case()],
+                                 timed=not args.untimed)
     elif args.untimed:
         edge = cs.K3_EDGE_CASES + [
             (f"8B {name}", 8 * cs.BLOCK_F, K, N, (0, 8, 65, 8 * cs.BLOCK_F))
