@@ -42,22 +42,37 @@ Phases, each of which must pass:
    partials, and the manual-page decode step with K4 normalized.
 4. Decision: a LocalLLMBackend with full-width, full-depth Llama-3.1-8B
    (random bf16 weights from a seed; built before phase 2, whose shapes it
-   gives) serves 4 single decisions and a batch
-   of 8 for a 32-node synthetic cluster (a 5,488-token prefix: the chunked
-   prefix prefill). Every decision must parse, name a feasible node and
-   carry a confidence in [0, 1]; K1 and K2 must have launched on this run
-   (every count is zeroed just before it). K1's launches are also counted
-   by step (prefix chunks, suffix prefills, block decodes), around each of
-   the engine's model calls, and must add up to its total.
+   gives) serves 4 single decisions, then (once its idle worker has
+   captured the sibling wave geometries: `prewarm_wave_siblings`) a batch
+   of 8, then one more single decision under torch.profiler, for a 32-node
+   synthetic cluster (a 5,488-token prefix: the chunked prefix prefill).
+   It does so twice on the same weights: with the engine's waves as CUDA
+   graphs (the default), then eagerly (graphs=False). Every decision must
+   parse, name a feasible node and carry a confidence in [0, 1]; the two
+   modes must emit identical greedy tokens wave for wave and row for row,
+   launch each kernel as often per run of every step (prefix chunk, suffix
+   prefill and block decode by row count R; a graph replay counts what its
+   capture recorded), and in graph mode the batch must find its geometry
+   captured and the profiled decision launch no kernel outside a graph
+   (the profiler counts the host's launch calls and the device's
+   operations per model call). K1 and K2 must have launched (every count
+   is zeroed just before each mode's drive); K1's launches by step must
+   add up to its total. Capture seconds, replays and peak memory are
+   printed for each mode.
 5. Path A: the same 8B weights quantized to int8 on the card, in an engine
-   with decode_matmul="ragged", serve single decisions and a batch of 8 on
-   the same cluster; all feasible, K3 and K1 launched. The valid tokens of
-   every block-decode call are recorded for phase 7.
+   with decode_matmul="ragged", the same drive in both modes, held the
+   same way; all feasible, K3 and K1 launched, K3 7 times a layer (224)
+   per block-decode run in both modes. The valid tokens of every
+   block-decode call are recorded for phase 7.
 6. Path B: the bf16 8B weights in an engine with paged_attn="pallas",
    max_slots 8, pages of 64: the cluster prefix installed, 8 suffixes
    admitted (unconstrained, greedy, 64 new tokens), step() until all
-   finish, then one generate(). Every request finishes with 1-64 tokens,
-   K4 launched, and every page is returned.
+   finish, one generate(), then 8 more admitted with one step() under the
+   profiler and the rest drained; in both modes (decode chunks as CUDA
+   graphs, then eagerly). Every request finishes with 1-64 tokens, the
+   modes emit identical tokens, K4 launched, launches per run equal, the
+   graph-mode step launched no kernel outside a graph, and every page is
+   returned.
 7. K3, untimed, at `K3_EDGE_CASES` (TINY's widths, N and K not whole
    tiles, M = 96 and 384, totals 0 / 1 / 64 / 65 / M), then at the seven 8B
    weight shapes, int8 pairs and bf16, x [R*24, K] for R = 4 and 8, and
@@ -94,6 +109,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import gc
 import itertools
 import json
 import statistics
@@ -988,50 +1004,92 @@ def _launch_counts() -> dict:
 
 
 @contextlib.contextmanager
-def k1_launches_by_step(engine):
-    """Measures K1's launches by step of the decision path: the engine's
-    chunked prefix prefill, the waves' suffix prefills and their block
-    decodes are wrapped to read K1's count before and after each call (an
-    inner wrapped call inside an outer one counts for the outer). A wave's
-    steps are keyed by its row count R (the rows of the call's tokens).
-    Yields the dict of counts, filled as the calls run; the wrappers go on
-    exit."""
-    from k8s_llm_scheduler_tpu_torch.engine import engine as eng_mod
-    from k8s_llm_scheduler_tpu_torch.ops import prefix_attention as pa
+def launches_by_step(engine):
+    """Kernel launches and device runs by step of the engine's work: each
+    run of one of its programs (engine/graphs.Program, replayed or eager:
+    the suffix prefill and the block iteration of each wave geometry, keyed
+    by its row count R, or the decode chunk) and each chunked prefix
+    prefill ("prefix chunk", its calls as runs). The wrappers' counts are
+    read before and after each (a replay adds what its capture recorded).
+    Yields {step: {"runs": n, "K1": .., "K2": .., "K3": .., "K4": ..}},
+    filled as the steps run; the wrappers go on exit."""
+    from k8s_llm_scheduler_tpu_torch.engine import graphs
 
-    counts: dict[str, int] = {}
-    depth = [0]
+    steps: dict[str, dict] = {}
 
-    def counted(step, fn, by_rows):
-        @functools.wraps(fn)
-        def call(*args, **kwargs):
-            n0 = pa.flash_prefix_attention_parts.launches
-            depth[0] += 1
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                depth[0] -= 1
-                if depth[0] == 0:
-                    # (params, cfg, tokens [R, ...], ...)
-                    key = f"{step} R={args[2].shape[0]}" if by_rows else step
-                    counts[key] = (counts.get(key, 0)
-                                   + pa.flash_prefix_attention_parts.launches - n0)
-        return call
+    def book(step, runs, before):
+        after = _launch_counts()
+        rec = steps.setdefault(step, {"runs": 0, "K1": 0, "K2": 0, "K3": 0, "K4": 0})
+        rec["runs"] += runs
+        for k, n in after.items():
+            rec[k] += n - before[k]
 
-    saved = {name: getattr(eng_mod, name)
-             for name in ("forward_prefill_suffix_dense", "forward_block_decode")}
-    eng_mod.forward_prefill_suffix_dense = counted(
-        "suffix prefill", saved["forward_prefill_suffix_dense"], True)
-    eng_mod.forward_block_decode = counted(
-        "block decode", saved["forward_block_decode"], True)
-    engine._prefill_prefix_chunked = counted(
-        "prefix chunk", engine._prefill_prefix_chunked, False)
+    run = graphs.Program.run
+    chunked = engine._prefill_prefix_chunked
+
+    def counted_run(prog):
+        before, runs0 = _launch_counts(), prog.runs
+        try:
+            run(prog)
+        finally:
+            book(prog.name, prog.runs - runs0, before)
+
+    def counted_chunked(*args, **kwargs):
+        before = _launch_counts()
+        try:
+            return chunked(*args, **kwargs)
+        finally:
+            book("prefix chunk", 1, before)
+
+    graphs.Program.run = counted_run
+    engine._prefill_prefix_chunked = counted_chunked
     try:
-        yield counts
+        yield steps
     finally:
-        for name, fn in saved.items():
-            setattr(eng_mod, name, fn)
+        graphs.Program.run = run
         del engine._prefill_prefix_chunked
+
+
+def per_call(steps) -> dict:
+    """Kernel launches per device run of each step."""
+    return {step: {k: rec[k] / rec["runs"] for k in ("K1", "K2", "K3", "K4")}
+            for step, rec in steps.items() if rec["runs"]}
+
+
+# The host's launch calls as torch.profiler traces them (CUPTI): kernel
+# launches through the runtime and the driver, graph launches, and async
+# copies and sets.
+HOST_KERNEL_CALLS = frozenset(
+    ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
+HOST_LAUNCH_CALLS = HOST_KERNEL_CALLS | {"cudaGraphLaunch", "cudaMemcpyAsync",
+                                         "cudaMemsetAsync"}
+
+
+def launch_census(fn) -> dict:
+    """fn() under torch.profiler, ending in a synchronize: the host's launch
+    calls (HOST_LAUNCH_CALLS), of them the kernel launches outside graphs
+    and the graph launches, and the operations the device ran (kernels,
+    copies, sets)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    # the CUDA activity alone traces the runtime and driver calls too
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rec = {"host_launches": 0, "host_kernel_launches": 0, "graph_launches": 0,
+           "device_ops": 0}
+    # the trace's raw records: an eager decision has ~1.4M, which
+    # prof.events() is far slower to build into a tree than to read raw
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            rec["device_ops"] += 1
+        elif name in HOST_LAUNCH_CALLS:
+            rec["host_launches"] += 1
+            rec["host_kernel_launches"] += name in HOST_KERNEL_CALLS
+            rec["graph_launches"] += name == "cudaGraphLaunch"
+    return rec
 
 
 def _zero_launch_counts() -> None:
@@ -1227,86 +1285,196 @@ def build_backend():
     return backend, build_s
 
 
-def decision_phase(backend, build_s, nodes, pods) -> tuple[bool, dict]:
-    import torch
-    from k8s_llm_scheduler_tpu_torch.core.validation import feasible_nodes
+MODES = (("graphs", True), ("eager", False))  # InferenceEngine(graphs=...)
+NO_PREWARM_S = 3600.0  # an eager backend's idle grace: longer than the smoke
 
-    decisions = []
-    torch.cuda.reset_peak_memory_stats()
-    with k1_launches_by_step(backend.engine) as by_step:
-        _zero_launch_counts()
-        t_main = time.perf_counter()
-        singles = []
-        for pod in pods[:N_SINGLES]:
+
+def _serve(backend, nodes, pods, n_singles, prewarm: bool) -> dict:
+    """The decision drive: n_singles single decisions; then (with
+    `prewarm`, once the backend's idle worker has captured the sibling wave
+    geometries: engine.prewarm_wave_siblings, polled through
+    wave_prewarm_backlog) the batch; then one more single decision under the profiler
+    (launch_census). Returns its times, the decisions [(pod, decision)],
+    each wave's tokens, row count and cold flag (from harvest_wave), and
+    the valid tokens of each block call by row bucket R."""
+    eng = backend.engine
+    waves: list[dict] = []
+    harvest = eng.harvest_wave
+
+    def recorded(handle):
+        fins = harvest(handle)
+        waves.append({"R": handle.geo_key[0], "cold": handle.cold_compile,
+                      "tokens": [f.token_ids for f in fins]})
+        return fins
+
+    eng.harvest_wave = recorded
+    eng.block_tokens.clear()
+    out, singles = [], []
+    try:
+        for pod in pods[:n_singles]:
             t = time.perf_counter()
-            d = backend.get_scheduling_decision(pod, nodes)
+            out.append((pod, backend.get_scheduling_decision(pod, nodes)))
             singles.append((time.perf_counter() - t) * 1000.0)
-            decisions.append((pod, d))
+        totals = {eng.max_slots // 2: list(eng.block_tokens)}
+        eng.block_tokens.clear()
+        t = time.perf_counter()
+        while prewarm and eng.wave_prewarm_backlog():
+            if time.perf_counter() - t > 600:
+                raise RuntimeError("the sibling wave prewarm did not drain in 600 s")
+            time.sleep(0.05)
+        prewarm_s = time.perf_counter() - t
+        n_single_waves = len(waves)
         t = time.perf_counter()
         batch = backend.get_scheduling_decisions_batch(pods, nodes)
         batch_ms = (time.perf_counter() - t) * 1000.0
-        main_s = time.perf_counter() - t_main
-        launches = _launch_counts()
-    stats = backend.get_stats()
+        totals[eng.max_slots] = list(eng.block_tokens)
+        batch_cold = [w["cold"] for w in waves[n_single_waves:]]
+        calls0 = eng.stats["wave_model_calls"]
+        census = launch_census(lambda: backend.get_scheduling_decision(pods[0], nodes))
+        census["model_calls"] = eng.stats["wave_model_calls"] - calls0
+    finally:
+        del eng.harvest_wave
     for pod, d in zip(pods, batch):
         if isinstance(d, Exception):
             raise d
-        decisions.append((pod, d))
-    ok = True
-    for pod, d in decisions:
-        names = {n.name for n in feasible_nodes(pod, nodes)}
-        good = d.selected_node in names and 0.0 <= d.confidence <= 1.0
-        ok = ok and good
-        print(f"  {pod.name}: {d.selected_node} conf={d.confidence} "
-              f"reasoning_len={len(d.reasoning)} ok={good}", flush=True)
+        out.append((pod, d))
+    return {"single_decision_ms": singles, "prewarm_wait_s": prewarm_s,
+            "batch_of_8_ms": batch_ms, "batch_cold_compile": batch_cold,
+            "decisions": out, "waves": waves, "totals": totals, "census": census}
+
+
+def _graph_books(engine) -> dict:
+    """The engine's CUDA-graph books: captures, replays, capture seconds by
+    program (summed over its geometries)."""
+    runner = engine._graphs
+    return {"captures": runner.captures, "replays": runner.replays,
+            "capture_s": dict(runner.capture_s)}
+
+
+def _memory(start: int) -> dict:
+    import torch
+
+    return {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_above_start_gib": (torch.cuda.max_memory_allocated() - start) / 2**30,
+            "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+
+
+def _drive_modes(make_backend, nodes, pods) -> dict:
+    """_serve in graph mode, then eagerly (graphs=False), each on a backend
+    from make_backend(graphs) that is closed after it; every launch count
+    is zeroed just before a mode's drive and read just after it. An eager
+    backend has nothing to capture: it is built with an idle grace that
+    never passes, so no prewarm dummy wave runs in its drive."""
+    import torch
+
+    recs = {}
+    for mode, graphs in MODES:
+        backend = make_backend(graphs)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            with launches_by_step(backend.engine) as steps:
+                _zero_launch_counts()
+                t0 = time.perf_counter()
+                served = _serve(backend, nodes, pods, N_SINGLES, prewarm=graphs)
+                main_s = time.perf_counter() - t0
+                launches = _launch_counts()
+            stats = backend.get_stats()
+            recs[mode] = {**served, "main_s": main_s, "launches": launches,
+                          "steps": steps, "stats": stats,
+                          **_graph_books(backend.engine), **_memory(start)}
+        finally:
+            backend.close()
+        del backend
+        gc.collect()  # an engine and its graphs hold each other
+        torch.cuda.empty_cache()
+    return recs
+
+
+def _mode_summary(rec, decisions) -> dict:
+    """One mode's printed record."""
+    stats, census = rec["stats"], rec["census"]
     n = len(decisions)
-    rec = {
-        "model": "llama-3.1-8b-instruct",
-        "nodes": len(nodes),
+    return {
         "decisions": n,
-        "launches": launches,
-        "launches_per_decision": {k: v / n for k, v in launches.items()},
-        "single_decision_ms": singles,
-        "batch_of_8_ms": batch_ms,
-        "decisions_per_s_batch": 8 / (batch_ms / 1000.0),
-        "decisions_per_s_all": n / main_s,
+        "launches": rec["launches"],
+        "launches_per_decision": {k: v / n for k, v in rec["launches"].items()},
+        "single_decision_ms": rec["single_decision_ms"],
+        "batch_of_8_ms": rec["batch_of_8_ms"],
+        "decisions_per_s_batch": 8 / (rec["batch_of_8_ms"] / 1000.0),
+        "batch_cold_compile": rec["batch_cold_compile"],
+        "prewarm_wait_s": rec["prewarm_wait_s"],
         "prefix_prefill_ms": stats["prefix_prefill_ms"],
         "prefix_tokens_prefilled": stats["prefill_tokens"],
         "wave_ms_total": stats["wave_ms"],
         "waves": stats["waves"],
         "wave_model_calls": stats["wave_model_calls"],
-        "backend_build_s": build_s,
-        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "wave_block_calls": stats["wave_block_calls"],
+        "wave_prewarms": stats["wave_prewarms"],
+        "wave_prewarm_failures": stats["wave_prewarm_failures"],
+        "captures": rec["captures"], "replays": rec["replays"],
+        "capture_s": rec["capture_s"],
+        "kernel_launches_per_run": per_call(rec["steps"]),
+        "steps": rec["steps"],
+        "census_decision": census,
+        "host_launches_per_model_call": census["host_launches"] / max(census["model_calls"], 1),
+        "device_ops_per_model_call": census["device_ops"] / max(census["model_calls"], 1),
+        "peak_gib": rec["peak_gib"], "peak_above_start_gib": rec["peak_above_start_gib"],
+        "peak_reserved_gib": rec["peak_reserved_gib"],
     }
-    # measured by step; every K1 launch of the run falls in one of them
-    rec["k1_launches_by_step"] = dict(by_step)
-    ok = (ok and launches["K1"] > 0 and launches["K2"] > 0
-          and sum(by_step.values()) == launches["K1"])
-    print("decision: " + json.dumps(rec), flush=True)
+
+
+def _modes_agree(recs, what: str) -> bool:
+    """Graph mode against eager: identical greedy tokens wave for wave and
+    row for row, equal kernel launches per device run of every step, the
+    batch of 8 warm in graph mode, and no kernel launched outside a graph
+    in graph mode's profiled decision."""
+    g, e = recs["graphs"], recs["eager"]
+    same = [w["tokens"] for w in g["waves"]] == [w["tokens"] for w in e["waves"]]
+    calls = per_call(g["steps"]) == per_call(e["steps"])
+    warm = g["batch_cold_compile"] == [False]
+    # the profiler saw the runtime's calls (a graph launch a model call at
+    # least) and no kernel launch among them
+    no_eager = (g["census"]["host_kernel_launches"] == 0
+                and g["census"]["graph_launches"] >= g["census"]["model_calls"])
+    print(f"{what}: graphs vs eager tokens identical={same} ({len(g['waves'])} waves), "
+          f"launches per run equal={calls}, batch warm={warm}, "
+          f"graph-mode decision launched no kernel outside a graph={no_eager}", flush=True)
+    return same and calls and warm and no_eager
+
+
+def decision_phase(backend, build_s, nodes, pods) -> tuple[bool, dict]:
+    from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
+    from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    params, cfg = backend.engine.params, backend.engine.cfg
+
+    def make(graphs):
+        if graphs:
+            return backend  # built before phase 2, graphs on by default
+        return LocalLLMBackend(
+            InferenceEngine(params, cfg, ByteTokenizer(), temperature=0.0, rng_seed=0,
+                            graphs=False),
+            request_timeout_s=600.0, prewarm_idle_delay_s=NO_PREWARM_S)
+
+    recs = _drive_modes(make, nodes, pods)
+    ok = _modes_agree(recs, "decision")
+    rec = {"model": "llama-3.1-8b-instruct", "nodes": len(nodes), "backend_build_s": build_s}
+    for mode, _ in MODES:
+        r = recs[mode]
+        ok = ok and _feasible(nodes, r["decisions"])
+        rec[mode] = _mode_summary(r, r["decisions"])
+        print(f"decision [{mode}]: " + json.dumps(rec[mode]), flush=True)
+    g = recs["graphs"]
+    # the main path's counts: graph mode; measured by step, every K1 launch
+    # of the run falls in one of them
+    rec["launches"] = g["launches"]
+    rec["k1_launches_by_step"] = {step: r["K1"] for step, r in g["steps"].items()}
+    ok = (ok and g["launches"]["K1"] > 0 and g["launches"]["K2"] > 0
+          and sum(rec["k1_launches_by_step"].values()) == g["launches"]["K1"])
     return ok, rec
-
-
-def _serve(backend, nodes, pods, n_singles):
-    """n_singles single decisions, then the batch; (singles ms, batch ms,
-    [(pod, decision)], valid tokens of each block call by row bucket R)."""
-    eng = backend.engine
-    eng.block_tokens.clear()
-    out, singles = [], []
-    for pod in pods[:n_singles]:
-        t = time.perf_counter()
-        out.append((pod, backend.get_scheduling_decision(pod, nodes)))
-        singles.append((time.perf_counter() - t) * 1000.0)
-    totals = {eng.max_slots // 2: list(eng.block_tokens)}
-    eng.block_tokens.clear()
-    t = time.perf_counter()
-    batch = backend.get_scheduling_decisions_batch(pods, nodes)
-    batch_ms = (time.perf_counter() - t) * 1000.0
-    totals[eng.max_slots] = list(eng.block_tokens)
-    for pod, d in zip(pods, batch):
-        if isinstance(d, Exception):
-            raise d
-        out.append((pod, d))
-    return singles, batch_ms, out, totals
 
 
 def _feasible(nodes, decisions) -> bool:
@@ -1324,7 +1492,8 @@ def _feasible(nodes, decisions) -> bool:
 
 def path_a_phase(backend, nodes, pods):
     """int8 weights (quantized on the card from the bf16 8B params) and
-    ragged block-decode matmuls (K3) on the decision path."""
+    ragged block-decode matmuls (K3) on the decision path, in both modes;
+    K3 launches 7 a layer of every block-decode run in both."""
     import torch
     from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
     from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend
@@ -1336,54 +1505,42 @@ def path_a_phase(backend, nodes, pods):
     params = quantize_params(backend.engine.params)
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
-    engine = InferenceEngine(params, cfg, ByteTokenizer(), temperature=0.0,
-                             decode_matmul="ragged")
-    b = LocalLLMBackend(engine, request_timeout_s=600.0)
-    try:
-        _zero_launch_counts()
-        singles, batch_ms, decisions, totals = _serve(b, nodes, pods, N_SINGLES)
-        launches = _launch_counts()
-        stats = b.get_stats()
-    finally:
-        b.close()
-    ok = _feasible(nodes, decisions) and launches["K3"] > 0 and launches["K1"] > 0
-    n = len(decisions)
-    rec = {
-        "model": "llama-3.1-8b-instruct int8 weight-only, decode_matmul=ragged",
-        "quantize_s": quant_s,
-        "int8_param_gib": param_bytes(params) / 2**30,
-        "decisions": n,
-        "launches": launches,
-        "launches_per_decision": {k: v / n for k, v in launches.items()},
-        "single_decision_ms": singles,
-        "batch_of_8_ms": batch_ms,
-        "decisions_per_s_batch": 8 / (batch_ms / 1000.0),
-        "wave_model_calls": stats["wave_model_calls"],
-        "waves": stats["waves"],
-        "wave_ms_total": stats["wave_ms"],
-        "block_tokens": {str(r): t for r, t in totals.items()},
-    }
-    print("path A: " + json.dumps({k: v for k, v in rec.items() if k != "block_tokens"}),
-          flush=True)
-    return ok, rec, totals
+
+    def make(graphs):
+        engine = InferenceEngine(params, cfg, ByteTokenizer(), temperature=0.0,
+                                 decode_matmul="ragged", graphs=graphs)
+        return LocalLLMBackend(engine, request_timeout_s=600.0,
+                               prewarm_idle_delay_s=0.5 if graphs else NO_PREWARM_S)
+
+    recs = _drive_modes(make, nodes, pods)
+    ok = _modes_agree(recs, "path A")
+    rec = {"model": "llama-3.1-8b-instruct int8 weight-only, decode_matmul=ragged",
+           "quantize_s": quant_s, "int8_param_gib": param_bytes(params) / 2**30}
+    k3_per_block = 7 * cfg.n_layers
+    for mode, _ in MODES:
+        r = recs[mode]
+        ok = ok and _feasible(nodes, r["decisions"])
+        blocks = {step: c for step, c in per_call(r["steps"]).items()
+                  if step.startswith("block decode")}
+        ok = (ok and r["launches"]["K3"] > 0 and r["launches"]["K1"] > 0 and bool(blocks)
+              and all(c["K3"] == k3_per_block for c in blocks.values()))
+        rec[mode] = _mode_summary(r, r["decisions"])
+        print(f"path A [{mode}]: " + json.dumps(rec[mode]), flush=True)
+    g = recs["graphs"]
+    rec["launches"] = g["launches"]
+    rec["block_tokens"] = {str(r): t for r, t in g["totals"].items()}
+    return ok, rec, g["totals"]
 
 
-def path_b_phase(backend, nodes, pods):
-    """General completion on the bf16 8B params: set_prefix, add_requests,
-    step() to completion, then generate(), own-token attention through K4."""
+def _path_b_run(eng, suffixes):
+    """One path-B drive on engine `eng` (its prefix installed): 8 suffixes
+    admitted and stepped to completion, one generate(), then 8 more
+    admitted with one step() under the profiler (launch_census) and the
+    rest drained."""
     import torch
-    from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
-    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
 
-    cfg = backend.engine.cfg
-    eng = InferenceEngine(backend.engine.params, cfg, ByteTokenizer(), temperature=0.0,
-                          paged_attn="pallas", max_slots=8, page_size=64)
-    items = [backend._prepare_item(p, nodes) for p in pods]
-    suffixes = [it.suffix_ids for it in items]
-    eng.set_prefix(items[0].prefix_ids)
     pages0 = eng.kv.pages_free
     torch.cuda.synchronize()
-    _zero_launch_counts()
     t0 = time.perf_counter()
     ids = eng.add_requests(suffixes, max_new_tokens=PATH_B_NEW_TOKENS)
     plen = eng.prefix_len
@@ -1400,39 +1557,111 @@ def path_b_phase(backend, nodes, pods):
     t1 = time.perf_counter()
     gen = eng.generate(suffixes[0], max_new_tokens=PATH_B_NEW_TOKENS)
     gen_s = time.perf_counter() - t1
-    launches = _launch_counts()
-    pages_end = eng.kv.pages_free
-    done = {f.req_id: len(f.token_ids) for f in fins}
-    ok = (sorted(done) == sorted(ids)
-          and all(1 <= n <= PATH_B_NEW_TOKENS for n in done.values())
-          and 1 <= len(gen.token_ids) <= PATH_B_NEW_TOKENS
-          and launches["K4"] > 0 and pages_end == pages0)
-    n_tok = sum(done.values())
-    steps = chunks_batch * eng.chunk_steps
-    rec = {
-        "model": "llama-3.1-8b-instruct bf16, paged_attn=pallas",
-        "prefix_tokens": plen,
-        "suffix_tokens": [len(sfx) for sfx in suffixes],
-        "requests": len(ids),
-        "tokens_per_request": [done[i] for i in ids],
-        "batch_wall_s": batch_s,
-        "batch_tokens_per_s": n_tok / batch_s,
-        "chunks": chunks_batch,
-        "ms_per_decode_step": batch_s * 1000.0 / steps,
-        "generate_tokens": len(gen.token_ids),
-        "generate_wall_s": gen_s,
-        "generate_tokens_per_s": len(gen.token_ids) / gen_s,
-        "launches": launches,
-        "launches_per_decode_step": launches["K4"] / (eng.stats["chunks"] * eng.chunk_steps),
-        "pages_free_start": pages0,
-        "pages_free_end": pages_end,
-        "ok": ok,
+    chunks_main = eng.stats["chunks"]
+    pages_main = eng.kv.pages_free
+    more = eng.add_requests(suffixes, max_new_tokens=PATH_B_NEW_TOKENS)
+    box = {}
+    census = launch_census(lambda: box.setdefault("fins", eng.step()))
+    census["decode_steps"] = (eng.stats["chunks"] - chunks_main) * eng.chunk_steps
+    extra = box["fins"]
+    while eng.has_active:
+        extra += eng.step()
+    done = {f.req_id: f.token_ids for f in fins}
+    done_more = {f.req_id: f.token_ids for f in extra}
+    return {
+        "ids": ids, "tokens": [done.get(i) for i in ids], "generate": gen.token_ids,
+        "extra": [done_more.get(i) for i in more],
+        "batch_s": batch_s, "chunks_batch": chunks_batch, "gen_s": gen_s,
+        "chunks_main": chunks_main, "pages0": pages0, "pages_main": pages_main,
+        "pages_end": eng.kv.pages_free, "shapes": shapes, "census": census,
+        "pages_shape": tuple(eng.kv.k.shape[1:]),
     }
-    print("path B: " + json.dumps(rec), flush=True)
-    q_shape = (eng.max_slots + 1, cfg.n_heads, cfg.head_dim)
-    pages_shape = tuple(eng.kv.k.shape[1:])
-    cases = [(step, q_shape, pages_shape, t.cpu(), l.cpu()) for step, t, l in shapes]
+
+
+def path_b_phase(backend, nodes, pods):
+    """General completion on the bf16 8B params: set_prefix, add_requests,
+    step() to completion, then generate(), own-token attention through K4,
+    in both modes: identical tokens, every page returned."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    cfg = backend.engine.cfg
+    items = [backend._prepare_item(p, nodes) for p in pods]
+    suffixes = [it.suffix_ids for it in items]
+    runs, ok = {}, True
+    rec = {"model": "llama-3.1-8b-instruct bf16, paged_attn=pallas",
+           "suffix_tokens": [len(sfx) for sfx in suffixes]}
+    for mode, graphs in MODES:
+        eng = InferenceEngine(backend.engine.params, cfg, ByteTokenizer(), temperature=0.0,
+                              paged_attn="pallas", max_slots=8, page_size=64, graphs=graphs)
+        eng.set_prefix(items[0].prefix_ids)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        with launches_by_step(eng) as steps:
+            _zero_launch_counts()
+            r = _path_b_run(eng, suffixes)
+            launches = _launch_counts()
+        runs[mode] = r
+        n_tok = sum(len(t) for t in r["tokens"] if t is not None)
+        steps_run = r["chunks_batch"] * eng.chunk_steps
+        good = (all(t is not None and 1 <= len(t) <= PATH_B_NEW_TOKENS for t in r["tokens"])
+                and 1 <= len(r["generate"]) <= PATH_B_NEW_TOKENS
+                and all(t is not None and 1 <= len(t) <= PATH_B_NEW_TOKENS
+                        for t in r["extra"])
+                and launches["K4"] > 0
+                and r["pages_main"] == r["pages0"] == r["pages_end"])
+        census = r["census"]
+        rec[mode] = {
+            "prefix_tokens": eng.prefix_len,
+            "requests": len(r["ids"]),
+            "tokens_per_request": [len(t or ()) for t in r["tokens"]],
+            "batch_wall_s": r["batch_s"],
+            "batch_tokens_per_s": n_tok / r["batch_s"],
+            "chunks": r["chunks_batch"],
+            "ms_per_decode_step": r["batch_s"] * 1000.0 / steps_run,
+            "generate_tokens": len(r["generate"]),
+            "generate_wall_s": r["gen_s"],
+            "generate_tokens_per_s": len(r["generate"]) / r["gen_s"],
+            "generate_ms_per_decode_step": r["gen_s"] * 1000.0 / (
+                (r["chunks_main"] - r["chunks_batch"]) * eng.chunk_steps),
+            "launches": launches,
+            "launches_per_decode_step": launches["K4"] / (eng.stats["chunks"] * eng.chunk_steps),
+            "kernel_launches_per_run": per_call(steps),
+            "steps": steps,
+            "census_step": census,
+            "host_launches_per_decode_step": census["host_launches"] / census["decode_steps"],
+            "device_ops_per_decode_step": census["device_ops"] / census["decode_steps"],
+            **_graph_books(eng), **_memory(start),
+            "pages_free_start": r["pages0"], "pages_free_end": r["pages_end"],
+            "ok": good,
+        }
+        ok = ok and good
+        print(f"path B [{mode}]: " + json.dumps(rec[mode]), flush=True)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    g, e = runs["graphs"], runs["eager"]
+    same = (g["tokens"], g["generate"], g["extra"]) == (e["tokens"], e["generate"], e["extra"])
+    calls = rec["graphs"]["kernel_launches_per_run"] == rec["eager"]["kernel_launches_per_run"]
+    no_eager = (g["census"]["host_kernel_launches"] == 0
+                and g["census"]["graph_launches"] >= 1)
+    print(f"path B: graphs vs eager tokens identical={same}, launches per run equal={calls}, "
+          f"graph-mode step launched no kernel outside a graph={no_eager}", flush=True)
+    ok = ok and same and calls and no_eager
+    rec["launches"] = rec["graphs"]["launches"]
+    q_shape = (8 + 1, cfg.n_heads, cfg.head_dim)
+    cases = [(step, q_shape, g["pages_shape"], t.cpu(), l.cpu())
+             for step, t, l in g["shapes"]]
     return ok, rec, cases
+
+
+def _timed_phase(name, fn, *args, **kwargs):
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -1470,19 +1699,19 @@ def main() -> int:
     backend, backend_s = build_backend()
     try:
         k1_cases, k2_cases = path_shapes(backend, nodes, pods, N_SINGLES)
-        k_ok, k1, k2 = kernel_phase(k1_cases, k2_cases)
-        r_ok, ref = reference_phase()
-        d_ok, dec = decision_phase(backend, backend_s, nodes, pods)
-        a_ok, path_a, totals = path_a_phase(backend, nodes, pods)
+        k_ok, k1, k2 = _timed_phase("kernels", kernel_phase, k1_cases, k2_cases)
+        r_ok, ref = _timed_phase("reference", reference_phase)
+        d_ok, dec = _timed_phase("decision", decision_phase, backend, backend_s, nodes, pods)
+        a_ok, path_a, totals = _timed_phase("path A", path_a_phase, backend, nodes, pods)
         torch.cuda.empty_cache()
-        b_ok, path_b, k4_cases = path_b_phase(backend, nodes, pods)
+        b_ok, path_b, k4_cases = _timed_phase("path B", path_b_phase, backend, nodes, pods)
         cfg = backend.engine.cfg
     finally:
         backend.close()
     del backend
     torch.cuda.empty_cache()
-    k3_ok, k3 = k3_phase(cfg, totals)
-    k4_ok, k4 = k4_phase(k4_cases, long_cases=[k4_long_case()])
+    k3_ok, k3 = _timed_phase("K3", k3_phase, cfg, totals)
+    k4_ok, k4 = _timed_phase("K4", k4_phase, k4_cases, long_cases=[k4_long_case()])
 
     def entry(name, recs, source, replaces, launches, main, **extra):
         return {

@@ -15,8 +15,14 @@ engine/engine.py).
   run that follows through DFA table lookups (no model call), and runs one
   block-wide mini-prefill (models/llama.forward_block_decode; with
   decode_matmul="ragged" its matmuls run K3 over the valid tokens only).
-  The JAX package's `lax.while_loop` is a Python loop bounded by `n_iters`
-  that stops as soon as no row is alive (one host sync per iteration).
+  Where the JAX engine runs the wave as ONE compiled program (a
+  `lax.while_loop` with its early exit on the device), the port runs two
+  programs over static buffers per wave geometry (`_WaveVariant`),
+  captured as CUDA graphs on a card (engine/graphs.py): the suffix prefill,
+  and one block iteration replayed at most `n_iters` times. The host reads
+  iteration i's "any row alive" flag while iteration i+1 runs, so the
+  device never waits on the host and at most one iteration runs past the
+  last live one (it emits only pads and is not counted).
 - **General completion** (`add_requests` / `step` / `generate`): a fixed
   decode batch of `max_slots` slots over the paged KV cache
   (engine/kv_cache.py). Admission prefills a batch of suffixes against the
@@ -25,7 +31,15 @@ engine/engine.py).
   flushed into pages once per chunk, then syncs once. Own-token attention
   either gathers the pages once per chunk (paged_attn="gather") or streams
   them through K4 every step (paged_attn="pallas"). Per-slot state lives on
-  the device with a trash row M = max_slots that admission padding writes.
+  the device with a trash row M = max_slots that admission padding writes;
+  the chunk (`_ChunkVariant`) updates it in place and is one CUDA graph on
+  a card.
+- **Static buffers, one switch**: the graphs read the active prefix's KV,
+  its length, the grammar tables and the page tables by address, so each
+  has a static buffer that a switch copies into (the prefix one per buffer
+  length Sp, the grammar one per table shape). `graphs=False` runs the
+  same static-buffer code eagerly (the counterpart of `jax.disable_jit`);
+  off a card there are no graphs.
 - **Sparse grammar tables** (engine/constrained.py): sampling in K-space,
   vocab-independent.
 
@@ -39,6 +53,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+import weakref
 from collections import OrderedDict, deque
 
 import numpy as np
@@ -48,6 +63,12 @@ from k8s_llm_scheduler_tpu_torch.engine.constrained import (
     DecisionDFA,
     sparse_tables,
     wave_iterations,
+)
+from k8s_llm_scheduler_tpu_torch.engine.graphs import (
+    Fence,
+    GraphRunner,
+    Program,
+    host_buffer,
 )
 from k8s_llm_scheduler_tpu_torch.engine.kv_cache import PagedKVCache
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer, Tokenizer
@@ -168,148 +189,119 @@ def _admit_impl(
     state.first[rows] = first_new
 
 
-@torch.no_grad()
-def _decode_chunk_impl(
-    params: Params,
-    cfg: LlamaConfig,
-    k_cache, v_cache,  # paged caches, updated IN PLACE by the flush
-    page_tables,       # [M, P] own-page tables (trash row included)
-    prefix_k, prefix_v,  # [L, Sp, n_kv, hd]
-    prefix_len,        # 0-dim int32
-    state: _SlotState,  # updated IN PLACE
-    sp_tokens, sp_next, done_state: int, eos_id: int, pad_id: int,
-    gen, temperature: float,
-    n_steps: int,
-    constrained: bool,
-    paged_attn: str = "gather",
-    vocab_limit: int | None = None,
-):
-    """`n_steps` decode steps; each emits one sampled token per slot, and
-    finished, exhausted or idle slots emit pad_id. The pages are frozen for
-    the chunk: new K/V goes to a small chunk buffer and flushes into pages
-    in one scatter at the end. Own-token attention either gathers the pages
-    to a dense buffer once ("gather") or streams them through K4 every step
-    ("pallas"). Returns the emitted tokens [M, n_steps]."""
-    M, P = page_tables.shape
-    L, _, ps, n_kv, hd = k_cache.shape
-    dev = k_cache.device
-    own_start = state.pos - prefix_len  # [M] tokens already in own pages
-    if paged_attn == "pallas":
-        k_own, v_own = k_cache, v_cache
-    else:
-        tables = page_tables.long()
-        k_own = k_cache[:, tables].reshape(L, M, P * ps, n_kv, hd)
-        v_own = v_cache[:, tables].reshape(L, M, P * ps, n_kv, hd)
-    ck = torch.zeros((L, M, n_steps, n_kv, hd), dtype=k_cache.dtype, device=dev)
-    cv = torch.zeros_like(ck)
-    tail = torch.zeros(M, dtype=torch.int32, device=dev)
-    tok, pos, act, st, budget = state.tok, state.pos, state.act, state.st, state.budget
-    toks = []
-    for _ in range(n_steps):
-        act_eff = act & (budget > 0)
-        logits, ck, cv = forward_decode_buffered(
-            params, cfg, tok, pos, k_own, v_own, own_start,
-            ck, cv, tail, prefix_k, prefix_v, prefix_len,
-            page_tables=page_tables,
-            own_impl="pallas" if paged_attn == "pallas" else "dense",
+class _WaveVariant:
+    """One compiled wave geometry (InferenceEngine._wave_key): its static
+    input buffers and carry, and its two device programs, captured as CUDA
+    graphs on a card (engine/graphs.py) and run eagerly otherwise:
+
+    - `prefill`: the batched suffix prefill against the static prefix, and
+      the carry's initial state (idempotent: a function of the inputs);
+    - `iteration`: ONE grammar-accelerated block iteration updating the
+      carry in place: (a) sample one token from the carried logits, (b)
+      expand the forced run that follows through DFA table lookups (no
+      model call), (c) one F-wide mini-prefill over the block
+      (models/llama.forward_block_decode; with decode_matmul="ragged" its
+      matmuls run K3 over the valid tokens only). The block lands in `out`
+      at the device-side iteration counter `it`, with its valid-token count
+      in `counts[it]` and whether any row is still alive in `alive[it]`,
+      which the program copies to the host buffer `alive_h`.
+
+    The JAX package's `lax.while_loop` is the host loop of
+    InferenceEngine._run_wave. Every buffer a program reads lives as long
+    as the variant: the static prefix of its Sp, the grammar tables of its
+    shape and the prefix length are the engine's."""
+
+    def __init__(self, eng: "InferenceEngine", key: tuple, R: int, bucket: int,
+                 n_iters: int, F: int, cap: int, prefix: "_StaticPrefix") -> None:
+        cfg, dev = eng.cfg, eng.device
+        self.key, self.R, self.n_iters, self.F = key, R, n_iters, F
+        self._eng = eng
+        self._prefix = prefix
+        # the grammar tables of this variant's shape (set_grammar keeps one
+        # set a shape and rewrites it in place)
+        self._tables = (eng._sp_tokens, eng._sp_next, eng._forced, eng._forced_next)
+        self._constrained = eng._constrained
+
+        def i32(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+        self.tokens, self.suffix_lens, self.max_new = i32(R, bucket), i32(R), i32(R)
+        self.staging = tuple(
+            host_buffer(t.shape, torch.int32, dev)
+            for t in (self.tokens, self.suffix_lens, self.max_new)
         )
-        if constrained:
-            nxt, new_st = _sample_sparse(
-                logits, sp_tokens[st], sp_next[st], gen, temperature
-            )
-        else:
-            nxt = _sample_unconstrained(logits, pad_id, gen, temperature, vocab_limit)
-            new_st = st
-        tok = torch.where(act_eff, nxt, pad_id)
-        new_st = torch.where(act_eff, new_st, st)
-        finished = (new_st == done_state) | (nxt == eos_id)
-        act = act_eff & ~finished
-        budget = torch.where(act_eff, budget - 1, budget)
-        pos = torch.where(act_eff, pos + 1, pos)
-        tail = torch.where(act_eff, tail + 1, tail)
-        st = new_st
-        toks.append(tok)
+        self._staged = Fence(dev)  # the last copies out of `staging` ran
+        kv = (cfg.n_layers, R, bucket, cfg.n_kv_heads, cfg.head_dim)
+        self.k_sfx = torch.zeros(kv, dtype=cfg.dtype, device=dev)
+        self.v_sfx = torch.zeros_like(self.k_sfx)
+        gen_kv = (cfg.n_layers, R, cap + 1, cfg.n_kv_heads, cfg.head_dim)
+        self.gk = torch.zeros(gen_kv, dtype=cfg.dtype, device=dev)
+        self.gv = torch.zeros_like(self.gk)
+        self.st, self.emitted, self.pos_next = i32(R), i32(R), i32(R)
+        self.act = torch.zeros(R, dtype=torch.bool, device=dev)
+        self.logits = torch.zeros((R, cfg.vocab_size), dtype=torch.float32, device=dev)
+        self.out = i32(R, n_iters * F)
+        self.counts = i32(n_iters)
+        self.alive = torch.zeros(n_iters, dtype=torch.bool, device=dev)
+        self.alive_h = host_buffer((n_iters,), torch.bool, dev)
+        self.it = torch.zeros((), dtype=torch.int64, device=dev)
+        self.jcol = torch.arange(F, dtype=torch.int32, device=dev)
+        runner = eng._graphs
+        self.prefill = runner.program(f"suffix prefill R={R}", self._prefill, idempotent=True)
+        self.iteration = runner.program(f"block decode R={R}", self._iterate)
 
-    # Flush the chunk buffer into pages: entry j of slot m lands at own
-    # position own_start[m] + j; invalid entries (j >= tail) go to scratch
-    # page 0 (duplicates there are harmless: nothing reads it).
-    j = torch.arange(n_steps, device=dev)
-    own_pos = own_start[:, None].long() + j[None, :]
-    valid = j[None, :] < tail[:, None]
-    page_slot = torch.clamp(own_pos // ps, 0, P - 1)
-    page_ids = torch.gather(page_tables.long(), 1, page_slot)
-    page_ids = torch.where(valid, page_ids, 0)
-    offs = torch.where(valid, own_pos % ps, 0)
-    k_cache[:, page_ids, offs] = ck
-    v_cache[:, page_ids, offs] = cv
-    state.tok, state.pos, state.act, state.st, state.budget = tok, pos, act, st, budget
-    return torch.stack(toks, dim=1)
+    def load(self, tokens: np.ndarray, suffix_lens: np.ndarray, max_new: np.ndarray) -> None:
+        """The wave's inputs into the static buffers through pinned host
+        buffers, copied without a sync once the previous copies out of
+        them have run."""
+        self._staged.synchronize()
+        for host, dst, src in zip(self.staging, (self.tokens, self.suffix_lens, self.max_new),
+                                  (tokens, suffix_lens, max_new)):
+            host.numpy()[...] = src
+            dst.copy_(host, non_blocking=True)
+        self._staged.record()
 
+    @torch.no_grad()
+    def _prefill(self) -> None:
+        eng, pfx = self._eng, self._prefix
+        last_logits, _, _ = forward_prefill_suffix_dense(
+            eng.params, eng.cfg, self.tokens, self.suffix_lens, pfx.k, pfx.v,
+            eng._plen_d, kv_out=(self.k_sfx, self.v_sfx),
+        )
+        self.logits.copy_(last_logits)
+        self.st.copy_(eng._dfa_start_d.expand(self.R))
+        self.act.copy_(self.suffix_lens > 0)
+        # emitted doubles as the generated-KV write tail.
+        self.emitted.zero_()
+        self.pos_next.copy_(eng._plen_d + self.suffix_lens)
+        self.gk.zero_()
+        self.gv.zero_()
+        self.out.fill_(eng.tokenizer.pad_id)
+        self.counts.zero_()
+        self.alive.zero_()
+        self.it.zero_()
 
-@torch.no_grad()
-def _wave_impl(
-    params: Params,
-    cfg: LlamaConfig,
-    tokens,        # [R, Ss] suffix tokens, left-aligned, padded
-    suffix_lens,   # [R] int32 (0 on padding rows)
-    prefix_k, prefix_v,  # [L, Sp, n_kv, hd] shared dense prefix KV
-    prefix_len,    # 0-dim int32
-    max_new,       # [R] int32 total emission budget (0 on padding rows)
-    sp_tokens, sp_next, forced, forced_next, done_state: int, eos_id: int,
-    pad_id: int, dfa_start: int,
-    gen, temperature: float,
-    n_iters: int,  # worst-case block iterations (wave_iterations)
-    F: int,        # block width (sampled token + forced run)
-    cap: int,      # generated-KV capacity, >= max(max_new)
-    constrained: bool,
-    vocab_limit: int | None = None,
-    ragged: bool = False,  # K3 matmuls over the valid block tokens
-):
-    """One whole decision wave with grammar-accelerated block decoding.
-
-    Suffix prefill against the shared dense prefix, then at most `n_iters`
-    block iterations, each (a) sampling ONE token from the carried logits,
-    (b) expanding the forced run that follows via DFA table lookups, and
-    (c) running one F-wide mini-prefill over the block. The loop stops early
-    once no row is alive. Every row finishes: the per-row budget gates each
-    emission.
-
-    Returns (emitted [R, n_iters*F] with pad_id holes, active [R],
-    iterations run, valid tokens of each model call [iterations] int32 on
-    the device)."""
-    last_logits, k_sfx, v_sfx = forward_prefill_suffix_dense(
-        params, cfg, tokens, suffix_lens, prefix_k, prefix_v, prefix_len,
-    )
-    dev = tokens.device
-    R = tokens.shape[0]
-    st = torch.full((R,), dfa_start, dtype=torch.int32, device=dev)
-    act = suffix_lens > 0
-    # emitted doubles as the generated-KV write tail.
-    emitted = torch.zeros(R, dtype=torch.int32, device=dev)
-    pos_next = prefix_len + suffix_lens
-    gk = torch.zeros(
-        (cfg.n_layers, R, cap + 1, cfg.n_kv_heads, cfg.head_dim),
-        dtype=prefix_k.dtype, device=dev,
-    )
-    gv = torch.zeros_like(gk)
-    jcol = torch.arange(F, device=dev, dtype=torch.int32)
-    out = torch.full((R, n_iters * F), pad_id, dtype=tokens.dtype, device=dev)
-    logits = last_logits
-    blk_tokens = []
-
-    i = 0
-    while i < n_iters and bool(act.any()):
+    @torch.no_grad()
+    def _iterate(self) -> None:
+        eng, pfx = self._eng, self._prefix
+        sp_tokens, sp_next, forced, forced_next = self._tables
+        pad_id, eos_id = eng.tokenizer.pad_id, eng.tokenizer.eos_id
+        done = eng._done_state_d
+        st, act, emitted, max_new = self.st, self.act, self.emitted, self.max_new
+        F = self.F
         # (a) sample the block's first token from the carried logits
-        if constrained:
+        if self._constrained:
             t0, s_t0 = _sample_sparse(
-                logits, sp_tokens[st], sp_next[st], gen, temperature
+                self.logits, sp_tokens[st], sp_next[st], eng._gen, eng.temperature
             )
         else:
-            t0 = _sample_unconstrained(logits, pad_id, gen, temperature, vocab_limit)
+            t0 = _sample_unconstrained(
+                self.logits, pad_id, eng._gen, eng.temperature, eng._vocab_limit
+            )
             s_t0 = st
         emit0 = act & (emitted < max_new)
         s_cur = torch.where(emit0, s_t0, st)
-        fin0 = (t0 == eos_id) | (s_cur == done_state)
+        fin0 = (t0 == eos_id) | (s_cur == done)
         blk = [torch.where(emit0, t0, pad_id)]
         valid = [emit0]
         alive = emit0 & ~fin0 & (emitted + 1 < max_new)
@@ -319,7 +311,7 @@ def _wave_impl(
             emit_j = alive & (ft >= 0)
             t_j = torch.where(emit_j, ft, pad_id)
             s_cur = torch.where(emit_j, forced_next[s_cur], s_cur)
-            fin_j = (t_j == eos_id) | (s_cur == done_state)
+            fin_j = (t_j == eos_id) | (s_cur == done)
             blk.append(t_j)
             valid.append(emit_j)
             # paused-at-choice rows (ft < 0) stay alive for the next
@@ -331,23 +323,159 @@ def _wave_impl(
         blk_tok = torch.stack(blk, dim=1)
         blk_valid = torch.stack(valid, dim=1)
         blk_len = blk_valid.sum(dim=1, dtype=torch.int32)
-        positions = pos_next[:, None] + jcol[None, :]
-        # (c) one model call for the whole block
-        logits, gk, gv = forward_block_decode(
-            params, cfg, blk_tok, blk_valid, blk_len, positions,
-            k_sfx, v_sfx, suffix_lens, gk, gv, emitted,
-            prefix_k, prefix_v, prefix_len, ragged=ragged,
+        positions = self.pos_next[:, None] + self.jcol[None, :]
+        # (c) one model call for the whole block (gk/gv written in place)
+        logits, _, _ = forward_block_decode(
+            eng.params, eng.cfg, blk_tok, blk_valid, blk_len, positions,
+            self.k_sfx, self.v_sfx, self.suffix_lens, self.gk, self.gv, emitted,
+            pfx.k, pfx.v, eng._plen_d, ragged=eng.decode_matmul == "ragged",
         )
-        blk_tokens.append(blk_len.sum(dtype=torch.int32))
-        out[:, i * F:(i + 1) * F] = blk_tok
-        st, act = s_cur, alive
-        emitted = emitted + blk_len
-        pos_next = pos_next + blk_len
-        i += 1
-    counts = torch.stack(blk_tokens) if blk_tokens else torch.zeros(
-        0, dtype=torch.int32, device=dev
-    )
-    return out, act, i, counts
+        it = self.it.view(1)
+        self.logits.copy_(logits)
+        self.out.index_copy_(1, self.it * F + self.jcol.long(), blk_tok)
+        self.counts.index_copy_(0, it, blk_len.sum(dtype=torch.int32).view(1))
+        self.alive.index_copy_(0, it, alive.any().view(1))
+        self.alive_h.copy_(self.alive, non_blocking=True)
+        self.st.copy_(s_cur)
+        self.act.copy_(alive)
+        self.emitted.add_(blk_len)
+        self.pos_next.add_(blk_len)
+        self.it.add_(1)
+
+
+class _ChunkVariant:
+    """The general path's decode chunk for one geometry: `chunk_steps`
+    decode steps, each emitting one sampled token per slot (finished,
+    exhausted or idle slots emit pad_id), over the engine's slot state and
+    static page tables, updated IN PLACE. The pages are frozen for the
+    chunk: new K/V goes to a small chunk buffer and flushes into pages in
+    one scatter at its end. Own-token attention either gathers the pages to
+    a dense buffer once ("gather") or streams them through K4 every step
+    ("pallas"). The emitted tokens land in the engine's `_chunk.toks`.
+
+    The chunk is one program ("decode chunk": its set-up, `chunk_steps`
+    steps and the flush), one CUDA graph on a card: one host launch a
+    chunk. (One step's graph replayed `chunk_steps` times between set-up
+    and flush graphs replays as fast or up to 5% slower at path B's shapes
+    and captures ~5x faster; tools/torch_decision_profile.py --path b
+    builds it from the same methods.)"""
+
+    def __init__(self, eng: "InferenceEngine", prefix: "_StaticPrefix") -> None:
+        self._eng = eng
+        self._prefix = prefix
+        self._tables = (eng._sp_tokens, eng._sp_next)
+        self._constrained = eng._constrained
+        self.program = eng._graphs.program("decode chunk", self._chunk)
+
+    def run(self) -> None:
+        self.program.run()
+
+    def _chunk(self) -> None:
+        self._begin()
+        for _ in range(self._eng.chunk_steps):
+            self._step()
+        self._flush()
+
+    @torch.no_grad()
+    def _begin(self) -> None:
+        eng, c = self._eng, self._eng._chunk
+        c.own_start.copy_(eng._state.pos - eng._plen_d)
+        if c.k_own is not None:
+            tables = eng._tables_d.view(-1)
+            for cache, own in ((eng.kv.k, c.k_own), (eng.kv.v, c.v_own)):
+                torch.index_select(cache, 1, tables, out=own)
+        c.ck.zero_()
+        c.cv.zero_()
+        c.tail.zero_()
+        c.j.zero_()
+
+    @torch.no_grad()
+    def _step(self) -> None:
+        eng, c, s, pfx = self._eng, self._eng._chunk, self._eng._state, self._prefix
+        pad_id, eos_id = eng.tokenizer.pad_id, eng.tokenizer.eos_id
+        M, P = eng._tables_d.shape
+        L, _, ps, n_kv, hd = eng.kv.k.shape
+        if c.k_own is None:
+            k_own, v_own = eng.kv.k, eng.kv.v
+        else:
+            k_own = c.k_own.view(L, M, P * ps, n_kv, hd)
+            v_own = c.v_own.view(L, M, P * ps, n_kv, hd)
+        act_eff = s.act & (s.budget > 0)
+        logits, _, _ = forward_decode_buffered(
+            eng.params, eng.cfg, s.tok, s.pos, k_own, v_own, c.own_start,
+            c.ck, c.cv, c.tail, pfx.k, pfx.v, eng._plen_d,
+            page_tables=eng._tables_d,
+            own_impl="pallas" if eng.paged_attn == "pallas" else "dense",
+        )
+        if self._constrained:
+            sp_tokens, sp_next = self._tables
+            nxt, new_st = _sample_sparse(
+                logits, sp_tokens[s.st], sp_next[s.st], eng._gen, eng.temperature
+            )
+        else:
+            nxt = _sample_unconstrained(
+                logits, pad_id, eng._gen, eng.temperature, eng._vocab_limit
+            )
+            new_st = s.st
+        tok = torch.where(act_eff, nxt, pad_id)
+        new_st = torch.where(act_eff, new_st, s.st)
+        finished = (new_st == eng._done_state_d) | (nxt == eos_id)
+        c.toks.index_copy_(1, c.j.view(1), tok[:, None])
+        s.tok.copy_(tok)
+        s.st.copy_(new_st)
+        s.act.copy_(act_eff & ~finished)
+        s.budget.copy_(torch.where(act_eff, s.budget - 1, s.budget))
+        s.pos.copy_(torch.where(act_eff, s.pos + 1, s.pos))
+        c.tail.copy_(torch.where(act_eff, c.tail + 1, c.tail))
+        c.j.add_(1)
+
+    @torch.no_grad()
+    def _flush(self) -> None:
+        # Entry j of slot m lands at own position own_start[m] + j; invalid
+        # entries (j >= tail) go to scratch page 0 (duplicates there are
+        # harmless: nothing reads it).
+        eng, c = self._eng, self._eng._chunk
+        P = eng._tables_d.shape[1]
+        ps = eng.kv.page_size
+        j = torch.arange(eng.chunk_steps, device=eng.device)
+        own_pos = c.own_start[:, None].long() + j[None, :]
+        valid = j[None, :] < c.tail[:, None]
+        page_slot = torch.clamp(own_pos // ps, 0, P - 1)
+        page_ids = torch.gather(eng._tables_d.long(), 1, page_slot)
+        page_ids = torch.where(valid, page_ids, 0)
+        offs = torch.where(valid, own_pos % ps, 0)
+        eng.kv.k[:, page_ids, offs] = c.ck
+        eng.kv.v[:, page_ids, offs] = c.cv
+
+
+@dataclasses.dataclass
+class _ChunkBuffers:
+    """The decode chunk's scratch, shared by its variants (one runs at a
+    time): the chunk KV buffer [L, M, n_steps, n_kv, hd], each slot's
+    entries in it (`tail`), its own tokens before the chunk (`own_start`),
+    the emitted tokens [M, n_steps] with the step counter `j`, and with
+    paged_attn="gather" the gathered pages [L, M*P, ps, n_kv, hd]."""
+
+    ck: torch.Tensor
+    cv: torch.Tensor
+    tail: torch.Tensor
+    own_start: torch.Tensor
+    toks: torch.Tensor
+    j: torch.Tensor
+    k_own: torch.Tensor | None
+    v_own: torch.Tensor | None
+
+
+@dataclasses.dataclass
+class _StaticPrefix:
+    """The buffer the graphs read the active prefix's KV from, one per
+    prefix buffer length Sp: the kernels encode their TMA maps for the
+    addresses seen at capture, so a prefix switch copies into it. `src`
+    names the prefix it holds (weakly: an evicted prefix is freed)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    src: weakref.ref | None = None
 
 
 @dataclasses.dataclass
@@ -381,22 +509,37 @@ class Finished:
 
 @dataclasses.dataclass
 class WaveHandle:
-    """A decision wave whose device work has been issued. The wave loop
-    syncs once per block iteration for its early exit, so by submit's return
-    only the last iteration may still be running."""
+    """A decision wave whose device work has been issued: submit_wave
+    returns once its last iteration is queued (it read the iteration flags
+    as they landed), and the copies of its tokens to the host are queued
+    behind it (JAX: `copy_to_host_async`)."""
 
-    toks_d: torch.Tensor  # [R, n_iters*F] emitted tokens (pad_id holes)
+    toks_h: torch.Tensor  # host [R, n_iters*F] emitted tokens (pad_id holes)
+    blk_tokens_h: torch.Tensor  # host [n_iters]: valid tokens of each model call
     iters: int            # model calls actually run (early exit)
-    blk_tokens_d: torch.Tensor  # [iters] valid tokens of each model call
     n: int                # real prompts in this wave (<= R)
     max_new_tokens: int
     req_ids: list[int]
     submitted_at: float  # perf_counter at submit
+    done: Fence          # the copies to the host have landed
+    # True when this wave's geometry was captured at dispatch: its wall
+    # time includes the capture, and service-time estimators skip it.
+    cold_compile: bool = False
+    # Compiled-variant identity (engine._wave_key).
+    geo_key: tuple | None = None
+
+    def is_ready(self) -> bool:
+        """True once the results landed on the host (harvest won't block)."""
+        return self.done.query()
 
 
 class InferenceEngine:
     """Single-owner (one thread) engine over one model and one paged KV
-    cache on one device; the device is where the params lie."""
+    cache on one device; the device is where the params lie. With
+    `graphs=True` (the default) its waves and decode chunks replay CUDA
+    graphs on a card, captured on the owner thread at their first dispatch;
+    `graphs=False` runs the same code eagerly. Neither falls back to the
+    other: a failed capture or replay raises."""
 
     DFA_STATE_CAPACITY = 4096
     # On-device prefix KV cache budget, in BYTES: at least one entry (the
@@ -420,6 +563,7 @@ class InferenceEngine:
         prefix_chunk: int = 2048,
         paged_attn: str = "gather",
         decode_matmul: str = "dense",
+        graphs: bool = True,
     ) -> None:
         self.cfg = cfg
         self.params = params
@@ -469,6 +613,17 @@ class InferenceEngine:
         self.wave_block = 24
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed)
+        # CUDA graphs (engine/graphs.py); sampled decoding registers the
+        # generator with every graph.
+        self._graphs = GraphRunner(
+            self.device, graphs, generator=self._gen if self.temperature > 0 else None
+        )
+        # Grammar tables, one set per shape, rewritten in place by
+        # set_grammar (graphs read them by address); the DFA's start and
+        # done states as device scalars for the same reason.
+        self._grammar_tables: dict[tuple, torch.Tensor] = {}
+        self._dfa_start_d = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._done_state_d = torch.zeros((), dtype=torch.int32, device=self.device)
         self.set_grammar(None)
 
         self._prefix: _PrefixKV | None = None
@@ -484,8 +639,28 @@ class InferenceEngine:
         self._act_np = np.zeros(max_slots + 1, dtype=bool)
         self._budget_np = np.zeros(max_slots + 1, dtype=np.int32)
         self._pending_finished: list[Finished] = []
+        # Static buffers the graphs read: the active prefix's KV (one per
+        # buffer length Sp) and its length, and the page tables padded with
+        # the all-zeros trash row, refreshed when the kv tables change.
+        self._static_prefix: dict[int, _StaticPrefix] = {}
+        self._plen_d = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._plen_loaded: int | None = None
         self._tables_src: torch.Tensor | None = None
-        self._tables_padded: torch.Tensor | None = None
+        self._tables_d = torch.zeros(
+            (max_slots + 1, max_pages_per_seq), dtype=torch.int32, device=self.device
+        )
+        # Wave variants by _wave_key (static buffers and programs); keys
+        # whose dispatch succeeded, with their captured programs
+        # (_wave_compiled); the (suffix bucket, max_new) shapes served; and
+        # the keys whose prewarm failed (JAX engine, engine.py).
+        self._wave_variants: dict[tuple, _WaveVariant] = {}
+        self._wave_compiled: dict[tuple, tuple[Program, Program]] = {}
+        self._wave_shapes_seen: set[tuple[int, int]] = set()
+        self._wave_prewarm_failed: set[tuple] = set()
+        # The decode chunk: its scratch (allocated at the first chunk) and
+        # its variants by key.
+        self._chunk: _ChunkBuffers | None = None
+        self._chunk_variants: dict[tuple, _ChunkVariant] = {}
         # Valid tokens of each recent block-decode model call (K3's `total`
         # with decode_matmul="ragged"), booked at harvest.
         self.block_tokens: deque[int] = deque(maxlen=4096)
@@ -499,6 +674,13 @@ class InferenceEngine:
             "decode_tokens": 0,
             "waves": 0,
             "wave_model_calls": 0,
+            # block iterations run on the device: wave_model_calls, plus
+            # the one past the last live iteration of each wave and those
+            # of prewarm waves
+            "wave_block_calls": 0,
+            "wave_prewarms": 0,
+            "wave_prewarm_failures": 0,
+            "dispatches": 0,
             "prefills": 0,
             "chunks": 0,
             "syncs": 0,
@@ -510,40 +692,54 @@ class InferenceEngine:
     # ------------------------------------------------------------- grammar
     def set_grammar(self, dfa: DecisionDFA | None) -> None:
         """Install (or clear) the decision grammar as SPARSE device tables,
-        states padded to DFA_STATE_CAPACITY (doubled until it fits).
+        states padded to DFA_STATE_CAPACITY (doubled until it fits), copied
+        into the engine's tables of that shape (so graphs keyed by the
+        shape, as the JAX engine keys its executables, read them).
         Unconstrained mode samples the full vocab minus pad."""
-        dev = self.device
         if dfa is None:
             self._constrained = False
-            self._sp_tokens = torch.full((1, 1), -1, dtype=torch.int32, device=dev)
-            self._sp_next = torch.zeros((1, 1), dtype=torch.int32, device=dev)
-            self._forced = torch.full((1,), -1, dtype=torch.int32, device=dev)
-            self._forced_next = torch.zeros((1,), dtype=torch.int32, device=dev)
+            sp_tokens = np.full((1, 1), -1, dtype=np.int32)
+            sp_next = np.zeros((1, 1), dtype=np.int32)
+            forced = np.full((1,), -1, dtype=np.int32)
+            forced_next = np.zeros((1,), dtype=np.int32)
             self._done_state = -1  # unconstrained: nothing reaches done
             self._dfa_start = 0
             self._grammar_wave_iters = None
-            return
-        cap = self.DFA_STATE_CAPACITY
-        while cap < dfa.n_states:
-            cap *= 2
-        t = sparse_tables(dfa)
-        K = t.k_width
-        sp_tokens = np.full((cap, K), -1, dtype=np.int32)
-        sp_next = np.zeros((cap, K), dtype=np.int32)
-        forced = np.full((cap,), -1, dtype=np.int32)
-        forced_next = np.zeros((cap,), dtype=np.int32)
-        sp_tokens[: t.n_states] = t.sp_tokens
-        sp_next[: t.n_states] = t.sp_next
-        forced[: t.n_states] = t.forced
-        forced_next[: t.n_states] = t.forced_next
-        self._constrained = True
-        self._sp_tokens = torch.from_numpy(sp_tokens).to(dev)
-        self._sp_next = torch.from_numpy(sp_next).to(dev)
-        self._forced = torch.from_numpy(forced).to(dev)
-        self._forced_next = torch.from_numpy(forced_next).to(dev)
-        self._done_state = int(dfa.done_state)
-        self._dfa_start = int(dfa.start_state)
-        self._grammar_wave_iters = wave_iterations(dfa, self.wave_block)
+        else:
+            cap = self.DFA_STATE_CAPACITY
+            while cap < dfa.n_states:
+                cap *= 2
+            t = sparse_tables(dfa)
+            K = t.k_width
+            sp_tokens = np.full((cap, K), -1, dtype=np.int32)
+            sp_next = np.zeros((cap, K), dtype=np.int32)
+            forced = np.full((cap,), -1, dtype=np.int32)
+            forced_next = np.zeros((cap,), dtype=np.int32)
+            sp_tokens[: t.n_states] = t.sp_tokens
+            sp_next[: t.n_states] = t.sp_next
+            forced[: t.n_states] = t.forced
+            forced_next[: t.n_states] = t.forced_next
+            self._constrained = True
+            self._done_state = int(dfa.done_state)
+            self._dfa_start = int(dfa.start_state)
+            self._grammar_wave_iters = wave_iterations(dfa, self.wave_block)
+        self._sp_tokens, self._sp_next, self._forced, self._forced_next = (
+            self._grammar_table(name, arr)
+            for name, arr in (("sp_tokens", sp_tokens), ("sp_next", sp_next),
+                              ("forced", forced), ("forced_next", forced_next))
+        )
+        self._done_state_d.fill_(self._done_state)
+        self._dfa_start_d.fill_(self._dfa_start)
+
+    def _grammar_table(self, name: str, arr: np.ndarray) -> torch.Tensor:
+        """The device table `name` of arr's shape, rewritten with arr."""
+        key = (name, arr.shape)
+        table = self._grammar_tables.get(key)
+        if table is None:
+            table = self._grammar_tables[key] = torch.from_numpy(arr).to(self.device)
+        else:
+            table.copy_(torch.from_numpy(arr))
+        return table
 
     # -------------------------------------------------------------- prefix
     def _zeros_kv(self, slots: int) -> torch.Tensor:
@@ -626,6 +822,7 @@ class InferenceEngine:
             total -= nbytes(self._prefix_cache.pop(old))
         self._prefix = pfx
         self.stats["prefix_prefills"] += 1
+        self.stats["dispatches"] += 1
         self.stats["prefill_tokens"] += prefilled
 
     def _best_lcp_seed(self, key: tuple[int, ...]):
@@ -692,6 +889,26 @@ class InferenceEngine:
             done += m
         return k_buf, v_buf
 
+    def _bind_prefix(self) -> _StaticPrefix:
+        """The active prefix (the empty one if none) in the static buffer of
+        its length Sp, and its length in the static scalar: copied only
+        after a switch (~0.7 ms for 1 GB at 8B). Graphs read these buffers,
+        never a `_prefix_cache` entry, which eviction may free."""
+        prefix = self._prefix or self._get_empty_prefix()
+        self._prefix = prefix
+        sp = self._static_prefix.get(prefix.k.shape[1])
+        if sp is None:
+            sp = _StaticPrefix(k=torch.empty_like(prefix.k), v=torch.empty_like(prefix.v))
+            self._static_prefix[prefix.k.shape[1]] = sp
+        if sp.src is None or sp.src() is not prefix:
+            sp.k.copy_(prefix.k)
+            sp.v.copy_(prefix.v)
+            sp.src = weakref.ref(prefix)
+        if self._plen_loaded != prefix.length:
+            self._plen_d.fill_(prefix.length)
+            self._plen_loaded = prefix.length
+        return sp
+
     @property
     def prefix_len(self) -> int:
         return self._prefix.length if self._prefix else 0
@@ -723,11 +940,118 @@ class InferenceEngine:
         n_iters = max(4, -(-n_iters // 4) * 4)
         return R, n_iters, F
 
+    def _wave_key(
+        self, R: int, bucket: int, n_iters: int, F: int, max_new: int
+    ) -> tuple:
+        """Identity of one compiled wave variant: everything that changes the
+        captured programs' shapes or static values. Prefix buffer length and
+        grammar table shapes are included (as in the JAX engine): a same-R
+        wave against a longer prefix or a wider DFA bucket is another
+        variant."""
+        prefix = self._prefix or self._get_empty_prefix()
+        return (
+            R, bucket, n_iters, F, max_new,
+            prefix.k.shape[1], tuple(self._sp_tokens.shape), self._constrained,
+        )
+
+    def wave_prewarm_backlog(self) -> int:
+        """Number of sibling wave geometries not yet captured (read-only;
+        safe to poll from other threads)."""
+        return len(self._missing_wave_siblings())
+
+    def _missing_wave_siblings(self) -> list[tuple[int, int, int]]:
+        """(n_prompts, bucket, max_new) probes for wave variants adjacent to
+        ones already used: BOTH row buckets at every seen (suffix bucket,
+        budget). A burst normally runs full-R waves, then one straggler
+        forms a half-R tail, whose variant must not be captured mid-burst."""
+        out = []
+        # list(): the owner thread adds to these while others poll
+        for bucket, max_new in list(self._wave_shapes_seen):
+            for n_prompts in (1, self.max_slots):
+                R, n_iters, F = self._wave_geometry(n_prompts, max_new)
+                key = self._wave_key(R, bucket, n_iters, F, max_new)
+                if key not in self._wave_compiled and key not in self._wave_prewarm_failed:
+                    out.append((n_prompts, bucket, max_new))
+        return out
+
+    def prewarm_wave_siblings(self, limit: int | None = None) -> int:
+        """Capture up to `limit` missing sibling wave geometries by
+        dispatching one dummy wave each (row 0 holds a single real token,
+        the rest are padding; its results are discarded and it shares
+        nothing with slot state). Engine-owner thread only, like every
+        dispatch. A failed dispatch is recorded and counted, and its
+        geometry stays cold (a real wave of it captures it again, or
+        raises). Returns the number captured."""
+        done = 0
+        for n_prompts, bucket, max_new in self._missing_wave_siblings():
+            if limit is not None and done >= limit:
+                break
+            R, n_iters, F = self._wave_geometry(n_prompts, max_new)
+            pad = self.tokenizer.pad_id
+            tokens = np.full((R, bucket), pad, dtype=np.int32)
+            tokens[0, 0] = self.tokenizer.eos_id
+            suffix_lens = np.zeros(R, dtype=np.int32)
+            suffix_lens[0] = 1
+            max_new_vec = np.zeros(R, dtype=np.int32)
+            max_new_vec[0] = max_new
+            key = self._wave_key(R, bucket, n_iters, F, max_new)
+            try:
+                var = self._run_wave(key, R, bucket, n_iters, F, max_new,
+                                     tokens, suffix_lens, max_new_vec)[0]
+            except Exception:
+                # Record and move on: the backlog must drain even when a
+                # dispatch fails.
+                self._wave_prewarm_failed.add(key)
+                self.stats["wave_prewarm_failures"] += 1
+                logger.exception("wave prewarm dispatch failed for geometry %s", key)
+                continue
+            self._wave_compiled[key] = (var.prefill, var.iteration)
+            self.stats["wave_prewarms"] += 1
+            done += 1
+        return done
+
+    def _run_wave(self, key, R, bucket, n_iters, F, max_new_tokens,
+                  tokens, suffix_lens, max_new):
+        """Dispatch one wave: its inputs into the variant's static buffers,
+        the suffix prefill, then block iterations until `n_iters` or until
+        no row is alive, the flags read one iteration behind; then the
+        copies of its results to the host. Returns (variant, tokens on the
+        host, valid tokens of each call on the host, iterations counted,
+        the copies' fence)."""
+        prefix = self._bind_prefix()
+        var = self._wave_variants.get(key)
+        if var is None:
+            var = _WaveVariant(self, key, R, bucket, n_iters, F, max_new_tokens, prefix)
+            self._wave_variants[key] = var
+        var.load(tokens, suffix_lens, max_new)
+        var.prefill.run()
+        fences = (Fence(self.device), Fence(self.device))
+        iters = n_iters
+        for q in range(n_iters):
+            var.iteration.run()
+            fences[q % 2].record()
+            if q:
+                fences[(q - 1) % 2].synchronize()
+                if not var.alive_h[q - 1]:
+                    # iteration q-1 left no row alive: q ran past the end
+                    iters = q
+                    break
+        self.stats["wave_block_calls"] += q + 1
+        toks_h = host_buffer(var.out.shape, torch.int32, self.device)
+        counts_h = host_buffer(var.counts.shape, torch.int32, self.device)
+        toks_h.copy_(var.out, non_blocking=True)
+        counts_h.copy_(var.counts, non_blocking=True)
+        done = Fence(self.device)
+        done.record()
+        return var, toks_h, counts_h, iters, done
+
     def submit_wave(
         self, prompts: list[list[int]], max_new_tokens: int = 200
     ) -> WaveHandle:
-        """Run a whole batch's decode-to-completion (_wave_impl) against the
-        installed prefix and grammar; harvest_wave reads the result."""
+        """Run a whole batch's decode-to-completion against the installed
+        prefix and grammar (_WaveVariant); returns once its last iteration
+        is queued, its results on their way to the host. harvest_wave reads
+        them."""
         if not prompts:
             raise ValueError("empty wave")
         if any(not p for p in prompts):
@@ -738,12 +1062,14 @@ class InferenceEngine:
             )
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        prefix = self._prefix or self._get_empty_prefix()
-        self._prefix = prefix
+        self._prefix = self._prefix or self._get_empty_prefix()
         submitted_at = time.perf_counter()
 
         bucket = self._bucket_for(max(len(p) for p in prompts))
         R, n_iters, F = self._wave_geometry(len(prompts), max_new_tokens)
+        self._wave_shapes_seen.add((bucket, max_new_tokens))
+        geo_key = self._wave_key(R, bucket, n_iters, F, max_new_tokens)
+        cold_compile = geo_key not in self._wave_compiled
         pad = self.tokenizer.pad_id
         tokens = np.full((R, bucket), pad, dtype=np.int32)
         suffix_lens = np.zeros(R, dtype=np.int32)
@@ -752,35 +1078,30 @@ class InferenceEngine:
             tokens[row, : len(ids)] = ids
             suffix_lens[row] = len(ids)
             max_new[row] = max_new_tokens
-        dev = self.device
-        toks_d, _, iters, blk_tokens_d = _wave_impl(
-            self.params, self.cfg,
-            torch.from_numpy(tokens).to(dev), torch.from_numpy(suffix_lens).to(dev),
-            prefix.k, prefix.v,
-            torch.tensor(prefix.length, dtype=torch.int32, device=dev),
-            torch.from_numpy(max_new).to(dev),
-            self._sp_tokens, self._sp_next, self._forced, self._forced_next,
-            self._done_state, self.tokenizer.eos_id, pad, self._dfa_start,
-            self._gen, self.temperature,
-            n_iters, F, max_new_tokens, self._constrained,
-            vocab_limit=self._vocab_limit,
-            ragged=self.decode_matmul == "ragged",
+        var, toks_h, counts_h, iters, done = self._run_wave(
+            geo_key, R, bucket, n_iters, F, max_new_tokens, tokens, suffix_lens, max_new
         )
+        # Recorded only after a successful dispatch (capture and replays
+        # queued): a failed one leaves the geometry cold.
+        self._wave_compiled[geo_key] = (var.prefill, var.iteration)
         req_ids = list(range(self._req_counter, self._req_counter + len(prompts)))
         self._req_counter += len(prompts)
         self.stats["waves"] += 1
+        self.stats["dispatches"] += 1
         self.stats["prefill_tokens"] += int(suffix_lens.sum())
         self.stats["requests"] += len(prompts)
         return WaveHandle(
-            toks_d=toks_d, iters=iters, blk_tokens_d=blk_tokens_d, n=len(prompts),
+            toks_h=toks_h, blk_tokens_h=counts_h, iters=iters, n=len(prompts),
             max_new_tokens=max_new_tokens, req_ids=req_ids,
-            submitted_at=submitted_at,
+            submitted_at=submitted_at, done=done, cold_compile=cold_compile,
+            geo_key=geo_key,
         )
 
     def harvest_wave(self, handle: WaveHandle) -> list[Finished]:
-        """Copy one wave's tokens to the host (waits for the device)."""
-        toks_np = handle.toks_d.cpu().numpy()
-        self.block_tokens.extend(handle.blk_tokens_d.tolist())
+        """One wave's results from the host buffers (waits for their copy)."""
+        handle.done.synchronize()
+        toks_np = handle.toks_h.numpy()
+        self.block_tokens.extend(handle.blk_tokens_h[: handle.iters].tolist())
         self.stats["wave_model_calls"] += handle.iters
         pad = self.tokenizer.pad_id
         latency_ms = (time.perf_counter() - handle.submitted_at) * 1000.0
@@ -823,15 +1144,13 @@ class InferenceEngine:
         return min(by_pages, self.prefill_buckets[-1])
 
     def _padded_tables(self) -> torch.Tensor:
-        """The kv page tables plus the all-zeros trash row, cached per
-        table build."""
+        """The static page tables: the kv tables plus the all-zeros trash
+        row, copied in after a table change."""
         src = self.kv.page_tables()
         if src is not self._tables_src:
             self._tables_src = src
-            self._tables_padded = torch.cat(
-                [src, torch.zeros((1, src.shape[1]), dtype=src.dtype, device=src.device)]
-            )
-        return self._tables_padded
+            self._tables_d[: src.shape[0]].copy_(src)
+        return self._tables_d
 
     def add_request(self, prompt_ids: list[int], max_new_tokens: int = 200) -> int:
         """Single-request admission; see add_requests."""
@@ -919,6 +1238,7 @@ class InferenceEngine:
             self._budget_np[req.slot] = max_new_tokens - 1
         self.stats["requests"] += len(reqs)
         self.stats["prefills"] += 1
+        self.stats["dispatches"] += 1
         self.stats["prefill_tokens"] += int(suffix_lens.sum())
         return [r.req_id for r in reqs]
 
@@ -931,35 +1251,68 @@ class InferenceEngine:
             return pend
         return pend + self._step_inner(chunks)
 
-    def _chunk_dispatch(self, prefix: _PrefixKV) -> torch.Tensor:
-        """One decode chunk (no host sync); the emitted tokens
-        [max_slots + 1, chunk_steps] on the device."""
-        dev = self.device
-        toks = _decode_chunk_impl(
-            self.params, self.cfg, self.kv.k, self.kv.v, self._padded_tables(),
-            prefix.k, prefix.v, torch.tensor(prefix.length, dtype=torch.int32, device=dev),
-            self._state, self._sp_tokens, self._sp_next, self._done_state,
-            self.tokenizer.eos_id, self.tokenizer.pad_id,
-            self._gen, self.temperature, self.chunk_steps,
-            self._constrained, self.paged_attn, vocab_limit=self._vocab_limit,
+    def _chunk_key(self) -> tuple:
+        """Identity of one decode-chunk variant: (M, P, Sp, chunk_steps,
+        constrained, paged_attn, grammar table shape)."""
+        prefix = self._prefix or self._get_empty_prefix()
+        return (
+            self.max_slots + 1, self.kv.max_pages_per_seq, prefix.k.shape[1],
+            self.chunk_steps, self._constrained, self.paged_attn,
+            tuple(self._sp_tokens.shape),
         )
+
+    def _chunk_buffers(self) -> _ChunkBuffers:
+        if self._chunk is None:
+            cfg, dev = self.cfg, self.device
+            M, P, n = self.max_slots + 1, self.kv.max_pages_per_seq, self.chunk_steps
+            ck = torch.zeros((cfg.n_layers, M, n, cfg.n_kv_heads, cfg.head_dim),
+                             dtype=self.kv.k.dtype, device=dev)
+            own = None
+            if self.paged_attn == "gather":
+                own = (cfg.n_layers, M * P, self.kv.page_size, cfg.n_kv_heads, cfg.head_dim)
+
+            def i32(*shape):
+                return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+            self._chunk = _ChunkBuffers(
+                ck=ck, cv=torch.zeros_like(ck), tail=i32(M), own_start=i32(M),
+                toks=i32(M, n), j=torch.zeros((), dtype=torch.int64, device=dev),
+                k_own=None if own is None else torch.empty(own, dtype=ck.dtype, device=dev),
+                v_own=None if own is None else torch.empty(own, dtype=ck.dtype, device=dev),
+            )
+        return self._chunk
+
+    def _chunk_dispatch(self) -> torch.Tensor:
+        """One decode chunk (no host sync); the emitted tokens
+        [max_slots + 1, chunk_steps], on their way to a host buffer."""
+        prefix = self._bind_prefix()
+        self._padded_tables()
+        c = self._chunk_buffers()
+        key = self._chunk_key()
+        var = self._chunk_variants.get(key)
+        if var is None:
+            var = self._chunk_variants[key] = _ChunkVariant(self, prefix)
+        var.run()
+        toks = host_buffer(c.toks.shape, torch.int32, self.device)
+        toks.copy_(c.toks, non_blocking=True)
         self.stats["chunks"] += 1
+        self.stats["dispatches"] += 1
         return toks
 
     def _step_inner(self, chunks: int) -> list[Finished]:
-        prefix = self._prefix or self._get_empty_prefix()
         emissions: list[torch.Tensor] = []
         any_active = bool(
             (self._act_np & (self._budget_np > 0))[list(self._by_slot)].any()
         )
         if any_active:
             for _ in range(max(1, chunks)):
-                emissions.append(self._chunk_dispatch(prefix))
-        # ONE host sync: emitted tokens, post-chunk state, first tokens.
-        emitted_np = [e.cpu().numpy() for e in emissions]
+                emissions.append(self._chunk_dispatch())
+        # ONE host sync (the blocking copies below wait for the stream):
+        # emitted tokens, post-chunk state, first tokens.
         act_np = self._state.act.cpu().numpy()
         budget_np = self._state.budget.cpu().numpy()
         first_np = self._state.first.cpu().numpy()
+        emitted_np = [e.numpy() for e in emissions]
         self.stats["syncs"] += 1
         return self._finish_harvest(emitted_np, act_np, budget_np, first_np)
 

@@ -11,7 +11,10 @@ Concurrency: callers block on a Future; ONE engine-owner thread drains the
 queue, coalesces a burst for a few milliseconds, and runs decision waves of
 up to max_slots rows. Requests group by (prompt prefix, grammar) — both
 keyed by the cluster snapshot; a new group installs its prefix KV and DFA
-between waves.
+between waves. Idle for `prewarm_idle_delay_s`, the worker captures the
+wave geometries next to those already served, one at a time
+(engine.prewarm_wave_siblings), so a burst's ragged tail finds its CUDA
+graphs captured.
 
 Not ported yet: packed admission, delta prompts and pinned prefixes, the
 persistent loop, the KV plane, speculative decoding, quiesced controls.
@@ -86,6 +89,7 @@ class LocalLLMBackend:
         admit_wait_s: float = 0.002,
         answer_style: str = "direct",
         max_reason_tokens: int = 320,
+        prewarm_idle_delay_s: float = 0.5,
     ) -> None:
         self.engine = engine
         self.tokenizer = tokenizer or engine.tokenizer
@@ -98,6 +102,11 @@ class LocalLLMBackend:
         # Decision JSON field order: "direct" or "cot" (engine/constrained.py).
         self.answer_style = answer_style
         self.max_reason_tokens = max_reason_tokens
+        # Idle grace before a sibling wave geometry is captured
+        # (engine.prewarm_wave_siblings): a capture blocks the worker, so it
+        # must not start the instant the queue empties, when a burst's next
+        # round often arrives within ms.
+        self.prewarm_idle_delay_s = prewarm_idle_delay_s
         self._queue: queue.Queue[_WorkItem | None] = queue.Queue()
         self._dfa_cache: dict[tuple[str, ...], Any] = {}
         self._current_group: tuple | None = None
@@ -253,12 +262,14 @@ class LocalLLMBackend:
                 waves.append((handle, batch))
         return waves, others
 
-    def _drain_queue(self, pending: list[_WorkItem], block: bool) -> None:
-        """Move queued items into `pending`; a None sentinel stops the
-        worker."""
+    def _drain_queue(self, pending: list[_WorkItem], block: bool,
+                     block_timeout: float | None = None) -> None:
+        """Move queued items into `pending` (waiting up to `block_timeout`
+        for the first when blocking); a None sentinel stops the worker."""
         try:
             while True:
-                item = self._queue.get() if block else self._queue.get_nowait()
+                item = (self._queue.get(timeout=block_timeout) if block
+                        else self._queue.get_nowait())
                 if item is None:
                     self._stopped.set()
                     return
@@ -290,9 +301,28 @@ class LocalLLMBackend:
                 item.resolve(fin.text)
         return rest
 
+    def _try_prewarm(self) -> bool:
+        """Capture ONE missing sibling wave geometry while the engine is
+        idle (engine.prewarm_wave_siblings), on this thread, the engine's
+        owner; requests arriving meanwhile are served right after."""
+        try:
+            return self.engine.prewarm_wave_siblings(limit=1) > 0
+        except Exception:
+            logger.exception("wave prewarm failed")
+            return False
+
     def _run_worker(self) -> None:
         pending: list[_WorkItem] = []
         while not self._stopped.is_set():
+            if not pending and self.engine.wave_prewarm_backlog() > 0:
+                # Idle with captures owed: park only for the grace period;
+                # if still idle after it, capture ONE sibling geometry, then
+                # re-check the queue. Arriving work always wins.
+                self._drain_queue(pending, block=True,
+                                  block_timeout=self.prewarm_idle_delay_s)
+                if not self._stopped.is_set() and not pending:
+                    self._try_prewarm()
+                continue
             self._drain_queue(pending, block=not pending)
             if self._stopped.is_set() or not pending:
                 continue
@@ -325,13 +355,15 @@ def build_local_backend(
     request_timeout_s: float = 60.0,
     quantize: str | None = None,
     decode_matmul: str = "dense",
+    graphs: bool = True,
 ) -> LocalLLMBackend:
     """The local stack with random weights from `seed` on `device`: params,
     byte tokenizer, a greedy engine and a grammar-constrained backend, all
     other settings at their defaults. `quantize="int8"` draws and quantizes
     the weights on the host (models/quant.init_params_int8_host), so only
     int8 weights reach the device; `decode_matmul="ragged"` runs block
-    decode's matmuls through K3."""
+    decode's matmuls through K3; `graphs=False` runs the engine's waves
+    eagerly where it would replay CUDA graphs."""
     dev = resolve_device(device)
     if quantize is not None and quantize != "int8":
         raise ValueError(f"unknown quantization {quantize!r} (only 'int8')")
@@ -343,6 +375,6 @@ def build_local_backend(
     tokenizer = ByteTokenizer()
     engine = InferenceEngine(
         params, cfg, tokenizer, temperature=0.0, rng_seed=seed,
-        decode_matmul=decode_matmul,
+        decode_matmul=decode_matmul, graphs=graphs,
     )
     return LocalLLMBackend(engine, tokenizer, request_timeout_s=request_timeout_s)

@@ -275,15 +275,18 @@ def forward_prefill_suffix_dense(
     prefix_k_all: torch.Tensor,  # [L, Sp, n_kv, hd] shared dense prefix KV
     prefix_v_all: torch.Tensor,
     prefix_len: torch.Tensor,  # 0-dim int32 on the device
+    kv_out: tuple[torch.Tensor, torch.Tensor] | None = None,
 ):
     """Batched suffix prefill against a shared dense prefix, KV kept dense:
-    (last_logits [B, V] f32, k_sfx [L, B, Ss, n_kv, hd], v_sfx)."""
+    (last_logits [B, V] f32, k_sfx [L, B, Ss, n_kv, hd], v_sfx). `kv_out`
+    gives the buffers k_sfx and v_sfx are written into (a CUDA graph's
+    static buffers), else they are allocated."""
     B, S = tokens.shape
     dev = tokens.device
     inv_freq = rope_inv_freq(cfg, dev)
     positions = prefix_len + torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
     x = params["embed"][tokens]
-    k_sfx, v_sfx = _kv_stacks(cfg, B, S, x.dtype, dev)
+    k_sfx, v_sfx = kv_out if kv_out is not None else _kv_stacks(cfg, B, S, x.dtype, dev)
     for i in range(cfg.n_layers):
         x, k_sfx[i], v_sfx[i] = _suffix_layer(
             _layer(params["layers"], i), cfg, x, positions, suffix_lens,

@@ -416,15 +416,15 @@ class TestSmokeComparison:
 
 
 class TestSmokeStepLaunches:
-    """chip_smoke.py counts K1's launches by step of the decision path
-    (prefix chunks, suffix prefills, block decodes) around the engine's
-    model calls. On the CPU the wrapper launches no kernel, so here K1's
-    call sites add one to its count per call: the steps must add up to the
-    total, one launch per layer of each model call, and the engine must be
-    left unwrapped."""
+    """chip_smoke.py counts the kernels' launches by step of the decision
+    path (prefix chunks, and each run of the engine's programs: suffix
+    prefills and block decodes by row count R). On the CPU the wrapper
+    launches no kernel, so here K1's call sites add one to its count per
+    call: the steps must add up to the total, one launch per layer of each
+    model call, and the engine and its programs must be left unwrapped."""
 
     def test_steps_add_up_to_the_total(self, monkeypatch):
-        from k8s_llm_scheduler_tpu_torch.engine import engine as eng_mod
+        from k8s_llm_scheduler_tpu_torch.engine import graphs
         from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
         from k8s_llm_scheduler_tpu_torch.models import llama
         from k8s_llm_scheduler_tpu_torch.ops import attention, prefix_attention
@@ -440,14 +440,15 @@ class TestSmokeStepLaunches:
             monkeypatch.setattr(mod, "flash_prefix_attention_parts",
                                 counting(flash_prefix_attention_parts))
         cs = TestSmokeComparison._smoke()
-        originals = (eng_mod.forward_prefill_suffix_dense, eng_mod.forward_block_decode)
+        run = graphs.Program.run
         backend = build_local_backend("tiny", device="cpu")
+        backend.prewarm_idle_delay_s = 3600.0  # no sibling prewarm in the window
         try:
             eng = backend.engine
             eng.prefix_chunk = 256  # the 4-node prefix takes the chunked prefill
             nodes = synthetic_nodes(4)
             n_prefix = len(backend._prepare_item(fixture_pods(1)[0], nodes).prefix_ids)
-            with cs.k1_launches_by_step(eng) as by_step:
+            with cs.launches_by_step(eng) as steps:
                 cs._zero_launch_counts()
                 backend.get_scheduling_decision(fixture_pods(1)[0], nodes)
                 total = cs._launch_counts()["K1"]
@@ -457,11 +458,15 @@ class TestSmokeStepLaunches:
             prefix_attention.reset_launch_counts()
         L = eng.cfg.n_layers
         R = eng.max_slots // 2  # a single decision's wave
+        by_step = {step: (rec["runs"], rec["K1"]) for step, rec in steps.items()}
         assert by_step == {
-            "prefix chunk": -(-n_prefix // 256) * L,
-            f"suffix prefill R={R}": stats["waves"] * L,
-            f"block decode R={R}": stats["wave_model_calls"] * L,
+            "prefix chunk": (1, -(-n_prefix // 256) * L),
+            f"suffix prefill R={R}": (stats["waves"], stats["waves"] * L),
+            f"block decode R={R}": (stats["wave_block_calls"],
+                                    stats["wave_block_calls"] * L),
         }
-        assert sum(by_step.values()) == total > 0
-        assert (eng_mod.forward_prefill_suffix_dense, eng_mod.forward_block_decode) == originals
+        assert stats["wave_block_calls"] == stats["wave_model_calls"] + 1
+        assert sum(k1 for _, k1 in by_step.values()) == total > 0
+        assert cs.per_call(steps)[f"block decode R={R}"]["K1"] == L
+        assert graphs.Program.run is run
         assert "_prefill_prefix_chunked" not in vars(eng)
