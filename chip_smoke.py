@@ -59,6 +59,20 @@ Phases, each of which must pass:
    is zeroed just before each mode's drive); K1's launches by step must
    add up to its total. Capture seconds, replays and peak memory are
    printed for each mode.
+4b. Loop: the scheduler's main path through its entry points, on the
+   graph-mode engine of phase 4 (a new LocalLLMBackend over it, no second
+   copy of the weights): `synthetic_cluster(32)` holding `pod_burst(32,
+   distinct_shapes=8)`, added before the loop starts, the stack of
+   `cli.build_stack` at the reference config's defaults (snapshot TTL 1 s,
+   prefix prewarm tick 0.25 s), and Scheduler.run() until every pod is
+   bound (deadline 300 s). Every pod must be bound to a ready node feasible
+   for it, with no fallback decision, retry or backend error, the breaker
+   closed, every LLM decision through get_scheduling_decision_async, and
+   K1 and K2 launched (counts zeroed just before the run). Prints LLM
+   decisions, cache and single-flight hits, waves and rows a wave, group
+   installs, prefix prewarms, and each pod's pending -> bound time.
+4c. cli demo: `python -m k8s_llm_scheduler_tpu_torch.cli demo --model tiny
+   --fake-nodes 4` in a process of its own: exit 0, 3 binds, no fallback.
 5. Path A: the same 8B weights quantized to int8 on the card, in an engine
    with decode_matmul="ragged", the same drive in both modes, held the
    same way; all feasible, K3 and K1 launched, K3 7 times a layer (224)
@@ -1477,6 +1491,149 @@ def decision_phase(backend, build_s, nodes, pods) -> tuple[bool, dict]:
     return ok, rec
 
 
+# --------------------------------------------------------------- loop phase
+LOOP_NODES = 32  # the decision phase's cluster: the same 5,488-token prefix
+LOOP_PODS = 32
+LOOP_SHAPES = 8
+LOOP_DEADLINE_S = 300.0
+
+
+def loop_phase(engine):
+    """The scheduler's main path through the user's entry points: a
+    FakeCluster holding a burst of pending pods (all added before the loop
+    starts, so one snapshot serves the burst's leaders), the stack of
+    `cli.build_stack` at the reference config's defaults, and
+    Scheduler.run() until every pod is bound, over a new LocalLLMBackend on
+    the decision phase's graph-mode engine (no second copy of the weights).
+    Every launch count is zeroed just before the run and read just after.
+    Fails unless every pod is bound to a ready node that is feasible for
+    it, the client made no fallback decision, no retry and met no backend
+    error, the breaker is closed, every LLM decision came through
+    get_scheduling_decision_async (none through a to_thread thread), and K1
+    and K2 launched."""
+    import asyncio
+
+    from k8s_llm_scheduler_tpu_torch.cli import build_stack, run_until_bound
+    from k8s_llm_scheduler_tpu_torch.cluster.interface import raw_pod_to_spec
+    from k8s_llm_scheduler_tpu_torch.core.validation import feasible_nodes
+    from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend
+    from k8s_llm_scheduler_tpu_torch.testing import pod_burst, synthetic_cluster
+
+    cluster = synthetic_cluster(LOOP_NODES)
+    pods = pod_burst(LOOP_PODS, distinct_shapes=LOOP_SHAPES)
+    for pod in pods:
+        cluster.add_pod(pod)
+    nodes = cluster.get_node_metrics()  # the snapshot the burst is decided on
+    backend = LocalLLMBackend(engine, request_timeout_s=600.0)
+    scheduler = build_stack(backend, cluster)
+    bound_at: dict[str, float] = {}
+    bind = cluster.bind_pod_to_node
+
+    def timed_bind(name, namespace, node):
+        ok = bind(name, namespace, node)
+        bound_at.setdefault(name, time.perf_counter())
+        return ok
+
+    cluster.bind_pod_to_node = timed_bind
+    waves: list[dict] = []
+    harvest = engine.harvest_wave
+
+    def recorded(handle):
+        fins = harvest(handle)
+        waves.append({"rows": handle.n, "R": handle.geo_key[0],
+                      "cold": handle.cold_compile})
+        return fins
+
+    engine.harvest_wave = recorded
+    before = dict(engine.stats)
+    try:
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        all_bound = asyncio.run(run_until_bound(scheduler, cluster, LOOP_PODS, LOOP_DEADLINE_S))
+        run_s = time.perf_counter() - t0
+        launches = _launch_counts()
+    finally:
+        del engine.harvest_wave
+        backend.close()
+    stats = scheduler.get_stats()
+    client, counters = stats["client"], backend.counters
+    eng = {k: engine.stats[k] - before[k] for k in
+           ("prefix_prefills", "prefix_hits", "waves", "wave_model_calls", "wave_prewarms")}
+    by_name = {n.name: n for n in nodes}
+    placed = {p.name: cluster.get_pod(p.namespace, p.name).node_name for p in pods}
+    feasible = all(
+        placed[p.name] is not None and by_name[placed[p.name]].is_ready
+        and placed[p.name] in {n.name for n in feasible_nodes(raw_pod_to_spec(p), nodes)}
+        for p in pods)
+    # every backend call that raised was retried, or failed the decision
+    calls = counters["async_calls"] + counters["sync_calls"]
+    errors = calls - client["successful_requests"] - client["invalid_decisions"]
+    retries = errors - client["failed_requests"]
+    bound = sorted(t - t0 for t in bound_at.values())
+    rec = {
+        "nodes": LOOP_NODES, "pods": LOOP_PODS, "distinct_shapes": LOOP_SHAPES,
+        "all_bound": all_bound, "feasible": feasible,
+        "llm_decisions": stats["llm_decisions"],
+        "cache_decisions": stats["cache_decisions"],
+        "client_cached": client["cached_requests"],
+        "client_coalesced": client["coalesced_requests"],
+        "fallback_decisions": client["fallback_decisions"] + stats["fallback_decisions"],
+        "retries": retries, "failed_requests": client["failed_requests"],
+        "backend_errors": errors,
+        "breaker": client["circuit_breaker"]["state"],
+        "async_calls": counters["async_calls"], "sync_calls": counters["sync_calls"],
+        "waves": len(waves), "rows_per_wave": [w["rows"] for w in waves],
+        "wave_R": [w["R"] for w in waves], "cold_waves": sum(w["cold"] for w in waves),
+        "group_installs": counters["group_installs"],
+        "prewarms_installed": counters["prewarms_installed"],
+        "prewarms_dropped": counters["prewarms_dropped"],
+        "engine": eng,
+        "first_bound_s": bound[0] if bound else None,
+        "last_bound_s": bound[-1] if bound else None,
+        "run_s": run_s, "launches": launches,
+        "phases_ms": {k: v["avg_ms"] for k, v in stats["phases"].items()},
+    }
+    ok = (all_bound and feasible and rec["fallback_decisions"] == 0 and retries == 0
+          and rec["failed_requests"] == 0 and rec["backend_errors"] == 0
+          and rec["breaker"] == "closed" and counters["sync_calls"] == 0
+          and counters["async_calls"] == stats["llm_decisions"] > 0
+          and launches["K1"] > 0 and launches["K2"] > 0)
+    print(f"loop: {json.dumps(rec)}", flush=True)
+    print(f"loop: {stats['llm_decisions']} LLM decisions, {client['cached_requests']} cache or "
+          f"single-flight hits ({client['coalesced_requests']} coalesced), {len(waves)} waves "
+          f"of {rec['rows_per_wave']} rows, {rec['group_installs']} group installs, prefix "
+          f"prewarms {rec['prewarms_installed']} installed / {rec['prewarms_dropped']} dropped; "
+          f"pending -> bound first {rec['first_bound_s']:.3f} s, last "
+          f"{rec['last_bound_s']:.3f} s; burst wall {run_s:.3f} s | {_smi()} | ok={ok}",
+          flush=True)
+    return ok, rec
+
+
+def demo_phase(device="cuda"):
+    """`python -m k8s_llm_scheduler_tpu_torch.cli demo --model tiny
+    --fake-nodes 4` in a process of its own on the card: it must exit 0
+    with its three fixture pods bound and no fallback decision."""
+    cmd = [sys.executable, "-m", "k8s_llm_scheduler_tpu_torch.cli", "demo",
+           "--model", "tiny", "--fake-nodes", "4", "--device", device]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    try:
+        stats = json.loads(out.stdout)
+    except ValueError:
+        stats = {}
+    rec = {"rc": out.returncode, "wall_s": wall_s,
+           "binds": stats.get("total_scheduled"),
+           "llm_decisions": stats.get("llm_decisions"),
+           "fallbacks": stats.get("fallback_decisions")}
+    ok = (out.returncode == 0 and rec["binds"] == 3 and rec["fallbacks"] == 0
+          and stats["client"]["fallback_decisions"] == 0)
+    print(f"cli demo: {json.dumps(rec)} ok={ok}", flush=True)
+    if not ok:
+        print(out.stderr[-4000:], file=sys.stderr, flush=True)
+    return ok, rec
+
+
 def _feasible(nodes, decisions) -> bool:
     from k8s_llm_scheduler_tpu_torch.core.validation import feasible_nodes
 
@@ -1702,6 +1859,8 @@ def main() -> int:
         k_ok, k1, k2 = _timed_phase("kernels", kernel_phase, k1_cases, k2_cases)
         r_ok, ref = _timed_phase("reference", reference_phase)
         d_ok, dec = _timed_phase("decision", decision_phase, backend, backend_s, nodes, pods)
+        l_ok, loop = _timed_phase("loop", loop_phase, backend.engine)
+        c_ok, demo = _timed_phase("cli demo", demo_phase)
         a_ok, path_a, totals = _timed_phase("path A", path_a_phase, backend, nodes, pods)
         torch.cuda.empty_cache()
         b_ok, path_b, k4_cases = _timed_phase("path B", path_b_phase, backend, nodes, pods)
@@ -1753,12 +1912,13 @@ def main() -> int:
                   "k8s_llm_scheduler_tpu/ops/pallas_prefix_attention.py:365",
                   dec["launches"]["K1"], k1_main, ms_hot=k1_main["ms_hot"],
                   library_ms_hot=k1_main["library_ms_hot"], cold_l2=True,
-                  launches_by_step=dec["k1_launches_by_step"]),
+                  launches_by_step=dec["k1_launches_by_step"],
+                  loop_launches=loop["launches"]["K1"]),
             entry("flash_causal_attention_parts", k2,
                   "k8s_llm_scheduler_tpu_torch/csrc/causal_attention.cu",
                   "k8s_llm_scheduler_tpu/ops/pallas_prefix_attention.py:285",
                   dec["launches"]["K2"], k2_main, ms_cold=k2_main["ms_cold"],
-                  ratio=k2_main["ratio"]),
+                  ratio=k2_main["ratio"], loop_launches=loop["launches"]["K2"]),
             entry("ragged_matmul", k3,
                   "k8s_llm_scheduler_tpu_torch/csrc/ragged_matmul.cu",
                   "k8s_llm_scheduler_tpu/ops/ragged_matmul.py:108",
@@ -1775,11 +1935,11 @@ def main() -> int:
         ],
         "not_ported": [],
     }
-    phases = {"kernels": k_ok, "reference": r_ok, "decision": d_ok, "path_a": a_ok,
-              "path_b": b_ok, "k3": k3_ok, "k4": k4_ok}
+    phases = {"kernels": k_ok, "reference": r_ok, "decision": d_ok, "loop": l_ok,
+              "cli_demo": c_ok, "path_a": a_ok, "path_b": b_ok, "k3": k3_ok, "k4": k4_ok}
     record = {"device": kind, "smi": smi, "build_s": build_s, "kernels": line,
-              "reference": ref, "decision": dec, "path_a": path_a, "path_b": path_b,
-              "phases_ok": phases}
+              "reference": ref, "decision": dec, "loop": loop, "cli_demo": demo,
+              "path_a": path_a, "path_b": path_b, "phases_ok": phases}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

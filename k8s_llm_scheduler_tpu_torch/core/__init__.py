@@ -1,1 +1,2 @@
-"""Decision-plane logic copied from the JAX package: prompt, validation."""
+"""Decision-plane logic copied from the JAX package: prompt, validation,
+decision cache, circuit breaker, heuristic fallback."""

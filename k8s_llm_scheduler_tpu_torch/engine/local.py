@@ -1,5 +1,5 @@
 """LocalLLMBackend — the in-process decision backend over the PyTorch engine
-(the port of the JAX package's engine/local.py, wave path only).
+(the port of the JAX package's engine/local.py).
 
 Same inputs as the reference's HuggingFaceClient._make_api_call (reference
 scheduler.py:418-433) — a pod and the cluster's node metrics — and the same
@@ -7,25 +7,38 @@ output, a SchedulingDecision, with zero network: the prompt is built by
 core/prompt.py, decoded by engine/engine.py under the node-name grammar
 (engine/constrained.py) and parsed by utils/json_extract.py.
 
-Concurrency: callers block on a Future; ONE engine-owner thread drains the
-queue, coalesces a burst for a few milliseconds, and runs decision waves of
-up to max_slots rows. Requests group by (prompt prefix, grammar) — both
-keyed by the cluster snapshot; a new group installs its prefix KV and DFA
-between waves. Idle for `prewarm_idle_delay_s`, the worker captures the
-wave geometries next to those already served, one at a time
-(engine.prewarm_wave_siblings), so a burst's ragged tail finds its CUDA
-graphs captured.
+Concurrency: DecisionClient awaits `get_scheduling_decision_async` (no pool
+thread held per in-flight pod); sync callers block on the same Future. ONE
+engine-owner thread drains the queue and drives the engine with pipelined
+decision waves (submit_wave / harvest_wave), as the reference's worker does
+(JAX local.py:823-907, 1034-1197): a deque of waves in flight, a harvest
+poll on the oldest bounded by a per-geometry EMA of wave service time,
+stragglers held briefly (`partial_hold_s`) to fill a ragged tail, and group
+switches under load bounded by `group_switch_after_s`. The port's
+submit_wave returns only once the wave's last iteration is queued (it reads
+each iteration's alive flag), so the poll mostly finds the wave done.
 
-Not ported yet: packed admission, delta prompts and pinned prefixes, the
-persistent loop, the KV plane, speculative decoding, quiesced controls.
+Requests group by (prompt prefix, grammar) — both keyed by the cluster
+snapshot; a new group installs its prefix KV and DFA between waves, on the
+worker thread only (graph capture is global to the process). Advisory
+`prewarm_prefix` installs and `run_quiesced` controls ride the same queue.
+Idle for `prewarm_idle_delay_s`, the worker captures the wave geometries
+next to those already served, one at a time (engine.prewarm_wave_siblings).
+
+Not ported yet: packed admission, delta prompts and pinned prefixes
+(ROADMAP Queue 1 item 3), the persistent loop (item 7), the KV plane and
+the engine profiler's fences (item 8), speculative decoding, and the fleet
+pool role (`pool_role`, `_check_role`).
 """
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import queue
 import threading
 import time
+from collections import deque
 from collections.abc import Sequence
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FuturesTimeout
@@ -46,6 +59,7 @@ from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer, Tokenize
 from k8s_llm_scheduler_tpu_torch.models.configs import get_config
 from k8s_llm_scheduler_tpu_torch.models.llama import init_params
 from k8s_llm_scheduler_tpu_torch.models.quant import init_params_int8_host
+from k8s_llm_scheduler_tpu_torch.observability import spans
 from k8s_llm_scheduler_tpu_torch.types import (
     DecisionSource,
     NodeMetrics,
@@ -58,18 +72,47 @@ logger = logging.getLogger(__name__)
 
 
 class _WorkItem:
-    __slots__ = ("prefix_ids", "suffix_ids", "group_key", "future", "enqueued_at")
+    __slots__ = (
+        "prefix_ids", "suffix_ids", "group_key", "future", "enqueued_at",
+        "enqueued_wall", "trace",
+    )
 
     def __init__(self, prefix_ids, suffix_ids, group_key):
         self.prefix_ids = prefix_ids
+        # None marks an advisory prefix install (prewarm_prefix)
         self.suffix_ids = suffix_ids
         self.group_key = group_key  # (prefix token tuple, grammar names)
         self.future: Future = Future()
         self.enqueued_at = time.perf_counter()
+        # wall-clock twin of enqueued_at: the engine spans attached at
+        # harvest are wall-anchored (observability/spans)
+        self.enqueued_wall = time.time()
+        # (Trace, SpanContext) of the submitting thread, or None
+        self.trace = None
 
-    def resolve(self, text: str) -> None:
+    def resolve(self, text) -> None:
+        """Set the result unless the caller already cancelled or timed out
+        (the async path cancels the future through asyncio.wrap_future)."""
         if not self.future.done():
             self.future.set_result(text)
+
+    def fail(self, exc: Exception) -> None:
+        if not self.future.done():
+            self.future.set_exception(exc)
+
+
+class _ControlItem:
+    """An action to run on the engine-owner thread at a wave barrier
+    (run_quiesced; JAX local.py:120-138). While one is pending the worker
+    admits nothing; the future resolves to (fn result, pause_s), pause_s
+    being the admission-held wall time from enqueue to fn done."""
+
+    __slots__ = ("fn", "future", "enqueued_at")
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.future: Future = Future()
+        self.enqueued_at = time.perf_counter()
 
     def fail(self, exc: Exception) -> None:
         if not self.future.done():
@@ -87,9 +130,11 @@ class LocalLLMBackend:
         constrained: bool = True,
         request_timeout_s: float = 60.0,
         admit_wait_s: float = 0.002,
+        group_switch_after_s: float = 0.25,
+        partial_hold_s: float = 0.03,
+        prewarm_idle_delay_s: float = 0.5,
         answer_style: str = "direct",
         max_reason_tokens: int = 320,
-        prewarm_idle_delay_s: float = 0.5,
     ) -> None:
         self.engine = engine
         self.tokenizer = tokenizer or engine.tokenizer
@@ -99,6 +144,12 @@ class LocalLLMBackend:
         self.request_timeout_s = request_timeout_s
         # Coalescing window: a burst's leaders enqueue over a few ms.
         self.admit_wait_s = admit_wait_s
+        # Fairness bound for (prefix, grammar) group switches under load
+        # (_submit_waves).
+        self.group_switch_after_s = group_switch_after_s
+        # Max time a ragged wave tail may wait for stragglers while earlier
+        # waves are in flight (_submit_waves.run_group).
+        self.partial_hold_s = partial_hold_s
         # Decision JSON field order: "direct" or "cot" (engine/constrained.py).
         self.answer_style = answer_style
         self.max_reason_tokens = max_reason_tokens
@@ -107,14 +158,41 @@ class LocalLLMBackend:
         # must not start the instant the queue empties, when a burst's next
         # round often arrives within ms.
         self.prewarm_idle_delay_s = prewarm_idle_delay_s
-        self._queue: queue.Queue[_WorkItem | None] = queue.Queue()
+        self._queue: queue.Queue = queue.Queue()
         self._dfa_cache: dict[tuple[str, ...], Any] = {}
         self._current_group: tuple | None = None
+        # Controls parked until the wave barrier; while any is held,
+        # _submit_waves admits nothing.
+        self._held_controls: list[_ControlItem] = []
+        self.swap_stats = {
+            "quiesce_runs": 0,
+            "last_pause_s": 0.0,
+            "total_pause_s": 0.0,
+        }
+        # Per-geometry EMA of wave service time (WaveHandle.geo_key): the
+        # deadline of the harvest poll in _worker_tick.
+        self._wave_ema: dict[tuple | None, float] = {}
+        self._wave_ema_default = 0.5
+        self._last_harvest_t = 0.0
+        # Decision calls by entry point (callers' threads, under the lock)
+        # and the worker's group installs and prefix prewarms (its thread).
+        self._calls_lock = threading.Lock()
+        self.counters = {
+            "async_calls": 0,
+            "sync_calls": 0,
+            "group_installs": 0,
+            "prewarms_installed": 0,
+            "prewarms_dropped": 0,
+        }
         self._stopped = threading.Event()
         self._worker = threading.Thread(
             target=self._run_worker, daemon=True, name="llm-engine"
         )
         self._worker.start()
+
+    def _count(self, key: str) -> None:
+        with self._calls_lock:
+            self.counters[key] += 1
 
     # ------------------------------------------------------------- backend
     def _prepare_item(self, pod: PodSpec, nodes: Sequence[NodeMetrics]) -> _WorkItem:
@@ -127,20 +205,75 @@ class LocalLLMBackend:
             self.prompt_engine.cluster_part(nodes),
             pod_suffix(pod),
         )
+        item = _WorkItem(prefix_ids, suffix_ids, self._group_key(prefix_ids, nodes))
+        item.trace = spans.capture()
+        return item
+
+    def _group_key(self, prefix_ids, nodes: Sequence[NodeMetrics]) -> tuple:
         # Grammar over READY nodes of this snapshot (stable across the pods
         # of a burst); per-pod feasibility is enforced by validation upstream.
         ready_names = tuple(sorted(n.name for n in nodes if n.is_ready))
-        group_key = (tuple(prefix_ids), ready_names if self.constrained else None)
-        return _WorkItem(prefix_ids, suffix_ids, group_key)
+        return (tuple(prefix_ids), ready_names if self.constrained else None)
+
+    def prewarm_prefix(self, nodes: Sequence[NodeMetrics]) -> Future:
+        """Advisory (JAX local.py:343-385): install this snapshot's (prefix
+        KV, grammar) group while the engine is idle, so the first wave of
+        the next burst skips the chunked prefix prefill.
+
+        Returns a Future resolving True if the group was installed (or
+        already current), False if dropped — the engine was busy (real
+        traffic decides groups) or the snapshot has no ready node. Never
+        blocks the caller; the install runs on the engine-owner thread."""
+        item = self._prepare_prewarm(nodes)
+        if item is None:
+            f: Future = Future()
+            f.set_result(False)
+            return f
+        self._queue.put(item)
+        return item.future
+
+    def _prepare_prewarm(self, nodes: Sequence[NodeMetrics]) -> _WorkItem | None:
+        if not any(n.is_ready for n in nodes):
+            return None
+        # Any non-empty stand-in suffix yields the prefix a real pod gets:
+        # chat_prompt_parts splits at the end of the user-prefix string.
+        prefix_ids, _ = self.tokenizer.chat_prompt_parts(
+            self.prompt_engine.system_prompt,
+            self.prompt_engine.cluster_part(nodes),
+            "x",
+        )
+        return _WorkItem(prefix_ids, None, self._group_key(prefix_ids, nodes))
 
     def get_scheduling_decision(
         self, pod: PodSpec, nodes: Sequence[NodeMetrics]
     ) -> SchedulingDecision:
+        self._count("sync_calls")
         item = self._prepare_item(pod, nodes)
         self._queue.put(item)
         try:
             text = item.future.result(timeout=self.request_timeout_s)
         except FuturesTimeout as exc:
+            raise BackendError(
+                f"decision timed out after {self.request_timeout_s}s"
+            ) from exc
+        return self._parse(text)
+
+    async def get_scheduling_decision_async(
+        self, pod: PodSpec, nodes: Sequence[NodeMetrics]
+    ) -> SchedulingDecision:
+        """Natively async (JAX local.py:458-479): awaits the engine future
+        without holding a thread. On the sync path every in-flight pod pins
+        one asyncio.to_thread pool thread for a whole wave, and a burst with
+        more distinct shapes than pool threads serializes into waves.
+        DecisionClient prefers this method."""
+        self._count("async_calls")
+        item = self._prepare_item(pod, nodes)
+        self._queue.put(item)
+        try:
+            text = await asyncio.wait_for(
+                asyncio.wrap_future(item.future), timeout=self.request_timeout_s
+            )
+        except (TimeoutError, asyncio.TimeoutError) as exc:
             raise BackendError(
                 f"decision timed out after {self.request_timeout_s}s"
             ) from exc
@@ -209,22 +342,107 @@ class LocalLLMBackend:
 
     def _install_group(self, item: _WorkItem) -> None:
         """Install item's (prefix, grammar) group on the engine."""
+        self.counters["group_installs"] += 1
         self.engine.set_prefix(item.prefix_ids)
         names = item.group_key[1]
         self.engine.set_grammar(
             self._grammar_for(names) if names is not None else None
         )
 
-    def _submit_waves(self, pending: list[_WorkItem]):
-        """Run every pending item of the current group as waves of up to
-        max_slots rows; when the current group has none, switch to the group
-        of the oldest other item first. Returns (waves, items still
-        waiting for their group)."""
-        waves: list[tuple[Any, list[_WorkItem]]] = []
+    def _switch_group(self, item: _WorkItem) -> None:
+        """Make item's group current. Invalidate first: a half-installed
+        group (prefix in, grammar failed) must match nothing."""
+        self._current_group = None
+        self._install_group(item)
+        self._current_group = item.group_key
+
+    def _apply_prewarms(self, prewarms: list[_WorkItem], busy: bool) -> None:
+        """Advisory installs (JAX local.py:620-644): only the latest
+        snapshot matters, and it applies only when the engine is idle."""
+        for stale in prewarms[:-1]:
+            stale.resolve(False)
+        self.counters["prewarms_dropped"] += len(prewarms) - 1
+        latest = prewarms[-1]
+        if latest.group_key == self._current_group:
+            latest.resolve(True)
+            return
+        if busy:
+            self.counters["prewarms_dropped"] += 1
+            latest.resolve(False)
+            return
+        try:
+            self._switch_group(latest)
+        except Exception:
+            logger.exception("prefix prewarm failed")
+            self.counters["prewarms_dropped"] += 1
+            latest.resolve(False)
+        else:
+            self.counters["prewarms_installed"] += 1
+            latest.resolve(True)
+
+    def _submit_waves(self, pending: list, waves: deque) -> list:
+        """Dispatch every admissible pending item as pipelined waves
+        (JAX local.py:580-777, without its packed and persistent branches).
+
+        Items group by (prefix, grammar). A switch to another group happens
+        at most once a tick, and under load only when that group's oldest
+        item has waited group_switch_after_s: interleaved snapshots take
+        turns at that period instead of starving behind a hot group.
+
+        Returns the items that must keep waiting (held ragged tails, other
+        groups not yet switched to, everything while a control is held)."""
+        controls = [i for i in pending if isinstance(i, _ControlItem)]
+        if controls:
+            self._held_controls.extend(controls)
+            pending = [i for i in pending if not isinstance(i, _ControlItem)]
+        if self._held_controls:
+            # Quiesce in progress: hold every admission until the controls
+            # run at the wave barrier (_worker_tick).
+            return list(pending)
+        if any(i.suffix_ids is None for i in pending):
+            # Diverted here, the single consumer of `pending`: the
+            # coalescing and straggler polls can hand over a prewarm at any
+            # point of a tick.
+            prewarms = [i for i in pending if i.suffix_ids is None]
+            pending = [i for i in pending if i.suffix_ids is not None]
+            self._apply_prewarms(prewarms, busy=bool(pending or waves))
+        rest: list[_WorkItem] = []
+
+        def submit(batch: list[_WorkItem]) -> None:
+            try:
+                handle = self.engine.submit_wave(
+                    [i.suffix_ids for i in batch], self.max_new_tokens
+                )
+            except Exception as exc:  # bucket overflow, bad grammar state
+                logger.exception("wave submit failed")
+                for item in batch:
+                    item.fail(BackendError(str(exc)))
+            else:
+                waves.append((handle, batch))
+
+        def run_group(items: list[_WorkItem]) -> None:
+            """Full waves submit; a ragged tail holds while earlier waves
+            are in flight, until its oldest item has waited partial_hold_s,
+            so stragglers of a burst fill it instead of riding a wave of
+            their own."""
+            batch: list[_WorkItem] = []
+            for item in items:
+                batch.append(item)
+                if len(batch) >= self.engine.max_slots:
+                    submit(batch)
+                    batch = []
+            if batch:
+                held_s = time.perf_counter() - min(i.enqueued_at for i in batch)
+                if waves and held_s < self.partial_hold_s:
+                    rest.extend(batch)
+                else:
+                    submit(batch)
+
         current: list[_WorkItem] = []
         others: list[_WorkItem] = []
         for item in pending:
             if len(item.suffix_ids) > self.engine.prefill_buckets[-1]:
+                # fail it alone rather than poisoning its whole wave
                 item.fail(BackendError(
                     f"pod prompt suffix of {len(item.suffix_ids)} tokens "
                     f"exceeds the largest prefill bucket "
@@ -234,38 +452,32 @@ class LocalLLMBackend:
                 current.append(item)
             else:
                 others.append(item)
-        if not current and others:
-            target = min(others, key=lambda i: i.enqueued_at).group_key
-            current = [i for i in others if i.group_key == target]
-            others = [i for i in others if i.group_key != target]
-            # invalidate first: a half-installed group must match nothing
-            self._current_group = None
-            try:
-                self._install_group(current[0])
-                self._current_group = target
-            except Exception as exc:  # prefix too long, grammar build
-                logger.exception("group install failed")
-                for item in current:
-                    item.fail(BackendError(str(exc)))
-                current = []
-        for i in range(0, len(current), self.engine.max_slots):
-            batch = current[i:i + self.engine.max_slots]
-            try:
-                handle = self.engine.submit_wave(
-                    [it.suffix_ids for it in batch], self.max_new_tokens
-                )
-            except Exception as exc:
-                logger.exception("wave submit failed")
-                for item in batch:
-                    item.fail(BackendError(str(exc)))
-            else:
-                waves.append((handle, batch))
-        return waves, others
 
-    def _drain_queue(self, pending: list[_WorkItem], block: bool,
+        run_group(current)
+        if not others:
+            return rest
+        oldest = min(others, key=lambda i: i.enqueued_at)
+        if waves and time.perf_counter() - oldest.enqueued_at < self.group_switch_after_s:
+            rest.extend(others)
+            return rest
+        target = oldest.group_key
+        switch_items = [i for i in others if i.group_key == target]
+        rest.extend(i for i in others if i.group_key != target)
+        try:
+            self._switch_group(switch_items[0])
+        except Exception as exc:  # prefix too long, grammar build
+            logger.exception("group install failed")
+            for item in switch_items:
+                item.fail(BackendError(str(exc)))
+            return rest
+        run_group(switch_items)
+        return rest
+
+    def _drain_queue(self, pending: list, block: bool,
                      block_timeout: float | None = None) -> None:
-        """Move queued items into `pending` (waiting up to `block_timeout`
-        for the first when blocking); a None sentinel stops the worker."""
+        """Move queued items into `pending`; a None sentinel sets _stopped.
+        `block_timeout` bounds only the first (blocking) get — None waits
+        indefinitely."""
         try:
             while True:
                 item = (self._queue.get(timeout=block_timeout) if block
@@ -278,28 +490,135 @@ class LocalLLMBackend:
         except queue.Empty:
             pass
 
-    def _worker_tick(self, pending: list[_WorkItem]) -> list[_WorkItem]:
-        """Coalesce, run the waves of one group, resolve their items;
-        returns the items of other groups."""
-        if self.admit_wait_s:
+    def _harvest_oldest(self, pending: list, waves: deque) -> list:
+        """Poll the queue while the oldest wave runs, then harvest it
+        (JAX local.py:1061-1162). Stragglers arriving meanwhile feed the
+        next wave. The poll ends at the wave's readiness or at a deadline
+        of half the EMA of this geometry's service time, anchored where
+        the device could have started the wave (its submit, or the last
+        harvest); past it the harvest blocks, returning at the wave's true
+        completion, which keeps the EMA honest."""
+        handle, items = waves[0]
+        geo = handle.geo_key
+        ema = self._wave_ema.get(geo, self._wave_ema_default)
+        deadline = max(handle.submitted_at, self._last_harvest_t) + 0.5 * ema
+        while (not handle.is_ready() and not self._stopped.is_set()
+               and time.perf_counter() < deadline):
+            try:
+                got = self._queue.get(timeout=0.002)
+            except queue.Empty:
+                if pending:
+                    # held ragged tails re-check their hold deadline
+                    pending = self._submit_waves(pending, waves)
+                continue
+            if got is None:
+                self._stopped.set()
+                break
+            pending.append(got)
+            self._drain_queue(pending, block=False)
+            pending = self._submit_waves(pending, waves)
+        waves.popleft()
+        try:
+            fins = self.engine.harvest_wave(handle)
+        except Exception as exc:
+            logger.exception("wave harvest failed")
+            for item in items:
+                item.fail(BackendError(str(exc)))
+            return pending
+        now = time.perf_counter()
+        # Marginal service time of this wave. Waves that captured their
+        # geometry are skipped (capture + run would poison the estimate);
+        # the update falls fast and rises at most 4x the estimate.
+        service = max(now - max(handle.submitted_at, self._last_harvest_t), 0.02)
+        self._last_harvest_t = now
+        if not handle.cold_compile:
+            ema = self._wave_ema.get(geo, self._wave_ema_default)
+            if service < ema:
+                ema = 0.5 * ema + 0.5 * service
+            else:
+                ema = 0.9 * ema + 0.1 * min(service, 4.0 * ema)
+            self._wave_ema[geo] = ema
+        for fin, item in zip(fins, items):
+            self._attach_item_spans(item, handle, fin, now)
+            item.resolve(fin.text)
+        return pending
+
+    def _run_controls(self) -> None:
+        """At the wave barrier: run the held controls on this thread, then
+        drop the current group — a control may have changed what the group
+        key stands for (a weight swap clears the prefix KV), so the next
+        wave reinstalls prefix and grammar (JAX local.py:1163-1197)."""
+        controls, self._held_controls = self._held_controls, []
+        for ctl in controls:
+            try:
+                result = ctl.fn()
+            except Exception as exc:
+                logger.exception("quiesced control action failed")
+                ctl.fail(exc)
+            else:
+                pause_s = time.perf_counter() - ctl.enqueued_at
+                self.swap_stats["quiesce_runs"] += 1
+                self.swap_stats["last_pause_s"] = pause_s
+                self.swap_stats["total_pause_s"] += pause_s
+                if not ctl.future.done():
+                    ctl.future.set_result((result, pause_s))
+        self._current_group = None
+
+    def _worker_tick(self, pending: list, waves: deque) -> list:
+        """One submit + harvest cycle; returns the items still waiting."""
+        if pending and self.admit_wait_s and not waves:
+            # Adaptive coalescing: keep extending the window while items
+            # are still arriving (up to 5 times), so a burst lands in one
+            # wave.
             for _ in range(5):
                 before = len(pending)
                 time.sleep(self.admit_wait_s)
                 self._drain_queue(pending, block=False)
                 if len(pending) == before or len(pending) >= self.engine.max_slots:
                     break
-        waves, rest = self._submit_waves(pending)
-        for handle, items in waves:
-            try:
-                fins = self.engine.harvest_wave(handle)
-            except Exception as exc:
-                logger.exception("wave harvest failed")
-                for item in items:
-                    item.fail(BackendError(str(exc)))
-                continue
-            for fin, item in zip(fins, items):
-                item.resolve(fin.text)
-        return rest
+        pending = self._submit_waves(pending, waves)
+        if waves:
+            pending = self._harvest_oldest(pending, waves)
+        if self._held_controls and not waves:
+            self._run_controls()
+        return pending
+
+    @staticmethod
+    def _attach_item_spans(item: _WorkItem, handle, fin, now: float) -> None:
+        """Attach the item's engine spans to its decision trace at harvest
+        (JAX local.py:1200-1247): admission_wait (enqueue to wave submit),
+        then prefill and decode, the wave's wall time apportioned by their
+        token counts (`apportioned`: the wave is one device program)."""
+        cap = item.trace
+        if cap is None:
+            return
+        try:
+            trace, ctx = cap
+            wall_offset = item.enqueued_wall - item.enqueued_at
+            submitted = getattr(handle, "submitted_at", item.enqueued_at)
+            trace.add_span(
+                "admission_wait", start_unix=item.enqueued_wall,
+                dur_ms=max(submitted - item.enqueued_at, 0.0) * 1000.0,
+                parent_id=ctx.span_id, publish=False,
+            )
+            wave_ms = max(now - submitted, 0.0) * 1000.0
+            pf = len(item.suffix_ids or ())
+            dc = len(fin.token_ids)
+            prefill_ms = wave_ms * pf / (pf + dc) if pf + dc else 0.0
+            submit_wall = submitted + wall_offset
+            trace.add_span(
+                "prefill", start_unix=submit_wall, dur_ms=prefill_ms,
+                parent_id=ctx.span_id, tokens=pf, apportioned=True,
+                publish=False,
+            )
+            trace.add_span(
+                "decode", start_unix=submit_wall + prefill_ms / 1000.0,
+                dur_ms=wave_ms - prefill_ms, parent_id=ctx.span_id,
+                tokens=dc, apportioned=True, publish=False,
+            )
+            trace.flush()
+        except Exception:  # tracing must never fail a decision
+            logger.exception("failed to attach engine spans")
 
     def _try_prewarm(self) -> bool:
         """Capture ONE missing sibling wave geometry while the engine is
@@ -311,10 +630,18 @@ class LocalLLMBackend:
             logger.exception("wave prewarm failed")
             return False
 
+    def _prewarm_backlog(self) -> int:
+        try:
+            return self.engine.wave_prewarm_backlog()
+        except AttributeError:  # engine test doubles
+            return 0
+
     def _run_worker(self) -> None:
-        pending: list[_WorkItem] = []
+        pending: list = []
+        waves: deque = deque()
         while not self._stopped.is_set():
-            if not pending and self.engine.wave_prewarm_backlog() > 0:
+            idle = not pending and not waves
+            if idle and self._prewarm_backlog() > 0:
                 # Idle with captures owed: park only for the grace period;
                 # if still idle after it, capture ONE sibling geometry, then
                 # re-check the queue. Arriving work always wins.
@@ -323,20 +650,47 @@ class LocalLLMBackend:
                 if not self._stopped.is_set() and not pending:
                     self._try_prewarm()
                 continue
-            self._drain_queue(pending, block=not pending)
-            if self._stopped.is_set() or not pending:
+            self._drain_queue(pending, block=idle)
+            if self._stopped.is_set() or (not pending and not waves):
                 continue
             # Nothing below may kill the engine-owner thread.
             try:
-                pending = self._worker_tick(pending)
+                pending = self._worker_tick(pending, waves)
             except Exception as exc:  # pragma: no cover - last-resort guard
                 logger.exception("engine worker tick failed")
+                for _, items in waves:
+                    pending.extend(items)
+                waves.clear()
+                pending.extend(self._held_controls)
+                self._held_controls = []
                 for item in pending:
                     item.fail(BackendError(str(exc)))
                 pending = []
         self._drain_queue(pending, block=False)
+        for _, items in waves:
+            pending.extend(items)
+        pending.extend(self._held_controls)
+        self._held_controls = []
         for item in pending:
             item.fail(BackendError("backend closed"))
+
+    def run_quiesced(self, fn, timeout_s: float | None = None):
+        """Run `fn()` on the engine-owner thread at a wave barrier (JAX
+        local.py:1249-1271): from the control's enqueue the worker holds
+        every new admission, harvests the waves in flight, runs `fn`, and
+        resumes on its next tick. No request is failed or dropped. Blocks
+        until done; returns (fn result, pause_s), pause_s the
+        admission-held wall time. Raises what fn raises."""
+        if self._stopped.is_set():
+            raise BackendError("backend closed")
+        ctl = _ControlItem(fn)
+        self._queue.put(ctl)
+        try:
+            return ctl.future.result(timeout=timeout_s)
+        except FuturesTimeout as exc:
+            raise BackendError(
+                f"quiesced action not executed within {timeout_s}s"
+            ) from exc
 
     def close(self) -> None:
         self._stopped.set()
@@ -344,7 +698,19 @@ class LocalLLMBackend:
         self._worker.join(timeout=30)
 
     def get_stats(self) -> dict[str, Any]:
-        return self.engine.get_stats()
+        out = self.engine.get_stats()
+        if self.swap_stats["quiesce_runs"]:
+            out["swap"] = dict(self.swap_stats)
+        with self._calls_lock:
+            out["backend"] = dict(self.counters)
+        completed = out.get("completed", 0)
+        if completed:
+            # prefill tokens computed per finished decision (prefix prefills
+            # count only the tokens not reused)
+            out["prefill_tokens_per_decision"] = round(
+                out.get("prefill_tokens", 0) / completed, 2
+            )
+        return out
 
 
 def build_local_backend(

@@ -1,14 +1,81 @@
-"""Synthetic cluster snapshots and fixture pods for tests and the chip smoke.
+"""Synthetic clusters, fixture pods and an async deadline for tests, the
+chip smoke and `cli demo`.
 
-`synthetic_nodes(n)` returns exactly the NodeMetrics that the JAX package's
-`testing.synthetic_cluster(n).get_node_metrics()` reports for a cluster with
-no pods bound: node-i at load (i * 37 % 90)% of 16 cores / 64 GB, 110 max
-pods, zone label z(i % 4), Ready.
+`synthetic_nodes(n)` returns exactly the NodeMetrics that
+`synthetic_cluster(n).get_node_metrics()` reports for a cluster with no pods
+bound: node-i at load (i * 37 % 90)% of 16 cores / 64 GB, 110 max pods,
+zone label z(i % 4), Ready. `synthetic_cluster`, `pod_burst`,
+`async_deadline` and `fixture_raw_pods` are copies of the JAX package's
+testing.py (`fixture_raw_pods` is its `fixture_pods`: the reference's three
+graduated nginx pods, as RawPods); `fixture_pods(n)` here returns PodSpecs.
 """
 
 from __future__ import annotations
 
+import asyncio
+
+from k8s_llm_scheduler_tpu_torch.cluster.fake import FakeCluster, FakeNode
+from k8s_llm_scheduler_tpu_torch.cluster.interface import RawPod
 from k8s_llm_scheduler_tpu_torch.types import NodeMetrics, PodSpec
+
+SCHEDULER_NAME = "ai-llama-scheduler"
+
+
+class _Py310Deadline:
+    """Minimal backport of the 3.11 timeout context manager: arm a timer
+    that cancels the CURRENT task; translate the resulting CancelledError
+    into TimeoutError iff this deadline (not an outer cancel) fired."""
+
+    def __init__(self, seconds: float) -> None:
+        self._seconds = seconds
+        self._fired = False
+        self._handle = None
+        self._task = None
+
+    async def __aenter__(self) -> "_Py310Deadline":
+        self._task = asyncio.current_task()
+        loop = asyncio.get_running_loop()
+        self._handle = loop.call_later(self._seconds, self._on_timeout)
+        return self
+
+    def _on_timeout(self) -> None:
+        self._fired = True
+        if self._task is not None:
+            self._task.cancel()
+
+    async def __aexit__(self, exc_type, exc, tb) -> bool:
+        if self._handle is not None:
+            self._handle.cancel()
+        if self._fired:
+            if exc_type is asyncio.CancelledError:
+                raise TimeoutError(
+                    f"deadline of {self._seconds}s expired"
+                ) from exc
+            if exc_type is None:
+                # Timer fired in the gap between the block's last await and
+                # exit: the task.cancel() is still pending and would escape
+                # as a bare CancelledError at the caller's NEXT await.
+                # Absorb it at a checkpoint here and report the expiry
+                # (3.11's native timeout resolves this boundary the same
+                # way, via Task.uncancel bookkeeping).
+                try:
+                    await asyncio.sleep(0)
+                except asyncio.CancelledError:
+                    raise TimeoutError(
+                        f"deadline of {self._seconds}s expired"
+                    ) from None
+        return False
+
+
+def async_deadline(seconds: float):
+    """``async with async_deadline(30): ...`` — bound an async block's wall
+    time. Python 3.11+'s native scoped timeout when available (it handles
+    nested-cancellation bookkeeping via Task.uncancel); a call_later-based
+    shim with the same raise-TimeoutError contract on 3.10."""
+    native = getattr(asyncio, "timeout", None)  # 3.11+
+    if native is not None:
+        return native(seconds)
+    return _Py310Deadline(seconds)
 
 
 def synthetic_nodes(
@@ -63,3 +130,75 @@ def fixture_pods(n: int = 8) -> list[PodSpec]:
         )
         for i in range(n)
     ]
+
+
+def fixture_raw_pods(scheduler_name: str = SCHEDULER_NAME) -> list[RawPod]:
+    """The reference's 3 graduated nginx test pods (ai-test-pods.yaml)."""
+    shapes = [
+        ("ai-test-pod-1", "100m", "128Mi"),
+        ("ai-test-pod-2", "250m", "256Mi"),
+        ("ai-test-pod-3", "500m", "512Mi"),
+    ]
+    return [
+        RawPod(
+            name=name,
+            namespace="default",
+            scheduler_name=scheduler_name,
+            container_requests=({"cpu": cpu, "memory": mem},),
+        )
+        for name, cpu, mem in shapes
+    ]
+
+
+def synthetic_cluster(
+    n_nodes: int = 3,
+    cpu_cores: float = 16.0,
+    memory_gb: float = 64.0,
+    max_pods: int = 110,
+    load_spread: bool = True,
+) -> FakeCluster:
+    """A FakeCluster with n nodes at varied synthetic load levels."""
+    cluster = FakeCluster()
+    for i in range(n_nodes):
+        load = (i * 37 % 90) if load_spread else None
+        cluster.add_node(
+            FakeNode(
+                name=f"node-{i}",
+                cpu_capacity_cores=cpu_cores,
+                memory_capacity_gb=memory_gb,
+                max_pods=max_pods,
+                cpu_usage_percent=float(load) if load is not None else None,
+                memory_usage_percent=float(load) if load is not None else None,
+                labels={"zone": f"z{i % 4}"},
+            )
+        )
+    return cluster
+
+
+def pod_burst(
+    n_pods: int,
+    scheduler_name: str = SCHEDULER_NAME,
+    distinct_shapes: int = 8,
+) -> list[RawPod]:
+    """A burst of pending pods with `distinct_shapes` resource shapes.
+
+    distinct_shapes controls the decision-cache hit rate: a 1000-pod burst
+    with 8 shapes means ~992 decisions are cache-servable, which mirrors real
+    bursts (replicas of few deployments) and the reference's cache-key
+    equivalence design (scheduler.py:265-271).
+    """
+    pods = []
+    for i in range(n_pods):
+        shape = i % distinct_shapes
+        cpu_m = 100 + 50 * shape
+        mem_mi = 128 * (1 + shape % 4)
+        pods.append(
+            RawPod(
+                name=f"burst-pod-{i}",
+                namespace="default",
+                scheduler_name=scheduler_name,
+                container_requests=({"cpu": f"{cpu_m}m", "memory": f"{mem_mi}Mi"},),
+                priority=shape % 3,
+            )
+        )
+    return pods

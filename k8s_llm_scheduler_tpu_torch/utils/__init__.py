@@ -1,1 +1,1 @@
-"""Dependency-free utilities: JSON extraction."""
+"""Dependency-free utilities: JSON extraction, unit parsing (copies)."""

@@ -54,7 +54,44 @@ def tiny_params():
     return jp, params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
 
 
+# Modules the port copies from the JAX package: (path in both packages,
+# the reference's text cut at this marker, or None for all of it).
+COPIES = [
+    ("types.py", None),
+    ("core/prompt.py", None),
+    ("core/validation.py", None),
+    ("core/cache.py", None),
+    ("core/breaker.py", None),
+    ("core/fallback.py", None),
+    ("utils/json_extract.py", None),
+    ("utils/units.py", None),
+    ("cluster/interface.py", None),
+    ("cluster/fake.py", None),
+    ("engine/backend.py", None),
+    ("sched/deadline.py", None),
+    ("sched/client.py", None),
+    ("sched/loop.py", None),
+    ("observability/spans.py", None),
+    ("observability/trace.py", "\n\n@contextlib.contextmanager\ndef device_trace("),
+]
+
+
 class TestCopiedModules:
+    @pytest.mark.parametrize("path,cut", COPIES, ids=[p for p, _ in COPIES])
+    def test_copy_matches_the_reference_text(self, path, cut):
+        """A copy is the reference's text with the package name rewritten;
+        a module that leaves something out (`cut`) is compared below its
+        own docstring, the reference's text ending at the cut."""
+        want = (REPO / "k8s_llm_scheduler_tpu" / path).read_text().replace(
+            "k8s_llm_scheduler_tpu.", "k8s_llm_scheduler_tpu_torch.")
+        got = (REPO / "k8s_llm_scheduler_tpu_torch" / path).read_text()
+        if cut is not None:
+            assert cut in want and cut not in got
+            want = want[:want.index(cut)]
+            body = "\nfrom __future__ import annotations\n"
+            want, got = want[want.index(body):], got[got.index(body):]
+        assert got == want
+
     @pytest.mark.parametrize("n", [1, 4, 32])
     def test_synthetic_nodes_match_the_jax_fake_cluster(self, n):
         got = [dataclasses.asdict(x) for x in ttesting.synthetic_nodes(n)]
@@ -252,6 +289,7 @@ class TestBackend:
 
 
 def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
+    """Nor yaml: the port reads no config file."""
     code = (
         "import sys, json\n"
         "import k8s_llm_scheduler_tpu_torch as p\n"
@@ -261,8 +299,15 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "k8s_llm_scheduler_tpu_torch.models.quant, "
         "k8s_llm_scheduler_tpu_torch.ops.paged_attention, "
         "k8s_llm_scheduler_tpu_torch.ops.ragged_matmul, "
-        "k8s_llm_scheduler_tpu_torch.testing\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        "k8s_llm_scheduler_tpu_torch.testing, "
+        "k8s_llm_scheduler_tpu_torch.cluster.fake, "
+        "k8s_llm_scheduler_tpu_torch.sched.client, "
+        "k8s_llm_scheduler_tpu_torch.sched.loop, "
+        "k8s_llm_scheduler_tpu_torch.observability.spans, "
+        "k8s_llm_scheduler_tpu_torch.observability.trace, "
+        "k8s_llm_scheduler_tpu_torch.cli\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'yaml')"
+        " or m.startswith(('jax.', 'yaml.'))"
         " or m == 'k8s_llm_scheduler_tpu' or m.startswith('k8s_llm_scheduler_tpu.'))\n"
         "print(json.dumps(bad))\n"
     )
