@@ -59,18 +59,42 @@ Phases, each of which must pass:
    is zeroed just before each mode's drive); K1's launches by step must
    add up to its total. Capture seconds, replays and peak memory are
    printed for each mode.
+4a. Admission, on the graph-mode engine of phase 4 (no second copy of
+   the weights): (a) a LocalLLMBackend with the admission plane of
+   `cli.DEFAULTS` takes the batch of 8 through
+   get_scheduling_decisions_batch: one packed admission (chunks of 256,
+   K1 in each chunk's prefix part, decode chunks piggybacked between
+   them), decoded by step() to completion. All 8 must parse and name a
+   feasible node, with 1 packed admission of 8 prompts in ceil(suffix
+   tokens / 256) chunks, K1 launched 32 times in each ("pack chunk" step).
+   Prints the batch's wall time, the piggybacked chunks, the decode steps
+   and how many of the 8 token streams equal the wave batch's of phase 4
+   (bf16: near-ties may flip, not gated), the pinned KV and peak memory.
+   (b) At TINY (bf16: the kernels take bf16), three prompts (one shorter
+   than a 16-token chunk, one spanning 14, one between), under the grammar
+   and unconstrained: admit_packed with decode chunks piggybacked must
+   emit the same tokens as with none and as each prompt's serial
+   generate(), K1 4 times a chunk, and one pack chunk's end logits must
+   be within 5e-2 of the largest of its CPU twin's.
 4b. Loop: the scheduler's main path through its entry points, on the
-   graph-mode engine of phase 4 (a new LocalLLMBackend over it, no second
-   copy of the weights): `synthetic_cluster(32)` holding `pod_burst(32,
+   graph-mode engine of phase 4 (a new LocalLLMBackend over it with the
+   admission plane of `cli.DEFAULTS`, as `cli demo` runs): `synthetic_cluster(32)` holding `pod_burst(32,
    distinct_shapes=8)`, added before the loop starts, the stack of
    `cli.build_stack` at the reference config's defaults (snapshot TTL 1 s,
    prefix prewarm tick 0.25 s), and Scheduler.run() until every pod is
-   bound (deadline 300 s). Every pod must be bound to a ready node feasible
+   bound (deadline 300 s); then a second burst of 8 pods (one a shape) on
+   the same cluster after the first's binds, through a new stack. Every
+   pod must be bound to a ready node feasible
    for it, with no fallback decision, retry or backend error, the breaker
    closed, every LLM decision through get_scheduling_decision_async, and
-   K1 and K2 launched (counts zeroed just before the run). Prints LLM
+   K1 and K2 launched in each burst (counts zeroed just before the first).
+   The first burst's prompts must be the pinned snapshot, the second's a
+   delta over the same pin, still held, and the prefill of the second
+   burst's prefix must compute fewer tokens than the prefix, seeded from
+   the pin, with K1 and K2 launched in it. Prints LLM
    decisions, cache and single-flight hits, waves and rows a wave, group
-   installs, prefix prewarms, and each pod's pending -> bound time.
+   installs, prefix prewarms, each pod's pending -> bound time, the drifted
+   nodes, and the delta prefix prefill's tokens and ms.
 4c. cli demo: `python -m k8s_llm_scheduler_tpu_torch.cli demo --model tiny
    --fake-nodes 4` in a process of its own: exit 0, 3 binds, no fallback.
 5. Path A: the same 8B weights quantized to int8 on the card, in an engine
@@ -122,6 +146,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import gc
 import itertools
@@ -466,9 +491,10 @@ def path_shapes(backend, nodes, pods, n_singles):
     """The K1 and K2 calls the decision phase makes, from the engine's own
     geometry for these prompts: the chunked prefix prefill of the cluster
     prefix, then for each wave (one per single decision, then the batch)
-    its suffix prefill and its block decode. Each K1 case is
-    (step, B, S, Sp, prefix_len) and each K2 case (step, B, S, lens);
-    repeats are dropped."""
+    its suffix prefill and its block decode; and K1 in a pack chunk of the
+    admission phase's packed batch (q [1, admission_chunk_tokens] against
+    the same prefix). Each K1 case is (step, B, S, Sp, prefix_len) and each
+    K2 case (step, B, S, lens); repeats are dropped."""
     eng = backend.engine
     items = [backend._prepare_item(p, nodes) for p in pods]
     n = len(items[0].prefix_ids)
@@ -492,6 +518,7 @@ def path_shapes(backend, nodes, pods, n_singles):
         k1.setdefault((R, F, cap, n), "block decode")
         if not any(key[:2] == (R, bucket) for key in k2):
             k2[(R, bucket, tuple(lens))] = "suffix prefill"
+    k1.setdefault((1, eng.admission_chunk_tokens, cap, n), "pack chunk")
     return ([(step, *key) for key, step in k1.items()],
             [(step, *key) for key, step in k2.items()])
 
@@ -1022,11 +1049,12 @@ def launches_by_step(engine):
     """Kernel launches and device runs by step of the engine's work: each
     run of one of its programs (engine/graphs.Program, replayed or eager:
     the suffix prefill and the block iteration of each wave geometry, keyed
-    by its row count R, or the decode chunk) and each chunked prefix
-    prefill ("prefix chunk", its calls as runs). The wrappers' counts are
-    read before and after each (a replay adds what its capture recorded).
-    Yields {step: {"runs": n, "K1": .., "K2": .., "K3": .., "K4": ..}},
-    filled as the steps run; the wrappers go on exit."""
+    by its row count R, or the decode chunk), each chunked prefix prefill
+    ("prefix chunk", its calls as runs) and each chunk of a packed
+    admission ("pack chunk"). The wrappers' counts are read before and
+    after each (a replay adds what its capture recorded). Yields {step:
+    {"runs": n, "K1": .., "K2": .., "K3": .., "K4": ..}}, filled as the
+    steps run; the wrappers go on exit."""
     from k8s_llm_scheduler_tpu_torch.engine import graphs
 
     steps: dict[str, dict] = {}
@@ -1039,7 +1067,6 @@ def launches_by_step(engine):
             rec[k] += n - before[k]
 
     run = graphs.Program.run
-    chunked = engine._prefill_prefix_chunked
 
     def counted_run(prog):
         before, runs0 = _launch_counts(), prog.runs
@@ -1048,20 +1075,29 @@ def launches_by_step(engine):
         finally:
             book(prog.name, prog.runs - runs0, before)
 
-    def counted_chunked(*args, **kwargs):
-        before = _launch_counts()
-        try:
-            return chunked(*args, **kwargs)
-        finally:
-            book("prefix chunk", 1, before)
+    def counted(step, fn):
+        def call(*args, **kwargs):
+            before = _launch_counts()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                book(step, 1, before)
+        return call
 
+    wrapped = {"_prefill_prefix_chunked": "prefix chunk", "_pack_chunk": "pack chunk"}
+    saved = {name: vars(engine).get(name) for name in wrapped}  # another wrapper's
     graphs.Program.run = counted_run
-    engine._prefill_prefix_chunked = counted_chunked
+    for name, step in wrapped.items():
+        setattr(engine, name, counted(step, getattr(engine, name)))
     try:
         yield steps
     finally:
         graphs.Program.run = run
-        del engine._prefill_prefix_chunked
+        for name, fn in saved.items():
+            if fn is None:
+                delattr(engine, name)
+            else:
+                setattr(engine, name, fn)
 
 
 def per_call(steps) -> dict:
@@ -1486,45 +1522,293 @@ def decision_phase(backend, build_s, nodes, pods) -> tuple[bool, dict]:
     # of the run falls in one of them
     rec["launches"] = g["launches"]
     rec["k1_launches_by_step"] = {step: r["K1"] for step, r in g["steps"].items()}
+    # the batch of 8's wave, row by row (the admission phase packs it)
+    rec["batch_tokens"] = g["waves"][N_SINGLES]["tokens"]
     ok = (ok and g["launches"]["K1"] > 0 and g["launches"]["K2"] > 0
           and sum(rec["k1_launches_by_step"].values()) == g["launches"]["K1"])
     return ok, rec
+
+
+# ---------------------------------------------------------- admission phase
+TINY_CHUNK = 16  # the TINY pack's chunk width: its prompts span chunks
+TINY_NEW_TOKENS = 24
+
+
+def _admission_backend(engine):
+    """A LocalLLMBackend over `engine` with the admission plane of
+    cli.DEFAULTS (packed batches, delta prompts, 4 pins), as `cli demo`
+    runs it; the chunk width is the engine's, checked against DEFAULTS."""
+    from k8s_llm_scheduler_tpu_torch.cli import admission_kwargs
+    from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend
+
+    kw = admission_kwargs()
+    if engine.admission_chunk_tokens != kw.pop("admission_chunk_tokens"):
+        raise RuntimeError("the engine's admission chunk is not cli.DEFAULTS'")
+    return LocalLLMBackend(engine, request_timeout_s=600.0, **kw)
+
+
+@contextlib.contextmanager
+def _recording_paged(engine):
+    """Records each admit_packed call (its request ids and wall ms), the
+    Finished records and count of step() calls, and the device ms of each
+    pack chunk and each decode chunk (CUDA events around their launches:
+    the device's time from the first to the last, idle gaps included), on
+    `engine`."""
+    import torch
+
+    rec = {"packs": [], "fins": {}, "steps": 0, "events": {"pack chunk": [],
+                                                          "decode chunk": []}}
+    admit, step = engine.admit_packed, engine.step
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            rec["events"][name].append((start, end))
+            return out
+        return call
+
+    engine._pack_chunk = timed("pack chunk", engine._pack_chunk)
+    engine._chunk_dispatch = timed("decode chunk", engine._chunk_dispatch)
+
+    def admit_packed(prompts, max_new_tokens=200, piggyback_decode=True):
+        t = time.perf_counter()
+        ids = admit(prompts, max_new_tokens, piggyback_decode)
+        rec["packs"].append((ids, (time.perf_counter() - t) * 1000.0))
+        return ids
+
+    def recorded_step(chunks=1):
+        fins = step(chunks)
+        rec["steps"] += 1
+        rec["fins"].update((f.req_id, f.token_ids) for f in fins)
+        return fins
+
+    engine.admit_packed, engine.step = admit_packed, recorded_step
+    try:
+        yield rec
+    finally:
+        del engine.admit_packed, engine.step, engine._pack_chunk, engine._chunk_dispatch
+        torch.cuda.synchronize()
+        rec["ms"] = {name: [a.elapsed_time(b) for a, b in evs]
+                     for name, evs in rec.pop("events").items()}
+
+
+def _pinned_gib(engine) -> float:
+    return sum(p.k.numel() * p.k.element_size() * 2
+               for key, p in engine._prefix_cache.items()
+               if key in engine._pinned_prefix_keys) / 2**30
+
+
+def _packed_batch(engine, nodes, pods, wave_tokens) -> tuple[bool, dict]:
+    """(a) The batch of 8 through get_scheduling_decisions_batch of a
+    backend with cli.DEFAULTS' admission plane on the decision phase's
+    graph-mode engine: one packed admission of the 8 suffixes in chunks of
+    256 (K1 in each chunk's prefix part), decode chunks piggybacked between
+    them, then step() until every decision is done. Counts zeroed just
+    before the call and read just after it."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.core.prompt import PromptEngine, pod_suffix
+    from k8s_llm_scheduler_tpu_torch.utils.json_extract import parse_decision_json
+
+    pe = PromptEngine()
+    suffix_tokens = sum(len(engine.tokenizer.chat_prompt_parts(
+        pe.system_prompt, pe.cluster_part(nodes), pod_suffix(pod))[1]) for pod in pods)
+    C = engine.admission_chunk_tokens
+    backend = _admission_backend(engine)
+    before = dict(engine.stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with _recording_paged(engine) as paged, launches_by_step(engine) as steps:
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            batch = backend.get_scheduling_decisions_batch(pods, nodes)
+            wall_ms = (time.perf_counter() - t0) * 1000.0
+            launches = _launch_counts()
+    finally:
+        backend.close()
+    d = {k: engine.stats[k] - before[k] for k in (
+        "packed_admissions", "packed_prompts", "pack_chunks", "piggyback_chunks",
+        "chunks", "syncs", "prefix_prefills", "waves")}
+    errors = [repr(x) for x in batch if isinstance(x, Exception)]
+    ids, admit_ms = paged["packs"][0] if paged["packs"] else ([], None)
+    tokens = [paged["fins"].get(i) for i in ids]
+    same = sum(t == w for t, w in zip(tokens, wave_tokens))
+    # where each stream first leaves the wave's, and the node each names
+    first_diff = [next((i for i, (x, y) in enumerate(zip(t or [], w)) if x != y), None)
+                  for t, w in zip(tokens, wave_tokens)]
+
+    def node(ids_):
+        parsed = parse_decision_json(engine.tokenizer.decode(ids_ or []))
+        return parsed and parsed["selected_node"]
+
+    same_node = sum(node(t) == node(w) for t, w in zip(tokens, wave_tokens))
+    ms = paged["ms"]
+    pack = steps.get("pack chunk", {"runs": 0, "K1": 0})
+    rec = {
+        "wall_ms": wall_ms, "admit_packed_ms": admit_ms, "suffix_tokens": suffix_tokens,
+        "chunk_tokens": C, **d, "decode_steps": d["chunks"] * engine.chunk_steps,
+        "step_calls": paged["steps"], "launches": launches,
+        "pack_chunk_runs": pack["runs"], "pack_chunk_k1": pack["K1"],
+        "tokens_a_decision": [len(t) if t else None for t in tokens],
+        "same_tokens_as_the_wave": same, "first_token_unlike_the_wave": first_diff,
+        "same_node_as_the_wave": same_node,
+        "pack_chunk_ms": ms["pack chunk"], "decode_chunk_ms": ms["decode chunk"],
+        "pinned_gib": _pinned_gib(engine),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "errors": errors,
+    }
+    n_chunks = -(-suffix_tokens // C)
+    ok = (not errors and len(ids) == 8 and None not in tokens
+          and _feasible(nodes, list(zip(pods, batch)))
+          and d["packed_admissions"] == 1 and d["packed_prompts"] == 8
+          and d["pack_chunks"] == pack["runs"] == n_chunks and d["waves"] == 0
+          and pack["K1"] == n_chunks * engine.cfg.n_layers == launches["K1"])
+    print(f"admission (a): packed batch of 8: {json.dumps(rec)}", flush=True)
+    print(f"admission (a): {suffix_tokens} suffix tokens in {d['pack_chunks']} chunks of {C} "
+          f"(K1 {pack['K1']} launches in them), {d['piggyback_chunks']} decode chunks "
+          f"piggybacked, {rec['decode_steps']} decode steps in {d['chunks']} chunks, "
+          f"{paged['steps']} step() calls; batch wall {wall_ms:.1f} ms (admit_packed "
+          f"{admit_ms and round(admit_ms, 1)} ms; pack chunks {sum(ms['pack chunk']):.1f} ms "
+          f"and decode chunks {sum(ms['decode chunk']):.1f} ms of device time); {same} of 8 "
+          f"token streams equal the wave's (first unlike at {first_diff}), {same_node} name "
+          f"the same node; pinned {rec['pinned_gib']:.2f} GiB, peak {rec['peak_gib']:.2f} GiB | "
+          f"{_smi()} | ok={ok}", flush=True)
+    return ok, rec
+
+
+def _drain_paged(eng, ids):
+    out = {}
+    while not set(ids) <= out.keys():
+        out.update((f.req_id, f.token_ids) for f in eng.step())
+    return [out[i] for i in ids]
+
+
+def _packed_tiny() -> tuple[bool, dict]:
+    """(b) At TINY on the card, three prompts of the decision path (one
+    shorter than a 16-token chunk, one spanning 14 chunks, one between),
+    under the decision grammar and unconstrained: admit_packed with decode
+    chunks piggybacked (graphs) must be token-identical to admit_packed
+    with none (the slot state the eager pack chunks write in place is what
+    the chunk graph's replays read) and to each prompt's serial generate(),
+    and one pack chunk's end logits on the card within 5e-2 of the largest
+    logit of its plain version on the CPU. In bf16: the kernels take bf16
+    operands, so f32 runs only on the CPU, where the tests hold the same
+    identity (tests/test_torch_admission.py). These inputs are fixed, so
+    the result is too; in bf16 the packed and serial reductions round
+    apart, so other inputs may flip a near-tie."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.core.prompt import PromptEngine, pod_suffix
+    from k8s_llm_scheduler_tpu_torch.engine.admission.packer import pack_prompts
+    from k8s_llm_scheduler_tpu_torch.engine.constrained import build_decision_dfa
+    from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
+    from k8s_llm_scheduler_tpu_torch.models.configs import TINY
+    from k8s_llm_scheduler_tpu_torch.models.llama import forward_prefill_packed, init_params
+    from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
+
+    tok, pe = ByteTokenizer(), PromptEngine()
+    nodes = synthetic_nodes(4)
+    parts = [tok.chat_prompt_parts(pe.system_prompt, pe.cluster_part(nodes), pod_suffix(p))
+             for p in fixture_pods(3)]
+    prompts = [parts[0][1][:12], parts[1][1], parts[2][1][:40]]
+    cpu_params = init_params(TINY, seed=1, device="cpu")
+    eng = InferenceEngine(_on(cpu_params, "cuda"), TINY, tok, temperature=0.0,
+                          prefix_chunk=512, admission_chunk_tokens=TINY_CHUNK)
+    eng.set_prefix(parts[0][0])
+    dfa = build_decision_dfa(tok, [n.name for n in nodes], max_reason_tokens=16)
+    rec, ok = {"prompt_lens": [len(p) for p in prompts]}, True
+    for mode, grammar in (("grammar", dfa), ("free", None)):
+        eng.set_grammar(grammar)
+        serial = [eng.generate(p, max_new_tokens=TINY_NEW_TOKENS).token_ids for p in prompts]
+        runs = {}
+        for name, piggyback in (("piggybacked", True), ("not piggybacked", False)):
+            before = dict(eng.stats)
+            with launches_by_step(eng) as steps:
+                _zero_launch_counts()
+                ids = eng.admit_packed(prompts, TINY_NEW_TOKENS, piggyback_decode=piggyback)
+                tokens = _drain_paged(eng, ids)
+            runs[name] = {
+                "tokens": tokens,
+                "pack_chunks": eng.stats["pack_chunks"] - before["pack_chunks"],
+                "piggyback_chunks": eng.stats["piggyback_chunks"] - before["piggyback_chunks"],
+                "pack_chunk_k1": steps["pack chunk"]["K1"],
+            }
+        p, q = runs["piggybacked"], runs["not piggybacked"]
+        n_chunks = -(-sum(map(len, prompts)) // TINY_CHUNK)
+        good = (p["tokens"] == q["tokens"] and p["piggyback_chunks"] > 0
+                and q["piggyback_chunks"] == 0
+                and p["pack_chunks"] == q["pack_chunks"] == n_chunks
+                and p["pack_chunk_k1"] == q["pack_chunk_k1"] == n_chunks * TINY.n_layers
+                and all(1 <= len(t) <= TINY_NEW_TOKENS for t in p["tokens"])
+                and p["tokens"] == serial)
+        same_serial = [t == s for t, s in zip(p["tokens"], serial)]
+        rec[mode] = {**{k: v for k, v in p.items() if k != "tokens"},
+                     "identical_without_piggyback": p["tokens"] == q["tokens"],
+                     "same_as_serial_generate": same_serial, "ok": good}
+        ok = ok and good
+        print(f"admission (b): TINY {mode}: piggybacked == not piggybacked "
+              f"{p['tokens'] == q['tokens']} ({p['piggyback_chunks']} chunks piggybacked, "
+              f"{p['pack_chunks']} pack chunks, K1 {p['pack_chunk_k1']}); same as serial "
+              f"generate {same_serial} ok={good}", flush=True)
+    # the first pack chunk's end logits, card against the CPU's plain twins
+    chunk = pack_prompts(prompts, TINY_CHUNK, tok.pad_id).chunks[0]
+    ends = torch.tensor([e.index for e in chunk.ends] or [0])
+    logits = {}
+    for dev, params in (("cuda", eng.params), ("cpu", cpu_params)):
+        pk, pv = eng._prefix.k.to(dev), eng._prefix.v.to(dev)
+        L, _, n_kv, hd = pk.shape
+        carry = torch.zeros((L, TINY_CHUNK, n_kv, hd), dtype=pk.dtype, device=dev)
+        cache = torch.zeros((L, 2, TINY_CHUNK, n_kv, hd), dtype=pk.dtype, device=dev)
+        logits[dev] = forward_prefill_packed(
+            params, TINY, torch.from_numpy(chunk.tokens).to(dev),
+            torch.from_numpy(chunk.seg).to(dev),
+            torch.from_numpy(chunk.positions).to(dev) + eng.prefix_len,
+            pk, pv, torch.tensor(eng.prefix_len, dtype=torch.int32, device=dev),
+            carry, carry.clone(), torch.full((TINY_CHUNK,), -1, dtype=torch.int32, device=dev),
+            0, cache, cache.clone(), torch.ones(TINY_CHUNK, dtype=torch.int32, device=dev),
+            torch.arange(TINY_CHUNK, dtype=torch.int32, device=dev), ends.to(dev),
+        ).float().cpu()
+    err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    scale = logits["cpu"].abs().max().item()
+    good = bool(torch.isfinite(logits["cuda"]).all()) and err <= 5e-2 * scale
+    rec["pack_chunk_logits"] = {"max_abs_err": err, "max_logit": scale, "ok": good}
+    print(f"admission (b): TINY pack chunk end logits, cuda vs cpu err={err:.4g} "
+          f"(max |logit| {scale:.4g}) ok={good}", flush=True)
+    ok = ok and good and eng.kv.pages_free == eng.kv.num_pages - 1
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, rec
+
+
+def admission_phase(engine, nodes, pods, wave_tokens) -> tuple[bool, dict]:
+    a_ok, a = _packed_batch(engine, nodes, pods, wave_tokens)
+    b_ok, b = _packed_tiny()
+    return a_ok and b_ok, {"packed_batch": a, "tiny": b}
 
 
 # --------------------------------------------------------------- loop phase
 LOOP_NODES = 32  # the decision phase's cluster: the same 5,488-token prefix
 LOOP_PODS = 32
 LOOP_SHAPES = 8
+LOOP_SECOND_PODS = 8  # the second burst: one pod a shape
 LOOP_DEADLINE_S = 300.0
 
 
-def loop_phase(engine):
-    """The scheduler's main path through the user's entry points: a
-    FakeCluster holding a burst of pending pods (all added before the loop
-    starts, so one snapshot serves the burst's leaders), the stack of
-    `cli.build_stack` at the reference config's defaults, and
-    Scheduler.run() until every pod is bound, over a new LocalLLMBackend on
-    the decision phase's graph-mode engine (no second copy of the weights).
-    Every launch count is zeroed just before the run and read just after.
-    Fails unless every pod is bound to a ready node that is feasible for
-    it, the client made no fallback decision, no retry and met no backend
-    error, the breaker is closed, every LLM decision came through
-    get_scheduling_decision_async (none through a to_thread thread), and K1
-    and K2 launched."""
+def _loop_burst(engine, backend, cluster, pods, bound_total):
+    """One burst through a new `cli.build_stack` over `backend`: the pods,
+    already added, until `bound_total` binds in all (deadline
+    LOOP_DEADLINE_S). Returns its record (launches as the difference of the
+    counts read before and after) and whether it passed."""
     import asyncio
 
     from k8s_llm_scheduler_tpu_torch.cli import build_stack, run_until_bound
     from k8s_llm_scheduler_tpu_torch.cluster.interface import raw_pod_to_spec
     from k8s_llm_scheduler_tpu_torch.core.validation import feasible_nodes
-    from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend
-    from k8s_llm_scheduler_tpu_torch.testing import pod_burst, synthetic_cluster
 
-    cluster = synthetic_cluster(LOOP_NODES)
-    pods = pod_burst(LOOP_PODS, distinct_shapes=LOOP_SHAPES)
-    for pod in pods:
-        cluster.add_pod(pod)
     nodes = cluster.get_node_metrics()  # the snapshot the burst is decided on
-    backend = LocalLLMBackend(engine, request_timeout_s=600.0)
     scheduler = build_stack(backend, cluster)
     bound_at: dict[str, float] = {}
     bind = cluster.bind_pod_to_node
@@ -1544,21 +1828,32 @@ def loop_phase(engine):
                       "cold": handle.cold_compile})
         return fins
 
+    # each decision's prompt: the pinned snapshot's prefix, or that plus a
+    # STATE UPDATES diff; and the pin it names
+    items: list = []
+    prepare = backend._prepare_item
+
+    def prepare_item(pod, nodes, cluster_info=None):
+        item = prepare(pod, nodes, cluster_info)
+        items.append(item)
+        return item
+
     engine.harvest_wave = recorded
-    before = dict(engine.stats)
+    backend._prepare_item = prepare_item
+    before, counters0, launches0 = dict(engine.stats), dict(backend.counters), _launch_counts()
     try:
-        _zero_launch_counts()
         t0 = time.perf_counter()
-        all_bound = asyncio.run(run_until_bound(scheduler, cluster, LOOP_PODS, LOOP_DEADLINE_S))
+        all_bound = asyncio.run(run_until_bound(scheduler, cluster, bound_total,
+                                                LOOP_DEADLINE_S))
         run_s = time.perf_counter() - t0
-        launches = _launch_counts()
+        launches = {k: v - launches0[k] for k, v in _launch_counts().items()}
     finally:
-        del engine.harvest_wave
-        backend.close()
+        del engine.harvest_wave, backend._prepare_item, cluster.bind_pod_to_node
     stats = scheduler.get_stats()
-    client, counters = stats["client"], backend.counters
-    eng = {k: engine.stats[k] - before[k] for k in
-           ("prefix_prefills", "prefix_hits", "waves", "wave_model_calls", "wave_prewarms")}
+    client = stats["client"]
+    counters = {k: v - counters0[k] for k, v in backend.counters.items()}
+    eng = {k: engine.stats[k] - before[k] for k in (
+        "prefix_prefills", "prefix_hits", "waves", "wave_model_calls", "wave_prewarms")}
     by_name = {n.name: n for n in nodes}
     placed = {p.name: cluster.get_pod(p.namespace, p.name).node_name for p in pods}
     feasible = all(
@@ -1571,8 +1866,7 @@ def loop_phase(engine):
     retries = errors - client["failed_requests"]
     bound = sorted(t - t0 for t in bound_at.values())
     rec = {
-        "nodes": LOOP_NODES, "pods": LOOP_PODS, "distinct_shapes": LOOP_SHAPES,
-        "all_bound": all_bound, "feasible": feasible,
+        "nodes": len(nodes), "pods": len(pods), "all_bound": all_bound, "feasible": feasible,
         "llm_decisions": stats["llm_decisions"],
         "cache_decisions": stats["cache_decisions"],
         "client_cached": client["cached_requests"],
@@ -1588,6 +1882,9 @@ def loop_phase(engine):
         "prewarms_installed": counters["prewarms_installed"],
         "prewarms_dropped": counters["prewarms_dropped"],
         "engine": eng,
+        "encodings": sorted({"pinned" if list(i.prefix_ids) == list(i.pin_spec[1])
+                             else "delta" for i in items}),
+        "pin_keys": sorted({i.pin_spec[0] for i in items}),
         "first_bound_s": bound[0] if bound else None,
         "last_bound_s": bound[-1] if bound else None,
         "run_s": run_s, "launches": launches,
@@ -1598,14 +1895,116 @@ def loop_phase(engine):
           and rec["breaker"] == "closed" and counters["sync_calls"] == 0
           and counters["async_calls"] == stats["llm_decisions"] > 0
           and launches["K1"] > 0 and launches["K2"] > 0)
+    return ok, rec, {tuple(i.prefix_ids) for i in items}, nodes
+
+
+@contextlib.contextmanager
+def _recording_prefixes(engine):
+    """Records every prefix install of the engine (set_prefix and
+    pin_prefix, on the worker thread, one at a time): its token ids, the
+    tokens it prefilled and reused, its wall ms (ending in a sync) and the
+    K1/K2 launches it made."""
+    import torch
+
+    recs: list[dict] = []
+    inner = engine._set_prefix_inner
+
+    def recorded(prompt_ids, activate=True):
+        before, launches0 = dict(engine.stats), _launch_counts()
+        t = time.perf_counter()
+        inner(prompt_ids, activate)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        recs.append({
+            "ids": tuple(prompt_ids), "ms": (time.perf_counter() - t) * 1000.0,
+            **{k: engine.stats[k] - before[k] for k in (
+                "prefix_prefills", "prefix_hits", "prefill_tokens", "prefix_reused_tokens")},
+            **{k: launches[k] - launches0[k] for k in ("K1", "K2")},
+        })
+
+    engine._set_prefix_inner = recorded
+    try:
+        yield recs
+    finally:
+        del engine._set_prefix_inner
+
+
+def loop_phase(engine):
+    """The scheduler's main path through the user's entry points: a
+    FakeCluster holding a burst of pending pods (all added before the loop
+    starts, so one snapshot serves the burst's leaders), the stack of
+    `cli.build_stack` at the reference config's defaults with the backend
+    of `cli demo` (the admission plane of cli.DEFAULTS: delta prompts over
+    pinned prefixes), and Scheduler.run() until every pod is bound, over a
+    new LocalLLMBackend on the decision phase's graph-mode engine (no
+    second copy of the weights). Then a second burst of one pod a shape on
+    the same cluster, after the first's binds, through a new stack over the
+    same backend. Every launch count is zeroed just before the first burst
+    and read after each. Fails unless in both bursts every pod is bound to
+    a ready node that is feasible for it, the client made no fallback
+    decision, no retry and met no backend error, the breaker is closed,
+    every LLM decision came through get_scheduling_decision_async (none
+    through a to_thread thread), and K1 and K2 launched; and unless the
+    first burst's prompts are the pinned snapshot and the second's a delta
+    over the same pin, which is still held, and the prefill of the second
+    burst's prefix (when the decisions' group install or the scheduler's
+    idle prefix prewarm ran it) computed fewer tokens than the prefix,
+    seeded from the pin, K1 and K2 launching in it."""
+    from k8s_llm_scheduler_tpu_torch.core.prompt import render_node_block
+    from k8s_llm_scheduler_tpu_torch.testing import pod_burst, synthetic_cluster
+
+    cluster = synthetic_cluster(LOOP_NODES)
+    pods = pod_burst(LOOP_PODS, distinct_shapes=LOOP_SHAPES)
+    for pod in pods:
+        cluster.add_pod(pod)
+    backend = _admission_backend(engine)
+    try:
+        with _recording_prefixes(engine) as installs:
+            _zero_launch_counts()
+            ok1, rec, _, _ = _loop_burst(engine, backend, cluster, pods, LOOP_PODS)
+            second = [dataclasses.replace(p, name=f"second-{p.name}") for p in
+                      pod_burst(LOOP_SECOND_PODS, distinct_shapes=LOOP_SHAPES)]
+            for pod in second:
+                cluster.add_pod(pod)
+            ok2, rec2, prefixes, nodes2 = _loop_burst(
+                engine, backend, cluster, second, LOOP_PODS + LOOP_SECOND_PODS)
+        pin = backend._delta._pin
+        pins = backend._pin_manager.stats()
+        pin_held = set(backend._pin_manager.pins)
+    finally:
+        backend.close()
+    # the prefill of the second burst's prefix, wherever it ran
+    fill = next((r for r in installs if r["ids"] in prefixes and r["prefix_prefills"]), None)
+    rec2["drifted_nodes"] = sum(render_node_block(n) != pin.blocks[n.name] for n in nodes2)
+    rec2["prefix_install"] = fill and {k: v for k, v in fill.items() if k != "ids"}
+    rec2["prefix_len"] = len(fill["ids"]) if fill else None
+    rec["second_burst"] = rec2
+    rec["pins"] = pins
+    rec["prefix_installs"] = [{k: (len(v) if k == "ids" else v) for k, v in r.items()}
+                              for r in installs]
+    ok = (ok1 and ok2 and rec["encodings"] == ["pinned"] and rec2["encodings"] == ["delta"]
+          and len(rec["pin_keys"]) == 1 and rec2["pin_keys"] == rec["pin_keys"]
+          and rec["pin_keys"][0] in pin_held and fill is not None
+          and 0 < fill["prefill_tokens"] < len(fill["ids"])
+          and fill["prefix_reused_tokens"] > 0 and fill["K1"] > 0 and fill["K2"] > 0)
     print(f"loop: {json.dumps(rec)}", flush=True)
-    print(f"loop: {stats['llm_decisions']} LLM decisions, {client['cached_requests']} cache or "
-          f"single-flight hits ({client['coalesced_requests']} coalesced), {len(waves)} waves "
+    print(f"loop: {rec['llm_decisions']} LLM decisions, {rec['client_cached']} cache or "
+          f"single-flight hits ({rec['client_coalesced']} coalesced), {rec['waves']} waves "
           f"of {rec['rows_per_wave']} rows, {rec['group_installs']} group installs, prefix "
           f"prewarms {rec['prewarms_installed']} installed / {rec['prewarms_dropped']} dropped; "
           f"pending -> bound first {rec['first_bound_s']:.3f} s, last "
-          f"{rec['last_bound_s']:.3f} s; burst wall {run_s:.3f} s | {_smi()} | ok={ok}",
-          flush=True)
+          f"{rec['last_bound_s']:.3f} s; burst wall {rec['run_s']:.3f} s; prompts "
+          f"{rec['encodings']} | {_smi()} | ok={ok1}", flush=True)
+    fill = fill or {"prefill_tokens": None, "prefix_reused_tokens": None, "ms": float("nan"),
+                    "K1": None, "K2": None}
+    print(f"loop, second burst: {rec2['pods']} pods, {rec2['llm_decisions']} LLM decisions "
+          f"in {rec2['waves']} waves of {rec2['rows_per_wave']} rows; prompts "
+          f"{rec2['encodings']} over {rec2['drifted_nodes']} drifted nodes; its prefix "
+          f"prefill {fill['prefill_tokens']} of {rec2['prefix_len']} tokens "
+          f"({fill['prefix_reused_tokens']} seeded from the pin) in {fill['ms']:.1f} ms, K1 "
+          f"{fill['K1']} / K2 {fill['K2']} launches; pending -> bound last "
+          f"{rec2['last_bound_s']:.3f} s, wall {rec2['run_s']:.3f} s; {pins['live_pins']} "
+          f"pins live | {_smi()} | ok={ok}", flush=True)
     return ok, rec
 
 
@@ -1859,6 +2258,8 @@ def main() -> int:
         k_ok, k1, k2 = _timed_phase("kernels", kernel_phase, k1_cases, k2_cases)
         r_ok, ref = _timed_phase("reference", reference_phase)
         d_ok, dec = _timed_phase("decision", decision_phase, backend, backend_s, nodes, pods)
+        adm_ok, adm = _timed_phase("admission", admission_phase, backend.engine, nodes, pods,
+                                   dec["batch_tokens"])
         l_ok, loop = _timed_phase("loop", loop_phase, backend.engine)
         c_ok, demo = _timed_phase("cli demo", demo_phase)
         a_ok, path_a, totals = _timed_phase("path A", path_a_phase, backend, nodes, pods)
@@ -1913,7 +2314,11 @@ def main() -> int:
                   dec["launches"]["K1"], k1_main, ms_hot=k1_main["ms_hot"],
                   library_ms_hot=k1_main["library_ms_hot"], cold_l2=True,
                   launches_by_step=dec["k1_launches_by_step"],
-                  loop_launches=loop["launches"]["K1"]),
+                  loop_launches=loop["launches"]["K1"],
+                  pack_chunk={k: v for k, v in next(
+                      r for r in k1 if r["step"] == "pack chunk").items() if k in (
+                      "shape", "ms", "ms_hot", "plain_ms", "bound_ms", "library_ms")},
+                  pack_chunk_launches=adm["packed_batch"]["pack_chunk_k1"]),
             entry("flash_causal_attention_parts", k2,
                   "k8s_llm_scheduler_tpu_torch/csrc/causal_attention.cu",
                   "k8s_llm_scheduler_tpu/ops/pallas_prefix_attention.py:285",
@@ -1935,10 +2340,12 @@ def main() -> int:
         ],
         "not_ported": [],
     }
-    phases = {"kernels": k_ok, "reference": r_ok, "decision": d_ok, "loop": l_ok,
+    phases = {"kernels": k_ok, "reference": r_ok, "decision": d_ok, "admission": adm_ok,
+              "loop": l_ok,
               "cli_demo": c_ok, "path_a": a_ok, "path_b": b_ok, "k3": k3_ok, "k4": k4_ok}
     record = {"device": kind, "smi": smi, "build_s": build_s, "kernels": line,
-              "reference": ref, "decision": dec, "loop": loop, "cli_demo": demo,
+              "reference": ref, "decision": dec, "admission": adm, "loop": loop,
+              "cli_demo": demo,
               "path_a": path_a, "path_b": path_b, "phases_ok": phases}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -9,7 +9,9 @@ DecisionCache, CircuitBreaker, DecisionClient and Scheduler — over an
 in-memory FakeCluster of N synthetic nodes, adds the reference's three
 fixture pods, runs the scheduling loop (watch -> snapshot -> decide ->
 validate -> bind) until all three are bound, and prints the scheduler's
-stats as JSON on stdout. It exits 0 once every pod is bound.
+stats as JSON on stdout. It exits 0 once every pod is bound. The backend
+runs the reference config's admission plane (`admission_kwargs`): packed
+batch admission, and delta prompts over up to 4 pinned snapshot prefixes.
 
 A port of the JAX package's `cli demo` (cli.py:690-694, `_build_stack`
 cli.py:106-187, `_run_scheduler`'s demo branch cli.py:379-396 and its stats
@@ -55,7 +57,27 @@ DEFAULTS = {
     "circuit_breaker.cooldown_jitter": 0.1,
     "fallback.enabled": True,
     "fallback.strategy": "resource_balanced",
+    # the admission plane (JAX package config.py:141-157): packed batch
+    # admission and snapshot-delta prompts over pinned prefix KV
+    "admission.packed": True,
+    "admission.chunk_tokens": 256,
+    "admission.delta_prompts": True,
+    "admission.repin_fraction": 0.25,
+    "admission.max_pins": 4,
 }
+
+
+def admission_kwargs() -> dict:
+    """build_local_backend's admission-plane settings from DEFAULTS, as the
+    reference's `_build_stack` wires them (JAX package cli.py:87-92)."""
+    cfg = DEFAULTS
+    return {
+        "packed_admission": cfg["admission.packed"],
+        "admission_chunk_tokens": cfg["admission.chunk_tokens"],
+        "delta_prompts": cfg["admission.delta_prompts"],
+        "repin_fraction": cfg["admission.repin_fraction"],
+        "max_pins": cfg["admission.max_pins"],
+    }
 
 
 def build_stack(backend, cluster, *, snapshot_ttl_s: float = 1.0) -> Scheduler:
@@ -120,7 +142,7 @@ def cmd_demo(args: argparse.Namespace) -> int:
         args.model, device=args.device, seed=0,
         request_timeout_s=DEFAULTS["llm.timeout"],
         quantize=args.quantize, decode_matmul=args.decode_matmul,
-        graphs=not args.eager,
+        graphs=not args.eager, **admission_kwargs(),
     )
     cluster = synthetic_cluster(args.fake_nodes)
     pods = fixture_raw_pods(DEFAULTS["scheduler.name"])

@@ -42,10 +42,19 @@ engine/engine.py).
   off a card there are no graphs.
 - **Sparse grammar tables** (engine/constrained.py): sampling in K-space,
   vocab-independent.
+- **Admission plane** (engine/admission/): `admit_packed` packs a batch's
+  suffixes into one token stream cut into `admission_chunk_tokens` chunks
+  with block-diagonal attention (models/llama.forward_prefill_packed, its
+  prefix part through K1), and piggybacks a decode chunk between pack
+  chunks; the piggybacked chunks' tokens are parked and harvested at the
+  next `step()`. Pack chunks run eagerly, as the chunked prefix prefill
+  does. `pin_prefix` keeps a prefix cache entry resident, exempt from byte
+  eviction: the pinned snapshot that delta prompts (sched/delta.py)
+  LCP-seed from.
 
-Packed admission, the fused and persistent decode loops and speculative
-decoding of the JAX engine are not ported; `generate` drains through
-`step()`, as the JAX engine does with fused_decode=False.
+The fused and persistent decode loops and speculative decoding of the JAX
+engine are not ported; `generate` and packs drain through `step()`, as the
+JAX engine does with fused_decode=False.
 """
 
 from __future__ import annotations
@@ -143,6 +152,36 @@ class _SlotState:
         return cls(z(), z(), z(torch.bool), z(), z(), z())
 
 
+def _admit_rows(
+    state: _SlotState, logits, slot_ids, pos, real, budgets,
+    sp_tokens, sp_next, done_state: int, eos_id: int, pad_id: int,
+    dfa_start: int, gen, temperature: float, constrained: bool,
+    vocab_limit: int | None = None,
+) -> None:
+    """The first token of each admitted row, sampled from its prefill
+    logits [R, V], and its slot's state set IN PLACE (the decode chunk's
+    graph reads it by address): token, position `pos`, active, DFA state,
+    budget and first token. Rows that are not `real` (padding) write the
+    trash row and never activate it."""
+    R = logits.shape[0]
+    start_vec = torch.full((R,), dfa_start, dtype=torch.int32, device=logits.device)
+    if constrained:
+        first_new, st_new = _sample_sparse(
+            logits, sp_tokens[start_vec], sp_next[start_vec], gen, temperature
+        )
+    else:
+        first_new = _sample_unconstrained(logits, pad_id, gen, temperature, vocab_limit)
+        st_new = start_vec
+    finished = (first_new == eos_id) | (st_new == done_state)
+    rows = slot_ids.long()
+    state.tok[rows] = first_new
+    state.pos[rows] = pos
+    state.act[rows] = real & ~finished
+    state.st[rows] = st_new
+    state.budget[rows] = budgets
+    state.first[rows] = first_new
+
+
 @torch.no_grad()
 def _admit_impl(
     params: Params,
@@ -156,8 +195,7 @@ def _admit_impl(
     slot_ids,      # [R] target slot per row (trash row M on padding)
     state: _SlotState,   # updated IN PLACE
     new_budgets,   # [R] budget of admitted rows (max_new - 1; 0 on padding)
-    sp_tokens, sp_next, done_state: int, eos_id: int, pad_id: int,
-    dfa_start: int, gen, temperature: float, constrained: bool,
+    *sampling,     # _admit_rows' sp_tokens ... constrained
     vocab_limit: int | None = None,
 ):
     """Batched admission: suffix prefill with the KV scattered into pages,
@@ -167,26 +205,10 @@ def _admit_impl(
         params, cfg, tokens, suffix_lens, prefix_k, prefix_v, prefix_len,
         k_cache, v_cache, page_ids,
     )
-    R = tokens.shape[0]
-    start_vec = torch.full((R,), dfa_start, dtype=torch.int32, device=tokens.device)
-    if constrained:
-        first_new, st_new = _sample_sparse(
-            last_logits, sp_tokens[start_vec], sp_next[start_vec], gen, temperature
-        )
-    else:
-        first_new = _sample_unconstrained(
-            last_logits, pad_id, gen, temperature, vocab_limit
-        )
-        st_new = start_vec
-    finished = (first_new == eos_id) | (st_new == done_state)
-    real = suffix_lens > 0  # padding rows must never activate the trash row
-    rows = slot_ids.long()
-    state.tok[rows] = first_new
-    state.pos[rows] = (prefix_len + suffix_lens).to(torch.int32)
-    state.act[rows] = real & ~finished
-    state.st[rows] = st_new
-    state.budget[rows] = new_budgets
-    state.first[rows] = first_new
+    _admit_rows(
+        state, last_logits, slot_ids, (prefix_len + suffix_lens).to(torch.int32),
+        suffix_lens > 0, new_budgets, *sampling, vocab_limit=vocab_limit,
+    )
 
 
 class _WaveVariant:
@@ -496,6 +518,12 @@ class _Request:
     max_new_tokens: int
     generated: list[int] = dataclasses.field(default_factory=list)
     first_pending: bool = True  # first token not yet harvested from device
+    # Parked piggyback emissions (engine._pending_emissions) with list
+    # index < park_floor predate this request's admission: a slot reused
+    # after a failed or finished pack must never book an earlier occupant's
+    # parked tokens (_finish_harvest skips those columns). Reset to 0 once
+    # the parked list is consumed.
+    park_floor: int = 0
     submitted_at: float = dataclasses.field(default_factory=time.perf_counter)
 
 
@@ -564,6 +592,7 @@ class InferenceEngine:
         paged_attn: str = "gather",
         decode_matmul: str = "dense",
         graphs: bool = True,
+        admission_chunk_tokens: int = 256,
     ) -> None:
         self.cfg = cfg
         self.params = params
@@ -629,6 +658,18 @@ class InferenceEngine:
         self._prefix: _PrefixKV | None = None
         self._prefix_cache: OrderedDict[tuple[int, ...], _PrefixKV] = OrderedDict()
         self._empty_prefix: _PrefixKV | None = None
+        # Pinned prefix-cache keys (pin_prefix): exempt from byte-pressure
+        # eviction. prefix_epoch stamps pin handles with the weight
+        # generation; a hot swap would bump it (the port has none yet).
+        self._pinned_prefix_keys: set[tuple[int, ...]] = set()
+        self.prefix_epoch = 0
+        # Packed admission (admit_packed): the chunk width of the packed
+        # prefill; the host buffers of decode chunks piggybacked between
+        # pack chunks park here until the next step() harvest.
+        if admission_chunk_tokens < 1:
+            raise ValueError("admission_chunk_tokens must be >= 1")
+        self.admission_chunk_tokens = int(admission_chunk_tokens)
+        self._pending_emissions: list[torch.Tensor] = []
         self._req_counter = 0
         # General path: requests by slot, the device slot state (row M is
         # the trash row) with host mirrors of act/budget from the last sync,
@@ -684,6 +725,12 @@ class InferenceEngine:
             "prefills": 0,
             "chunks": 0,
             "syncs": 0,
+            "packed_admissions": 0,
+            "packed_prompts": 0,
+            "pack_chunks": 0,
+            "piggyback_chunks": 0,
+            "pinned_prefixes": 0,
+            "pin_evictions": 0,
             # host wall time, device work included (both end in a sync)
             "prefix_prefill_ms": 0.0,
             "wave_ms": 0.0,
@@ -762,7 +809,11 @@ class InferenceEngine:
     def set_prefix(self, prompt_ids: list[int] | None) -> None:
         """Install the burst-shared prompt prefix, prefilling it once if it
         is not cached on device. Prefixes longer than
-        min(prefix_chunk, largest bucket) take the chunked path."""
+        min(prefix_chunk, largest bucket) take the chunked path. Requires
+        the general path to be drained: its slots decode against the
+        active prefix."""
+        if self._by_slot:
+            raise RuntimeError("cannot switch prefix with requests in flight")
         if not prompt_ids:
             self._prefix = self._get_empty_prefix()
             return
@@ -774,12 +825,15 @@ class InferenceEngine:
         self.stats["prefix_prefill_ms"] += (time.perf_counter() - t0) * 1000.0
 
     @torch.no_grad()
-    def _set_prefix_inner(self, prompt_ids: list[int]) -> None:
+    def _set_prefix_inner(self, prompt_ids: list[int], activate: bool = True) -> None:
+        """Prefill (or cache-hit) `prompt_ids` into the prefix cache; with
+        `activate`, make it the active prefix."""
         key = tuple(prompt_ids)
         cached = self._prefix_cache.get(key)
         if cached is not None:
             self._prefix_cache.move_to_end(key)
-            self._prefix = cached
+            if activate:
+                self._prefix = cached
             self.stats["prefix_hits"] += 1
             return
         n = len(prompt_ids)
@@ -813,17 +867,58 @@ class InferenceEngine:
         def nbytes(p: _PrefixKV) -> int:
             return p.k.numel() * p.k.element_size() * 2
 
+        # Oldest first, but PINNED entries are skipped: a pinned snapshot's
+        # KV is what every delta-encoded prompt LCP-seeds from. If pins
+        # alone exceed the budget they are kept — holding those bytes is
+        # what pinning means (PinnedPrefixManager bounds the pin count).
         total = sum(nbytes(p) for p in self._prefix_cache.values())
         for old in list(self._prefix_cache):
             if total <= self.PREFIX_CACHE_BYTES or len(self._prefix_cache) <= 1:
                 break
-            if old == key:
+            if old == key or old in self._pinned_prefix_keys:
                 continue
             total -= nbytes(self._prefix_cache.pop(old))
-        self._prefix = pfx
+        if activate:
+            self._prefix = pfx
         self.stats["prefix_prefills"] += 1
         self.stats["dispatches"] += 1
         self.stats["prefill_tokens"] += prefilled
+
+    def pin_prefix(self, prompt_ids: list[int]) -> tuple[tuple[int, ...], int]:
+        """Prefill (or cache-hit) `prompt_ids` as a PINNED prefix-cache
+        entry WITHOUT making it the active prefix: it stays resident,
+        exempt from byte-pressure eviction, so every later delta-extended
+        prompt LCP-seeds from it and prefills only its tail. Safe with
+        requests in flight (the active prefix is untouched). Returns (cache
+        key, prefix_epoch); callers check pin_alive before trusting it."""
+        if not prompt_ids:
+            raise ValueError("cannot pin an empty prefix")
+        key = tuple(prompt_ids)
+        t0 = time.perf_counter()
+        self._set_prefix_inner(prompt_ids, activate=False)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.stats["prefix_prefill_ms"] += (time.perf_counter() - t0) * 1000.0
+        if key not in self._pinned_prefix_keys:
+            self._pinned_prefix_keys.add(key)
+            self.stats["pinned_prefixes"] += 1
+        return key, self.prefix_epoch
+
+    def unpin_prefix(self, key: tuple[int, ...]) -> None:
+        """Release a pin: the entry becomes ordinary-evictable (its KV stays
+        cached until byte pressure claims it)."""
+        if key in self._pinned_prefix_keys:
+            self._pinned_prefix_keys.discard(key)
+            self.stats["pin_evictions"] += 1
+
+    def pin_alive(self, key: tuple[int, ...], epoch: int) -> bool:
+        """True iff the pin still serves: taken under the current weights
+        (epoch) and its KV entry still resident and pinned."""
+        return (
+            epoch == self.prefix_epoch
+            and key in self._pinned_prefix_keys
+            and key in self._prefix_cache
+        )
 
     def _best_lcp_seed(self, key: tuple[int, ...]):
         """(k, v, reuse_len) of the cached prefix sharing the longest common
@@ -1232,6 +1327,7 @@ class InferenceEngine:
                 self.kv.free_slot(s)
             raise
         for req in reqs:
+            req.park_floor = len(self._pending_emissions)
             self._by_slot[req.slot] = req
             # optimistic mirrors until the next sync tells the truth
             self._act_np[req.slot] = True
@@ -1241,6 +1337,195 @@ class InferenceEngine:
         self.stats["dispatches"] += 1
         self.stats["prefill_tokens"] += int(suffix_lens.sum())
         return [r.req_id for r in reqs]
+
+    # ---------------------------------------------------- packed admission
+    def admit_packed(
+        self,
+        prompts: list[list[int]],
+        max_new_tokens: int = 200,
+        piggyback_decode: bool = True,
+    ) -> list[int]:
+        """Admit a batch through the admission plane: packed chunked
+        prefill (the JAX engine's admit_packed).
+
+        Where add_requests pads every prompt to one shared bucket, this
+        packs the prompts into ONE token stream cut into
+        `admission_chunk_tokens` chunks with block-diagonal attention
+        (engine/admission/packer.py, models/llama.forward_prefill_packed),
+        so prefill compute scales with the real token count. Between
+        chunks, in-flight decode slots advance by one decode chunk (SARATHI
+        piggybacking), among them the pack's prompts that already ended;
+        its emitted tokens park until the next step(). Nothing syncs the
+        host; the next step() harvests.
+
+        Decoding is token-identical to admitting the same prompts through
+        add_requests or serially through generate() under greedy decoding
+        in f32 (tests/test_torch_admission.py)."""
+        if not prompts:
+            return []
+        if any(not p for p in prompts):
+            raise ValueError("empty prompt")
+        if len(prompts) > self.free_slots:
+            raise RuntimeError(
+                f"no free slots for {len(prompts)} request(s) "
+                f"({self.free_slots} free) — backpressure the caller"
+            )
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        limit = self.max_suffix_tokens(max_new_tokens)
+        for ids in prompts:
+            if len(ids) > limit:
+                raise ValueError(
+                    f"prompt of {len(ids)} tokens exceeds the paged "
+                    f"admission limit {limit}"
+                )
+        from k8s_llm_scheduler_tpu_torch.engine.admission.packer import pack_prompts
+
+        prefix = self._prefix or self._get_empty_prefix()
+        self._prefix = prefix
+        # Parked emissions that predate this admission belong to earlier
+        # slot occupants: this pack's requests must not book them (its own
+        # piggybacked ones they must).
+        park_floor0 = len(self._pending_emissions)
+        C = self.admission_chunk_tokens
+        plan = pack_prompts(prompts, C, self.tokenizer.pad_id)
+        # Carry capacity bucketed by powers of two over the chunk count (the
+        # JAX engine's compile buckets).
+        cap_chunks = 1
+        while cap_chunks < plan.n_chunks:
+            cap_chunks *= 2
+        cfg, dev = self.cfg, self.device
+        carry_k = torch.zeros(
+            (cfg.n_layers, cap_chunks * C, cfg.n_kv_heads, cfg.head_dim),
+            dtype=cfg.dtype, device=dev,
+        )
+        carry_v = torch.zeros_like(carry_k)
+        carry_seg = torch.full((cap_chunks * C,), -1, dtype=torch.int32, device=dev)
+        slots: list[int] = []
+        ended = 0
+        try:
+            for ids in prompts:
+                slots.append(self.kv.allocate_slot(len(ids), reserve_decode=max_new_tokens + 1))
+            inputs = self._pack_inputs(plan, slots, prefix.length, max_new_tokens)
+            sp = self._bind_prefix()
+            for ci, chunk in enumerate(plan.chunks):
+                self._pack_chunk(sp, inputs, ci, carry_k, carry_v, carry_seg)
+                ended += len(chunk.ends)
+                # SARATHI piggyback: between prefill chunks, every in-flight
+                # decode slot (earlier requests AND pack prompts that already
+                # ended) advances one decode chunk; no host sync.
+                if piggyback_decode and ci + 1 < plan.n_chunks and (self._by_slot or ended):
+                    self._pending_emissions.append(self._chunk_dispatch())
+                    self.stats["piggyback_chunks"] += 1
+        except Exception:
+            # Roll back the allocation AND the device slot state: a prompt
+            # that ended in an earlier chunk set act in its slot, and a
+            # ghost-active freed slot would decode into its next occupant.
+            for slot in slots:
+                self.kv.free_slot(slot)
+            if slots:
+                idx = torch.tensor(slots, dtype=torch.long, device=dev)
+                self._state.act[idx] = False
+                self._state.budget[idx] = 0
+                self._act_np[slots] = False
+                self._budget_np[slots] = 0
+            if not self._by_slot:
+                # no earlier request: the parked emissions belong to the
+                # failed pack's freed slots (with requests in flight they
+                # stay: that decode really advanced)
+                self._pending_emissions = []
+            raise
+        reqs: list[_Request] = []
+        for ids, slot in zip(prompts, slots):
+            req = _Request(
+                req_id=self._req_counter, slot=slot, prompt_len=len(ids),
+                max_new_tokens=max_new_tokens, park_floor=park_floor0,
+            )
+            self._req_counter += 1
+            reqs.append(req)
+            self._by_slot[slot] = req
+            # optimistic mirrors until the next sync tells the truth
+            self._act_np[slot] = True
+            self._budget_np[slot] = max_new_tokens - 1
+        self.stats["requests"] += len(reqs)
+        self.stats["prefills"] += 1
+        self.stats["dispatches"] += 1
+        self.stats["prefill_tokens"] += plan.total_tokens
+        self.stats["packed_admissions"] += 1
+        self.stats["packed_prompts"] += len(prompts)
+        return [r.req_id for r in reqs]
+
+    def _pack_inputs(self, plan, slots: list[int], prefix_len: int,
+                     max_new_tokens: int) -> dict[str, torch.Tensor]:
+        """Every chunk's inputs, [n_chunks, ...] each, on the device in one
+        copy an array (a copy from pageable memory syncs the host, so none
+        is made between chunks): tokens, segment ids, absolute positions,
+        per-token page and offset (padding to scratch page 0), and the
+        ending prompts' chunk index, slot (trash row M on padding), validity,
+        position after the prompt and decode budget, max_slots rows a
+        chunk."""
+        n, C, E, ps = plan.n_chunks, plan.chunk_tokens, self.max_slots, self.kv.page_size
+        pages = [self.kv.slot_pages(slot) for slot in slots]
+        host = {
+            "tokens": np.stack([c.tokens for c in plan.chunks]),
+            "seg": np.stack([c.seg for c in plan.chunks]),
+            "positions": np.stack([c.positions for c in plan.chunks]) + np.int32(prefix_len),
+            "page_ids": np.zeros((n, C), dtype=np.int32),
+            "offs": np.zeros((n, C), dtype=np.int32),
+            "end_idx": np.zeros((n, E), dtype=np.int32),
+            "end_slots": np.full((n, E), self.max_slots, dtype=np.int32),
+            "end_valid": np.zeros((n, E), dtype=bool),
+            "end_pos": np.zeros((n, E), dtype=np.int32),
+            "end_budgets": np.zeros((n, E), dtype=np.int32),
+        }
+        for ci, chunk in enumerate(plan.chunks):
+            for i in range(chunk.n_tokens):
+                local = int(chunk.positions[i])
+                host["page_ids"][ci, i] = pages[int(chunk.seg[i])][local // ps]
+                host["offs"][ci, i] = local % ps
+            for row, end in enumerate(chunk.ends):
+                host["end_idx"][ci, row] = end.index
+                host["end_slots"][ci, row] = slots[end.prompt]
+                host["end_valid"][ci, row] = True
+                host["end_pos"][ci, row] = prefix_len + plan.prompt_lens[end.prompt]
+                host["end_budgets"][ci, row] = max_new_tokens - 1
+        return {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+
+    def _pack_chunk(self, sp: _StaticPrefix, inputs: dict[str, torch.Tensor], ci: int,
+                    carry_k, carry_v, carry_seg) -> None:
+        """Pack chunk `ci` (engine/admission/chunked.packed_admit_step),
+        eager: the packed prefill against the active prefix's static buffer,
+        updating the paged caches, the carry and the slot state in place."""
+        from k8s_llm_scheduler_tpu_torch.engine.admission.chunked import packed_admit_step
+
+        x = {k: v[ci] for k, v in inputs.items()}
+        packed_admit_step(
+            self.params, self.cfg, x["tokens"], x["seg"], x["positions"],
+            sp.k, sp.v, self._plen_d,
+            carry_k, carry_v, carry_seg, ci * self.admission_chunk_tokens,
+            self.kv.k, self.kv.v, x["page_ids"], x["offs"],
+            x["end_idx"], x["end_slots"], x["end_valid"], x["end_pos"], x["end_budgets"],
+            self._state, self._sp_tokens, self._sp_next, self._done_state,
+            self.tokenizer.eos_id, self.tokenizer.pad_id, self._dfa_start,
+            self._gen, self.temperature, self._constrained,
+            vocab_limit=self._vocab_limit,
+        )
+        self.stats["pack_chunks"] += 1
+        self.stats["dispatches"] += 1
+
+    def abort_all(self) -> None:
+        """Free every in-flight slot and its KV pages, deactivate every
+        slot on the device and drop parked emissions: the recovery path
+        after a failed step, so the engine never leaks capacity."""
+        for slot in list(self._by_slot):
+            self.kv.free_slot(slot)
+            del self._by_slot[slot]
+        self._act_np[:] = False
+        self._budget_np[:] = 0
+        self._state.act.zero_()
+        self._state.budget.zero_()
+        # a later request reusing a slot must never inherit these tokens
+        self._pending_emissions = []
 
     def step(self, chunks: int = 1) -> list[Finished]:
         """Run `chunks` decode chunks back to back, then ONE host sync;
@@ -1300,7 +1585,10 @@ class InferenceEngine:
         return toks
 
     def _step_inner(self, chunks: int) -> list[Finished]:
-        emissions: list[torch.Tensor] = []
+        # Decode chunks piggybacked during a packed admission ran without a
+        # sync; they harvest here, first (chronological order per slot).
+        emissions: list[torch.Tensor] = self._pending_emissions
+        self._pending_emissions = []
         any_active = bool(
             (self._act_np & (self._budget_np > 0))[list(self._by_slot)].any()
         )
@@ -1326,13 +1614,18 @@ class InferenceEngine:
             np.concatenate(emitted_np, axis=1) if emitted_np
             else np.zeros((self.max_slots + 1, 0), dtype=np.int32)
         )
+        # Column offset of each harvested emission array: a request books
+        # only the columns from its park_floor on.
+        col_at = np.cumsum([0] + [a.shape[1] for a in emitted_np])
         finished: list[Finished] = []
         pad = self.tokenizer.pad_id
         for slot, req in list(self._by_slot.items()):
             if req.first_pending:
                 req.generated.append(int(first_np[slot]))
                 req.first_pending = False
-            emitted = [int(t) for t in toks[slot] if t != pad]
+            start = col_at[min(req.park_floor, len(emitted_np))]
+            req.park_floor = 0  # the parked list is consumed by this harvest
+            emitted = [int(t) for t in toks[slot, start:] if t != pad]
             req.generated.extend(emitted)
             self.stats["decode_tokens"] += len(emitted)
             if not self._act_np[slot] or self._budget_np[slot] <= 0:

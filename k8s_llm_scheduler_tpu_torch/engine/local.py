@@ -25,10 +25,21 @@ worker thread only (graph capture is global to the process). Advisory
 Idle for `prewarm_idle_delay_s`, the worker captures the wave geometries
 next to those already served, one at a time (engine.prewarm_wave_siblings).
 
-Not ported yet: packed admission, delta prompts and pinned prefixes
-(ROADMAP Queue 1 item 3), the persistent loop (item 7), the KV plane and
-the engine profiler's fences (item 8), speculative decoding, and the fleet
-pool role (`pool_role`, `_check_role`).
+The admission plane (JAX local.py:157-200, 280-578, 955-1012): with
+`packed_admission`, the items of one get_scheduling_decisions_batch call
+share a pack marker and admit together through engine.admit_packed
+(packed block-diagonal chunked prefill) into the paged slots, which the
+worker steps every tick (`_drive_packs`) beside the waves; with
+`delta_prompts`, the cluster part of every prompt renders as a pinned
+snapshot plus a STATE UPDATES diff (sched/delta.py), and the snapshot's
+prefix KV is pinned (engine/admission/pinned.py) before its group installs,
+so the install prefills only the diff. Both are off by default, as the
+port's waves were before; `cli.DEFAULTS` turns them on at the reference
+config's values.
+
+Not ported yet: the persistent loop (ROADMAP Queue 1 item 7), the KV plane
+and the engine profiler's fences (item 8), speculative decoding, and the
+fleet pool role (`pool_role`, `_check_role`).
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ from collections import deque
 from collections.abc import Sequence
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FuturesTimeout
+from types import SimpleNamespace
 from typing import Any
 
 import torch
@@ -53,6 +65,7 @@ from k8s_llm_scheduler_tpu_torch.engine.backend import (
     BackendError,
     NoFeasibleNodeError,
 )
+from k8s_llm_scheduler_tpu_torch.engine.admission.pinned import PinnedPrefixManager
 from k8s_llm_scheduler_tpu_torch.engine.constrained import build_decision_dfa
 from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer, Tokenizer
@@ -60,6 +73,7 @@ from k8s_llm_scheduler_tpu_torch.models.configs import get_config
 from k8s_llm_scheduler_tpu_torch.models.llama import init_params
 from k8s_llm_scheduler_tpu_torch.models.quant import init_params_int8_host
 from k8s_llm_scheduler_tpu_torch.observability import spans
+from k8s_llm_scheduler_tpu_torch.sched.delta import SnapshotDeltaEncoder
 from k8s_llm_scheduler_tpu_torch.types import (
     DecisionSource,
     NodeMetrics,
@@ -74,7 +88,7 @@ logger = logging.getLogger(__name__)
 class _WorkItem:
     __slots__ = (
         "prefix_ids", "suffix_ids", "group_key", "future", "enqueued_at",
-        "enqueued_wall", "trace",
+        "enqueued_wall", "trace", "pack", "pin_spec",
     )
 
     def __init__(self, prefix_ids, suffix_ids, group_key):
@@ -82,6 +96,15 @@ class _WorkItem:
         # None marks an advisory prefix install (prewarm_prefix)
         self.suffix_ids = suffix_ids
         self.group_key = group_key  # (prefix token tuple, grammar names)
+        # Items sharing a pack marker arrived as one batch
+        # (get_scheduling_decisions_batch) and admit together through
+        # engine.admit_packed instead of wave rows.
+        self.pack = None
+        # (pin key, pinned-prefix token ids) of a delta-encoded prompt
+        # (sched/delta.py): the worker pins the snapshot prefix before
+        # installing the group, so the delta-extended prefix LCP-seeds
+        # from it.
+        self.pin_spec = None
         self.future: Future = Future()
         self.enqueued_at = time.perf_counter()
         # wall-clock twin of enqueued_at: the engine spans attached at
@@ -135,8 +158,26 @@ class LocalLLMBackend:
         prewarm_idle_delay_s: float = 0.5,
         answer_style: str = "direct",
         max_reason_tokens: int = 320,
+        packed_admission: bool = False,
+        delta_prompts: bool = False,
+        repin_fraction: float = 0.25,
+        max_pins: int = 4,
     ) -> None:
         self.engine = engine
+        # Admission plane: batch-surface decisions admit through packed
+        # chunked prefill when the engine has it; delta_prompts renders
+        # cluster prefixes as pinned snapshot + drift diff.
+        self._packed_admission = bool(packed_admission) and hasattr(engine, "admit_packed")
+        self._delta = (
+            SnapshotDeltaEncoder(repin_fraction=repin_fraction) if delta_prompts else None
+        )
+        # (pin key, token ids) of the last pinned snapshot prefix: one
+        # tokenize a pin, not a decision (a tuple swap, atomic under the GIL)
+        self._pin_ids_cache: tuple | None = None
+        self._pin_manager = (
+            PinnedPrefixManager(engine, max_pins=max_pins)
+            if hasattr(engine, "pin_prefix") else None  # engine test doubles
+        )
         self.tokenizer = tokenizer or engine.tokenizer
         self.prompt_engine = PromptEngine()
         self.max_new_tokens = max_new_tokens
@@ -195,18 +236,49 @@ class LocalLLMBackend:
             self.counters[key] += 1
 
     # ------------------------------------------------------------- backend
-    def _prepare_item(self, pod: PodSpec, nodes: Sequence[NodeMetrics]) -> _WorkItem:
+    def _cluster_part(self, nodes: Sequence[NodeMetrics]):
+        """(cluster_part text, pin_spec | None, delta_nodes): the one
+        rendering seam of real decisions and prewarms (JAX local.py:280-302).
+        With delta encoding on, both land on the same pinned-snapshot +
+        diff text (one group key); off, both use the plain full render."""
+        if self._delta is None:
+            return self.prompt_engine.cluster_part(nodes), None, 0
+        dp = self._delta.encode(nodes)
+        cached = self._pin_ids_cache
+        if cached is not None and cached[0] == dp.pin_key:
+            pin_ids = cached[1]
+        else:
+            # the pin's token ids in chat format (the stand-in suffix of
+            # _prepare_prewarm: the prefix depends only on system and
+            # cluster part)
+            pin_ids, _ = self.tokenizer.chat_prompt_parts(
+                self.prompt_engine.system_prompt, dp.pin_text, "x"
+            )
+            self._pin_ids_cache = (dp.pin_key, pin_ids)
+        return dp.cluster_part, (dp.pin_key, pin_ids), dp.delta_nodes
+
+    def _prepare_item(self, pod: PodSpec, nodes: Sequence[NodeMetrics],
+                      cluster_info: tuple | None = None) -> _WorkItem:
+        """`cluster_info` is a _cluster_part result computed beforehand: a
+        batch renders (and diffs) the cluster once, not once a pod."""
         if not feasible_nodes(pod, nodes):
             raise NoFeasibleNodeError(
                 f"no feasible node for {pod.namespace}/{pod.name}"
             )
+        cluster_part, pin_spec, delta_nodes = (
+            cluster_info if cluster_info is not None else self._cluster_part(nodes)
+        )
         prefix_ids, suffix_ids = self.tokenizer.chat_prompt_parts(
-            self.prompt_engine.system_prompt,
-            self.prompt_engine.cluster_part(nodes),
-            pod_suffix(pod),
+            self.prompt_engine.system_prompt, cluster_part, pod_suffix(pod),
         )
         item = _WorkItem(prefix_ids, suffix_ids, self._group_key(prefix_ids, nodes))
+        item.pin_spec = pin_spec
         item.trace = spans.capture()
+        if self._delta is not None:
+            trace = spans.current_trace()
+            if trace is not None:
+                trace.set_meta(prompt_encoding="delta" if delta_nodes else "pinned",
+                               delta_nodes=delta_nodes)
         return item
 
     def _group_key(self, prefix_ids, nodes: Sequence[NodeMetrics]) -> tuple:
@@ -235,14 +307,15 @@ class LocalLLMBackend:
     def _prepare_prewarm(self, nodes: Sequence[NodeMetrics]) -> _WorkItem | None:
         if not any(n.is_ready for n in nodes):
             return None
+        cluster_part, pin_spec, _ = self._cluster_part(nodes)
         # Any non-empty stand-in suffix yields the prefix a real pod gets:
         # chat_prompt_parts splits at the end of the user-prefix string.
         prefix_ids, _ = self.tokenizer.chat_prompt_parts(
-            self.prompt_engine.system_prompt,
-            self.prompt_engine.cluster_part(nodes),
-            "x",
+            self.prompt_engine.system_prompt, cluster_part, "x",
         )
-        return _WorkItem(prefix_ids, None, self._group_key(prefix_ids, nodes))
+        item = _WorkItem(prefix_ids, None, self._group_key(prefix_ids, nodes))
+        item.pin_spec = pin_spec
+        return item
 
     def get_scheduling_decision(
         self, pod: PodSpec, nodes: Sequence[NodeMetrics]
@@ -283,17 +356,24 @@ class LocalLLMBackend:
         self, pods: Sequence[PodSpec], nodes: Sequence[NodeMetrics]
     ) -> list[SchedulingDecision | Exception]:
         """Enqueue the whole batch before waiting on any future, so the
-        worker decodes it together (one wave per max_slots pods). Per-pod
-        outcomes are positional; one infeasible pod never fails the rest."""
+        worker decodes it together: with packed admission, one packed
+        admission of the batch (engine.admit_packed; JAX local.py:413-455),
+        else one wave per max_slots pods. Per-pod outcomes are positional;
+        one infeasible pod never fails the rest."""
         out: list[SchedulingDecision | Exception] = [
             BackendError("batch slot unresolved")
         ] * len(pods)
         staged: list[tuple[int, _WorkItem]] = []
+        pack_marker = object() if self._packed_admission else None
+        cluster_info = self._cluster_part(nodes)  # once a batch, not a pod
         for i, pod in enumerate(pods):
             try:
-                staged.append((i, self._prepare_item(pod, nodes)))
+                item = self._prepare_item(pod, nodes, cluster_info=cluster_info)
             except Exception as exc:  # NoFeasibleNodeError, tokenizer...
                 out[i] = exc
+                continue
+            item.pack = pack_marker
+            staged.append((i, item))
         for _, item in staged:
             self._queue.put(item)
         for i, item in staged:
@@ -341,8 +421,21 @@ class LocalLLMBackend:
         return self._dfa_cache[key]
 
     def _install_group(self, item: _WorkItem) -> None:
-        """Install item's (prefix, grammar) group on the engine."""
+        """Install item's (prefix, grammar) group on the engine. With a
+        delta-encoded prompt the snapshot prefix is pinned first, so
+        set_prefix LCP-seeds from the pin and prefills only the diff."""
         self.counters["group_installs"] += 1
+        if item.pin_spec is not None and self._pin_manager is not None:
+            key, pin_ids = item.pin_spec
+            try:
+                self._pin_manager.ensure(key, pin_ids)
+            except Exception:
+                # unpinned is slower, never wrong: the install below still
+                # prefills the whole prefix
+                logger.exception("snapshot prefix pin failed; continuing")
+            source = self._pin_manager.source_of(key)
+            if item.trace is not None and source is not None:
+                item.trace[0].set_meta(kv_source=source)
         self.engine.set_prefix(item.prefix_ids)
         names = item.group_key[1]
         self.engine.set_grammar(
@@ -380,17 +473,36 @@ class LocalLLMBackend:
             self.counters["prewarms_installed"] += 1
             latest.resolve(True)
 
-    def _submit_waves(self, pending: list, waves: deque) -> list:
-        """Dispatch every admissible pending item as pipelined waves
-        (JAX local.py:580-777, without its packed and persistent branches).
+    def _submit_pack(self, batch: list[_WorkItem], packs: list[dict]) -> None:
+        """Admit a marked batch through engine.admit_packed; _drive_packs
+        decodes it at each tick."""
+        try:
+            req_ids = self.engine.admit_packed(
+                [i.suffix_ids for i in batch], self.max_new_tokens
+            )
+        except Exception as exc:
+            logger.exception("packed admission failed")
+            for item in batch:
+                item.fail(BackendError(str(exc)))
+        else:
+            packs.append({"items": dict(zip(req_ids, batch)),
+                          "submitted_at": time.perf_counter()})
+
+    def _submit_waves(self, pending: list, waves: deque, packs: list[dict]) -> list:
+        """Dispatch every admissible pending item as pipelined waves, or a
+        marked batch as one packed admission (JAX local.py:580-777, without
+        its persistent branch).
 
         Items group by (prefix, grammar). A switch to another group happens
         at most once a tick, and under load only when that group's oldest
         item has waited group_switch_after_s: interleaved snapshots take
-        turns at that period instead of starving behind a hot group.
+        turns at that period instead of starving behind a hot group. Packs
+        in flight decode against the current prefix, so no switch happens
+        until they finish.
 
         Returns the items that must keep waiting (held ragged tails, other
-        groups not yet switched to, everything while a control is held)."""
+        groups not yet switched to, packed batches waiting for slots,
+        everything while a control is held)."""
         controls = [i for i in pending if isinstance(i, _ControlItem)]
         if controls:
             self._held_controls.extend(controls)
@@ -405,7 +517,7 @@ class LocalLLMBackend:
             # point of a tick.
             prewarms = [i for i in pending if i.suffix_ids is None]
             pending = [i for i in pending if i.suffix_ids is not None]
-            self._apply_prewarms(prewarms, busy=bool(pending or waves))
+            self._apply_prewarms(prewarms, busy=bool(pending or waves or packs))
         rest: list[_WorkItem] = []
 
         def submit(batch: list[_WorkItem]) -> None:
@@ -424,7 +536,25 @@ class LocalLLMBackend:
             """Full waves submit; a ragged tail holds while earlier waves
             are in flight, until its oldest item has waited partial_hold_s,
             so stragglers of a burst fill it instead of riding a wave of
-            their own."""
+            their own.
+
+            Pack-marked items admit through engine.admit_packed instead,
+            bounded by the engine's free paged slots (the rest wait for
+            slots to drain); a lone marked item, or one whose suffix is
+            past the paged limit, rides a wave."""
+            if self._packed_admission:
+                limit = self.engine.max_suffix_tokens(self.max_new_tokens)
+                packable = [i for i in items
+                            if i.pack is not None and len(i.suffix_ids) <= limit]
+                if len(packable) >= 2:
+                    free = self.engine.free_slots
+                    if free >= 2:
+                        self._submit_pack(packable[:free], packs)
+                        rest.extend(packable[free:])
+                    else:
+                        rest.extend(packable)
+                    handled = set(map(id, packable))
+                    items = [i for i in items if id(i) not in handled]
             batch: list[_WorkItem] = []
             for item in items:
                 batch.append(item)
@@ -455,6 +585,11 @@ class LocalLLMBackend:
 
         run_group(current)
         if not others:
+            return rest
+        if packs:
+            # the paged slots decode against the current prefix: a switch
+            # waits for the packs to finish (bounded by their budgets)
+            rest.extend(others)
             return rest
         oldest = min(others, key=lambda i: i.enqueued_at)
         if waves and time.perf_counter() - oldest.enqueued_at < self.group_switch_after_s:
@@ -490,18 +625,21 @@ class LocalLLMBackend:
         except queue.Empty:
             pass
 
-    def _harvest_oldest(self, pending: list, waves: deque) -> list:
+    def _harvest_oldest(self, pending: list, waves: deque, packs: list[dict]) -> list:
         """Poll the queue while the oldest wave runs, then harvest it
         (JAX local.py:1061-1162). Stragglers arriving meanwhile feed the
         next wave. The poll ends at the wave's readiness or at a deadline
         of half the EMA of this geometry's service time, anchored where
         the device could have started the wave (its submit, or the last
         harvest); past it the harvest blocks, returning at the wave's true
-        completion, which keeps the EMA honest."""
+        completion, which keeps the EMA honest. With packs in flight there
+        is no poll: their decode must not starve behind it."""
         handle, items = waves[0]
         geo = handle.geo_key
         ema = self._wave_ema.get(geo, self._wave_ema_default)
         deadline = max(handle.submitted_at, self._last_harvest_t) + 0.5 * ema
+        if packs:
+            deadline = 0.0
         while (not handle.is_ready() and not self._stopped.is_set()
                and time.perf_counter() < deadline):
             try:
@@ -509,14 +647,14 @@ class LocalLLMBackend:
             except queue.Empty:
                 if pending:
                     # held ragged tails re-check their hold deadline
-                    pending = self._submit_waves(pending, waves)
+                    pending = self._submit_waves(pending, waves, packs)
                 continue
             if got is None:
                 self._stopped.set()
                 break
             pending.append(got)
             self._drain_queue(pending, block=False)
-            pending = self._submit_waves(pending, waves)
+            pending = self._submit_waves(pending, waves, packs)
         waves.popleft()
         try:
             fins = self.engine.harvest_wave(handle)
@@ -543,11 +681,52 @@ class LocalLLMBackend:
             item.resolve(fin.text)
         return pending
 
+    def _resolve_fins(self, fins, packs: list[dict]) -> None:
+        """Resolve finished paged decisions to their packs' items."""
+        now = time.perf_counter()
+        for fin in fins:
+            for pk in packs:
+                item = pk["items"].pop(fin.req_id, None)
+                if item is not None:
+                    handle = SimpleNamespace(submitted_at=pk["submitted_at"])
+                    self._attach_item_spans(item, handle, fin, now)
+                    item.resolve(fin.text)
+                    break
+        packs[:] = [pk for pk in packs if pk["items"]]
+
+    def _fail_paged_inflight(self, packs: list[dict], exc: Exception) -> None:
+        """Fail every in-flight pack decision and abort the engine's paged
+        slots, so their slots and pages do not leak."""
+        for pk in packs:
+            for item in pk["items"].values():
+                item.fail(BackendError(str(exc)))
+        packs.clear()
+        try:
+            self.engine.abort_all()
+        except Exception:  # pragma: no cover - best-effort cleanup
+            logger.exception("engine abort after failed step")
+
+    def _drive_packs(self, packs: list[dict]) -> None:
+        """Advance in-flight packs by one step() and resolve what finished
+        (the step also harvests the decode chunks piggybacked during the
+        admission: the engine's one sync). The JAX backend steps packs
+        through its fused decode when the engine has one; the port has
+        none, so they step through step(), as the JAX engine falls back to,
+        token for token."""
+        try:
+            fins = self.engine.step()
+        except Exception as exc:
+            logger.exception("packed decode step failed")
+            self._fail_paged_inflight(packs, exc)
+            return
+        self._resolve_fins(fins, packs)
+
     def _run_controls(self) -> None:
         """At the wave barrier: run the held controls on this thread, then
         drop the current group — a control may have changed what the group
         key stands for (a weight swap clears the prefix KV), so the next
-        wave reinstalls prefix and grammar (JAX local.py:1163-1197)."""
+        wave reinstalls prefix and grammar (JAX local.py:1163-1197). Pins
+        gone stale with it are dropped, so the next install re-pins."""
         controls, self._held_controls = self._held_controls, []
         for ctl in controls:
             try:
@@ -563,8 +742,10 @@ class LocalLLMBackend:
                 if not ctl.future.done():
                     ctl.future.set_result((result, pause_s))
         self._current_group = None
+        if self._pin_manager is not None:
+            self._pin_manager.invalidate_stale()
 
-    def _worker_tick(self, pending: list, waves: deque) -> list:
+    def _worker_tick(self, pending: list, waves: deque, packs: list[dict]) -> list:
         """One submit + harvest cycle; returns the items still waiting."""
         if pending and self.admit_wait_s and not waves:
             # Adaptive coalescing: keep extending the window while items
@@ -576,10 +757,14 @@ class LocalLLMBackend:
                 self._drain_queue(pending, block=False)
                 if len(pending) == before or len(pending) >= self.engine.max_slots:
                     break
-        pending = self._submit_waves(pending, waves)
+        pending = self._submit_waves(pending, waves, packs)
+        if packs:
+            # packs decode through the paged path: step them every tick so
+            # their decisions resolve while waves pipeline alongside
+            self._drive_packs(packs)
         if waves:
-            pending = self._harvest_oldest(pending, waves)
-        if self._held_controls and not waves:
+            pending = self._harvest_oldest(pending, waves, packs)
+        if self._held_controls and not waves and not packs:
             self._run_controls()
         return pending
 
@@ -639,8 +824,9 @@ class LocalLLMBackend:
     def _run_worker(self) -> None:
         pending: list = []
         waves: deque = deque()
+        packs: list[dict] = []  # in-flight packed admissions
         while not self._stopped.is_set():
-            idle = not pending and not waves
+            idle = not pending and not waves and not packs
             if idle and self._prewarm_backlog() > 0:
                 # Idle with captures owed: park only for the grace period;
                 # if still idle after it, capture ONE sibling geometry, then
@@ -651,16 +837,19 @@ class LocalLLMBackend:
                     self._try_prewarm()
                 continue
             self._drain_queue(pending, block=idle)
-            if self._stopped.is_set() or (not pending and not waves):
+            if self._stopped.is_set() or (not pending and not waves and not packs):
                 continue
             # Nothing below may kill the engine-owner thread.
             try:
-                pending = self._worker_tick(pending, waves)
+                pending = self._worker_tick(pending, waves, packs)
             except Exception as exc:  # pragma: no cover - last-resort guard
                 logger.exception("engine worker tick failed")
                 for _, items in waves:
                     pending.extend(items)
                 waves.clear()
+                if packs:
+                    # their requests hold paged slots: abort, or they leak
+                    self._fail_paged_inflight(packs, exc)
                 pending.extend(self._held_controls)
                 self._held_controls = []
                 for item in pending:
@@ -669,6 +858,8 @@ class LocalLLMBackend:
         self._drain_queue(pending, block=False)
         for _, items in waves:
             pending.extend(items)
+        for pk in packs:
+            pending.extend(pk["items"].values())
         pending.extend(self._held_controls)
         self._held_controls = []
         for item in pending:
@@ -677,7 +868,8 @@ class LocalLLMBackend:
     def run_quiesced(self, fn, timeout_s: float | None = None):
         """Run `fn()` on the engine-owner thread at a wave barrier (JAX
         local.py:1249-1271): from the control's enqueue the worker holds
-        every new admission, harvests the waves in flight, runs `fn`, and
+        every new admission, harvests the waves in flight and decodes the
+        packs in flight to their end, runs `fn`, and
         resumes on its next tick. No request is failed or dropped. Blocks
         until done; returns (fn result, pause_s), pause_s the
         admission-held wall time. Raises what fn raises."""
@@ -703,6 +895,10 @@ class LocalLLMBackend:
             out["swap"] = dict(self.swap_stats)
         with self._calls_lock:
             out["backend"] = dict(self.counters)
+        if self._delta is not None:
+            out["delta"] = self._delta.stats()
+        if self._pin_manager is not None and self._pin_manager.stats_counters["pins"]:
+            out["pins"] = self._pin_manager.stats()
         completed = out.get("completed", 0)
         if completed:
             # prefill tokens computed per finished decision (prefix prefills
@@ -722,6 +918,11 @@ def build_local_backend(
     quantize: str | None = None,
     decode_matmul: str = "dense",
     graphs: bool = True,
+    packed_admission: bool = False,
+    admission_chunk_tokens: int = 256,
+    delta_prompts: bool = False,
+    repin_fraction: float = 0.25,
+    max_pins: int = 4,
 ) -> LocalLLMBackend:
     """The local stack with random weights from `seed` on `device`: params,
     byte tokenizer, a greedy engine and a grammar-constrained backend, all
@@ -729,7 +930,9 @@ def build_local_backend(
     the weights on the host (models/quant.init_params_int8_host), so only
     int8 weights reach the device; `decode_matmul="ragged"` runs block
     decode's matmuls through K3; `graphs=False` runs the engine's waves
-    eagerly where it would replay CUDA graphs."""
+    eagerly where it would replay CUDA graphs. The admission plane's
+    settings are the reference config's `admission.*` keys (cli.DEFAULTS
+    holds their values there; off here unless asked for)."""
     dev = resolve_device(device)
     if quantize is not None and quantize != "int8":
         raise ValueError(f"unknown quantization {quantize!r} (only 'int8')")
@@ -742,5 +945,10 @@ def build_local_backend(
     engine = InferenceEngine(
         params, cfg, tokenizer, temperature=0.0, rng_seed=seed,
         decode_matmul=decode_matmul, graphs=graphs,
+        admission_chunk_tokens=admission_chunk_tokens,
     )
-    return LocalLLMBackend(engine, tokenizer, request_timeout_s=request_timeout_s)
+    return LocalLLMBackend(
+        engine, tokenizer, request_timeout_s=request_timeout_s,
+        packed_admission=packed_admission, delta_prompts=delta_prompts,
+        repin_fraction=repin_fraction, max_pins=max_pins,
+    )

@@ -9,7 +9,8 @@ Python loop over views of the stacks.
 
 Entry points: `forward_prefill` (single-shot prefix prefill, KV-only mode
 too); the cascade suffix prefills `forward_prefill_suffix_dense` (decision
-waves) and `forward_prefill_suffix` (KV into pages, the general path);
+waves) and `forward_prefill_suffix` (KV into pages, the general path); the packed
+block-diagonal chunk of the admission plane `forward_prefill_packed`;
 `forward_block_decode` (decision waves; `ragged=True` runs every projection
 and MLP matmul through K3); and the paged decode steps
 `forward_decode_buffered` (the general path's chunked decode; own-token
@@ -330,6 +331,82 @@ def forward_prefill_suffix(
         k_cache[i][pages] = k.reshape(shape).to(k_cache.dtype)
         v_cache[i][pages] = v.reshape(shape).to(v_cache.dtype)
     return _last_valid_logits(params, cfg, x, suffix_lens), k_cache, v_cache
+
+
+@torch.no_grad()
+def forward_prefill_packed(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,     # [C] int — one packed chunk (pad holes)
+    seg: torch.Tensor,        # [C] int — segment id per token, -1 on padding
+    positions: torch.Tensor,  # [C] int — ABSOLUTE position of each token
+    prefix_k_all: torch.Tensor,  # [L, Sp, n_kv, hd] shared dense prefix KV
+    prefix_v_all: torch.Tensor,
+    prefix_len: torch.Tensor,    # 0-dim int32 on the device
+    carry_k: torch.Tensor,    # [L, CAP, n_kv, hd] pack carry, updated IN PLACE
+    carry_v: torch.Tensor,
+    carry_seg: torch.Tensor,  # [CAP] int32 segment per carry entry (-1 empty)
+    carry_len: int,           # tokens already in the carry
+    k_cache: torch.Tensor,    # [L, num_pages, page_size, n_kv, hd], IN PLACE
+    v_cache: torch.Tensor,
+    page_ids: torch.Tensor,   # [C] per-token dest page (0 = scratch)
+    offs: torch.Tensor,       # [C] per-token dest offset within the page
+    end_idx: torch.Tensor,    # [E] chunk-local indices of prompt-final tokens
+):
+    """One PACKED prefill chunk: many prompts in one token stream with
+    BLOCK-DIAGONAL attention (the JAX package's forward_prefill_packed).
+
+    Token i (segment s_i) attends to three parts, merged by log-sum-exp:
+    - the burst-shared dense prefix (K1, every token);
+    - carry entries of the SAME segment (this prompt's tokens from earlier
+      chunks of the pack — how a prompt spans a chunk boundary);
+    - chunk tokens j <= i of the SAME segment (causal within the prompt,
+      blocked across prompts).
+    The last two are plain f32 einsums (ops/attention.attend_part), as in
+    the JAX package, which computes them outside any Pallas kernel.
+    Padding tokens (seg -1) only match other padding. The chunk's K/V is
+    scattered per token into the paged cache (each prompt's slot pages;
+    padding to scratch page 0) and written into the carry at `carry_len`,
+    and `carry_seg` takes the chunk's segment ids there, all IN PLACE.
+
+    Returns end_logits [E, V] f32: the LM head runs only at `end_idx`."""
+    C = tokens.shape[0]
+    CAP = carry_k.shape[1]
+    hd = cfg.head_dim
+    dev = tokens.device
+    inv_freq = rope_inv_freq(cfg, dev)
+    x = params["embed"][tokens][None]  # [1, C, D]
+    pos_b = positions[None, :]
+    eq = "bqkgh,bskh->bkgqs"
+    # masks are layer-independent
+    carry_mask = (
+        (torch.arange(CAP, device=dev)[None, :] < carry_len)
+        & (carry_seg[None, :] == seg[:, None])
+    )[None, None, None, :, :]  # [1, 1, 1, C, CAP]
+    j = torch.arange(C, device=dev)
+    blk_mask = (
+        (j[:, None] >= j[None, :]) & (seg[:, None] == seg[None, :])
+    )[None, None, None, :, :]  # [1, 1, 1, C, C]
+    pages, offsets = page_ids.long(), offs.long()
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        q, k, v = _qkv(lp, cfg, x, pos_b, inv_freq)
+        qg = (q.float() * hd**-0.5).reshape(1, C, cfg.n_kv_heads, cfg.q_per_kv, hd)
+        parts = [
+            flash_prefix_attention_parts(q, prefix_k_all[i], prefix_v_all[i], prefix_len),
+            attend_part(qg, carry_k[i][None], carry_v[i][None], carry_mask, eq),
+            attend_part(qg, k, v, blk_mask, eq),
+        ]
+        attn = merge_attention_parts(parts)  # [1, n_kv, g, C, hd]
+        attn = torch.movedim(attn, 3, 1).reshape(1, C, cfg.n_heads * hd)
+        x = x + _dense(attn.to(x.dtype), lp["wo"])
+        x = x + _mlp(lp, cfg, x)
+        k_cache[i][pages, offsets] = k[0].to(k_cache.dtype)
+        v_cache[i][pages, offsets] = v[0].to(v_cache.dtype)
+        carry_k[i, carry_len:carry_len + C] = k[0].to(carry_k.dtype)
+        carry_v[i, carry_len:carry_len + C] = v[0].to(carry_v.dtype)
+    carry_seg[carry_len:carry_len + C] = seg
+    return _logits(params, cfg, x[0][end_idx.long()])
 
 
 def _block_attention(cfg, q, k, v, i, masks, k_sfx, v_sfx, gen_k, gen_v,

@@ -295,6 +295,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import k8s_llm_scheduler_tpu_torch as p\n"
         "import k8s_llm_scheduler_tpu_torch.engine.local, "
         "k8s_llm_scheduler_tpu_torch.engine.kv_cache, "
+        "k8s_llm_scheduler_tpu_torch.engine.admission.chunked, "
+        "k8s_llm_scheduler_tpu_torch.engine.admission.packer, "
+        "k8s_llm_scheduler_tpu_torch.engine.admission.pinned, "
+        "k8s_llm_scheduler_tpu_torch.sched.delta, "
         "k8s_llm_scheduler_tpu_torch.models.convert, "
         "k8s_llm_scheduler_tpu_torch.models.quant, "
         "k8s_llm_scheduler_tpu_torch.ops.paged_attention, "

@@ -441,7 +441,13 @@ class TestSmokeStepLaunches:
                                 counting(flash_prefix_attention_parts))
         cs = TestSmokeComparison._smoke()
         run = graphs.Program.run
-        backend = build_local_backend("tiny", device="cpu")
+        # Under the tier-1 run's six test processes, torch's default of one
+        # intra-op thread per core oversubscribed the CPU and this eager TINY
+        # decision outran the backend's default 60 s request timeout: two
+        # threads, and the loop tests' 600 s timeout.
+        threads = torch.get_num_threads()
+        torch.set_num_threads(2)
+        backend = build_local_backend("tiny", device="cpu", request_timeout_s=600.0)
         backend.prewarm_idle_delay_s = 3600.0  # no sibling prewarm in the window
         try:
             eng = backend.engine
@@ -456,6 +462,7 @@ class TestSmokeStepLaunches:
         finally:
             backend.close()
             prefix_attention.reset_launch_counts()
+            torch.set_num_threads(threads)
         L = eng.cfg.n_layers
         R = eng.max_slots // 2  # a single decision's wave
         by_step = {step: (rec["runs"], rec["K1"]) for step, rec in steps.items()}
@@ -469,4 +476,4 @@ class TestSmokeStepLaunches:
         assert sum(k1 for _, k1 in by_step.values()) == total > 0
         assert cs.per_call(steps)[f"block decode R={R}"]["K1"] == L
         assert graphs.Program.run is run
-        assert "_prefill_prefix_chunked" not in vars(eng)
+        assert "_prefill_prefix_chunked" not in vars(eng) and "_pack_chunk" not in vars(eng)
