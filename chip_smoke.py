@@ -10,6 +10,26 @@ Phases, each of which must pass:
 
 1. Build: compiles the four hand-written CUDA kernels from
    k8s_llm_scheduler_tpu_torch/csrc (one nvcc per source, in parallel).
+1a. cli verify: `python -m k8s_llm_scheduler_tpu_torch.cli verify` in a
+   process of its own: every check `[ok]` (torch, numpy, the card's name
+   and power limit, the four kernels built with nvcc, the config, a TINY
+   forward launching K1 and K2, cluster access, the tokenizer), exit 0.
+1b. cli run, the production entry point at full width: the port's
+   WireFakeK8s (real HTTP) holding synthetic_nodes(32); a child process
+   runs `cli.main(["run"])` against it (KubeCluster over the in-tree REST
+   transport, LLM_MODEL=llama-3.1-8b-instruct, the config's defaults:
+   temperature 0.3, packed admission and delta prompts on); then 24
+   pending pods of 12 shapes are created over the wire (12 leaders against
+   8 slots: two waves). Once the fake shows all 24 bound (deadline 600 s)
+   the child gets SIGINT and must exit 0 with its stats JSON. Every pod
+   bound to a ready, feasible node, no fallback, every decision parsed,
+   K1 and K2 launched in the child (counts zeroed just before cli.main).
+   Prints each pod's pending -> bound time, the seconds between the two
+   waves' harvests and the child's peak memory. It runs first, while no
+   other 8B model is resident.
+   Every child of the smoke runs in a temporary directory with the
+   repository on its PYTHONPATH: the repo root's config.yaml would be
+   read there, and a machine without PyYAML refuses a config file.
 2. Kernels: K1 (shared-prefix flash partials) and K2 (causal in-chunk flash
    partials) on random bf16 inputs at every shape the decision phase gives
    them (taken from the engine's bucket and wave geometry for the smoke's
@@ -41,8 +61,8 @@ Phases, each of which must pass:
    ragged matmuls (K3), the general path's buffered decode step with K4
    partials, and the manual-page decode step with K4 normalized.
 4. Decision: a LocalLLMBackend with full-width, full-depth Llama-3.1-8B
-   (random bf16 weights from a seed; built before phase 2, whose shapes it
-   gives) serves 4 single decisions, then (once its idle worker has
+   (random bf16 weights from a seed, greedy, batches as waves; built
+   before phase 2, whose shapes it gives) serves 4 single decisions, then (once its idle worker has
    captured the sibling wave geometries: `prewarm_wave_siblings`) a batch
    of 8, then one more single decision under torch.profiler, for a 32-node
    synthetic cluster (a 5,488-token prefix: the chunked prefix prefill).
@@ -58,10 +78,15 @@ Phases, each of which must pass:
    operations per model call). K1 and K2 must have launched (every count
    is zeroed just before each mode's drive); K1's launches by step must
    add up to its total. Capture seconds, replays and peak memory are
-   printed for each mode.
+   printed for each mode. Then, in graph mode: a thread waiting on a CUDA
+   event must let other Python threads run (`gil_probe`), and of two warm
+   R=8 waves submitted back to back the first must be harvested within
+   1.25x a lone one's time, counted from its submit, with the tokens of
+   the same waves run alone (`two_wave_overlap`: submit_wave returns at
+   once; the wave dispatcher thread runs its iterations).
 4a. Admission, on the graph-mode engine of phase 4 (no second copy of
    the weights): (a) a LocalLLMBackend with the admission plane of
-   `cli.DEFAULTS` takes the batch of 8 through
+   the config's defaults takes the batch of 8 through
    get_scheduling_decisions_batch: one packed admission (chunks of 256,
    K1 in each chunk's prefix part, decode chunks piggybacked between
    them), decoded by step() to completion. All 8 must parse and name a
@@ -78,9 +103,10 @@ Phases, each of which must pass:
    be within 5e-2 of the largest of its CPU twin's.
 4b. Loop: the scheduler's main path through its entry points, on the
    graph-mode engine of phase 4 (a new LocalLLMBackend over it with the
-   admission plane of `cli.DEFAULTS`, as `cli demo` runs): `synthetic_cluster(32)` holding `pod_burst(32,
-   distinct_shapes=8)`, added before the loop starts, the stack of
-   `cli.build_stack` at the reference config's defaults (snapshot TTL 1 s,
+   config's default admission plane, as `cli run` maps it):
+   `synthetic_cluster(32)` holding `pod_burst(32, distinct_shapes=8)`,
+   added before the loop starts, the stack of `cli.build_stack` at the
+   config's defaults around that backend (snapshot TTL 1 s,
    prefix prewarm tick 0.25 s), and Scheduler.run() until every pod is
    bound (deadline 300 s); then a second burst of 8 pods (one a shape) on
    the same cluster after the first's binds, through a new stack. Every
@@ -96,7 +122,8 @@ Phases, each of which must pass:
    installs, prefix prewarms, each pod's pending -> bound time, the drifted
    nodes, and the delta prefix prefill's tokens and ms.
 4c. cli demo: `python -m k8s_llm_scheduler_tpu_torch.cli demo --model tiny
-   --fake-nodes 4` in a process of its own: exit 0, 3 binds, no fallback.
+   --fake-nodes 4` in a process of its own (sampled at the config's 0.3):
+   exit 0, 3 binds, no fallback.
 5. Path A: the same 8B weights quantized to int8 on the card, in an engine
    with decode_matmul="ragged", the same drive in both modes, held the
    same way; all feasible, K3 and K1 launched, K3 7 times a layer (224)
@@ -111,6 +138,18 @@ Phases, each of which must pass:
    modes emit identical tokens, K4 launched, launches per run equal, the
    graph-mode step launched no kernel outside a graph, and every page is
    returned.
+6a. Checkpoint: a TINY HF-layout safetensors checkpoint from a seed,
+   written in the format's own few lines (no `safetensors` package), vocab
+   widened for the builtin numeric tokenizer, loaded through
+   build_local_backend(checkpoint_path=...) on the card and on the CPU,
+   bf16 and int8: a suffix prefill's logits on the card within 5e-2 of
+   the largest logit of the CPU load; one greedy decision on the card
+   parses and names a feasible node.
+6b. Sampled: a TINY engine on the card, graphs on, temperature 0.3, the
+   decision grammar: after a wave that captures the geometry, two waves of
+   8 copies of one prompt are replayed; their 16 streams must not all be
+   equal (the generator registered with the graphs draws afresh) and each
+   must parse and name a node.
 7. K3, untimed, at `K3_EDGE_CASES` (TINY's widths, N and K not whole
    tiles, M = 96 and 384, totals 0 / 1 / 64 / 65 / M), then at the seven 8B
    weight shapes, int8 pairs and bf16, x [R*24, K] for R = 4 and 8, and
@@ -151,9 +190,13 @@ import functools
 import gc
 import itertools
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1325,8 +1368,11 @@ def build_backend():
     from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
 
     t0 = time.perf_counter()
+    # greedy (the modes are held token for token), batches as waves, and
+    # 64 pages a slot: the geometry earlier runs measured
     backend = build_local_backend(
-        "llama-3.1-8b-instruct", device="cuda", seed=0, request_timeout_s=600.0
+        "llama-3.1-8b-instruct", device="cuda", seed=0, request_timeout_s=600.0,
+        temperature=0.0, packed_admission=False, max_pages_per_seq=64,
     )
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -1526,7 +1572,90 @@ def decision_phase(backend, build_s, nodes, pods) -> tuple[bool, dict]:
     rec["batch_tokens"] = g["waves"][N_SINGLES]["tokens"]
     ok = (ok and g["launches"]["K1"] > 0 and g["launches"]["K2"] > 0
           and sum(rec["k1_launches_by_step"].values()) == g["launches"]["K1"])
+    rec["gil"] = gil_probe()
+    o_ok, rec["two_waves"] = two_wave_overlap(backend, nodes, pods)
+    return ok and o_ok and rec["gil"]["released"], rec
+
+
+OVERLAP_LIMIT = 1.25  # the first of two back-to-back waves, against a lone one
+
+
+def two_wave_overlap(backend, nodes, pods) -> tuple[bool, dict]:
+    """The wave dispatcher on the card, on the graph-mode engine (greedy):
+    a lone warm R=8 wave of the pods' suffixes (A) is timed, and so is
+    another of them reversed (B); then A and B are submitted back to back
+    and harvested in turn. harvest_wave of A must return within
+    OVERLAP_LIMIT x the lone A's time, counted from A's submit, and both
+    waves' tokens must equal those of the same waves run alone."""
+    eng = backend.engine
+    items = [backend._prepare_item(pod, nodes) for pod in pods[: eng.max_slots]]
+    backend._switch_group(items[0])  # the decision phase's prefix and grammar
+    a = [i.suffix_ids for i in items]
+    b = a[::-1]
+    new = backend.max_new_tokens
+
+    def alone(prompts):
+        t0 = time.perf_counter()
+        fins = eng.decide_wave(prompts, new)
+        return time.perf_counter() - t0, [f.token_ids for f in fins]
+
+    alone(a)  # warm
+    lone_a, toks_a = alone(a)
+    lone_b, toks_b = alone(b)
+    t0 = time.perf_counter()
+    ha = eng.submit_wave(a, new)
+    submit_a = time.perf_counter() - t0
+    hb = eng.submit_wave(b, new)
+    submit_b = time.perf_counter() - t0
+    fa = eng.harvest_wave(ha)
+    first = time.perf_counter() - t0
+    fb = eng.harvest_wave(hb)
+    second = time.perf_counter() - t0
+    same = [f.token_ids for f in fa] == toks_a and [f.token_ids for f in fb] == toks_b
+    ratio = first / lone_a
+    rec = {"lone_a_s": lone_a, "lone_b_s": lone_b, "submit_a_s": submit_a,
+           "submit_b_s": submit_b, "harvest_a_s": first, "harvest_b_s": second,
+           "ratio": ratio, "tokens_equal": same, "cold": [ha.cold_compile, hb.cold_compile],
+           "model_calls": [ha.iters, hb.iters]}
+    ok = ratio <= OVERLAP_LIMIT and same and not (ha.cold_compile or hb.cold_compile)
+    print(f"decision, two waves back to back: lone A {lone_a:.3f} s, lone B {lone_b:.3f} s; "
+          f"submits returned at {submit_a * 1e3:.2f} / {submit_b * 1e3:.2f} ms, harvest A at "
+          f"{first:.3f} s ({ratio:.3f}x the lone A; limit {OVERLAP_LIMIT}x), B at "
+          f"{second:.3f} s; tokens equal to the lone waves'={same} | {_smi()} | ok={ok}",
+          flush=True)
     return ok, rec
+
+
+def gil_probe() -> dict:
+    """Whether a thread waiting on a CUDA event (the wave dispatcher's
+    fences, harvest_wave) lets other Python threads run: the main thread
+    counts loop turns for 0.2 s alone, then for 0.2 s while another
+    thread waits on an event behind ~1 s of device sleep."""
+    import torch
+
+    def spin(seconds):
+        n, end = 0, time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            n += 1
+        return n
+
+    alone = spin(0.2)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # ~1 s of cycles
+    ev = torch.cuda.Event()
+    ev.record()
+    waiter = threading.Thread(target=ev.synchronize)
+    waiter.start()
+    time.sleep(0.02)
+    during = spin(0.2)
+    still_waiting = waiter.is_alive()
+    waiter.join()
+    rec = {"spin_alone": alone, "spin_while_waiting": during,
+           "waiter_was_waiting": still_waiting,
+           "released": still_waiting and during > 0.5 * alone}
+    print(f"decision: a thread in Event.synchronize releases the GIL={rec['released']} "
+          f"({during} loop turns beside it against {alone} alone)", flush=True)
+    return rec
 
 
 # ---------------------------------------------------------- admission phase
@@ -1534,16 +1663,31 @@ TINY_CHUNK = 16  # the TINY pack's chunk width: its prompts span chunks
 TINY_NEW_TOKENS = 24
 
 
+def _default_config():
+    """The port's config at its defaults (the JAX package's): no file, no
+    env."""
+    import copy
+
+    from k8s_llm_scheduler_tpu_torch.config import DEFAULTS, Config
+
+    return Config(copy.deepcopy(DEFAULTS))
+
+
+ADMISSION_KEYS = ("packed_admission", "admission_chunk_tokens", "delta_prompts",
+                  "repin_fraction", "max_pins")
+
+
 def _admission_backend(engine):
-    """A LocalLLMBackend over `engine` with the admission plane of
-    cli.DEFAULTS (packed batches, delta prompts, 4 pins), as `cli demo`
-    runs it; the chunk width is the engine's, checked against DEFAULTS."""
-    from k8s_llm_scheduler_tpu_torch.cli import admission_kwargs
+    """A LocalLLMBackend over `engine` with the config's default admission
+    plane (packed batches, delta prompts, 4 pins), as `cli run` and `cli
+    demo` map it (cli._backend_kwargs); the chunk width is the engine's,
+    checked against the config's."""
+    from k8s_llm_scheduler_tpu_torch.cli import _backend_kwargs
     from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend
 
-    kw = admission_kwargs()
+    kw = {k: v for k, v in _backend_kwargs(_default_config()).items() if k in ADMISSION_KEYS}
     if engine.admission_chunk_tokens != kw.pop("admission_chunk_tokens"):
-        raise RuntimeError("the engine's admission chunk is not cli.DEFAULTS'")
+        raise RuntimeError("the engine's admission chunk is not the config's")
     return LocalLLMBackend(engine, request_timeout_s=600.0, **kw)
 
 
@@ -1603,7 +1747,7 @@ def _pinned_gib(engine) -> float:
 
 def _packed_batch(engine, nodes, pods, wave_tokens) -> tuple[bool, dict]:
     """(a) The batch of 8 through get_scheduling_decisions_batch of a
-    backend with cli.DEFAULTS' admission plane on the decision phase's
+    backend with the config's default admission plane on the decision phase's
     graph-mode engine: one packed admission of the 8 suffixes in chunks of
     256 (K1 in each chunk's prefix part), decode chunks piggybacked between
     them, then step() until every decision is done. Counts zeroed just
@@ -1809,7 +1953,7 @@ def _loop_burst(engine, backend, cluster, pods, bound_total):
     from k8s_llm_scheduler_tpu_torch.core.validation import feasible_nodes
 
     nodes = cluster.get_node_metrics()  # the snapshot the burst is decided on
-    scheduler = build_stack(backend, cluster)
+    scheduler, _ = build_stack(_default_config(), cluster, backend=backend)
     bound_at: dict[str, float] = {}
     bind = cluster.bind_pod_to_node
 
@@ -1934,7 +2078,7 @@ def loop_phase(engine):
     FakeCluster holding a burst of pending pods (all added before the loop
     starts, so one snapshot serves the burst's leaders), the stack of
     `cli.build_stack` at the reference config's defaults with the backend
-    of `cli demo` (the admission plane of cli.DEFAULTS: delta prompts over
+    of `cli demo` (the config's default admission plane: delta prompts over
     pinned prefixes), and Scheduler.run() until every pod is bound, over a
     new LocalLLMBackend on the decision phase's graph-mode engine (no
     second copy of the weights). Then a second burst of one pod a shape on
@@ -2008,14 +2152,28 @@ def loop_phase(engine):
     return ok, rec
 
 
+def _child_env(**extra) -> dict:
+    """The environment of a child process of the smoke: the repository on
+    its PYTHONPATH, since children run in a temporary directory (the
+    repo root's config.yaml would be read there, and a machine without
+    PyYAML refuses a config file it cannot read)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    env.update(extra)
+    return env
+
+
 def demo_phase(device="cuda"):
     """`python -m k8s_llm_scheduler_tpu_torch.cli demo --model tiny
-    --fake-nodes 4` in a process of its own on the card: it must exit 0
+    --fake-nodes 4` in a process of its own on the card, in a temporary
+    directory (the config's defaults: temperature 0.3): it must exit 0
     with its three fixture pods bound and no fallback decision."""
     cmd = [sys.executable, "-m", "k8s_llm_scheduler_tpu_torch.cli", "demo",
            "--model", "tiny", "--fake-nodes", "4", "--device", device]
     t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    with tempfile.TemporaryDirectory() as cwd:
+        out = subprocess.run(cmd, cwd=cwd, env=_child_env(), capture_output=True, text=True,
+                             timeout=600)
     wall_s = time.perf_counter() - t0
     try:
         stats = json.loads(out.stdout)
@@ -2213,6 +2371,357 @@ def path_b_phase(backend, nodes, pods):
     return ok, rec, cases
 
 
+# ------------------------------------------------------- cli verify, cli run
+def verify_phase() -> tuple[bool, dict]:
+    """`python -m k8s_llm_scheduler_tpu_torch.cli verify` in a process of
+    its own, in a temporary directory (no config file: this machine may
+    have no PyYAML): every check must pass, exit 0."""
+    cmd = [sys.executable, "-m", "k8s_llm_scheduler_tpu_torch.cli", "verify"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as cwd:
+        out = subprocess.run(cmd, cwd=cwd, env=_child_env(), capture_output=True, text=True,
+                             timeout=600)
+    lines = [ln.strip() for ln in out.stdout.splitlines() if ln.strip().startswith("[")]
+    rec = {"rc": out.returncode, "wall_s": time.perf_counter() - t0, "checks": lines}
+    ok = out.returncode == 0 and lines and not any(ln.startswith("[FAIL]") for ln in lines)
+    for ln in lines:
+        print(f"cli verify: {ln}", flush=True)
+    print(f"cli verify: rc={out.returncode} in {rec['wall_s']:.1f} s ok={ok}", flush=True)
+    if not ok:
+        print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr, flush=True)
+    return bool(ok), rec
+
+
+RUN_MODEL = "llama-3.1-8b-instruct"
+RUN_NODES = 32
+RUN_PODS = 24
+RUN_SHAPES = 12  # 12 leaders against 8 slots: two waves, 12 single-flight followers
+RUN_DEADLINE_S = 600.0
+# The child of the run phase: `cli run` against the wire fake at argv[1],
+# at the config's defaults (temperature 0.3, packed admission and delta
+# prompts on) with LLM_MODEL from its environment. Its K1/K2 counts are
+# zeroed before cli.main and read after it; each harvest_wave return and
+# each parsed decision is booked. Last line: one JSON object of them.
+RUN_CHILD = r"""
+import json, sys, time
+import torch
+from k8s_llm_scheduler_tpu_torch import cli
+from k8s_llm_scheduler_tpu_torch.cluster import httpapi
+from k8s_llm_scheduler_tpu_torch.engine import engine as engine_mod
+from k8s_llm_scheduler_tpu_torch.engine import local as local_mod
+from k8s_llm_scheduler_tpu_torch.ops import prefix_attention as pa
+
+httpapi.set_active_config(sys.argv[1])
+harvests, parsed = [], []
+harvest = engine_mod.InferenceEngine.harvest_wave
+parse = local_mod.LocalLLMBackend._parse
+
+def timed_harvest(self, handle):
+    fins = harvest(self, handle)
+    harvests.append({"t": time.perf_counter(), "submitted": handle.submitted_at,
+                     "rows": handle.n, "R": handle.geo_key[0], "cold": handle.cold_compile,
+                     "model_calls": handle.iters})
+    return fins
+
+def booked_parse(self, text):
+    try:
+        d = parse(self, text)
+    except Exception as exc:
+        parsed.append({"ok": False, "error": str(exc)[:200]})
+        raise
+    parsed.append({"ok": True, "node": d.selected_node})
+    return d
+
+engine_mod.InferenceEngine.harvest_wave = timed_harvest
+local_mod.LocalLLMBackend._parse = booked_parse
+pa.reset_launch_counts()
+rc = cli.main(["run"])
+launches = {"K1": pa.flash_prefix_attention_parts.launches,
+            "K2": pa.flash_causal_attention_parts.launches}
+print(json.dumps({"launches": launches, "harvests": harvests, "parsed": parsed,
+                  "temperature": cli.load_config().get("llm.temperature"),
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
+sys.exit(rc)
+"""
+
+
+def run_phase() -> tuple[bool, dict]:
+    """`cli run` at full width on the card against the wire-level fake API
+    server: the port's WireFakeK8s holding synthetic_nodes(RUN_NODES), a
+    child process (`RUN_CHILD`, in a temporary directory, KUBECONFIG at a
+    path that does not exist, the API server set with
+    httpapi.set_active_config, LLM_MODEL=RUN_MODEL, the config's default
+    temperature 0.3) that runs `cli.main(["run"])`; then RUN_PODS pending
+    pods of RUN_SHAPES shapes created over the wire. Once the fake shows
+    every pod bound (deadline RUN_DEADLINE_S) the child gets SIGINT; it must
+    exit 0 with the stats JSON. Fails unless every pod is bound to a node
+    that is ready and feasible for it, no decision fell back or failed to
+    parse, and K1 and K2 launched in the child."""
+    from k8s_llm_scheduler_tpu_torch.cluster.interface import raw_pod_to_spec
+    from k8s_llm_scheduler_tpu_torch.cluster.wire_fake import WireFakeK8s
+    from k8s_llm_scheduler_tpu_torch.core.validation import feasible_nodes
+    from k8s_llm_scheduler_tpu_torch.testing import pod_burst, synthetic_nodes
+
+    nodes = synthetic_nodes(RUN_NODES)
+    srv = WireFakeK8s()
+    for n in nodes:
+        srv.add_node(n.name, cpu=str(int(n.available_cpu_cores)),
+                     memory=f"{int(n.available_memory_gb)}Gi", pods=str(n.max_pods),
+                     labels=n.labels)
+    pods = pod_burst(RUN_PODS, distinct_shapes=RUN_SHAPES)
+    rec: dict = {"model": RUN_MODEL, "nodes": RUN_NODES, "pods": RUN_PODS,
+                 "shapes": RUN_SHAPES}
+    with tempfile.TemporaryDirectory() as cwd:
+        env = _child_env(KUBECONFIG=str(Path(cwd) / "no-kubeconfig"), LLM_MODEL=RUN_MODEL)
+        env.pop("KUBERNETES_SERVICE_HOST", None)
+        t0 = time.perf_counter()
+        child = subprocess.Popen([sys.executable, "-c", RUN_CHILD, srv.base_url], cwd=cwd,
+                                 env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True)
+        try:
+            # the child's watch must be up before the pods arrive: it lists
+            # the pods, then watches
+            end = time.perf_counter() + RUN_DEADLINE_S
+            while (child.poll() is None and time.perf_counter() < end
+                   and not any("watch=true" in r for r in srv.request_log)):
+                time.sleep(0.1)
+            rec["start_s"] = time.perf_counter() - t0
+            pending_at = {}
+            for pod in pods:
+                req = pod.container_requests[0]
+                srv.add_pod(pod.name, requests=dict(req), priority=pod.priority)
+                pending_at[pod.name] = time.perf_counter()
+            bound_at = {}
+            while child.poll() is None and time.perf_counter() < end and len(bound_at) < len(pods):
+                now = time.perf_counter()
+                for _, name, _node in list(srv.bindings):
+                    bound_at.setdefault(name, now)
+                time.sleep(0.01)
+            if child.poll() is None:
+                child.send_signal(signal.SIGINT)
+            out, err = child.communicate(timeout=120)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
+            srv.close()
+    placed = {name: node for _, name, node in srv.bindings}
+    # stdout: the stats JSON (indented), then the child's one-line report
+    lines = out.strip().splitlines()
+    try:
+        report = json.loads(lines[-1])
+        stats = json.loads("\n".join(lines[:-1]))
+    except (ValueError, IndexError):
+        report, stats = {}, {}
+    node_by_name = {n.name: n for n in nodes}
+    feasible = all(
+        placed.get(p.name) in {n.name for n in feasible_nodes(raw_pod_to_spec(p), nodes)}
+        and node_by_name[placed[p.name]].is_ready for p in pods if p.name in placed)
+    harvests = report.get("harvests", [])
+    waves = [h for h in harvests if h["rows"]]
+    rec.update({
+        "rc": child.returncode, "wall_s": time.perf_counter() - t0,
+        "bound": len(placed), "feasible": feasible,
+        "pending_to_bound_s": {name: bound_at[name] - pending_at[name] for name in bound_at},
+        "launches": report.get("launches"), "peak_gib": report.get("peak_gib"),
+        "temperature": report.get("temperature"),
+        "parsed": len(report.get("parsed", [])),
+        "unparsed": sum(not r["ok"] for r in report.get("parsed", [])),
+        "waves": [{k: h[k] for k in ("rows", "R", "cold", "model_calls")} for h in waves],
+        "wave_wall_s": [h["t"] - h["submitted"] for h in waves],
+        "between_harvests_s": [b["t"] - a["t"] for a, b in zip(waves, waves[1:])],
+        "llm_decisions": stats.get("llm_decisions"),
+        "fallback_decisions": stats.get("fallback_decisions"),
+        "client_fallbacks": (stats.get("client") or {}).get("fallback_decisions"),
+        "total_scheduled": stats.get("total_scheduled"),
+    })
+    times = sorted(rec["pending_to_bound_s"].values())
+    ok = (child.returncode == 0 and len(placed) == len(pods) and feasible
+          and rec["fallback_decisions"] == 0 and rec["client_fallbacks"] == 0
+          and rec["parsed"] > 0 and rec["unparsed"] == 0
+          and bool(rec["launches"]) and rec["launches"]["K1"] > 0
+          and rec["launches"]["K2"] > 0)
+    for name in sorted(rec["pending_to_bound_s"], key=rec["pending_to_bound_s"].get):
+        print(f"  run: {name} pending -> bound {rec['pending_to_bound_s'][name]:.3f} s "
+              f"on {placed.get(name)}", flush=True)
+    print(f"run: cli run ({RUN_MODEL}, temperature {rec['temperature']}) over HTTP bound "
+          f"{len(placed)} of {len(pods)} pods ({RUN_SHAPES} shapes) in "
+          f"{len(waves)} waves {rec['waves']}; pending -> bound first "
+          f"{times[0] if times else float('nan'):.3f} s, last "
+          f"{times[-1] if times else float('nan'):.3f} s; between the waves' harvests "
+          f"{rec['between_harvests_s']} s; {rec['llm_decisions']} LLM decisions, "
+          f"{rec['unparsed']} unparsed, fallbacks {rec['fallback_decisions']}; K1 / K2 "
+          f"launches {rec['launches']}; child peak {rec['peak_gib']} GiB, rc "
+          f"{child.returncode}, started in {rec['start_s']:.1f} s | {_smi()} | ok={ok}",
+          flush=True)
+    if not ok:
+        print(err[-6000:], file=sys.stderr, flush=True)
+    return ok, rec
+
+
+# --------------------------------------------------------------- sampled phase
+SAMPLED_TEMPERATURE = 0.3  # the config's llm.temperature
+
+
+def sampled_phase() -> tuple[bool, dict]:
+    """Sampled decisions replayed as CUDA graphs: a TINY engine on the card
+    (graphs on, temperature 0.3, the decision grammar over 4 nodes) runs a
+    wave of 8 copies of one prompt to capture its geometry, then two more:
+    the 16 replayed streams must not all be equal (the generator
+    registered with the graphs draws afresh at every replay), and each
+    must parse and name one of the nodes."""
+    from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
+    from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
+    from k8s_llm_scheduler_tpu_torch.utils.json_extract import parse_decision_json
+
+    nodes = synthetic_nodes(4)
+    backend = build_local_backend("tiny", device="cuda", temperature=SAMPLED_TEMPERATURE,
+                                  request_timeout_s=600.0, prewarm_idle_delay_s=NO_PREWARM_S)
+    try:
+        eng = backend.engine
+        item = backend._prepare_item(fixture_pods(1)[0], nodes)
+        backend._switch_group(item)
+        prompts = [item.suffix_ids] * eng.max_slots
+        eng.decide_wave(prompts, backend.max_new_tokens)  # captures the geometry
+        replays0 = eng._graphs.replays
+        streams = [f.token_ids for _ in range(2)
+                   for f in eng.decide_wave(prompts, backend.max_new_tokens)]
+        replayed = eng._graphs.replays - replays0
+        texts = [eng.tokenizer.decode(ids) for ids in streams]
+    finally:
+        backend.close()
+    names = {n.name for n in nodes}
+    parsed = [parse_decision_json(t) for t in texts]
+    valid = all(p is not None and p["selected_node"] in names for p in parsed)
+    distinct = len({tuple(ids) for ids in streams})
+    rec = {"streams": len(streams), "distinct": distinct, "valid": valid,
+           "replays": replayed,
+           "nodes": sorted({p["selected_node"] for p in parsed if p is not None})}
+    ok = valid and distinct > 1 and replayed > 0
+    print(f"sampled: TINY at temperature {SAMPLED_TEMPERATURE}, graphs: {distinct} distinct of "
+          f"{len(streams)} replayed streams of one prompt ({replayed} replays), all parse to "
+          f"a node={valid}, nodes {rec['nodes']} | {_smi()} | ok={ok}", flush=True)
+    return ok, rec
+
+
+# ------------------------------------------------------------ checkpoint phase
+def _write_safetensors(path: Path, tensors: dict) -> None:
+    """A safetensors file in the format's own few lines: 8-byte header
+    length, JSON header, raw little-endian bytes."""
+    import torch
+
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        t = t.contiguous().cpu()
+        raw = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes()
+        dtype = {torch.bfloat16: "BF16", torch.float32: "F32"}[t.dtype]
+        header[name] = {"dtype": dtype, "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def _tiny_hf_tensors(cfg, seed=0) -> dict:
+    """A TINY HF-layout checkpoint ([out, in] projections) from a seed."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    hd, D, F = cfg.head_dim, cfg.d_model, cfg.d_ff
+
+    def w(*shape, scale):
+        return (torch.randn(shape, generator=g) * scale).to(torch.bfloat16)
+
+    out = {"model.embed_tokens.weight": w(cfg.vocab_size, D, scale=0.02),
+           "model.norm.weight": (1 + w(D, scale=0.1).float()).to(torch.bfloat16)}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        out.update({
+            p + "input_layernorm.weight": (1 + w(D, scale=0.1).float()).to(torch.bfloat16),
+            p + "self_attn.q_proj.weight": w(cfg.n_heads * hd, D, scale=D ** -0.5),
+            p + "self_attn.k_proj.weight": w(cfg.n_kv_heads * hd, D, scale=D ** -0.5),
+            p + "self_attn.v_proj.weight": w(cfg.n_kv_heads * hd, D, scale=D ** -0.5),
+            p + "self_attn.o_proj.weight": w(D, cfg.n_heads * hd, scale=D ** -0.5),
+            p + "post_attention_layernorm.weight": (1 + w(D, scale=0.1).float()).to(
+                torch.bfloat16),
+            p + "mlp.gate_proj.weight": w(F, D, scale=D ** -0.5),
+            p + "mlp.up_proj.weight": w(F, D, scale=D ** -0.5),
+            p + "mlp.down_proj.weight": w(D, F, scale=F ** -0.5),
+        })
+    if not cfg.tie_embeddings:
+        out["lm_head.weight"] = w(cfg.vocab_size, D, scale=D ** -0.5)
+    return out
+
+
+def checkpoint_phase() -> tuple[bool, dict]:
+    """A TINY HF safetensors checkpoint from a seed (written by
+    _write_safetensors; vocab widened for the builtin numeric tokenizer)
+    loaded by build_local_backend(checkpoint_path=...) on the card and on
+    the CPU, bf16 and int8: a suffix prefill's logits on the card within
+    5e-2 of the largest logit of the same checkpoint loaded on the CPU,
+    and one greedy decision on the card that parses and names a feasible
+    node."""
+    import torch
+
+    from k8s_llm_scheduler_tpu_torch.core.validation import feasible_nodes
+    from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import build_builtin_tokenizer
+    from k8s_llm_scheduler_tpu_torch.models.configs import TINY
+    from k8s_llm_scheduler_tpu_torch.models.llama import forward_prefill_suffix_dense
+    from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
+    from k8s_llm_scheduler_tpu_torch.types import DecisionSource
+
+    _, cfg = build_builtin_tokenizer("numeric", TINY)
+    nodes = synthetic_nodes(4)
+    pod = fixture_pods(1)[0]
+    rec, ok = {"vocab": cfg.vocab_size}, True
+    with tempfile.TemporaryDirectory() as d:
+        _write_safetensors(Path(d) / "model.safetensors", _tiny_hf_tensors(cfg))
+        for quant in (None, "int8"):
+            logits, t_load = {}, {}
+            for dev in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                b = build_local_backend("tiny", device=dev, checkpoint_path=d,
+                                        tokenizer_name="numeric", quantize=quant,
+                                        temperature=0.0, request_timeout_s=600.0)
+                t_load[dev] = time.perf_counter() - t0
+                try:
+                    eng = b.engine
+                    item = b._prepare_item(pod, nodes)
+                    eng.set_prefix(item.prefix_ids)
+                    toks = torch.tensor([item.suffix_ids], dtype=torch.int32, device=dev)
+                    lg, _, _ = forward_prefill_suffix_dense(
+                        eng.params, eng.cfg, toks,
+                        torch.tensor([len(item.suffix_ids)], dtype=torch.int32, device=dev),
+                        eng._prefix.k, eng._prefix.v,
+                        torch.tensor(eng.prefix_len, dtype=torch.int32, device=dev))
+                    logits[dev] = lg.float().cpu()
+                    if dev == "cuda":
+                        decision = b.get_scheduling_decision(pod, nodes)
+                finally:
+                    b.close()
+            err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+            scale = logits["cpu"].abs().max().item()
+            names = {n.name for n in feasible_nodes(pod, nodes)}
+            good = (bool(torch.isfinite(logits["cuda"]).all()) and err <= 5e-2 * scale
+                    and decision.source == DecisionSource.LLM
+                    and decision.selected_node in names)
+            key = quant or "bf16"
+            rec[key] = {"max_abs_err": err, "max_logit": scale, "load_s": t_load,
+                        "decision": decision.selected_node, "ok": good}
+            ok = ok and good
+            print(f"checkpoint: TINY safetensors ({key}, vocab {cfg.vocab_size}, numeric "
+                  f"tokenizer) loaded in {t_load['cuda']:.2f} s on the card; suffix prefill "
+                  f"logits vs the CPU load err={err:.4g} (max |logit| {scale:.4g}); greedy "
+                  f"decision {decision.selected_node} | {_smi()} | ok={good}", flush=True)
+    return ok, rec
+
+
 def _timed_phase(name, fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -2250,6 +2759,9 @@ def main() -> int:
 
     from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
 
+    v_ok, verify = _timed_phase("cli verify", verify_phase)
+    # no other 8B model is resident on the card while cli run's child holds one
+    run_ok, run = _timed_phase("cli run", run_phase)
     nodes = synthetic_nodes(32)
     pods = fixture_pods(8)
     backend, backend_s = build_backend()
@@ -2270,6 +2782,8 @@ def main() -> int:
         backend.close()
     del backend
     torch.cuda.empty_cache()
+    ck_ok, ckpt = _timed_phase("checkpoint", checkpoint_phase)
+    s_ok, sampled = _timed_phase("sampled", sampled_phase)
     k3_ok, k3 = _timed_phase("K3", k3_phase, cfg, totals)
     k4_ok, k4 = _timed_phase("K4", k4_phase, k4_cases, long_cases=[k4_long_case()])
 
@@ -2315,6 +2829,7 @@ def main() -> int:
                   library_ms_hot=k1_main["library_ms_hot"], cold_l2=True,
                   launches_by_step=dec["k1_launches_by_step"],
                   loop_launches=loop["launches"]["K1"],
+                  run_launches=(run["launches"] or {}).get("K1"),
                   pack_chunk={k: v for k, v in next(
                       r for r in k1 if r["step"] == "pack chunk").items() if k in (
                       "shape", "ms", "ms_hot", "plain_ms", "bound_ms", "library_ms")},
@@ -2323,7 +2838,8 @@ def main() -> int:
                   "k8s_llm_scheduler_tpu_torch/csrc/causal_attention.cu",
                   "k8s_llm_scheduler_tpu/ops/pallas_prefix_attention.py:285",
                   dec["launches"]["K2"], k2_main, ms_cold=k2_main["ms_cold"],
-                  ratio=k2_main["ratio"], loop_launches=loop["launches"]["K2"]),
+                  ratio=k2_main["ratio"], loop_launches=loop["launches"]["K2"],
+                  run_launches=(run["launches"] or {}).get("K2")),
             entry("ragged_matmul", k3,
                   "k8s_llm_scheduler_tpu_torch/csrc/ragged_matmul.cu",
                   "k8s_llm_scheduler_tpu/ops/ragged_matmul.py:108",
@@ -2340,13 +2856,14 @@ def main() -> int:
         ],
         "not_ported": [],
     }
-    phases = {"kernels": k_ok, "reference": r_ok, "decision": d_ok, "admission": adm_ok,
-              "loop": l_ok,
-              "cli_demo": c_ok, "path_a": a_ok, "path_b": b_ok, "k3": k3_ok, "k4": k4_ok}
+    phases = {"cli_verify": v_ok, "cli_run": run_ok, "kernels": k_ok, "reference": r_ok,
+              "decision": d_ok, "admission": adm_ok, "loop": l_ok, "cli_demo": c_ok,
+              "path_a": a_ok, "path_b": b_ok, "checkpoint": ck_ok, "sampled": s_ok,
+              "k3": k3_ok, "k4": k4_ok}
     record = {"device": kind, "smi": smi, "build_s": build_s, "kernels": line,
-              "reference": ref, "decision": dec, "admission": adm, "loop": loop,
-              "cli_demo": demo,
-              "path_a": path_a, "path_b": path_b, "phases_ok": phases}
+              "cli_verify": verify, "cli_run": run, "reference": ref, "decision": dec,
+              "admission": adm, "loop": loop, "cli_demo": demo, "path_a": path_a,
+              "path_b": path_b, "checkpoint": ckpt, "sampled": sampled, "phases_ok": phases}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

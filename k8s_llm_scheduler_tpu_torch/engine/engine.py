@@ -22,7 +22,14 @@ engine/engine.py).
   and one block iteration replayed at most `n_iters` times. The host reads
   iteration i's "any row alive" flag while iteration i+1 runs, so the
   device never waits on the host and at most one iteration runs past the
-  last live one (it emits only pads and is not counted).
+  last live one (it emits only pads and is not counted). That host loop
+  runs on the engine's wave dispatcher thread, not the caller's:
+  `submit_wave` stages the wave, hands it over and returns at once, as the
+  JAX engine's returns without a sync; waves dispatch in FIFO order, each
+  against the prefix and grammar it was submitted under. Every other entry
+  point first waits until the dispatcher has queued all the waves
+  submitted before it (`_await_dispatch`); from there on the order of the
+  device's one stream keeps each wave's buffers from later writes.
 - **General completion** (`add_requests` / `step` / `generate`): a fixed
   decode batch of `max_slots` slots over the paged KV cache
   (engine/kv_cache.py). Admission prefills a batch of suffixes against the
@@ -61,6 +68,8 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import queue
+import threading
 import time
 import weakref
 from collections import OrderedDict, deque
@@ -68,6 +77,7 @@ from collections import OrderedDict, deque
 import numpy as np
 import torch
 
+from k8s_llm_scheduler_tpu_torch.engine.backend import BackendError
 from k8s_llm_scheduler_tpu_torch.engine.constrained import (
     DecisionDFA,
     sparse_tables,
@@ -234,15 +244,16 @@ class _WaveVariant:
     shape and the prefix length are the engine's."""
 
     def __init__(self, eng: "InferenceEngine", key: tuple, R: int, bucket: int,
-                 n_iters: int, F: int, cap: int, prefix: "_StaticPrefix") -> None:
+                 n_iters: int, F: int, cap: int, prefix: "_StaticPrefix",
+                 grammar: tuple) -> None:
         cfg, dev = eng.cfg, eng.device
         self.key, self.R, self.n_iters, self.F = key, R, n_iters, F
         self._eng = eng
         self._prefix = prefix
-        # the grammar tables of this variant's shape (set_grammar keeps one
-        # set a shape and rewrites it in place)
-        self._tables = (eng._sp_tokens, eng._sp_next, eng._forced, eng._forced_next)
-        self._constrained = eng._constrained
+        # the grammar tables of this variant's shape and whether they
+        # constrain (InferenceEngine._grammar; set_grammar keeps one set a
+        # shape and rewrites it in place)
+        self._tables, self._constrained = grammar
 
         def i32(*shape):
             return torch.zeros(shape, dtype=torch.int32, device=dev)
@@ -537,28 +548,46 @@ class Finished:
 
 @dataclasses.dataclass
 class WaveHandle:
-    """A decision wave whose device work has been issued: submit_wave
-    returns once its last iteration is queued (it read the iteration flags
-    as they landed), and the copies of its tokens to the host are queued
-    behind it (JAX: `copy_to_host_async`)."""
+    """A decision wave handed to the engine's wave dispatcher. submit_wave
+    returns it at once; the dispatcher fills in the results' host buffers,
+    the iteration count and the fence of their copies once it has queued
+    the wave's last iteration, then sets `dispatched` (JAX: a dispatched
+    program with `copy_to_host_async`). A failed dispatch leaves `error`."""
 
-    toks_h: torch.Tensor  # host [R, n_iters*F] emitted tokens (pad_id holes)
-    blk_tokens_h: torch.Tensor  # host [n_iters]: valid tokens of each model call
-    iters: int            # model calls actually run (early exit)
     n: int                # real prompts in this wave (<= R)
     max_new_tokens: int
     req_ids: list[int]
     submitted_at: float  # perf_counter at submit
-    done: Fence          # the copies to the host have landed
-    # True when this wave's geometry was captured at dispatch: its wall
+    # True when this wave's geometry was not captured at submit: its wall
     # time includes the capture, and service-time estimators skip it.
     cold_compile: bool = False
     # Compiled-variant identity (engine._wave_key).
     geo_key: tuple | None = None
+    toks_h: torch.Tensor | None = None  # host [R, n_iters*F] emitted tokens (pad_id holes)
+    blk_tokens_h: torch.Tensor | None = None  # host [n_iters]: valid tokens of each model call
+    iters: int = 0        # model calls actually run (early exit)
+    done: Fence | None = None  # the copies to the host have landed
+    error: BaseException | None = None
+    dispatched: threading.Event = dataclasses.field(default_factory=threading.Event)
 
     def is_ready(self) -> bool:
-        """True once the results landed on the host (harvest won't block)."""
-        return self.done.query()
+        """True once the results landed on the host or the dispatch failed
+        (harvest won't block). Never blocks."""
+        if not self.dispatched.is_set():
+            return False
+        return self.error is not None or self.done.query()
+
+
+def _dispatch_loop(jobs: "queue.SimpleQueue") -> None:
+    """The wave dispatcher thread: run the queued jobs in FIFO order until
+    a None arrives. It holds no reference to the engine between jobs, so
+    an engine nobody holds is freed (and its finalizer stops the thread)."""
+    while True:
+        job = jobs.get()
+        if job is None:
+            return
+        job()
+        del job
 
 
 class InferenceEngine:
@@ -587,6 +616,7 @@ class InferenceEngine:
         prefill_buckets: tuple[int, ...] = (128, 256, 512, 1024, 2048, 4096, 8192),
         chunk_steps: int = 16,
         temperature: float = 0.3,
+        top_k: int = 0,
         rng_seed: int = 0,
         prefix_chunk: int = 2048,
         paged_attn: str = "gather",
@@ -636,6 +666,10 @@ class InferenceEngine:
         # per-layer attention work at O(prefix_chunk x prefix).
         self.prefix_chunk = int(prefix_chunk)
         self.temperature = float(temperature)
+        # Kept for the fused decode loop, the one reader of top_k in the JAX
+        # engine (engine/fused/sampler.py); waves sample the whole
+        # distribution in both packages.
+        self.top_k = int(top_k)
         self.max_slots = max_slots
         # Block width of grammar-accelerated wave decoding: 1 sampled + up
         # to wave_block-1 forced tokens per model call.
@@ -647,6 +681,13 @@ class InferenceEngine:
         self._graphs = GraphRunner(
             self.device, graphs, generator=self._gen if self.temperature > 0 else None
         )
+        # The wave dispatcher (submit_wave): its job queue and thread,
+        # started at the first wave, and the count of waves handed to it
+        # whose work is not all queued on the device yet.
+        self._jobs: queue.SimpleQueue | None = None
+        self._dispatcher: threading.Thread | None = None
+        self._undispatched = 0
+        self._dispatch_cv = threading.Condition()
         # Grammar tables, one set per shape, rewritten in place by
         # set_grammar (graphs read them by address); the DFA's start and
         # done states as device scalars for the same reason.
@@ -743,6 +784,7 @@ class InferenceEngine:
         into the engine's tables of that shape (so graphs keyed by the
         shape, as the JAX engine keys its executables, read them).
         Unconstrained mode samples the full vocab minus pad."""
+        self._await_dispatch()
         if dfa is None:
             self._constrained = False
             sp_tokens = np.full((1, 1), -1, dtype=np.int32)
@@ -812,6 +854,7 @@ class InferenceEngine:
         min(prefix_chunk, largest bucket) take the chunked path. Requires
         the general path to be drained: its slots decode against the
         active prefix."""
+        self._await_dispatch()
         if self._by_slot:
             raise RuntimeError("cannot switch prefix with requests in flight")
         if not prompt_ids:
@@ -893,6 +936,7 @@ class InferenceEngine:
         key, prefix_epoch); callers check pin_alive before trusting it."""
         if not prompt_ids:
             raise ValueError("cannot pin an empty prefix")
+        self._await_dispatch()
         key = tuple(prompt_ids)
         t0 = time.perf_counter()
         self._set_prefix_inner(prompt_ids, activate=False)
@@ -907,6 +951,7 @@ class InferenceEngine:
     def unpin_prefix(self, key: tuple[int, ...]) -> None:
         """Release a pin: the entry becomes ordinary-evictable (its KV stays
         cached until byte pressure claims it)."""
+        self._await_dispatch()
         if key in self._pinned_prefix_keys:
             self._pinned_prefix_keys.discard(key)
             self.stats["pin_evictions"] += 1
@@ -984,13 +1029,14 @@ class InferenceEngine:
             done += m
         return k_buf, v_buf
 
-    def _bind_prefix(self) -> _StaticPrefix:
-        """The active prefix (the empty one if none) in the static buffer of
-        its length Sp, and its length in the static scalar: copied only
-        after a switch (~0.7 ms for 1 GB at 8B). Graphs read these buffers,
-        never a `_prefix_cache` entry, which eviction may free."""
-        prefix = self._prefix or self._get_empty_prefix()
-        self._prefix = prefix
+    def _bind_prefix(self, prefix: _PrefixKV | None = None) -> _StaticPrefix:
+        """`prefix` (default: the active prefix, the empty one if none) in
+        the static buffer of its length Sp, and its length in the static
+        scalar: copied only after a switch (~0.7 ms for 1 GB at 8B). Graphs
+        read these buffers, never a `_prefix_cache` entry, which eviction
+        may free."""
+        if prefix is None:
+            prefix = self._prefix = self._prefix or self._get_empty_prefix()
         sp = self._static_prefix.get(prefix.k.shape[1])
         if sp is None:
             sp = _StaticPrefix(k=torch.empty_like(prefix.k), v=torch.empty_like(prefix.v))
@@ -1073,10 +1119,12 @@ class InferenceEngine:
         """Capture up to `limit` missing sibling wave geometries by
         dispatching one dummy wave each (row 0 holds a single real token,
         the rest are padding; its results are discarded and it shares
-        nothing with slot state). Engine-owner thread only, like every
-        dispatch. A failed dispatch is recorded and counted, and its
-        geometry stays cold (a real wave of it captures it again, or
-        raises). Returns the number captured."""
+        nothing with slot state), on the calling thread once the dispatcher
+        has queued every wave before. Engine-owner thread only. A failed
+        dispatch is recorded and counted, and its geometry stays cold (a
+        real wave of it captures it again, or raises). Returns the number
+        captured."""
+        self._await_dispatch()
         done = 0
         for n_prompts, bucket, max_new in self._missing_wave_siblings():
             if limit is not None and done >= limit:
@@ -1105,18 +1153,27 @@ class InferenceEngine:
             done += 1
         return done
 
+    def _grammar(self) -> tuple:
+        """The installed grammar as a wave binds it: (its device tables,
+        whether it constrains)."""
+        return ((self._sp_tokens, self._sp_next, self._forced, self._forced_next),
+                self._constrained)
+
     def _run_wave(self, key, R, bucket, n_iters, F, max_new_tokens,
-                  tokens, suffix_lens, max_new):
-        """Dispatch one wave: its inputs into the variant's static buffers,
-        the suffix prefill, then block iterations until `n_iters` or until
-        no row is alive, the flags read one iteration behind; then the
-        copies of its results to the host. Returns (variant, tokens on the
-        host, valid tokens of each call on the host, iterations counted,
-        the copies' fence)."""
-        prefix = self._bind_prefix()
+                  tokens, suffix_lens, max_new, prefix=None, grammar=None):
+        """Dispatch one wave on this thread: `prefix` (default: the active
+        one) into the static prefix buffer, a new variant's grammar tables
+        `grammar` (default: the installed grammar), its inputs into the
+        variant's static buffers, the suffix prefill, then
+        block iterations until `n_iters` or until no row is alive, the flags
+        read one iteration behind; then the copies of its results to the
+        host. Returns (variant, tokens on the host, valid tokens of each
+        call on the host, iterations counted, the copies' fence)."""
+        static_prefix = self._bind_prefix(prefix)
         var = self._wave_variants.get(key)
         if var is None:
-            var = _WaveVariant(self, key, R, bucket, n_iters, F, max_new_tokens, prefix)
+            var = _WaveVariant(self, key, R, bucket, n_iters, F, max_new_tokens,
+                               static_prefix, grammar or self._grammar())
             self._wave_variants[key] = var
         var.load(tokens, suffix_lens, max_new)
         var.prefill.run()
@@ -1140,13 +1197,64 @@ class InferenceEngine:
         done.record()
         return var, toks_h, counts_h, iters, done
 
+    # ------------------------------------------------------ the dispatcher
+    def _dispatch(self, job) -> None:
+        """Hand `job` to the wave dispatcher thread, starting it if needed."""
+        if self._dispatcher is None:
+            self._jobs = queue.SimpleQueue()
+            self._dispatcher = threading.Thread(
+                target=_dispatch_loop, args=(self._jobs,), daemon=True,
+                name="wave-dispatch",
+            )
+            self._dispatcher.start()
+            weakref.finalize(self, self._jobs.put, None)
+        with self._dispatch_cv:
+            self._undispatched += 1
+        self._jobs.put(job)
+
+    def _await_dispatch(self) -> None:
+        """Wait until the dispatcher has queued on the device the work of
+        every wave submitted before: after that, work this thread queues
+        runs after theirs, so it cannot change what they read."""
+        with self._dispatch_cv:
+            while self._undispatched:
+                if not self._dispatch_cv.wait(timeout=1.0) and not self._dispatcher.is_alive():
+                    raise RuntimeError("the wave dispatcher thread died")
+
+    def _dispatch_wave(self, handle: WaveHandle, args: tuple) -> None:
+        """The dispatcher's job for one wave: run it and fill in `handle`,
+        or record the failure there; harvest_wave reads either."""
+        try:
+            var, handle.toks_h, handle.blk_tokens_h, handle.iters, handle.done = (
+                self._run_wave(*args))
+            # Recorded only after a successful dispatch (capture and
+            # replays queued): a failed one leaves the geometry cold.
+            self._wave_compiled[handle.geo_key] = (var.prefill, var.iteration)
+        except Exception as exc:
+            logger.exception("wave dispatch failed for geometry %s", handle.geo_key)
+            handle.error = exc
+        finally:
+            handle.dispatched.set()
+            with self._dispatch_cv:
+                self._undispatched -= 1
+                self._dispatch_cv.notify_all()
+
+    def close(self) -> None:
+        """Stop the wave dispatcher once it has queued every wave submitted
+        (a later wave starts it again). Waves already handed out can still
+        be harvested."""
+        self._await_dispatch()
+        if self._dispatcher is not None:
+            self._jobs.put(None)
+            self._dispatcher.join()
+            self._dispatcher = self._jobs = None
+
     def submit_wave(
         self, prompts: list[list[int]], max_new_tokens: int = 200
     ) -> WaveHandle:
-        """Run a whole batch's decode-to-completion against the installed
-        prefix and grammar (_WaveVariant); returns once its last iteration
-        is queued, its results on their way to the host. harvest_wave reads
-        them."""
+        """Stage a whole batch's decode-to-completion against the installed
+        prefix and grammar (_WaveVariant) and hand it to the dispatcher;
+        returns at once. harvest_wave reads the results."""
         if not prompts:
             raise ValueError("empty wave")
         if any(not p for p in prompts):
@@ -1164,7 +1272,6 @@ class InferenceEngine:
         R, n_iters, F = self._wave_geometry(len(prompts), max_new_tokens)
         self._wave_shapes_seen.add((bucket, max_new_tokens))
         geo_key = self._wave_key(R, bucket, n_iters, F, max_new_tokens)
-        cold_compile = geo_key not in self._wave_compiled
         pad = self.tokenizer.pad_id
         tokens = np.full((R, bucket), pad, dtype=np.int32)
         suffix_lens = np.zeros(R, dtype=np.int32)
@@ -1173,27 +1280,32 @@ class InferenceEngine:
             tokens[row, : len(ids)] = ids
             suffix_lens[row] = len(ids)
             max_new[row] = max_new_tokens
-        var, toks_h, counts_h, iters, done = self._run_wave(
-            geo_key, R, bucket, n_iters, F, max_new_tokens, tokens, suffix_lens, max_new
-        )
-        # Recorded only after a successful dispatch (capture and replays
-        # queued): a failed one leaves the geometry cold.
-        self._wave_compiled[geo_key] = (var.prefill, var.iteration)
         req_ids = list(range(self._req_counter, self._req_counter + len(prompts)))
         self._req_counter += len(prompts)
+        handle = WaveHandle(
+            n=len(prompts), max_new_tokens=max_new_tokens, req_ids=req_ids,
+            submitted_at=submitted_at,
+            cold_compile=geo_key not in self._wave_compiled, geo_key=geo_key,
+        )
+        # the prefix and grammar this wave was submitted under, bound on the
+        # dispatcher in FIFO order
+        args = (geo_key, R, bucket, n_iters, F, max_new_tokens, tokens, suffix_lens,
+                max_new, self._prefix, self._grammar())
+        self._dispatch(lambda: self._dispatch_wave(handle, args))
         self.stats["waves"] += 1
         self.stats["dispatches"] += 1
         self.stats["prefill_tokens"] += int(suffix_lens.sum())
         self.stats["requests"] += len(prompts)
-        return WaveHandle(
-            toks_h=toks_h, blk_tokens_h=counts_h, iters=iters, n=len(prompts),
-            max_new_tokens=max_new_tokens, req_ids=req_ids,
-            submitted_at=submitted_at, done=done, cold_compile=cold_compile,
-            geo_key=geo_key,
-        )
+        return handle
 
     def harvest_wave(self, handle: WaveHandle) -> list[Finished]:
-        """One wave's results from the host buffers (waits for their copy)."""
+        """One wave's results from the host buffers: waits for its dispatch,
+        then for their copy. A failed dispatch raises BackendError."""
+        while not handle.dispatched.wait(timeout=1.0):
+            if self._dispatcher is None or not self._dispatcher.is_alive():
+                raise BackendError("the wave dispatcher stopped before this wave ran")
+        if handle.error is not None:
+            raise BackendError(f"wave dispatch failed: {handle.error}") from handle.error
         handle.done.synchronize()
         toks_np = handle.toks_h.numpy()
         self.block_tokens.extend(handle.blk_tokens_h[: handle.iters].tolist())
@@ -1263,6 +1375,7 @@ class InferenceEngine:
         step()."""
         if not prompts:
             return []
+        self._await_dispatch()
         if any(not p for p in prompts):
             raise ValueError("empty prompt")
         if len(prompts) > self.free_slots:
@@ -1363,6 +1476,7 @@ class InferenceEngine:
         in f32 (tests/test_torch_admission.py)."""
         if not prompts:
             return []
+        self._await_dispatch()
         if any(not p for p in prompts):
             raise ValueError("empty prompt")
         if len(prompts) > self.free_slots:
@@ -1517,6 +1631,7 @@ class InferenceEngine:
         """Free every in-flight slot and its KV pages, deactivate every
         slot on the device and drop parked emissions: the recovery path
         after a failed step, so the engine never leaks capacity."""
+        self._await_dispatch()
         for slot in list(self._by_slot):
             self.kv.free_slot(slot)
             del self._by_slot[slot]
@@ -1530,6 +1645,7 @@ class InferenceEngine:
     def step(self, chunks: int = 1) -> list[Finished]:
         """Run `chunks` decode chunks back to back, then ONE host sync;
         returns the requests that finished (and any parked earlier)."""
+        self._await_dispatch()
         pend = self._pending_finished
         self._pending_finished = []
         if not self._by_slot:

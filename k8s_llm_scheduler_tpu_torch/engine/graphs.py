@@ -15,7 +15,8 @@ thousands of kernel launches of its eager run.
   it is captured on that stream into the runner's one memory pool. An
   idempotent program (one whose result depends only on its inputs) is then
   replayed once, so its capture is proven before anything relies on it.
-- **Later runs** replay the graph on the current stream.
+- **Later runs** replay the graph on the current stream: the device's
+  default stream, on every thread that runs programs.
 - **No fallback**: a failed warm-up, capture or replay raises; the program
   stays uncaptured and the next run tries again.
 - **Launch accounting**: the kernel wrappers count their launches on the
@@ -128,7 +129,13 @@ class GraphRunner:
         before = [w.launches for w in counted]
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=side):
+            # "thread_local": the engine captures on whichever thread runs
+            # a program first (the wave dispatcher, or the engine's owner),
+            # while the other goes on with its own CUDA calls (event
+            # queries and syncs, pinned host buffers); under the default
+            # "global" mode any of them would invalidate the capture.
+            with torch.cuda.graph(graph, pool=self.pool, stream=side,
+                                  capture_error_mode="thread_local"):
                 prog.fn()
         finally:
             recorded = [w.launches - n for w, n in zip(counted, before)]

@@ -14,14 +14,15 @@ decision waves (submit_wave / harvest_wave), as the reference's worker does
 (JAX local.py:823-907, 1034-1197): a deque of waves in flight, a harvest
 poll on the oldest bounded by a per-geometry EMA of wave service time,
 stragglers held briefly (`partial_hold_s`) to fill a ragged tail, and group
-switches under load bounded by `group_switch_after_s`. The port's
-submit_wave returns only once the wave's last iteration is queued (it reads
-each iteration's alive flag), so the poll mostly finds the wave done.
+switches under load bounded by `group_switch_after_s`. submit_wave hands
+the wave to the engine's dispatcher thread and returns at once, so the
+worker queues the next wave, or harvests the oldest, while one runs.
 
 Requests group by (prompt prefix, grammar) — both keyed by the cluster
 snapshot; a new group installs its prefix KV and DFA between waves, on the
-worker thread only (graph capture is global to the process). Advisory
-`prewarm_prefix` installs and `run_quiesced` controls ride the same queue.
+worker thread only (the engine orders the install after the waves already
+submitted). Advisory `prewarm_prefix` installs and `run_quiesced`
+controls ride the same queue.
 Idle for `prewarm_idle_delay_s`, the worker captures the wave geometries
 next to those already served, one at a time (engine.prewarm_wave_siblings).
 
@@ -33,9 +34,9 @@ worker steps every tick (`_drive_packs`) beside the waves; with
 `delta_prompts`, the cluster part of every prompt renders as a pinned
 snapshot plus a STATE UPDATES diff (sched/delta.py), and the snapshot's
 prefix KV is pinned (engine/admission/pinned.py) before its group installs,
-so the install prefills only the diff. Both are off by default, as the
-port's waves were before; `cli.DEFAULTS` turns them on at the reference
-config's values.
+so the install prefills only the diff. The backend defaults both off;
+build_local_backend turns packed admission on, as the JAX one does, and
+the config's `admission.*` keys (cli._backend_kwargs) set both.
 
 Not ported yet: the persistent loop (ROADMAP Queue 1 item 7), the KV plane
 and the engine profiler's fences (item 8), speculative decoding, and the
@@ -53,6 +54,7 @@ from collections import deque
 from collections.abc import Sequence
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FuturesTimeout
+from pathlib import Path
 from types import SimpleNamespace
 from typing import Any
 
@@ -68,10 +70,10 @@ from k8s_llm_scheduler_tpu_torch.engine.backend import (
 from k8s_llm_scheduler_tpu_torch.engine.admission.pinned import PinnedPrefixManager
 from k8s_llm_scheduler_tpu_torch.engine.constrained import build_decision_dfa
 from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
-from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer, Tokenizer
+from k8s_llm_scheduler_tpu_torch.engine.tokenizer import Tokenizer
 from k8s_llm_scheduler_tpu_torch.models.configs import get_config
 from k8s_llm_scheduler_tpu_torch.models.llama import init_params
-from k8s_llm_scheduler_tpu_torch.models.quant import init_params_int8_host
+from k8s_llm_scheduler_tpu_torch.models.quant import init_params_int8_host, quantize_params
 from k8s_llm_scheduler_tpu_torch.observability import spans
 from k8s_llm_scheduler_tpu_torch.sched.delta import SnapshotDeltaEncoder
 from k8s_llm_scheduler_tpu_torch.types import (
@@ -888,6 +890,9 @@ class LocalLLMBackend:
         self._stopped.set()
         self._queue.put(None)
         self._worker.join(timeout=30)
+        close_engine = getattr(self.engine, "close", None)  # engine test doubles
+        if close_engine is not None and not self._worker.is_alive():
+            close_engine()
 
     def get_stats(self) -> dict[str, Any]:
         out = self.engine.get_stats()
@@ -914,41 +919,113 @@ def build_local_backend(
     device: str | torch.device = "cuda",
     seed: int = 0,
     *,
-    request_timeout_s: float = 60.0,
-    quantize: str | None = None,
+    temperature: float = 0.3,
+    top_k: int = 0,
+    max_slots: int = 8,
+    num_pages: int = 512,
+    page_size: int = 64,
+    max_pages_per_seq: int | None = None,
+    prefill_buckets: tuple[int, ...] = (128, 256, 512, 1024, 2048, 4096, 8192),
+    chunk_steps: int = 16,
+    prefix_chunk: int = 2048,
+    paged_attn: str = "gather",
     decode_matmul: str = "dense",
+    quantize: str | None = None,
+    max_new_tokens: int = 200,
+    constrained: bool = True,
+    checkpoint_path: str | None = None,
+    tokenizer_path: str | None = None,
+    tokenizer_name: str = "byte",
+    request_timeout_s: float = 60.0,
+    group_switch_after_s: float = 0.25,
+    partial_hold_s: float = 0.03,
+    prewarm_idle_delay_s: float = 0.5,
+    answer_style: str = "direct",
+    max_reason_tokens: int = 320,
     graphs: bool = True,
-    packed_admission: bool = False,
+    packed_admission: bool = True,
     admission_chunk_tokens: int = 256,
     delta_prompts: bool = False,
     repin_fraction: float = 0.25,
     max_pins: int = 4,
 ) -> LocalLLMBackend:
-    """The local stack with random weights from `seed` on `device`: params,
-    byte tokenizer, a greedy engine and a grammar-constrained backend, all
-    other settings at their defaults. `quantize="int8"` draws and quantizes
-    the weights on the host (models/quant.init_params_int8_host), so only
-    int8 weights reach the device; `decode_matmul="ragged"` runs block
-    decode's matmuls through K3; `graphs=False` runs the engine's waves
-    eagerly where it would replay CUDA graphs. The admission plane's
-    settings are the reference config's `admission.*` keys (cli.DEFAULTS
-    holds their values there; off here unless asked for)."""
+    """The local stack on `device` with the JAX package's settings and
+    defaults (JAX local.py:1431-1480): params, tokenizer, engine and a
+    grammar-constrained backend.
+
+    Params come from `checkpoint_path` when it is set (an HF safetensors
+    dir, or a native checkpoint of models/loader.save_checkpoint), else
+    they are random from `seed`. `quantize="int8"` quantizes the weights
+    (a checkpoint's one stacked weight at a time; random ones are drawn
+    and quantized on the host, models/quant.init_params_int8_host, so only
+    int8 weights reach the device). The tokenizer is the HF one at
+    `tokenizer_path`, or the checkpoint's own when it ships one and
+    `tokenizer_name` is "byte", else the builtin `tokenizer_name`, which
+    may widen the model's vocab (engine/tokenizer.build_builtin_tokenizer).
+    `temperature` 0 decodes greedily; `top_k` is kept on the engine.
+    `decode_matmul="ragged"` runs block decode's matmuls through K3;
+    `graphs=False` runs the engine's waves eagerly where it would replay
+    CUDA graphs. The admission plane's settings are the config's
+    `admission.*` keys."""
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import (
+        HFTokenizerAdapter,
+        build_builtin_tokenizer,
+    )
+
     dev = resolve_device(device)
     if quantize is not None and quantize != "int8":
         raise ValueError(f"unknown quantization {quantize!r} (only 'int8')")
     cfg = get_config(model)
-    if quantize == "int8":
+    builtin_tokenizer = None
+    if tokenizer_path is None and not (
+        checkpoint_path
+        and tokenizer_name == "byte"
+        and (Path(checkpoint_path) / "tokenizer.json").exists()
+    ):
+        # before the params are built: the builtin may widen the vocab
+        builtin_tokenizer, cfg = build_builtin_tokenizer(tokenizer_name, cfg)
+    if checkpoint_path:
+        from k8s_llm_scheduler_tpu_torch.models.loader import (
+            load_hf_checkpoint,
+            restore_checkpoint,
+        )
+
+        ckpt = Path(checkpoint_path)
+        if list(ckpt.glob("*.safetensors")):
+            params = load_hf_checkpoint(ckpt, cfg, device=dev, quantize=quantize)
+        else:
+            params = restore_checkpoint(ckpt, cfg, device=dev)
+            if quantize is not None:
+                params = quantize_params(params)
+    elif quantize == "int8":
         params = init_params_int8_host(seed, cfg, device=dev)
     else:
         params = init_params(cfg, seed=seed, device=dev)
-    tokenizer = ByteTokenizer()
+    tokenizer = builtin_tokenizer or HFTokenizerAdapter(tokenizer_path or checkpoint_path)
+    if max_pages_per_seq is None:
+        # own pages hold a pod's suffix and its generated tokens (the
+        # shared prefix lives in the dense prefix buffer): the largest
+        # suffix expected (1024 tokens) plus the decode budget
+        max_pages_per_seq = -(-(1024 + max_new_tokens + chunk_steps) // page_size)
     engine = InferenceEngine(
-        params, cfg, tokenizer, temperature=0.0, rng_seed=seed,
+        params, cfg, tokenizer,
+        num_pages=num_pages, page_size=page_size, max_slots=max_slots,
+        max_pages_per_seq=max_pages_per_seq, prefill_buckets=prefill_buckets,
+        chunk_steps=chunk_steps, prefix_chunk=prefix_chunk, paged_attn=paged_attn,
+        temperature=temperature, top_k=top_k, rng_seed=seed,
         decode_matmul=decode_matmul, graphs=graphs,
         admission_chunk_tokens=admission_chunk_tokens,
     )
     return LocalLLMBackend(
-        engine, tokenizer, request_timeout_s=request_timeout_s,
-        packed_admission=packed_admission, delta_prompts=delta_prompts,
-        repin_fraction=repin_fraction, max_pins=max_pins,
+        engine, tokenizer, max_new_tokens=max_new_tokens, constrained=constrained,
+        request_timeout_s=request_timeout_s,
+        group_switch_after_s=group_switch_after_s,
+        partial_hold_s=partial_hold_s,
+        prewarm_idle_delay_s=prewarm_idle_delay_s,
+        answer_style=answer_style,
+        max_reason_tokens=max_reason_tokens,
+        packed_admission=packed_admission,
+        delta_prompts=delta_prompts,
+        repin_fraction=repin_fraction,
+        max_pins=max_pins,
     )

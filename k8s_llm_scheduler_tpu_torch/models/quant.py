@@ -24,23 +24,28 @@ Params = dict
 
 # Dense weight leaves that quantize (stacked [L, in, out]).
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+_INV_127 = float(np.float32(1.0 / 127.0))  # 1/127 rounded to f32, as XLA folds it
 
 
-def quantize_weight(w: torch.Tensor) -> dict[str, torch.Tensor]:
+def quantize_weight(w: torch.Tensor, reciprocal: bool = False) -> dict[str, torch.Tensor]:
     """Symmetric per-output-channel int8 quantization of [..., in, out].
     A stacked weight is quantized one leading slice at a time, so the f32
-    transient is one layer's matrix."""
+    transient is one layer's matrix. `reciprocal` computes the scale as
+    max * f32(1/127), as XLA compiles the JAX package's jitted quantization
+    (its HF loader's); the default divides by 127, as the JAX function does
+    run eagerly. The two differ in the last bit of some scales."""
     if w.dim() > 2:
         q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
         scale = torch.empty(
             (*w.shape[:-2], 1, w.shape[-1]), dtype=torch.float32, device=w.device
         )
         for i in range(w.shape[0]):
-            part = quantize_weight(w[i])
+            part = quantize_weight(w[i], reciprocal)
             q[i], scale[i] = part["q"], part["scale"]
         return {"q": q, "scale": scale}
     wf = w.float()
-    scale = wf.abs().amax(dim=-2, keepdim=True) / 127.0
+    amax = wf.abs().amax(dim=-2, keepdim=True)
+    scale = amax * _INV_127 if reciprocal else amax / 127.0
     scale = torch.clamp(scale, min=1e-12)
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"q": q, "scale": scale}

@@ -12,6 +12,7 @@ come from the JAX init through models/convert.py, inputs from numpy seeds.
 """
 
 import asyncio
+import copy
 import dataclasses
 import time
 
@@ -37,6 +38,7 @@ from k8s_llm_scheduler_tpu.sched.loop import Scheduler as JScheduler
 from k8s_llm_scheduler_tpu.types import NodeMetrics as JNodeMetrics
 from k8s_llm_scheduler_tpu.types import PodSpec as JPodSpec
 from k8s_llm_scheduler_tpu_torch import cli
+from k8s_llm_scheduler_tpu_torch.config import DEFAULTS, Config
 from k8s_llm_scheduler_tpu_torch import testing as ttesting
 from k8s_llm_scheduler_tpu_torch.engine import constrained as tconstrained
 from k8s_llm_scheduler_tpu_torch.engine.admission import PinnedPrefixManager
@@ -58,6 +60,9 @@ JMICRO = jconfigs.LlamaConfig(**_MICRO, dtype=jnp.float32)
 TMICRO = tconfigs.LlamaConfig(**_MICRO, dtype=torch.float32)
 RTOL = ATOL = 1e-4  # f32, as tests/test_torch_model.py
 TIMEOUT_S = 600.0  # a slow decision on a crowded CPU must never time out
+# the backend settings of the config's `admission.*` keys (cli._backend_kwargs)
+ADMISSION_KEYS = ("packed_admission", "admission_chunk_tokens", "delta_prompts",
+                  "repin_fraction", "max_pins")
 
 
 @pytest.fixture(scope="module")
@@ -623,12 +628,13 @@ def _two_bursts(testing, make_scheduler):
 
 
 def test_two_bursts_bind_where_the_jax_loop_binds_with_a_delta_second(params):
-    """cli.DEFAULTS' admission plane on the port, the JAX config's on the
+    """The config's default admission plane on the port, the JAX config's on the
     JAX loop: every pod of both bursts bound to the same node, no fallback,
     the first burst's prompts pinned and the second's delta-encoded over
     that pin."""
     jp, tp = params
-    kw = cli.admission_kwargs()
+    kw = {k: v for k, v in cli._backend_kwargs(Config(copy.deepcopy(DEFAULTS))).items()
+          if k in ADMISSION_KEYS}
     chunk_tokens = kw.pop("admission_chunk_tokens")
     jbackend = JBackend(
         j_engine(jp, max_pages_per_seq=32, admission_chunk_tokens=chunk_tokens),
@@ -649,7 +655,9 @@ def test_two_bursts_bind_where_the_jax_loop_binds_with_a_delta_second(params):
     backend = t_backend(tp, engine_kw={"admission_chunk_tokens": chunk_tokens}, **kw)
     try:
         got, tstats = _two_bursts(
-            ttesting, lambda c: cli.build_stack(backend, c, snapshot_ttl_s=SNAPSHOT_TTL_S))
+            ttesting, lambda c: cli.build_stack(Config(copy.deepcopy(DEFAULTS)), c,
+                                                backend=backend,
+                                                snapshot_ttl_s=SNAPSHOT_TTL_S)[0])
         stats = backend.get_stats()
     finally:
         backend.close()

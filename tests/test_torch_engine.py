@@ -289,7 +289,8 @@ class TestBackend:
 
 
 def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
-    """Nor yaml: the port reads no config file."""
+    """Nor yaml, safetensors or transformers: the port imports each only
+    where it is used (a config file read, a tokenizer directory loaded)."""
     code = (
         "import sys, json\n"
         "import k8s_llm_scheduler_tpu_torch as p\n"
@@ -309,9 +310,17 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "k8s_llm_scheduler_tpu_torch.sched.loop, "
         "k8s_llm_scheduler_tpu_torch.observability.spans, "
         "k8s_llm_scheduler_tpu_torch.observability.trace, "
+        "k8s_llm_scheduler_tpu_torch.config, "
+        "k8s_llm_scheduler_tpu_torch.logging_setup, "
+        "k8s_llm_scheduler_tpu_torch.cluster.httpapi, "
+        "k8s_llm_scheduler_tpu_torch.cluster.kube, "
+        "k8s_llm_scheduler_tpu_torch.cluster.wire_fake, "
+        "k8s_llm_scheduler_tpu_torch.engine.tokenizer, "
+        "k8s_llm_scheduler_tpu_torch.models.loader, "
         "k8s_llm_scheduler_tpu_torch.cli\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'yaml')"
-        " or m.startswith(('jax.', 'yaml.'))"
+        "bad = sorted(m for m in sys.modules"
+        " if m in ('jax', 'yaml', 'safetensors', 'transformers')"
+        " or m.startswith(('jax.', 'yaml.', 'safetensors.', 'transformers.'))"
         " or m == 'k8s_llm_scheduler_tpu' or m.startswith('k8s_llm_scheduler_tpu.'))\n"
         "print(json.dumps(bad))\n"
     )

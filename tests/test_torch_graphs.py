@@ -24,6 +24,7 @@ from k8s_llm_scheduler_tpu_torch import testing as ttesting
 from k8s_llm_scheduler_tpu_torch.core import prompt as tprompt
 from k8s_llm_scheduler_tpu_torch.engine import constrained as tconstrained
 from k8s_llm_scheduler_tpu_torch.engine import graphs as tgraphs
+from k8s_llm_scheduler_tpu_torch.engine.backend import BackendError
 from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine as TEngine
 from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
@@ -161,7 +162,8 @@ def test_submit_and_harvest_match_the_jax_engine(tiny_params, cluster_prompts):
     want = jeng.harvest_wave(jh)
     th = teng.submit_wave(suffixes[:5], 90)
     assert (th.cold_compile, th.geo_key) == (jh.cold_compile, jh.geo_key)
-    assert th.is_ready()
+    # submit_wave returns at once; the wave is ready once dispatched
+    assert th.dispatched.wait(timeout=600) and th.is_ready()
     got = teng.harvest_wave(th)
     assert [f.token_ids for f in got] == [f.token_ids for f in want]
     assert th.iters == int(jh.iters_d) == teng.stats["wave_model_calls"]
@@ -185,6 +187,7 @@ def test_wave_bookkeeping_and_prewarm_match_jax(tiny_params, cluster_prompts):
         return (sorted(eng._wave_compiled), sorted(eng._wave_shapes_seen),
                 sorted(eng._missing_wave_siblings()), eng.wave_prewarm_backlog())
 
+    teng._await_dispatch()  # a geometry is booked once the dispatcher queued its wave
     assert books(teng) == books(jeng)
     assert [h.geo_key for h in handles["torch"]] == [h.geo_key for h in handles["jax"]]
     assert [h.cold_compile for h in handles["torch"]] == [True, True, True]
@@ -205,7 +208,7 @@ def test_failed_prewarm_is_recorded_and_stays_cold(tiny_params, cluster_prompts,
     prefix, suffixes = cluster_prompts
     _, teng = _engines(tiny_params, True)
     teng.set_prefix(prefix)
-    teng.submit_wave(suffixes[:2], 90)
+    teng.decide_wave(suffixes[:2], 90)
 
     def broken(*args, **kwargs):
         raise RuntimeError("capture failed")
@@ -216,8 +219,8 @@ def test_failed_prewarm_is_recorded_and_stays_cold(tiny_params, cluster_prompts,
     assert teng.wave_prewarm_backlog() == 0  # excluded, as the JAX engine does
     (key,) = teng._wave_prewarm_failed
     assert key not in teng._wave_compiled
-    with pytest.raises(RuntimeError, match="capture failed"):
-        teng.submit_wave(suffixes[:8], 90)  # a real dispatch raises
+    with pytest.raises(BackendError, match="capture failed"):
+        teng.decide_wave(suffixes[:8], 90)  # a real dispatch fails its wave
     assert key not in teng._wave_compiled
 
 

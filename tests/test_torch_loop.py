@@ -11,6 +11,7 @@ the pod and that snapshot, not on timing.
 """
 
 import asyncio
+import copy
 import dataclasses
 import json
 import subprocess
@@ -38,6 +39,7 @@ from k8s_llm_scheduler_tpu.sched.loop import Scheduler as JScheduler
 from k8s_llm_scheduler_tpu_torch import cli
 from k8s_llm_scheduler_tpu_torch import testing as ttesting
 from k8s_llm_scheduler_tpu_torch.cluster.interface import raw_pod_to_spec
+from k8s_llm_scheduler_tpu_torch.config import DEFAULTS, Config
 from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine as TEngine
 from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend as TBackend
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
@@ -51,6 +53,7 @@ N_NODES = 4
 SNAPSHOT_TTL_S = 3600.0  # one snapshot for the whole burst
 TIMEOUT_S = 600.0  # a slow first wave must never turn into a retry
 MAX_NEW = 80  # at most 12 reasoning tokens: short decisions keep the file quick
+DEFAULT_CONFIG = Config(copy.deepcopy(DEFAULTS))  # the config's defaults: no file, no env
 
 
 def _pods(testing):
@@ -121,7 +124,8 @@ def _torch_loop(tp, decode_matmul):
     try:
         placed, stats = _run(
             ttesting,
-            lambda cluster: cli.build_stack(backend, cluster, snapshot_ttl_s=SNAPSHOT_TTL_S),
+            lambda cluster: cli.build_stack(DEFAULT_CONFIG, cluster, backend=backend,
+                                            snapshot_ttl_s=SNAPSHOT_TTL_S)[0],
         )
         return placed, stats, dict(backend.counters)
     finally:
@@ -251,4 +255,5 @@ def test_cli_demo_defaults_to_cuda_and_raises_without_it():
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
     assert cli.build_parser().parse_args(["demo"]).device == "cuda"
-    assert cli.build_parser().parse_args(["demo"]).model == cli.DEFAULTS["llm.model"]
+    assert cli.build_parser().parse_args(["demo"]).model is None  # llm.model decides
+    assert DEFAULT_CONFIG.get("llm.model") == "llama-3.2-1b-instruct"

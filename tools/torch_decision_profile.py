@@ -226,7 +226,8 @@ def build(model: str, path: str, seed: int, graphs: bool):
     is built apart), or (path "a") int8 weights quantized on the card with
     block-decode matmuls through K3."""
     backend = build_local_backend(model, device="cuda", seed=seed, request_timeout_s=600.0,
-                                  **graph_kw(graphs))
+                                  temperature=0.0, packed_admission=False,
+                                  max_pages_per_seq=64, **graph_kw(graphs))
     if path != "a":
         return backend
     engine = backend.engine
