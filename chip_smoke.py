@@ -137,7 +137,29 @@ Phases, each of which must pass:
    graphs, then eagerly). Every request finishes with 1-64 tokens, the
    modes emit identical tokens, K4 launched, launches per run equal, the
    graph-mode step launched no kernel outside a graph, and every page is
-   returned.
+   returned. Its engines run fused_decode=False, so generate() drains
+   through step() as before the fused runtime; that has phase 6c.
+6c. Fused: path B's configuration, both modes: the 8 drained by step(),
+   one generate() (which must go through decode_fused), then the 8 by
+   decode_fused(): its tokens equal the step() drain's, it books exactly
+   max(tokens) - 1 steps and sum(tokens - 1) decode tokens, and K4
+   launches 32 times a step inside its program (graph mode: the launches
+   of the conditional bodies that ran); the modes' tokens identical. Ms a
+   step and tok/s beside path B's, and the device ms (CUDA events) of one
+   live 16-step chunk and of the chunk's program run on the finished batch
+   (mean of 10 back-to-back runs). Then one sampled drain at 0.3 with top-k 40 (graphs):
+   every token a decodable id, never pad.
+6d. Persistent (a): the 8B bf16 weights in an engine with
+   paged_attn="gather" (the loop's own-token attention, as in the JAX
+   loop), suffix bucket 256; the 8 suffixes admitted one at a time and
+   drained by decode_fused give the reference; a warm-up residency
+   captures the loop's two programs; then enter_persistent, the 8 through
+   the command ring and step_persistent until done: the reference's
+   tokens, the counter block's `emitted` equal to the decode tokens
+   harvested, no torch op on the owner thread (a thread-local dispatch
+   mode counts them) and no dispatch booked, K1 and K2 launched by the
+   loop's admissions. Then a quiesce mid-stream and step_fused to the end:
+   the reference's tokens again.
 6a. Checkpoint: a TINY HF-layout safetensors checkpoint from a seed,
    written in the format's own few lines (no `safetensors` package), vocab
    widened for the builtin numeric tokenizer, loaded through
@@ -150,6 +172,17 @@ Phases, each of which must pass:
    8 copies of one prompt are replayed; their 16 streams must not all be
    equal (the generator registered with the graphs draws afresh) and each
    must parse and name a node.
+6e. Persistent (b): TINY through LocalLLMBackend(persistent_loop=True) on
+   the card (graphs, temperature 0.3, suffix bucket 1024): 6 decisions at
+   once, every one admitted through the resident loop (no wave, no
+   fallback, no wedge), parsed and feasible.
+6f. cli complete: `python -m k8s_llm_scheduler_tpu_torch.cli complete` at
+   8B in a child process started after phase 6d (the TINY phases run
+   beside it), greedy, 64 new tokens, on an 11,349-token prompt (past the
+   largest prefill bucket, 8,192, by more than a prefix chunk): exit 0,
+   text printed, the prompt's head through set_prefix's chunked path, K1
+   and K2 launched in the child, the tail decoded by fused chunks; its
+   wall time and peak memory.
 7. K3, untimed, at `K3_EDGE_CASES` (TINY's widths, N and K not whole
    tiles, M = 96 and 384, totals 0 / 1 / 64 / 65 / M), then at the seven 8B
    weight shapes, int8 pairs and bf16, x [R*24, K] for R = 4 and 8, and
@@ -2307,8 +2340,11 @@ def path_b_phase(backend, nodes, pods):
     rec = {"model": "llama-3.1-8b-instruct bf16, paged_attn=pallas",
            "suffix_tokens": [len(sfx) for sfx in suffixes]}
     for mode, graphs in MODES:
+        # step() and a generate() that drains through step(): the fused
+        # runtime has its own phase
         eng = InferenceEngine(backend.engine.params, cfg, ByteTokenizer(), temperature=0.0,
-                              paged_attn="pallas", max_slots=8, page_size=64, graphs=graphs)
+                              paged_attn="pallas", max_slots=8, page_size=64, graphs=graphs,
+                              fused_decode=False)
         eng.set_prefix(items[0].prefix_ids)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2369,6 +2405,504 @@ def path_b_phase(backend, nodes, pods):
     cases = [(step, q_shape, g["pages_shape"], t.cpu(), l.cpu())
              for step, t, l in g["shapes"]]
     return ok, rec, cases
+
+
+# ------------------------------------------------------------------ fused phase
+FUSED_TOP_K = 40
+FUSED_DEAD_REPS = 10
+# the fused chunk's sampling over constant probabilities (testing.chunk_draws:
+# 16 runs of 16 steps on 64 slots, vocab 32): a draw equals its slot's draw
+# at step 0 by chance ~0.04 of the time, and 16,384 draws lie ~0.02 from
+# the softmax in total variation
+CHUNK_REPEAT_LIMIT = 0.25
+CHUNK_TV_LIMIT = 0.05
+
+
+def _events():
+    import torch
+
+    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+
+def _live_chunk_ms(eng) -> tuple[float, int]:
+    """Device ms (CUDA events) of one fused chunk dispatched on the live
+    batch, and the steps it ran; its emissions park for the next harvest.
+    The prefix and page tables are bound first, so no host copy lands in
+    the window."""
+    eng._bind_prefix()
+    eng._padded_tables()
+    start, end = _events()
+    start.record()
+    toks, steps, prog = eng._fused_chunk_dispatch()
+    end.record()
+    end.synchronize()
+    eng._pending_emissions.append(toks)
+    return start.elapsed_time(end), eng._book_fused_steps([(steps, prog)])
+
+
+def _dead_chunk_ms(eng, reps: int) -> tuple[float, int]:
+    """Device ms (CUDA events) of the fused chunk's program run `reps`
+    times back to back on the finished batch, per run, and the steps the
+    last ran: one dispatch first binds the tables and finds the program,
+    then its replays alone are timed (no host buffer, no copy in the
+    window)."""
+    toks, steps, prog = eng._fused_chunk_dispatch()
+    eng._book_fused_steps([(steps, prog)])
+    start, end = _events()
+    start.record()
+    for _ in range(reps):
+        prog.run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, int(eng._chunk.j)
+
+
+def _fused_run(eng, suffixes) -> dict:
+    """On `eng` (its prefix installed): the 8 suffixes drained by step(),
+    one generate() (its fused chunks capture the program), the 8 drained
+    by decode_fused() (timed, with its books and K4 launches), then a live
+    chunk and, on the finished batch, dead chunks timed alone."""
+    import torch
+
+    n = PATH_B_NEW_TOKENS
+    ids = eng.add_requests(suffixes, max_new_tokens=n)
+    fins = []
+    while eng.has_active:
+        fins += eng.step()
+    by_step = {f.req_id: f.token_ids for f in fins}
+    stepped = [by_step[i] for i in ids]
+    chunks1 = eng.stats["fused_chunks"]
+    t1 = time.perf_counter()
+    gen = eng.generate(suffixes[0], max_new_tokens=n)
+    gen_rec = dict(generate=gen.token_ids, generate_s=time.perf_counter() - t1,
+                   generate_chunks=eng.stats["fused_chunks"] - chunks1)
+    steps0, tok0, chunks0 = (eng.stats[k] for k in ("fused_steps", "decode_tokens",
+                                                    "fused_chunks"))
+    k4_0 = _launch_counts()["K4"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = eng.add_requests(suffixes, max_new_tokens=n)
+    done = {f.req_id: f.token_ids for f in eng.decode_fused()}
+    wall = time.perf_counter() - t0
+    fused = [done.get(i) for i in ids]
+    steps = eng.stats["fused_steps"] - steps0
+    rec = {
+        "tokens": fused, "stepped": stepped,
+        "wall_s": wall, "fused_steps": steps, "chunks": eng.stats["fused_chunks"] - chunks0,
+        "decode_tokens": eng.stats["decode_tokens"] - tok0,
+        "k4_launches": _launch_counts()["K4"] - k4_0, **gen_rec,
+    }
+    # a live chunk (16 steps on 8 slots) beside over-dispatched ones on the
+    # finished batch; the live batch then drains
+    ids = eng.add_requests(suffixes, max_new_tokens=n)
+    rec["live_chunk_ms"], rec["live_chunk_steps"] = _live_chunk_ms(eng)
+    while eng.has_active:
+        eng.decode_fused()
+    rec["dead_chunk_ms"], rec["dead_chunk_steps"] = _dead_chunk_ms(eng, FUSED_DEAD_REPS)
+    return rec
+
+
+def _sampled_fused(params, cfg, prefix, suffixes) -> dict:
+    """Two sampled decode_fused drains at temperature 0.3 with top-k 40
+    (graphs), the second timed: every token a decodable id, never pad,
+    within the budget."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    eng = InferenceEngine(params, cfg, tok, temperature=SAMPLED_TEMPERATURE,
+                          top_k=FUSED_TOP_K, paged_attn="pallas", max_slots=8, page_size=64)
+    eng.set_prefix(prefix)
+    ids = eng.add_requests(suffixes, max_new_tokens=PATH_B_NEW_TOKENS)
+    done = {f.req_id: f.token_ids for f in eng.decode_fused()}
+    streams = [done.get(i) for i in ids]
+    # a second drain, its chunk captured: timed
+    steps0 = eng.stats["fused_steps"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = eng.add_requests(suffixes, max_new_tokens=PATH_B_NEW_TOKENS)
+    done = {f.req_id: f.token_ids for f in eng.decode_fused()}
+    wall = time.perf_counter() - t0
+    steps = eng.stats["fused_steps"] - steps0
+    streams += [done.get(i) for i in ids]
+    valid = all(s is not None and 1 <= len(s) <= PATH_B_NEW_TOKENS
+                and all(0 <= t < tok.vocab_size and t != tok.pad_id for t in s)
+                for s in streams)
+    rec = {"temperature": SAMPLED_TEMPERATURE, "top_k": FUSED_TOP_K, "valid": valid,
+           "tokens": sum(len(s or ()) for s in streams),
+           "distinct_streams": len({tuple(s or ()) for s in streams}),
+           "fused_chunks": eng.stats["fused_chunks"], "replays": eng._graphs.replays,
+           "timed_wall_s": wall, "timed_fused_steps": steps,
+           "timed_ms_per_step": wall * 1000.0 / max(steps, 1)}
+    del eng
+    return rec
+
+
+def _chunk_draws_check() -> dict:
+    """The fused chunk's sampling captured on the card (its steps one WHILE
+    node) over probabilities that stay constant: every run takes its 16
+    steps, 15 of the 16 runs are replays, a slot's draws across one chunk's
+    steps are independent (a draw made inside the WHILE body would repeat
+    at every step) and follow the softmax within CHUNK_TV_LIMIT."""
+    from k8s_llm_scheduler_tpu_torch import testing
+
+    rec = testing.chunk_draws("cuda")
+    rec["ok"] = (rec["steps_run"] == [16] * 16 and rec["replays"] == 15
+                 and rec["repeat"] <= CHUNK_REPEAT_LIMIT and rec["tv"] <= CHUNK_TV_LIMIT)
+    return rec
+
+
+def fused_phase(backend, nodes, pods, path_b) -> tuple[bool, dict]:
+    """The fused decode runtime at 8B bf16: path B's engine configuration
+    (paged_attn="pallas", 8 slots, the path B prompts, greedy, 64 new
+    tokens) in both modes. decode_fused must emit the tokens of a step()
+    drain, book exactly max(tokens) - 1 steps and sum(tokens - 1) decode
+    tokens, launch K4 n_layers times a step inside its program, and
+    generate() must go through it; graphs and eager emit identical tokens.
+    Times ms a step and tok/s beside path B's, and one over-dispatched
+    chunk on a finished batch beside a live chunk (CUDA events). Then one
+    sampled drain (0.3, top-k 40) whose tokens must all be valid, and the
+    chunk's sampling over constant probabilities (_chunk_draws_check)."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    params, cfg = backend.engine.params, backend.engine.cfg
+    items = [backend._prepare_item(p, nodes) for p in pods]
+    suffixes = [it.suffix_ids for it in items]
+    prefix = items[0].prefix_ids
+    rec, runs, ok = {"model": "llama-3.1-8b-instruct bf16, paged_attn=pallas"}, {}, True
+    for mode, graphs in MODES:
+        eng = InferenceEngine(params, cfg, ByteTokenizer(), temperature=0.0,
+                              paged_attn="pallas", max_slots=8, page_size=64, graphs=graphs)
+        eng.set_prefix(prefix)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        r = runs[mode] = _fused_run(eng, suffixes)
+        lens = [len(t) for t in r["tokens"] if t is not None]
+        n_tok = sum(lens)
+        books = (len(lens) == len(suffixes) and r["fused_steps"] == max(lens) - 1
+                 and r["decode_tokens"] == sum(n - 1 for n in lens))
+        good = (r["tokens"] == r["stepped"] and books
+                and r["k4_launches"] == cfg.n_layers * r["fused_steps"] > 0
+                and r["generate_chunks"] > 0 and 1 <= len(r["generate"]) <= PATH_B_NEW_TOKENS
+                and r["live_chunk_steps"] == eng.chunk_steps and r["dead_chunk_steps"] == 0
+                and eng.stats["fused_fallbacks"] == 0)
+        b = path_b.get(mode, {})
+        rec[mode] = {
+            "tokens_equal_step_drain": r["tokens"] == r["stepped"], "books_exact": books,
+            "tokens_per_request": lens, "fused_steps": r["fused_steps"],
+            "fused_chunks": r["chunks"], "decode_tokens": r["decode_tokens"],
+            "k4_launches": r["k4_launches"],
+            "wall_s": r["wall_s"], "ms_per_step": r["wall_s"] * 1000.0 / r["fused_steps"],
+            "tokens_per_s": n_tok / r["wall_s"],
+            "path_b_ms_per_step": b.get("ms_per_decode_step"),
+            "path_b_tokens_per_s": b.get("batch_tokens_per_s"),
+            "generate_tokens": len(r["generate"]), "generate_chunks": r["generate_chunks"],
+            "generate_s": r["generate_s"],
+            "live_chunk_ms": r["live_chunk_ms"], "live_chunk_steps": r["live_chunk_steps"],
+            "dead_chunk_ms": r["dead_chunk_ms"],
+            **_graph_books(eng), **_memory(start), "ok": good,
+        }
+        ok = ok and good
+        print(f"fused [{mode}]: " + json.dumps(rec[mode]), flush=True)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = runs["graphs"]["tokens"] == runs["eager"]["tokens"]
+    rec["sampled"] = _sampled_fused(params, cfg, prefix, suffixes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["chunk_draws"] = _chunk_draws_check()
+    ok = ok and same and rec["sampled"]["valid"] and rec["chunk_draws"]["ok"]
+    print(f"fused: graphs vs eager tokens identical={same}; sampled drain "
+          f"{json.dumps(rec['sampled'])}; chunk draws {json.dumps(rec['chunk_draws'])} "
+          f"| {_smi()} | ok={ok}", flush=True)
+    rec["launches"] = {"K4": rec["graphs"]["k4_launches"]}
+    return ok, rec
+
+
+# ------------------------------------------------------------ persistent phase
+class _OpCounter:
+    """Counts the torch ops run on the thread that enters it (a torch
+    dispatch mode: modes are thread-local)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        ops = self.ops = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                ops.append(str(func))
+                return func(*args, **(kwargs or {}))
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def _drain_resident(eng, n, deadline_s=300.0) -> dict:
+    out = {}
+    end = time.perf_counter() + deadline_s
+    while len(out) < n and time.perf_counter() < end:
+        for fin in eng.step_persistent(timeout_s=0.05):
+            out[fin.req_id] = fin.token_ids
+    return out
+
+
+def persistent_8b(backend, nodes, pods) -> tuple[bool, dict]:
+    """(a) The resident loop at 8B bf16, unconstrained, greedy: an engine
+    with paged_attn="gather" (the loop's own-token attention is the dense
+    gather, as in the JAX loop), suffix bucket 256; reference: the 8
+    path B suffixes admitted one at a time and drained by decode_fused.
+    Then enter_persistent, the 8 through the command ring, step_persistent
+    until done: the same tokens, the counter block's `emitted` equal to
+    the decode tokens harvested, no torch op on the owner thread and no
+    dispatch booked between the admissions and the last harvest. Then a
+    quiesce mid-stream, and the rest drained by step_fused: the same
+    tokens again."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    params, cfg = backend.engine.params, backend.engine.cfg
+    items = [backend._prepare_item(p, nodes) for p in pods]
+    suffixes = [it.suffix_ids for it in items]
+    n = PATH_B_NEW_TOKENS
+    eng = InferenceEngine(params, cfg, ByteTokenizer(), temperature=0.0, paged_attn="gather",
+                          max_slots=8, page_size=64, num_pages=128, max_pages_per_seq=8,
+                          prefill_buckets=(256, 512, 1024, 2048), persistent_loop=True,
+                          persistent_suffix_bucket=256)
+    eng.set_prefix(items[0].prefix_ids)
+    rec = {"model": "llama-3.1-8b-instruct bf16, paged_attn=gather",
+           "suffix_tokens": [len(s) for s in suffixes]}
+    try:
+        ids = [eng.add_requests([s], max_new_tokens=n)[0] for s in suffixes]
+        done = {f.req_id: f.token_ids for f in eng.decode_fused()}
+        want = [done.get(i) for i in ids]
+        # a warm-up residency: its first micro-chunks capture the loop's
+        # admit and plain programs
+        t_warm = time.perf_counter()
+        eng.enter_persistent()
+        eng.add_requests(suffixes[:1], max_new_tokens=2 * eng.chunk_steps)
+        _drain_resident(eng, 1)
+        eng.exit_persistent()
+        rec["warmup_s"] = time.perf_counter() - t_warm
+
+        torch.cuda.synchronize()
+        before = _launch_counts()
+        t_enter = time.perf_counter()
+        entered = eng.enter_persistent()
+        dispatches, tok0, steps0 = (eng.stats[k] for k in ("dispatches", "decode_tokens",
+                                                          "persistent_steps"))
+        t0 = time.perf_counter()
+        with _OpCounter() as owner:
+            ids = eng.add_requests(suffixes, max_new_tokens=n)
+            out = _drain_resident(eng, len(ids))
+        wall = time.perf_counter() - t0
+        steady_dispatches = eng.stats["dispatches"] - dispatches
+        resident_tokens = eng.stats["decode_tokens"] - tok0
+        resident_steps = eng.stats["persistent_steps"] - steps0
+        eng.exit_persistent()
+        launches = {k: v - before[k] for k, v in _launch_counts().items()}
+        totals = eng.persistent_counter_totals() or {}
+        got = [out.get(i) for i in ids]
+        n_tok = sum(len(t) for t in got if t is not None)
+
+        # quiesce mid-stream, resume on the dispatch path
+        reentered = eng.enter_persistent()
+        ids = eng.add_requests(suffixes, max_new_tokens=n)
+        mid = {}
+        end = time.perf_counter() + 300.0
+        while eng.stats["persistent_steps"] - resident_steps - steps0 < 1 and \
+                time.perf_counter() < end:
+            for fin in eng.step_persistent(timeout_s=0.05):
+                mid[fin.req_id] = fin.token_ids
+        eng.exit_persistent()
+        for fin in eng.step_persistent(timeout_s=0.0):
+            mid[fin.req_id] = fin.token_ids
+        while eng.has_active:
+            for fin in eng.step_fused():
+                mid[fin.req_id] = fin.token_ids
+        resumed = [mid.get(i) for i in ids]
+        srv = eng._persistent
+        rec.update({
+            "entered": entered and reentered, "enter_s": t0 - t_enter,
+            "tokens_equal_decode_fused": got == want,
+            "resume_tokens_equal": resumed == want,
+            "owner_thread_torch_ops": len(owner.ops), "owner_ops_sample": owner.ops[:5],
+            "steady_dispatches": steady_dispatches,
+            "counter_totals": totals, "harvested_decode_tokens": resident_tokens,
+            "resident_steps": resident_steps, "wall_s": wall,
+            "ms_per_step": wall * 1000.0 / max(resident_steps, 1),
+            "tokens_per_s": n_tok / wall, "launches": launches,
+            "tokens_per_request": [len(t or ()) for t in got],
+            "launches_total": eng.stats["persistent_launches"],
+            **_graph_books(eng), **srv.stats(),
+        })
+    finally:
+        if eng.persistent_active:
+            eng.exit_persistent()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    ok = (rec["entered"] and rec["tokens_equal_decode_fused"] and rec["resume_tokens_equal"]
+          and rec["owner_thread_torch_ops"] == 0 and rec["steady_dispatches"] == 0
+          and totals.get("emitted") == resident_tokens and totals.get("admits") == len(suffixes)
+          and launches["K1"] > 0 and launches["K2"] > 0)
+    print(f"persistent (a): {json.dumps(rec, default=str)} | {_smi()} | ok={ok}", flush=True)
+    return ok, rec
+
+
+def persistent_tiny() -> tuple[bool, dict]:
+    """(b) TINY, the decision grammar, through LocalLLMBackend(
+    persistent_loop=True) on the card (graphs, the config's temperature
+    0.3): 6 decisions at once served by the resident loop (no wave), all
+    parsed and feasible."""
+    import concurrent.futures as cf
+
+    from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
+    from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
+    from k8s_llm_scheduler_tpu_torch.types import DecisionSource
+
+    nodes, pods = synthetic_nodes(4), fixture_pods(6)
+    backend = build_local_backend("tiny", device="cuda", request_timeout_s=600.0,
+                                  prewarm_idle_delay_s=NO_PREWARM_S, persistent_loop=True,
+                                  persistent_suffix_bucket=1024)
+    t0 = time.perf_counter()
+    try:
+        with cf.ThreadPoolExecutor(len(pods)) as pool:
+            decisions = list(pool.map(lambda p: backend.get_scheduling_decision(p, nodes),
+                                      pods))
+        wall = time.perf_counter() - t0
+        stats = backend.engine.get_stats()
+    finally:
+        backend.close()
+    llm = all(d.source == DecisionSource.LLM for d in decisions)
+    feasible = _feasible(nodes, list(zip(pods, decisions)))
+    rec = {k: stats.get(k) for k in ("persistent_launches", "persistent_admissions",
+                                     "persistent_fallbacks", "persistent_steps",
+                                     "persistent_chunks", "waves", "persistent_wedges")}
+    rec.update(decisions=len(decisions), all_llm=llm, feasible=feasible, wall_s=wall)
+    ok = (llm and feasible and rec["persistent_admissions"] == len(pods)
+          and rec["persistent_fallbacks"] == 0 and rec["waves"] == 0
+          and rec["persistent_wedges"] == 0)
+    print(f"persistent (b): TINY decisions through the resident loop {json.dumps(rec)} "
+          f"| ok={ok}", flush=True)
+    return ok, rec
+
+
+# --------------------------------------------------------------- cli complete
+COMPLETE_MODEL = "llama-3.1-8b-instruct"
+COMPLETE_NEW_TOKENS = 64
+# The child of the cli complete phase: `cli complete` at argv[1]'s model,
+# greedy, 64 new tokens, on a prompt longer than the config's largest
+# prefill bucket (8,192) by more than one prefix chunk (2,048), so its head
+# goes through set_prefix's chunked path. Its K1/K2 counts are zeroed
+# before cli.main and read after; the chunked prefills and the fused
+# chunks' steps are booked. Last line: one JSON object of them.
+COMPLETE_CHILD = r"""
+import json, sys, time
+import torch
+from k8s_llm_scheduler_tpu_torch import cli
+from k8s_llm_scheduler_tpu_torch.engine import engine as engine_mod
+from k8s_llm_scheduler_tpu_torch.ops import prefix_attention as pa
+
+prompt = " ".join(f"node-{i:04d} cpu={i * 37 % 100}% mem={i * 53 % 100}%" for i in range(440))
+chunked, fused, generated = [], [], []
+chunk = engine_mod.InferenceEngine._prefill_prefix_chunked
+book = engine_mod.InferenceEngine._book_fused_steps
+generate = engine_mod.InferenceEngine.generate
+
+def counted_chunked(self, ids, seed=None):
+    chunked.append(len(ids))
+    return chunk(self, ids, seed=seed)
+
+def counted_book(self, handles):
+    n = book(self, handles)
+    fused.append(n)
+    return n
+
+def booked_generate(self, ids, max_new_tokens=200):
+    fin = generate(self, ids, max_new_tokens)
+    generated.append({"tokens": len(fin.token_ids), "token_ids": fin.token_ids,
+                      "text": fin.text})
+    return fin
+
+engine_mod.InferenceEngine._prefill_prefix_chunked = counted_chunked
+engine_mod.InferenceEngine._book_fused_steps = counted_book
+engine_mod.InferenceEngine.generate = booked_generate
+pa.reset_launch_counts()
+t0 = time.perf_counter()
+rc = cli.main(["complete", "--model", sys.argv[1], "--max-new-tokens", sys.argv[2],
+               "--temperature", "0", "--prompt", prompt])
+print()
+print(json.dumps({"launches": {"K1": pa.flash_prefix_attention_parts.launches,
+                               "K2": pa.flash_causal_attention_parts.launches},
+                  "prompt_bytes": len(prompt.encode()), "chunked_prefix": chunked,
+                  "fused_steps": fused, "generated": generated,
+                  "wall_s": time.perf_counter() - t0,
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
+sys.exit(rc)
+"""
+
+
+def start_complete():
+    """Start the cli complete child (COMPLETE_CHILD) in a temporary
+    directory; finish_complete() collects it."""
+    cwd = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-c", COMPLETE_CHILD, COMPLETE_MODEL, str(COMPLETE_NEW_TOKENS)],
+        cwd=cwd.name, env=_child_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return child, cwd, t0
+
+
+def finish_complete(started) -> tuple[bool, dict]:
+    """`python -m k8s_llm_scheduler_tpu_torch.cli complete` at 8B in a child
+    process: exit 0, the prompt's head through the chunked prefix path, K1
+    and K2 launched in the child, the tail decoded through the fused
+    runtime (1-64 tokens generated), and what the command printed exactly
+    the completion's text as generate() returned it (the child records it
+    with its token ids; random weights may give an empty-looking text);
+    wall time and the child's peak memory."""
+    child, cwd, t0 = started
+    try:
+        out, err = child.communicate(timeout=900)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+        cwd.cleanup()
+    lines = out.rstrip("\n").splitlines()
+    try:
+        report = json.loads(lines[-1])
+    except (ValueError, IndexError):
+        report = {}
+    gen = (report.get("generated") or [{}])[-1]
+    # stdout: the command's print of the text, the child's empty line, the
+    # report (read as text: universal newlines)
+    text = str(gen.get("text")).replace("\r\n", "\n").replace("\r", "\n")
+    printed = "text" in gen and out == text + "\n\n" + lines[-1] + "\n"
+    rec = {"model": COMPLETE_MODEL, "rc": child.returncode,
+           "process_wall_s": time.perf_counter() - t0, "text_printed": printed, **report}
+    launches = report.get("launches") or {}
+    ok = (child.returncode == 0 and printed
+          and 1 <= gen.get("tokens", 0) <= COMPLETE_NEW_TOKENS
+          and bool(report.get("chunked_prefix"))
+          and launches.get("K1", 0) > 0 and launches.get("K2", 0) > 0
+          and sum(report.get("fused_steps") or ()) > 0)
+    print(f"cli complete: {json.dumps(rec)} | {_smi()} | ok={ok}", flush=True)
+    if not ok:
+        print(err[-6000:], file=sys.stderr, flush=True)
+    return ok, rec
 
 
 # ------------------------------------------------------- cli verify, cli run
@@ -2777,13 +3311,21 @@ def main() -> int:
         a_ok, path_a, totals = _timed_phase("path A", path_a_phase, backend, nodes, pods)
         torch.cuda.empty_cache()
         b_ok, path_b, k4_cases = _timed_phase("path B", path_b_phase, backend, nodes, pods)
+        f_ok, fused = _timed_phase("fused", fused_phase, backend, nodes, pods, path_b)
+        p8_ok, pers8 = _timed_phase("persistent 8B", persistent_8b, backend, nodes, pods)
         cfg = backend.engine.cfg
     finally:
         backend.close()
     del backend
+    gc.collect()
     torch.cuda.empty_cache()
+    # cli complete's child builds its own 8B model; the TINY phases run
+    # beside it, the timed kernel phases after it
+    complete_child = start_complete()
     ck_ok, ckpt = _timed_phase("checkpoint", checkpoint_phase)
     s_ok, sampled = _timed_phase("sampled", sampled_phase)
+    pt_ok, pers_tiny = _timed_phase("persistent TINY", persistent_tiny)
+    cc_ok, complete = _timed_phase("cli complete", finish_complete, complete_child)
     k3_ok, k3 = _timed_phase("K3", k3_phase, cfg, totals)
     k4_ok, k4 = _timed_phase("K4", k4_phase, k4_cases, long_cases=[k4_long_case()])
 
@@ -2830,6 +3372,8 @@ def main() -> int:
                   launches_by_step=dec["k1_launches_by_step"],
                   loop_launches=loop["launches"]["K1"],
                   run_launches=(run["launches"] or {}).get("K1"),
+                  complete_launches=(complete.get("launches") or {}).get("K1"),
+                  persistent_launches=(pers8.get("launches") or {}).get("K1"),
                   pack_chunk={k: v for k, v in next(
                       r for r in k1 if r["step"] == "pack chunk").items() if k in (
                       "shape", "ms", "ms_hot", "plain_ms", "bound_ms", "library_ms")},
@@ -2839,7 +3383,9 @@ def main() -> int:
                   "k8s_llm_scheduler_tpu/ops/pallas_prefix_attention.py:285",
                   dec["launches"]["K2"], k2_main, ms_cold=k2_main["ms_cold"],
                   ratio=k2_main["ratio"], loop_launches=loop["launches"]["K2"],
-                  run_launches=(run["launches"] or {}).get("K2")),
+                  run_launches=(run["launches"] or {}).get("K2"),
+                  complete_launches=(complete.get("launches") or {}).get("K2"),
+                  persistent_launches=(pers8.get("launches") or {}).get("K2")),
             entry("ragged_matmul", k3,
                   "k8s_llm_scheduler_tpu_torch/csrc/ragged_matmul.cu",
                   "k8s_llm_scheduler_tpu/ops/ragged_matmul.py:108",
@@ -2849,6 +3395,7 @@ def main() -> int:
                   "k8s_llm_scheduler_tpu_torch/csrc/paged_attention.cu",
                   "k8s_llm_scheduler_tpu/ops/pallas_paged_attention.py:276",
                   path_b["launches"]["K4"], k4_main, status="redesigned PR 7",
+                  fused_launches=fused["launches"]["K4"],
                   ms_hot=k4_main["ms_hot"], library_ms_hot=k4_main["library_ms_hot"],
                   cold_l2=True, splits=k4_main.get("splits"),
                   long={k: k4_long[k] for k in ("shape", "ms", "bound_ms", "library_ms",
@@ -2858,12 +3405,15 @@ def main() -> int:
     }
     phases = {"cli_verify": v_ok, "cli_run": run_ok, "kernels": k_ok, "reference": r_ok,
               "decision": d_ok, "admission": adm_ok, "loop": l_ok, "cli_demo": c_ok,
-              "path_a": a_ok, "path_b": b_ok, "checkpoint": ck_ok, "sampled": s_ok,
-              "k3": k3_ok, "k4": k4_ok}
+              "path_a": a_ok, "path_b": b_ok, "fused": f_ok, "persistent_8b": p8_ok,
+              "checkpoint": ck_ok, "sampled": s_ok, "persistent_tiny": pt_ok,
+              "cli_complete": cc_ok, "k3": k3_ok, "k4": k4_ok}
     record = {"device": kind, "smi": smi, "build_s": build_s, "kernels": line,
               "cli_verify": verify, "cli_run": run, "reference": ref, "decision": dec,
               "admission": adm, "loop": loop, "cli_demo": demo, "path_a": path_a,
-              "path_b": path_b, "checkpoint": ckpt, "sampled": sampled, "phases_ok": phases}
+              "path_b": path_b, "fused": fused, "persistent_8b": pers8,
+              "checkpoint": ckpt, "sampled": sampled, "persistent_tiny": pers_tiny,
+              "cli_complete": complete, "phases_ok": phases}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

@@ -1,4 +1,4 @@
-"""Command line of the port: run / verify / demo.
+"""Command line of the port: run / verify / demo / complete.
 
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] run
         [--fake-cluster] [--fake-nodes N] [--device cuda|cpu]
@@ -7,6 +7,9 @@
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] demo
         [--fake-nodes N] [--model NAME] [--quantize int8]
         [--decode-matmul ragged] [--eager] [--device cuda|cpu]
+    python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] complete
+        [--prompt TEXT] [--chat] [--max-new-tokens N] [--temperature T]
+        [--model NAME] [--device cuda|cpu]
 
 A port of the JAX package's cli.py: the configuration comes from
 `config.load_config` (env > config.yaml or `--config` > defaults), and
@@ -24,11 +27,15 @@ circuit breaker, the decision client and the scheduler (JAX cli.py:106-187).
 - `demo` schedules the reference's three fixture pods on an in-memory
   cluster through the same stack, then prints the stats (exit 1 if they
   are not bound within DEMO_DEADLINE_S).
+- `complete` (JAX cli.py:2450-2543) is general free-form completion
+  through the paged path: the prompt (`--prompt`, else stdin) past the
+  largest prefill bucket is installed as a chunked dense prefix, its tail
+  generated through the fused runtime; the text goes to stdout.
 
 `--device` is the port's own flag: the model runs on "cuda" (the default;
 it raises without a GPU) unless "cpu" is asked for. The switches of paths
 the port has not ported yet raise NotImplementedError before any model is
-built (`UNPORTED_SWITCHES`); the two of them that are on by default log a
+built (`UNPORTED_SWITCHES`); the one of them that is on by default logs a
 warning instead (`WARNED_SWITCHES`).
 """
 
@@ -60,7 +67,6 @@ DEMO_DEADLINE_S = 600.0  # the demo gives up (exit 1) if pods are unbound by the
 # item each waits for. Setting one raises before any model is built.
 UNPORTED_SWITCHES = (
     ("llm.spec_enabled", "speculative decoding", 5),
-    ("llm.persistent_loop", "the persistent serving loop", 6),
     ("durability.enabled", "the decision journal", 7),
     ("metrics.enabled", "the metrics endpoint", 7),
     ("slo.enabled", "the SLO engine", 7),
@@ -71,8 +77,6 @@ UNPORTED_SWITCHES = (
 # Switches that are on by default but not ported: a warning each.
 WARNED_SWITCHES = (
     ("observability.profiler", "the wave profiler", 8, "no profile is kept"),
-    ("llm.fused_decode", "the fused decode loop", 4,
-     "packed admissions decode through step()"),
 )
 
 
@@ -125,6 +129,14 @@ def _backend_kwargs(cfg: Config, **overrides) -> dict:
         quantize=cfg.get("llm.quantization"),
         request_timeout_s=float(cfg.get("llm.timeout")),
         group_switch_after_s=float(cfg.get("llm.group_switch_after_s")),
+        # fused on-device decode runtime (engine/fused/)
+        fused_decode=bool(cfg.get("llm.fused_decode", True)),
+        # persistent serving loop (engine/persistent/) and its telemetry
+        persistent_loop=bool(cfg.get("llm.persistent_loop", False)),
+        persistent_suffix_bucket=cfg.get("llm.persistent_suffix_bucket", None),
+        persistent_telemetry=bool(cfg.get("llm.persistent_telemetry", True)),
+        persistent_stats_every=int(cfg.get("llm.persistent_stats_every", 8)),
+        persistent_blackbox_depth=int(cfg.get("llm.persistent_blackbox_depth", 64)),
         # delta-prefill admission plane (engine/admission/, sched/delta.py)
         packed_admission=bool(cfg.get("admission.packed", True)),
         admission_chunk_tokens=int(cfg.get("admission.chunk_tokens", 256)),
@@ -293,6 +305,75 @@ def cmd_demo(args: argparse.Namespace, cfg: Config) -> int:
                      cluster.bind_count, len(pods), DEMO_DEADLINE_S)
     print(json.dumps(scheduler.get_stats(), indent=2, default=str))
     return 0 if ok else 1
+
+
+def cmd_complete(args: argparse.Namespace, cfg: Config) -> int:
+    """Free-form generation through the paged path (JAX cli.py:2450-2543):
+    the general-completion capability the reference gets from its remote
+    chat-completion endpoint, minus the network. Decision serving never
+    uses it; this is its product surface: unbounded budgets, no grammar,
+    long prompts through the chunked prefix path.
+
+    The engine is SIZED FROM THE REQUEST: the prompt is encoded first, the
+    page table is sized for (tail + budget), and a prompt beyond the
+    largest prefill bucket is installed as a chunked dense prefix
+    (set_prefix) with only its tail going through the bucketed suffix
+    prefill and generate(), which decodes through the fused runtime."""
+    if args.spec or cfg.get("llm.spec_enabled", False):
+        raise NotImplementedError(
+            "--spec / llm.spec_enabled: speculative decoding is not ported yet "
+            "(ROADMAP queue 1 item 5)"
+        )
+    from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import (
+        ByteTokenizer,
+        HFTokenizerAdapter,
+    )
+    from k8s_llm_scheduler_tpu_torch.observability import spans
+
+    tokenizer_path = cfg.get("llm.tokenizer_path")
+    tok = HFTokenizerAdapter(tokenizer_path) if tokenizer_path else ByteTokenizer()
+    prompt = args.prompt if args.prompt is not None else sys.stdin.read()
+    ids = (
+        tok.chat_prompt("You are a helpful assistant.", prompt) if args.chat
+        else tok.encode(prompt)
+    )
+    if not ids:
+        print("empty prompt", file=sys.stderr)
+        return 2
+    page_size = int(cfg.get("llm.page_size"))
+    buckets = tuple(cfg.get("llm.prefill_buckets"))
+    # Only prompts beyond the LARGEST bucket need the long-context path;
+    # the tail (and the decode budget) is what the page table must hold.
+    tail = min(len(ids), max(1, buckets[-1]))
+    pages_needed = -(-(tail + args.max_new_tokens + 1) // page_size) + 1
+    overrides = dict(
+        model=args.model or cfg.get("llm.model", "tiny"),
+        max_new_tokens=args.max_new_tokens,
+        max_pages_per_seq=pages_needed,
+        num_pages=max(512, pages_needed + 8),
+        constrained=False,
+        device=args.device,
+    )
+    if args.temperature is not None:
+        overrides["temperature"] = args.temperature
+    backend = build_local_backend(**_backend_kwargs(cfg, **overrides))
+    try:
+        engine = backend.engine
+        with spans.start_trace("completion", prompt_tokens=len(ids), spec=False) as trace:
+            if len(ids) > tail:
+                engine.set_prefix(ids[:-tail])
+            fin = engine.generate(ids[-tail:], max_new_tokens=args.max_new_tokens)
+            if trace is not None:
+                trace.set_meta(generated_tokens=len(fin.token_ids))
+        print(fin.text)
+        logger.info(
+            "completed %d tokens in %.1f ms%s", len(fin.token_ids), fin.latency_ms,
+            f" (trace {trace.trace_id})" if trace is not None else "",
+        )
+        return 0
+    finally:
+        backend.close()
 
 
 def _smi() -> str:
@@ -486,6 +567,19 @@ def build_parser() -> argparse.ArgumentParser:
                       help="run the engine's waves eagerly, not as CUDA graphs")
     device_flag(demo)
     demo.set_defaults(func=cmd_demo)
+
+    complete = sub.add_parser(
+        "complete", help="free-form text completion (paged path, fused decode)")
+    complete.add_argument("--prompt", default=None, help="prompt text (default: stdin)")
+    complete.add_argument("--model", default=None, help="config name")
+    complete.add_argument("--max-new-tokens", type=int, default=200)
+    complete.add_argument("--temperature", type=float, default=None)
+    complete.add_argument("--chat", action="store_true",
+                          help="wrap the prompt in the chat template")
+    complete.add_argument("--spec", action="store_true",
+                          help="speculative decoding (not ported yet: raises)")
+    device_flag(complete)
+    complete.set_defaults(func=cmd_complete)
     return parser
 
 

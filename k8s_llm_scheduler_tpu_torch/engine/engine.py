@@ -59,9 +59,20 @@ engine/engine.py).
   eviction: the pinned snapshot that delta prompts (sched/delta.py)
   LCP-seed from.
 
-The fused and persistent decode loops and speculative decoding of the JAX
-engine are not ported; `generate` and packs drain through `step()`, as the
-JAX engine does with fused_decode=False.
+- **Fused decode** (engine/fused/): `step_fused` / `decode_fused` run
+  chunks of up to `chunk_steps` steps that exit early on the device once no
+  slot is live (the steps are a conditional WHILE node's body,
+  engine/graphs.GraphRunner.while_live), sampling with top-k and the grammar
+  as a dense transition table; `generate` and the backend's packs decode
+  through them. A grammar whose dense table passes `fused_table_bytes`
+  (any decision grammar at a 128k vocab), or `fused_decode=False`, falls
+  back to `step()` and counts `fused_fallbacks`, as in the JAX engine.
+- **Persistent serving loop** (engine/persistent/): `enter_persistent`
+  hands the slots to a resident thread that serves admissions from a
+  command ring and streams emissions into a token ring; `step_persistent`
+  harvests. Dispatch-path entry points drain it first, as the JAX ones do.
+
+Speculative decoding of the JAX engine is not ported.
 """
 
 from __future__ import annotations
@@ -83,6 +94,12 @@ from k8s_llm_scheduler_tpu_torch.engine.constrained import (
     sparse_tables,
     wave_iterations,
 )
+from k8s_llm_scheduler_tpu_torch.engine.fused import (
+    DENSE_TABLE_MAX_BYTES,
+    dense_tables,
+    fused_decode_chunk_impl,
+)
+from k8s_llm_scheduler_tpu_torch.engine.fused.loop import fused_begin, fused_flush, fused_gather
 from k8s_llm_scheduler_tpu_torch.engine.graphs import (
     Fence,
     GraphRunner,
@@ -90,6 +107,7 @@ from k8s_llm_scheduler_tpu_torch.engine.graphs import (
     host_buffer,
 )
 from k8s_llm_scheduler_tpu_torch.engine.kv_cache import PagedKVCache
+from k8s_llm_scheduler_tpu_torch.engine.persistent.ring import OP_ADMIT
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer, Tokenizer
 from k8s_llm_scheduler_tpu_torch.models.configs import LlamaConfig
 from k8s_llm_scheduler_tpu_torch.models.llama import (
@@ -100,6 +118,7 @@ from k8s_llm_scheduler_tpu_torch.models.llama import (
     forward_prefill_suffix,
     forward_prefill_suffix_dense,
 )
+from k8s_llm_scheduler_tpu_torch.observability.resident import counters_dict
 from k8s_llm_scheduler_tpu_torch.ops.attention import NEG_INF
 
 logger = logging.getLogger(__name__)
@@ -398,6 +417,9 @@ class _ChunkVariant:
         self._prefix = prefix
         self._tables = (eng._sp_tokens, eng._sp_next)
         self._constrained = eng._constrained
+        # by the engine's mode, not by the buffers: the resident loop may
+        # have added gather buffers to a "pallas" engine's set
+        self._gather = eng.paged_attn == "gather"
         self.program = eng._graphs.program("decode chunk", self._chunk)
 
     def run(self) -> None:
@@ -409,18 +431,11 @@ class _ChunkVariant:
             self._step()
         self._flush()
 
-    @torch.no_grad()
     def _begin(self) -> None:
         eng, c = self._eng, self._eng._chunk
-        c.own_start.copy_(eng._state.pos - eng._plen_d)
-        if c.k_own is not None:
-            tables = eng._tables_d.view(-1)
-            for cache, own in ((eng.kv.k, c.k_own), (eng.kv.v, c.v_own)):
-                torch.index_select(cache, 1, tables, out=own)
-        c.ck.zero_()
-        c.cv.zero_()
-        c.tail.zero_()
-        c.j.zero_()
+        fused_begin(eng._plen_d, eng._state, c, eng.tokenizer.pad_id)
+        if self._gather:
+            fused_gather(eng.kv.k, eng.kv.v, eng._tables_d, c)
 
     @torch.no_grad()
     def _step(self) -> None:
@@ -428,7 +443,7 @@ class _ChunkVariant:
         pad_id, eos_id = eng.tokenizer.pad_id, eng.tokenizer.eos_id
         M, P = eng._tables_d.shape
         L, _, ps, n_kv, hd = eng.kv.k.shape
-        if c.k_own is None:
+        if not self._gather:
             k_own, v_own = eng.kv.k, eng.kv.v
         else:
             k_own = c.k_own.view(L, M, P * ps, n_kv, hd)
@@ -462,23 +477,37 @@ class _ChunkVariant:
         c.tail.copy_(torch.where(act_eff, c.tail + 1, c.tail))
         c.j.add_(1)
 
-    @torch.no_grad()
     def _flush(self) -> None:
-        # Entry j of slot m lands at own position own_start[m] + j; invalid
-        # entries (j >= tail) go to scratch page 0 (duplicates there are
-        # harmless: nothing reads it).
-        eng, c = self._eng, self._eng._chunk
-        P = eng._tables_d.shape[1]
-        ps = eng.kv.page_size
-        j = torch.arange(eng.chunk_steps, device=eng.device)
-        own_pos = c.own_start[:, None].long() + j[None, :]
-        valid = j[None, :] < c.tail[:, None]
-        page_slot = torch.clamp(own_pos // ps, 0, P - 1)
-        page_ids = torch.gather(eng._tables_d.long(), 1, page_slot)
-        page_ids = torch.where(valid, page_ids, 0)
-        offs = torch.where(valid, own_pos % ps, 0)
-        eng.kv.k[:, page_ids, offs] = c.ck
-        eng.kv.v[:, page_ids, offs] = c.cv
+        eng = self._eng
+        fused_flush(eng.kv.k, eng.kv.v, eng._tables_d, eng._chunk)
+
+
+class _FusedChunkVariant:
+    """The fused decode chunk for one geometry (engine/fused/loop.py): up to
+    `chunk_steps` steps over the engine's slot state, page tables and paged
+    caches, each step guarded by the on-device liveness test, so a chunk
+    dispatched on a finished batch runs no model call. Emissions land in
+    the engine's `_chunk.toks`, the steps run in `_chunk.j`. One program,
+    one CUDA graph on a card: one host launch a chunk."""
+
+    def __init__(self, eng: "InferenceEngine", prefix: "_StaticPrefix",
+                 table: torch.Tensor) -> None:
+        self._eng = eng
+        self._prefix = prefix
+        self._table = table
+        self._constrained = eng._constrained
+        self.program = eng._graphs.program("fused decode chunk", self._chunk)
+
+    @torch.no_grad()
+    def _chunk(self) -> None:
+        eng, pfx = self._eng, self._prefix
+        fused_decode_chunk_impl(
+            eng.params, eng.cfg, eng.kv.k, eng.kv.v, eng._tables_d, pfx.k, pfx.v,
+            eng._plen_d, eng._state, eng._chunk, self._table, eng._done_state_d,
+            eng.tokenizer.eos_id, eng.tokenizer.pad_id, eng._gen, eng.temperature,
+            eng.chunk_steps, self._constrained, eng.top_k, eng.paged_attn,
+            eng._vocab_limit, runner=eng._graphs,
+        )
 
 
 @dataclasses.dataclass
@@ -486,8 +515,10 @@ class _ChunkBuffers:
     """The decode chunk's scratch, shared by its variants (one runs at a
     time): the chunk KV buffer [L, M, n_steps, n_kv, hd], each slot's
     entries in it (`tail`), its own tokens before the chunk (`own_start`),
-    the emitted tokens [M, n_steps] with the step counter `j`, and with
-    paged_attn="gather" the gathered pages [L, M*P, ps, n_kv, hd]."""
+    the emitted tokens [M, n_steps] with the step counter `j` (a fused
+    chunk's steps run), a fused chunk's uniforms [n_steps, M], and with
+    paged_attn="gather" (or for the resident loop) the gathered pages
+    [L, M*P, ps, n_kv, hd]."""
 
     ck: torch.Tensor
     cv: torch.Tensor
@@ -495,6 +526,7 @@ class _ChunkBuffers:
     own_start: torch.Tensor
     toks: torch.Tensor
     j: torch.Tensor
+    u: torch.Tensor
     k_own: torch.Tensor | None
     v_own: torch.Tensor | None
 
@@ -623,6 +655,14 @@ class InferenceEngine:
         decode_matmul: str = "dense",
         graphs: bool = True,
         admission_chunk_tokens: int = 256,
+        fused_decode: bool = True,
+        fused_table_bytes: int | None = None,
+        persistent_loop: bool = False,
+        persistent_suffix_bucket: int | None = None,
+        persistent_wedge_timeout_s: float = 30.0,
+        persistent_telemetry: bool = True,
+        persistent_stats_every: int = 8,
+        persistent_blackbox_depth: int = 64,
     ) -> None:
         self.cfg = cfg
         self.params = params
@@ -666,10 +706,41 @@ class InferenceEngine:
         # per-layer attention work at O(prefix_chunk x prefix).
         self.prefix_chunk = int(prefix_chunk)
         self.temperature = float(temperature)
-        # Kept for the fused decode loop, the one reader of top_k in the JAX
-        # engine (engine/fused/sampler.py); waves sample the whole
-        # distribution in both packages.
+        # top-k restricts the fused loop's sampled draws (engine/fused/
+        # sampler.py), its one reader in both packages; waves and step()
+        # sample the whole distribution.
         self.top_k = int(top_k)
+        # Fused on-device decode runtime (engine/fused/): step_fused /
+        # decode_fused route here and FALL BACK to step() whenever the
+        # grammar can't export a dense table within fused_table_bytes.
+        self.fused_decode = bool(fused_decode)
+        self.fused_table_bytes = (
+            int(fused_table_bytes) if fused_table_bytes is not None
+            else DENSE_TABLE_MAX_BYTES
+        )
+        self._dfa: DecisionDFA | None = None
+        self._fused_next_d: torch.Tensor | None = None
+        self._fused_unsupported = False
+        # Unconstrained fused chunks never read the table: a [1, 1] dummy.
+        self._fused_dummy = torch.full((1, 1), -1, dtype=torch.int32, device=self.device)
+        self._fused_variants: dict[tuple, _FusedChunkVariant] = {}
+        # Persistent serving loop (engine/persistent/): when enabled AND
+        # supported, add_requests feeds its command ring and
+        # step_persistent() drains its token ring. The server is built at
+        # the first enter_persistent; _persistent_wedged latches after a
+        # watchdog drain, so a wedging workload stays on the dispatch path.
+        self.persistent_loop = bool(persistent_loop)
+        self.persistent_suffix_bucket = persistent_suffix_bucket
+        self.persistent_wedge_timeout_s = float(persistent_wedge_timeout_s)
+        self.persistent_telemetry = bool(persistent_telemetry)
+        self.persistent_stats_every = int(persistent_stats_every)
+        self.persistent_blackbox_depth = int(persistent_blackbox_depth)
+        self._persistent = None  # PersistentServer | None
+        self._persistent_wedged = False
+        self._pers_ctr_final: dict[str, int] | None = None
+        # The resident loop and the wave dispatcher never run device work at
+        # the same time: each holds this lock around its programs.
+        self._device_lock = threading.Lock()
         self.max_slots = max_slots
         # Block width of grammar-accelerated wave decoding: 1 sampled + up
         # to wave_block-1 forced tokens per model call.
@@ -772,6 +843,15 @@ class InferenceEngine:
             "piggyback_chunks": 0,
             "pinned_prefixes": 0,
             "pin_evictions": 0,
+            "fused_chunks": 0,
+            "fused_steps": 0,
+            "fused_fallbacks": 0,
+            "persistent_launches": 0,
+            "persistent_admissions": 0,
+            "persistent_steps": 0,
+            "persistent_chunks": 0,
+            "persistent_fallbacks": 0,
+            "persistent_wedges": 0,
             # host wall time, device work included (both end in a sync)
             "prefix_prefill_ms": 0.0,
             "wave_ms": 0.0,
@@ -783,8 +863,17 @@ class InferenceEngine:
         states padded to DFA_STATE_CAPACITY (doubled until it fits), copied
         into the engine's tables of that shape (so graphs keyed by the
         shape, as the JAX engine keys its executables, read them).
-        Unconstrained mode samples the full vocab minus pad."""
+        Unconstrained mode samples the full vocab minus pad. The fused
+        runtime's dense table resets with the grammar (built lazily on the
+        first fused chunk: dense_grammar)."""
         self._await_dispatch()
+        if self.persistent_active:
+            # the resident loop serves the installed grammar's table and
+            # start state: drain before swapping
+            self.exit_persistent()
+        self._dfa = dfa
+        self._fused_next_d = None
+        self._fused_unsupported = False
         if dfa is None:
             self._constrained = False
             sp_tokens = np.full((1, 1), -1, dtype=np.int32)
@@ -855,6 +944,10 @@ class InferenceEngine:
         the general path to be drained: its slots decode against the
         active prefix."""
         self._await_dispatch()
+        if self.persistent_active:
+            # every in-loop admission prefills against the prefix bound at
+            # launch: drain before swapping
+            self.exit_persistent()
         if self._by_slot:
             raise RuntimeError("cannot switch prefix with requests in flight")
         if not prompt_ids:
@@ -1168,7 +1261,14 @@ class InferenceEngine:
         block iterations until `n_iters` or until no row is alive, the flags
         read one iteration behind; then the copies of its results to the
         host. Returns (variant, tokens on the host, valid tokens of each
-        call on the host, iterations counted, the copies' fence)."""
+        call on the host, iterations counted, the copies' fence). Holds the
+        device lock: a resident loop's micro-chunks wait for the wave."""
+        with self._device_lock:
+            return self._run_wave_locked(key, R, bucket, n_iters, F, max_new_tokens,
+                                         tokens, suffix_lens, max_new, prefix, grammar)
+
+    def _run_wave_locked(self, key, R, bucket, n_iters, F, max_new_tokens,
+                         tokens, suffix_lens, max_new, prefix, grammar):
         static_prefix = self._bind_prefix(prefix)
         var = self._wave_variants.get(key)
         if var is None:
@@ -1385,6 +1485,15 @@ class InferenceEngine:
             )
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if self.persistent_active:
+            # Resident-loop admission: slot allocation is host work and the
+            # prefill happens IN the loop. Shapes the loop can't serve
+            # (suffix past its admission bucket) drain it and fall through.
+            limit = self.persistent_suffix_limit(max_new_tokens)
+            if all(len(p) <= limit for p in prompts):
+                return self._add_requests_persistent(prompts, max_new_tokens)
+            self.stats["persistent_fallbacks"] += 1
+            self.exit_persistent()
         prefix = self._prefix or self._get_empty_prefix()
         self._prefix = prefix
 
@@ -1493,6 +1602,11 @@ class InferenceEngine:
                     f"prompt of {len(ids)} tokens exceeds the paged "
                     f"admission limit {limit}"
                 )
+        if self.persistent_active:
+            # packed admission writes the paged KV and slot state with its
+            # own programs: it cannot run beside the resident loop
+            self.stats["persistent_fallbacks"] += 1
+            self.exit_persistent()
         from k8s_llm_scheduler_tpu_torch.engine.admission.packer import pack_prompts
 
         prefix = self._prefix or self._get_empty_prefix()
@@ -1632,13 +1746,30 @@ class InferenceEngine:
         slot on the device and drop parked emissions: the recovery path
         after a failed step, so the engine never leaks capacity."""
         self._await_dispatch()
+        if self._persistent is not None:
+            if self.persistent_active:
+                # deactivate every resident slot through the ring (slot=-1:
+                # all); the loop stays resident for new work
+                try:
+                    self._persistent.abort_steady(-1)
+                except Exception:
+                    logger.warning(
+                        "persistent abort command not accepted — force-draining "
+                        "the resident loop", exc_info=True,
+                    )
+                    self._persistent.force_stop()
+                    self.exit_persistent()
+            # undelivered token-ring batches belong to the aborted work: a
+            # request reusing a slot must never inherit them
+            self._persistent.clear_parked()
         for slot in list(self._by_slot):
             self.kv.free_slot(slot)
             del self._by_slot[slot]
         self._act_np[:] = False
         self._budget_np[:] = 0
-        self._state.act.zero_()
-        self._state.budget.zero_()
+        if not self.persistent_active:  # resident: the ring's ABORT does it
+            self._state.act.zero_()
+            self._state.budget.zero_()
         # a later request reusing a slot must never inherit these tokens
         self._pending_emissions = []
 
@@ -1646,6 +1777,8 @@ class InferenceEngine:
         """Run `chunks` decode chunks back to back, then ONE host sync;
         returns the requests that finished (and any parked earlier)."""
         self._await_dispatch()
+        if self.persistent_active:
+            self.exit_persistent()
         pend = self._pending_finished
         self._pending_finished = []
         if not self._by_slot:
@@ -1662,15 +1795,16 @@ class InferenceEngine:
             tuple(self._sp_tokens.shape),
         )
 
-    def _chunk_buffers(self) -> _ChunkBuffers:
+    def _chunk_buffers(self, gather: bool = False) -> _ChunkBuffers:
+        """The decode chunk's scratch, made at first use; the dense page
+        buffers come with paged_attn="gather", or when `gather` asks for
+        them (the resident loop, which always gathers, shares this set:
+        it and the dispatch path never run together)."""
+        cfg, dev = self.cfg, self.device
+        M, P, n = self.max_slots + 1, self.kv.max_pages_per_seq, self.chunk_steps
         if self._chunk is None:
-            cfg, dev = self.cfg, self.device
-            M, P, n = self.max_slots + 1, self.kv.max_pages_per_seq, self.chunk_steps
             ck = torch.zeros((cfg.n_layers, M, n, cfg.n_kv_heads, cfg.head_dim),
                              dtype=self.kv.k.dtype, device=dev)
-            own = None
-            if self.paged_attn == "gather":
-                own = (cfg.n_layers, M * P, self.kv.page_size, cfg.n_kv_heads, cfg.head_dim)
 
             def i32(*shape):
                 return torch.zeros(shape, dtype=torch.int32, device=dev)
@@ -1678,14 +1812,20 @@ class InferenceEngine:
             self._chunk = _ChunkBuffers(
                 ck=ck, cv=torch.zeros_like(ck), tail=i32(M), own_start=i32(M),
                 toks=i32(M, n), j=torch.zeros((), dtype=torch.int64, device=dev),
-                k_own=None if own is None else torch.empty(own, dtype=ck.dtype, device=dev),
-                v_own=None if own is None else torch.empty(own, dtype=ck.dtype, device=dev),
+                u=torch.zeros((n, M), dtype=torch.float32, device=dev),
+                k_own=None, v_own=None,
             )
-        return self._chunk
+        c = self._chunk
+        if (gather or self.paged_attn == "gather") and c.k_own is None:
+            own = (cfg.n_layers, M * P, self.kv.page_size, cfg.n_kv_heads, cfg.head_dim)
+            c.k_own = torch.empty(own, dtype=c.ck.dtype, device=dev)
+            c.v_own = torch.empty(own, dtype=c.ck.dtype, device=dev)
+        return c
 
     def _chunk_dispatch(self) -> torch.Tensor:
         """One decode chunk (no host sync); the emitted tokens
         [max_slots + 1, chunk_steps], on their way to a host buffer."""
+        self._refuse_while_resident()
         prefix = self._bind_prefix()
         self._padded_tables()
         c = self._chunk_buffers()
@@ -1757,18 +1897,402 @@ class InferenceEngine:
                 self.stats["completed"] += 1
         return finished
 
+    # ---------------------------------------------------------- fused decode
+    def dense_grammar(self) -> torch.Tensor | None:
+        """The active grammar's dense [states, vocab] transition table on
+        the device, or None (no grammar / past the byte cap). Built lazily
+        on first use into the engine's table of its shape (graphs read it
+        by address)."""
+        if not self._constrained or self._fused_unsupported:
+            return None
+        if self._fused_next_d is None:
+            tables = (
+                dense_tables(self._dfa, self.cfg.vocab_size, self.fused_table_bytes)
+                if self._dfa is not None else None
+            )
+            if tables is None:
+                self._fused_unsupported = True
+                logger.info(
+                    "grammar cannot export a dense fused table (cap %d bytes); "
+                    "decode stays on the sparse chunked path", self.fused_table_bytes,
+                )
+                return None
+            self._fused_next_d = self._grammar_table("dense_next", tables.next_state)
+        return self._fused_next_d
+
+    def _fused_ready(self) -> bool:
+        """Whether the fused runtime can serve the CURRENT grammar state:
+        False (grammar too large for a dense table, or fused decode off)
+        routes callers to step()."""
+        if not self.fused_decode:
+            return False
+        if not self._constrained:
+            return True
+        return self.dense_grammar() is not None
+
+    def _fused_chunk_dispatch(self):
+        """Dispatch ONE fused decode chunk (no host sync); returns (emitted
+        tokens [M+1, chunk_steps] and steps run, each on its way to a host
+        buffer, and the chunk's program, which books its bodies' kernel
+        launches once the steps run are known)."""
+        self._refuse_while_resident()
+        prefix = self._bind_prefix()
+        self._padded_tables()
+        c = self._chunk_buffers()
+        table = self._fused_next_d if self._constrained else self._fused_dummy
+        key = ("fused", *self._chunk_key(), tuple(table.shape), self.top_k)
+        var = self._fused_variants.get(key)
+        if var is None:
+            var = self._fused_variants[key] = _FusedChunkVariant(self, prefix, table)
+        var.program.run()
+        toks = host_buffer(c.toks.shape, torch.int32, self.device)
+        steps = host_buffer((), torch.int64, self.device)
+        toks.copy_(c.toks, non_blocking=True)
+        steps.copy_(c.j, non_blocking=True)
+        self.stats["chunks"] += 1
+        self.stats["dispatches"] += 1
+        self.stats["fused_chunks"] += 1
+        return toks, steps, var.program
+
+    def step_fused(self, chunks: int = 1) -> list[Finished]:
+        """step()'s fused twin: `chunks` early-exit decode chunks dispatched
+        back to back, then ONE host sync. A finished batch's remaining
+        chunks run no step, so token accounting stays exact: the books
+        count tokens emitted and steps run, never chunk capacity. Falls
+        back to step() when the fused runtime can't serve (_fused_ready)."""
+        self._await_dispatch()
+        if self.persistent_active:
+            self.exit_persistent()
+        pend = self._pending_finished
+        self._pending_finished = []
+        if not self._by_slot:
+            return pend
+        if not self._fused_ready():
+            self.stats["fused_fallbacks"] += 1
+            return pend + self.step(chunks)
+        emissions: list[torch.Tensor] = self._pending_emissions
+        self._pending_emissions = []
+        handles = []
+        any_active = bool(
+            (self._act_np & (self._budget_np > 0))[list(self._by_slot)].any()
+        )
+        if any_active:
+            for _ in range(max(1, chunks)):
+                toks, steps, prog = self._fused_chunk_dispatch()
+                emissions.append(toks)
+                handles.append((steps, prog))
+        # ONE host sync (the blocking copies below wait for the stream)
+        act_np = self._state.act.cpu().numpy()
+        budget_np = self._state.budget.cpu().numpy()
+        first_np = self._state.first.cpu().numpy()
+        self.stats["syncs"] += 1
+        self._book_fused_steps(handles)
+        return pend + self._finish_harvest(
+            [e.numpy() for e in emissions], act_np, budget_np, first_np
+        )
+
+    def _book_fused_steps(self, handles) -> int:
+        """Book the steps each harvested fused chunk ran (its host buffers
+        have landed), and its conditional bodies' kernel launches."""
+        total = 0
+        for steps, prog in handles:
+            n = int(steps)
+            prog.book_bodies(n)
+            total += n
+        self.stats["fused_steps"] += total
+        return total
+
+    def decode_fused(self) -> list[Finished]:
+        """Drive every in-flight slot to COMPLETION through the fused
+        runtime: dispatch ceil(max remaining budget / chunk_steps) chunks
+        back to back with no host sync between them (early exit makes the
+        ones past completion nearly free), then harvest with one host sync
+        a chunk, in dispatch order, while later chunks still run. The
+        device-side budget guarantees completion within them. Falls back to
+        a step() drain when the fused runtime can't serve."""
+        self._await_dispatch()
+        if self.persistent_active:
+            self.exit_persistent()
+        pend = self._pending_finished
+        self._pending_finished = []
+        if not self._by_slot:
+            return pend
+        if not self._fused_ready():
+            self.stats["fused_fallbacks"] += 1
+            out: list[Finished] = list(pend)
+            while self._by_slot:
+                out.extend(self.step())
+            return out
+        emissions: list[torch.Tensor] = self._pending_emissions
+        self._pending_emissions = []
+        live = list(self._by_slot)
+        budget_max = int(self._budget_np[live].max()) if live else 0
+        n_chunks = max(1, -(-budget_max // self.chunk_steps))
+        handles, fences = [], []
+        for _ in range(n_chunks):
+            toks, steps, prog = self._fused_chunk_dispatch()
+            emissions.append(toks)
+            handles.append((steps, prog))
+            fences.append(Fence(self.device))
+            fences[-1].record()
+        if len(emissions) > n_chunks:
+            # parked piggyback emissions: chronologically first, fetched by
+            # the first sync below (counted, as the JAX engine does)
+            self.stats["syncs"] += 1
+        for fence in fences:
+            fence.synchronize()  # one sync a chunk
+            self.stats["syncs"] += 1
+        self._book_fused_steps(handles)
+        act_np = self._state.act.cpu().numpy()
+        budget_np = self._state.budget.cpu().numpy()
+        first_np = self._state.first.cpu().numpy()
+        return pend + self._finish_harvest(
+            [e.numpy() for e in emissions], act_np, budget_np, first_np
+        )
+
     def generate(self, prompt_ids: list[int], max_new_tokens: int = 200) -> Finished:
-        """Synchronous single-request generation: admit, then step() until
-        it finishes. Other requests that finish meanwhile are parked for
-        the next step()."""
+        """Synchronous single-request generation. While the resident loop
+        serves, the request goes through its command ring and the token
+        ring is drained until it completes; otherwise it decodes through
+        the FUSED runtime (decode_fused, which falls back to step() when
+        the grammar can't fuse). Other requests that finish meanwhile are
+        parked for the next harvest."""
         req_id = self.add_request(prompt_ids, max_new_tokens)
+        if self.persistent_active:
+            while True:
+                fins = self.step_persistent(timeout_s=1.0)
+                mine = [f for f in fins if f.req_id == req_id]
+                self._pending_finished.extend(f for f in fins if f.req_id != req_id)
+                if mine:
+                    return mine[0]
+                if not self.persistent_active:
+                    break  # drained (wedge): finish on the dispatch path
         while True:
-            fins = self.step()
+            fins = self.decode_fused()
             mine = [f for f in fins if f.req_id == req_id]
             self._pending_finished.extend(f for f in fins if f.req_id != req_id)
             if mine:
                 return mine[0]
 
+    # ------------------------------------------------- persistent serving
+    def persistent_supported(self) -> bool:
+        """Whether the resident loop can serve the CURRENT engine state.
+        False routes to the dispatch path: flag off, a prior wedge
+        (latched: a wedging workload must not relaunch-thrash), or the
+        fused runtime unavailable (the loop's body IS the fused step)."""
+        if not self.persistent_loop or self._persistent_wedged:
+            return False
+        return self._fused_ready()
+
+    @property
+    def persistent_active(self) -> bool:
+        return self._persistent is not None and self._persistent.running
+
+    def _refuse_while_resident(self) -> None:
+        if self.persistent_active:
+            raise RuntimeError(
+                "the resident loop owns the slots: exit_persistent() before a dispatch"
+            )
+
+    def persistent_suffix_limit(self, max_new_tokens: int) -> int:
+        """Largest suffix the resident loop's fixed-shape ADMIT can carry
+        (its bucket, tightened by the paged budget bound). Callers routing
+        work pre-filter on this, so an oversized suffix rides the dispatch
+        path instead of draining the loop mid-burst."""
+        if self._persistent is not None:
+            bucket = self._persistent.suffix_bucket
+        else:
+            bucket = self.persistent_suffix_bucket or self.prefill_buckets[0]
+        return min(bucket, self.max_suffix_tokens(max_new_tokens))
+
+    def enter_persistent(self) -> bool:
+        """Launch the resident serving loop (engine/persistent/) over this
+        engine's slots. Every admission, decode step and emission until
+        exit_persistent is ring traffic on this thread. Returns False when
+        unsupported (the caller stays on the dispatch path)."""
+        if self.persistent_active:
+            return True
+        if not self.persistent_supported():
+            return False
+        if self._persistent is None:
+            from k8s_llm_scheduler_tpu_torch.engine.persistent.server import (
+                PersistentServer,
+            )
+
+            self._persistent = PersistentServer(
+                self,
+                suffix_bucket=self.persistent_suffix_bucket,
+                wedge_timeout_s=self.persistent_wedge_timeout_s,
+                telemetry=self.persistent_telemetry,
+                stats_every=self.persistent_stats_every,
+                blackbox_depth=self.persistent_blackbox_depth,
+            )
+        self._persistent.launch()
+        self._pers_ctr_final = None
+        self.stats["persistent_launches"] += 1
+        self.stats["dispatches"] += 1
+        return True
+
+    def exit_persistent(self) -> None:
+        """Quiesce the resident loop; the dispatch path resumes EXACTLY
+        where it left off (mid-stream slots keep decoding
+        token-identically). Completions recovered by the final harvest park
+        in _pending_finished for the next harvesting call."""
+        if not self.persistent_active:
+            return
+        srv = self._persistent
+        final = srv.quiesce()
+        # the residency's EXACT device counter totals, for the
+        # reconciliation pin: emitted equals the decode tokens harvested
+        # off the ring, token for token
+        self._pers_ctr_final = counters_dict(final["ctr"])
+        srv.stats_ring.clear_parked()
+        # the loop wrote admitted slots' rows into the static page tables;
+        # the host allocator is authoritative: copy it in again when next
+        # needed
+        self._tables_src = None
+        self._pending_finished.extend(self._persistent_harvest(srv.harvest_steady(0.0)))
+        # A force-stopped (wedged) loop can leave ADMIT commands undrained:
+        # those requests never reached the device. Free their slots and
+        # finish them truncated (they never emitted a token).
+        while (cmd := srv.commands.take()) is not None:
+            if cmd.op != OP_ADMIT:
+                continue
+            req = self._by_slot.pop(cmd.slot, None)
+            if req is None:
+                continue
+            self.kv.free_slot(cmd.slot)
+            self._act_np[cmd.slot] = False
+            self._budget_np[cmd.slot] = 0
+            ids = req.generated[: req.max_new_tokens]
+            self._pending_finished.append(Finished(
+                req_id=req.req_id, token_ids=ids, text=self.tokenizer.decode(ids),
+                latency_ms=(time.perf_counter() - req.submitted_at) * 1000.0,
+            ))
+            self.stats["completed"] += 1
+
+    def step_persistent(self, timeout_s: float = 0.05) -> list[Finished]:
+        """Steady-state persistent tick: drain the token ring, book the
+        emissions, return completions; no device call on this thread. Also
+        the wedge watchdog: a loop that stops beating is force-stopped and
+        drained back to the dispatch path, latching _persistent_wedged."""
+        out = list(self._pending_finished)
+        self._pending_finished = []
+        if not self.persistent_active:
+            return out
+        srv = self._persistent
+        if srv.wedged():
+            logger.warning(
+                "persistent loop wedged (no heartbeat for %.0fs) — "
+                "force-draining back to the dispatch path", srv.wedge_timeout_s,
+            )
+            self.stats["persistent_wedges"] += 1
+            self._persistent_wedged = True
+            srv.force_stop()
+            self.exit_persistent()
+            out.extend(self._pending_finished)
+            self._pending_finished = []
+            return out
+        out.extend(self._persistent_harvest(srv.harvest_steady(timeout_s)))
+        return out
+
+    def resident_decision_latency(self) -> float | None:
+        """The JAX engine's EWMA of in-loop per-decision latency reads its
+        profiler, which the port does not have yet: None."""
+        return None
+
+    def persistent_counter_totals(self) -> dict[str, int] | None:
+        """Exact device counter totals of the last drained residency: its
+        `emitted` equals the decode tokens harvested off the token ring."""
+        return self._pers_ctr_final
+
+    def persistent_blackbox(self) -> dict | None:
+        """Latest wedge/quiesce black-box dump; None before the first
+        residency or with telemetry off."""
+        if self._persistent is None or not self._persistent.telemetry:
+            return None
+        return self._persistent.blackbox_dump()
+
+    def _persistent_harvest(self, batches) -> list[Finished]:
+        """Book ring batches (in push order) into request streams: the
+        persistent twin of _finish_harvest, one batch at a time because a
+        slot can finish AND be reused by a later in-window admission."""
+        finished: list[Finished] = []
+        pad = self.tokenizer.pad_id
+        for b in batches:
+            if b.admit_slot >= 0:
+                req = self._by_slot.get(b.admit_slot)
+                if req is not None and req.first_pending:
+                    req.generated.append(int(b.first_tok))
+                    req.first_pending = False
+            self._act_np = np.array(b.act)
+            self._budget_np = np.array(b.budget)
+            self.stats["persistent_steps"] += int(b.steps_run)
+            self.stats["persistent_chunks"] += 1
+            for slot, req in list(self._by_slot.items()):
+                if req.first_pending:
+                    # admitted through the ring, its admission batch later in
+                    # the stream: this batch's row is a previous occupant's
+                    continue
+                emitted = [int(t) for t in b.emitted[slot] if t != pad]
+                req.generated.extend(emitted)
+                self.stats["decode_tokens"] += len(emitted)
+                if not self._act_np[slot] or self._budget_np[slot] <= 0:
+                    self.kv.free_slot(slot)
+                    del self._by_slot[slot]
+                    ids = req.generated[: req.max_new_tokens]
+                    finished.append(Finished(
+                        req_id=req.req_id, token_ids=ids, text=self.tokenizer.decode(ids),
+                        latency_ms=(time.perf_counter() - req.submitted_at) * 1000.0,
+                    ))
+                    self.stats["completed"] += 1
+        return finished
+
+    def _add_requests_persistent(
+        self, prompts: list[list[int]], max_new_tokens: int
+    ) -> list[int]:
+        """Ring-routed admission: slot/page allocation is host work, the
+        suffix prefill and first-token sample happen in the resident loop
+        (OP_ADMIT). No device call on this thread."""
+        srv = self._persistent
+        reqs: list[_Request] = []
+        n_blocks = srv.suffix_bucket // self.kv.page_size
+        for ids in prompts:
+            n = len(ids)
+            slot = self.kv.allocate_slot(n, reserve_decode=max_new_tokens + 1)
+            pages = self.kv.slot_pages(slot)
+            row = np.zeros(self.kv.max_pages_per_seq, dtype=np.int32)
+            row[: len(pages)] = pages
+            page_ids = np.zeros((1, n_blocks), dtype=np.int32)
+            used = min(self.kv.pages_needed(n), n_blocks)
+            page_ids[0, :used] = pages[:used]
+            try:
+                srv.admit_steady(ids, slot, max_new_tokens - 1, page_ids, row)
+            except Exception:
+                self.kv.free_slot(slot)
+                raise
+            req = _Request(req_id=self._req_counter, slot=slot, prompt_len=n,
+                           max_new_tokens=max_new_tokens)
+            self._req_counter += 1
+            self._by_slot[slot] = req
+            # optimistic mirrors until the admission batch tells the truth
+            self._act_np[slot] = True
+            self._budget_np[slot] = max_new_tokens - 1
+            reqs.append(req)
+        self.stats["requests"] += len(reqs)
+        self.stats["persistent_admissions"] += len(reqs)
+        self.stats["prefill_tokens"] += sum(len(p) for p in prompts)
+        return [r.req_id for r in reqs]
+
     def get_stats(self) -> dict:
-        return {**self.stats, "pages_free": self.kv.pages_free,
-                "slots_free": self.free_slots}
+        out = {**self.stats, "pages_free": self.kv.pages_free,
+               "slots_free": self.free_slots}
+        if self._persistent is not None:
+            out.update(self._persistent.stats())
+        if self.stats["completed"]:
+            # a residency books one dispatch, its launch (as the JAX engine
+            # does); its micro-chunks book none
+            out["dispatches_per_decision"] = round(
+                self.stats["dispatches"] / self.stats["completed"], 4
+            )
+        return out

@@ -36,11 +36,20 @@ snapshot plus a STATE UPDATES diff (sched/delta.py), and the snapshot's
 prefix KV is pinned (engine/admission/pinned.py) before its group installs,
 so the install prefills only the diff. The backend defaults both off;
 build_local_backend turns packed admission on, as the JAX one does, and
-the config's `admission.*` keys (cli._backend_kwargs) set both.
+the config's `admission.*` keys (cli._backend_kwargs) set both. Packs decode
+through the engine's fused runtime (engine.step_fused), which falls back to
+step() on its own when the grammar can't fuse.
 
-Not ported yet: the persistent loop (ROADMAP Queue 1 item 7), the KV plane
-and the engine profiler's fences (item 8), speculative decoding, and the
-fleet pool role (`pool_role`, `_check_role`).
+The persistent serving loop (JAX local.py:161-181, 909-1030): with
+`persistent_loop`, current-group items that fit the resident loop's
+admission bucket feed its command ring (the engine enters the loop lazily)
+and the worker drains its token ring every tick (`_drive_persistent`);
+oversized items ride waves, which run beside the loop. The loop exits at a
+control barrier, after a failed tick and at shutdown.
+
+Not ported yet: the KV plane and the engine profiler's fences (ROADMAP
+Queue 1 item 8), speculative decoding, and the fleet pool role
+(`pool_role`, `_check_role`).
 """
 
 from __future__ import annotations
@@ -164,8 +173,17 @@ class LocalLLMBackend:
         delta_prompts: bool = False,
         repin_fraction: float = 0.25,
         max_pins: int = 4,
+        persistent_loop: bool = False,
     ) -> None:
         self.engine = engine
+        # Persistent serving (engine/persistent/): the worker feeds the
+        # resident loop's rings instead of submitting waves for what fits.
+        # The backend flag is authoritative: it arms the engine gate too.
+        self._persistent_loop = bool(persistent_loop) and hasattr(engine, "enter_persistent")
+        if self._persistent_loop:
+            engine.persistent_loop = True
+        # in-flight resident-loop decisions: req_id -> (item, submitted_at)
+        self._pers_items: dict[int, tuple[_WorkItem, float]] = {}
         # Admission plane: batch-surface decisions admit through packed
         # chunked prefill when the engine has it; delta_prompts renders
         # cluster prefixes as pinned snapshot + drift diff.
@@ -543,8 +561,15 @@ class LocalLLMBackend:
             Pack-marked items admit through engine.admit_packed instead,
             bounded by the engine's free paged slots (the rest wait for
             slots to drain); a lone marked item, or one whose suffix is
-            past the paged limit, rides a wave."""
-            if self._packed_admission:
+            past the paged limit, rides a wave.
+
+            With the persistent loop on, current-group items that fit its
+            admission bucket feed the command ring first; while the loop
+            is resident the packed branch is skipped (admit_packed would
+            drain it), so what is left rides waves."""
+            if self._persistent_loop:
+                items = self._route_persistent(items, rest, bool(packs))
+            if self._packed_admission and not getattr(self.engine, "persistent_active", False):
                 limit = self.engine.max_suffix_tokens(self.max_new_tokens)
                 packable = [i for i in items
                             if i.pack is not None and len(i.suffix_ids) <= limit]
@@ -588,9 +613,10 @@ class LocalLLMBackend:
         run_group(current)
         if not others:
             return rest
-        if packs:
+        if packs or self._pers_items:
             # the paged slots decode against the current prefix: a switch
-            # waits for the packs to finish (bounded by their budgets)
+            # waits for the packs and resident-loop decisions to finish
+            # (bounded by their budgets)
             rest.extend(others)
             return rest
         oldest = min(others, key=lambda i: i.enqueued_at)
@@ -635,12 +661,13 @@ class LocalLLMBackend:
         the device could have started the wave (its submit, or the last
         harvest); past it the harvest blocks, returning at the wave's true
         completion, which keeps the EMA honest. With packs in flight there
-        is no poll: their decode must not starve behind it."""
+        is no poll: their decode (or the resident loop's) must not starve
+        behind it."""
         handle, items = waves[0]
         geo = handle.geo_key
         ema = self._wave_ema.get(geo, self._wave_ema_default)
         deadline = max(handle.submitted_at, self._last_harvest_t) + 0.5 * ema
-        if packs:
+        if packs or self._pers_items:
             deadline = 0.0
         while (not handle.is_ready() and not self._stopped.is_set()
                and time.perf_counter() < deadline):
@@ -683,10 +710,59 @@ class LocalLLMBackend:
             item.resolve(fin.text)
         return pending
 
+    def _route_persistent(self, items: list[_WorkItem], rest: list[_WorkItem],
+                          packs_busy: bool) -> list[_WorkItem]:
+        """Feed current-group items that fit the resident loop's admission
+        bucket onto its command ring (entering the loop lazily); returns the
+        items that take the dispatch path instead. A full ring or no free
+        slot PARKS the item in `rest` (backpressure: retry next tick)."""
+        from k8s_llm_scheduler_tpu_torch.engine.persistent.ring import RingFull
+
+        eng = self.engine
+        limit = eng.persistent_suffix_limit(self.max_new_tokens)
+        if not any(len(i.suffix_ids) <= limit for i in items):
+            return items
+        if not eng.persistent_active:
+            if packs_busy:
+                # packs decode on the dispatch path: wait them out
+                return items
+            try:
+                if not eng.enter_persistent():
+                    return items  # unsupported / wedge-latched
+            except Exception:
+                logger.exception("persistent loop launch failed")
+                return items
+        leftover: list[_WorkItem] = []
+        for item in items:
+            if len(item.suffix_ids) > limit:
+                leftover.append(item)
+                continue
+            if eng.free_slots <= 0:
+                rest.append(item)
+                continue
+            try:
+                (req_id,) = eng.add_requests([item.suffix_ids], self.max_new_tokens)
+            except RingFull:
+                rest.append(item)  # admission backpressure
+            except Exception as exc:
+                item.fail(BackendError(str(exc)))
+            else:
+                self._pers_items[req_id] = (item, time.perf_counter())
+        return leftover
+
     def _resolve_fins(self, fins, packs: list[dict]) -> None:
-        """Resolve finished paged decisions to their packs' items."""
+        """Resolve finished paged decisions to their items: resident-loop
+        admissions and packs share the paged slots, so one seam serves
+        both."""
         now = time.perf_counter()
         for fin in fins:
+            entry = self._pers_items.pop(fin.req_id, None)
+            if entry is not None:
+                item, submitted_at = entry
+                self._attach_item_spans(item, SimpleNamespace(submitted_at=submitted_at),
+                                        fin, now)
+                item.resolve(fin.text)
+                continue
             for pk in packs:
                 item = pk["items"].pop(fin.req_id, None)
                 if item is not None:
@@ -697,28 +773,63 @@ class LocalLLMBackend:
         packs[:] = [pk for pk in packs if pk["items"]]
 
     def _fail_paged_inflight(self, packs: list[dict], exc: Exception) -> None:
-        """Fail every in-flight pack decision and abort the engine's paged
-        slots, so their slots and pages do not leak."""
+        """Fail every in-flight paged decision (packs and resident-loop
+        items) and abort the engine's paged slots, so their slots and pages
+        do not leak."""
         for pk in packs:
             for item in pk["items"].values():
                 item.fail(BackendError(str(exc)))
         packs.clear()
+        for item, _t in self._pers_items.values():
+            item.fail(BackendError(str(exc)))
+        self._pers_items.clear()
+        self._exit_persistent("after a failed step")
         try:
             self.engine.abort_all()
         except Exception:  # pragma: no cover - best-effort cleanup
             logger.exception("engine abort after failed step")
 
-    def _drive_packs(self, packs: list[dict]) -> None:
-        """Advance in-flight packs by one step() and resolve what finished
-        (the step also harvests the decode chunks piggybacked during the
-        admission: the engine's one sync). The JAX backend steps packs
-        through its fused decode when the engine has one; the port has
-        none, so they step through step(), as the JAX engine falls back to,
-        token for token."""
+    def _exit_persistent(self, when: str) -> None:
         try:
-            fins = self.engine.step()
+            if getattr(self.engine, "persistent_active", False):
+                self.engine.exit_persistent()
+        except Exception:  # pragma: no cover - best effort
+            logger.exception("persistent loop exit %s failed", when)
+
+    def _step_paged(self):
+        """One fused step of the paged slots (step() on engine test doubles
+        without a fused runtime)."""
+        step_fused = getattr(self.engine, "step_fused", None)
+        return step_fused() if step_fused is not None else self.engine.step()
+
+    def _drive_packs(self, packs: list[dict]) -> None:
+        """Advance in-flight packs by one step and resolve what finished
+        (the step also harvests the decode chunks piggybacked during the
+        admission: the engine's one sync). Packs admit into FUSED slots:
+        the step goes through the fused runtime, which exits early past
+        finished slots and falls back to step() on its own when the grammar
+        can't fuse."""
+        try:
+            fins = self._step_paged()
         except Exception as exc:
             logger.exception("packed decode step failed")
+            self._fail_paged_inflight(packs, exc)
+            return
+        self._resolve_fins(fins, packs)
+
+    def _drive_persistent(self, packs: list[dict]) -> None:
+        """Drain the resident loop's token ring and resolve finished
+        decisions. After a drain (wedge, or a quiesce that didn't resume)
+        the surviving slots keep decoding on the dispatch path, token for
+        token."""
+        eng = self.engine
+        try:
+            if eng.persistent_active:
+                fins = eng.step_persistent(timeout_s=0.02)
+            else:
+                fins = self._step_paged()
+        except Exception as exc:
+            logger.exception("persistent serving step failed")
             self._fail_paged_inflight(packs, exc)
             return
         self._resolve_fins(fins, packs)
@@ -729,6 +840,9 @@ class LocalLLMBackend:
         key stands for (a weight swap clears the prefix KV), so the next
         wave reinstalls prefix and grammar (JAX local.py:1163-1197). Pins
         gone stale with it are dropped, so the next install re-pins."""
+        # the resident loop exits first: the dispatch path owns the slots
+        # while a control runs (swaps and drains expect it)
+        self._exit_persistent("at the control barrier")
         controls, self._held_controls = self._held_controls, []
         for ctl in controls:
             try:
@@ -762,11 +876,16 @@ class LocalLLMBackend:
         pending = self._submit_waves(pending, waves, packs)
         if packs:
             # packs decode through the paged path: step them every tick so
-            # their decisions resolve while waves pipeline alongside
+            # their decisions resolve while waves pipeline alongside (the
+            # resolve seam covers resident-loop items too)
             self._drive_packs(packs)
+        elif self._pers_items:
+            # resident-loop decisions: harvest the token ring (or, after a
+            # drain, continue their slots on the dispatch path)
+            self._drive_persistent(packs)
         if waves:
             pending = self._harvest_oldest(pending, waves, packs)
-        if self._held_controls and not waves and not packs:
+        if self._held_controls and not waves and not packs and not self._pers_items:
             self._run_controls()
         return pending
 
@@ -828,7 +947,7 @@ class LocalLLMBackend:
         waves: deque = deque()
         packs: list[dict] = []  # in-flight packed admissions
         while not self._stopped.is_set():
-            idle = not pending and not waves and not packs
+            idle = not pending and not waves and not packs and not self._pers_items
             if idle and self._prewarm_backlog() > 0:
                 # Idle with captures owed: park only for the grace period;
                 # if still idle after it, capture ONE sibling geometry, then
@@ -839,7 +958,9 @@ class LocalLLMBackend:
                     self._try_prewarm()
                 continue
             self._drain_queue(pending, block=idle)
-            if self._stopped.is_set() or (not pending and not waves and not packs):
+            if self._stopped.is_set() or (
+                not pending and not waves and not packs and not self._pers_items
+            ):
                 continue
             # Nothing below may kill the engine-owner thread.
             try:
@@ -849,7 +970,7 @@ class LocalLLMBackend:
                 for _, items in waves:
                     pending.extend(items)
                 waves.clear()
-                if packs:
+                if packs or self._pers_items:
                     # their requests hold paged slots: abort, or they leak
                     self._fail_paged_inflight(packs, exc)
                 pending.extend(self._held_controls)
@@ -857,11 +978,16 @@ class LocalLLMBackend:
                 for item in pending:
                     item.fail(BackendError(str(exc)))
                 pending = []
+        # shutdown: retire the resident loop (its thread must not outlive
+        # the backend), then fail anything still queued or in flight
+        self._exit_persistent("at shutdown")
         self._drain_queue(pending, block=False)
         for _, items in waves:
             pending.extend(items)
         for pk in packs:
             pending.extend(pk["items"].values())
+        pending.extend(item for item, _t in self._pers_items.values())
+        self._pers_items.clear()
         pending.extend(self._held_controls)
         self._held_controls = []
         for item in pending:
@@ -948,6 +1074,13 @@ def build_local_backend(
     delta_prompts: bool = False,
     repin_fraction: float = 0.25,
     max_pins: int = 4,
+    fused_decode: bool = True,
+    persistent_loop: bool = False,
+    persistent_suffix_bucket: int | None = None,
+    persistent_wedge_timeout_s: float = 30.0,
+    persistent_telemetry: bool = True,
+    persistent_stats_every: int = 8,
+    persistent_blackbox_depth: int = 64,
 ) -> LocalLLMBackend:
     """The local stack on `device` with the JAX package's settings and
     defaults (JAX local.py:1431-1480): params, tokenizer, engine and a
@@ -962,7 +1095,10 @@ def build_local_backend(
     `tokenizer_path`, or the checkpoint's own when it ships one and
     `tokenizer_name` is "byte", else the builtin `tokenizer_name`, which
     may widen the model's vocab (engine/tokenizer.build_builtin_tokenizer).
-    `temperature` 0 decodes greedily; `top_k` is kept on the engine.
+    `temperature` 0 decodes greedily; `top_k` restricts the fused runtime's
+    sampled draws (`fused_decode`, on by default; engine/fused/).
+    `persistent_loop` serves what fits through the resident loop
+    (engine/persistent/; `persistent_*` are its settings).
     `decode_matmul="ragged"` runs block decode's matmuls through K3;
     `graphs=False` runs the engine's waves eagerly where it would replay
     CUDA graphs. The admission plane's settings are the config's
@@ -1015,6 +1151,13 @@ def build_local_backend(
         temperature=temperature, top_k=top_k, rng_seed=seed,
         decode_matmul=decode_matmul, graphs=graphs,
         admission_chunk_tokens=admission_chunk_tokens,
+        fused_decode=fused_decode,
+        persistent_loop=persistent_loop,
+        persistent_suffix_bucket=persistent_suffix_bucket,
+        persistent_wedge_timeout_s=persistent_wedge_timeout_s,
+        persistent_telemetry=persistent_telemetry,
+        persistent_stats_every=persistent_stats_every,
+        persistent_blackbox_depth=persistent_blackbox_depth,
     )
     return LocalLLMBackend(
         engine, tokenizer, max_new_tokens=max_new_tokens, constrained=constrained,
@@ -1028,4 +1171,5 @@ def build_local_backend(
         delta_prompts=delta_prompts,
         repin_fraction=repin_fraction,
         max_pins=max_pins,
+        persistent_loop=persistent_loop,
     )

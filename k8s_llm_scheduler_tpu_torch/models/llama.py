@@ -614,6 +614,13 @@ def forward_decode_buffered(
     return _logits(params, cfg, x), chunk_k, chunk_v
 
 
+
+# The fused decode loop's step forward (engine/fused/loop.py): the SAME
+# function as the chunked path's, re-exported under the fused contract as
+# the JAX package does; greedy token identity between the paths rests on it.
+forward_decode_fused_body = forward_decode_buffered
+
+
 @torch.no_grad()
 def forward_decode(
     params: Params,

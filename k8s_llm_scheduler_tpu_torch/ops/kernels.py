@@ -24,7 +24,9 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("prefix_attention", "causal_attention", "ragged_matmul", "paged_attention")
+SOURCES = (
+    "prefix_attention", "causal_attention", "ragged_matmul", "paged_attention", "graph_cond",
+)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

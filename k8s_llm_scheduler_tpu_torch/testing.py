@@ -1,6 +1,10 @@
 """Synthetic clusters, fixture pods and an async deadline for tests, the
 chip smoke and `cli demo`.
 
+`chunk_draws` runs the fused decode loop's sampling alone over constant
+probabilities, on the CPU or captured on a card, for the tests and the chip
+smoke to hold against the softmax.
+
 `synthetic_nodes(n)` returns exactly the NodeMetrics that
 `synthetic_cluster(n).get_node_metrics()` reports for a cluster with no pods
 bound: node-i at load (i * 37 % 90)% of 16 cores / 64 GB, 110 max pods,
@@ -202,3 +206,67 @@ def pod_burst(
             )
         )
     return pods
+
+
+def chunk_draws(device: str = "cpu", *, slots: int = 64, steps: int = 16,
+                replays: int = 16, vocab: int = 32, temperature: float = 1.0,
+                seed: int = 0) -> dict:
+    """The fused loop's sampling with probabilities that stay constant: a
+    chunk of `steps` steps, each sampling every slot with `sample_fused`
+    from its row of the chunk's uniforms (engine/fused/loop.py
+    `fused_draw` / `step_uniforms`), as a GraphRunner program (on a card a
+    CUDA graph whose steps are one WHILE node), run `replays` times.
+
+    Returns the draws' total variation from the softmax (`tv`), the share
+    of draws equal to their slot's draw at step 0 of the same run
+    (`repeat`, the chance of which for independent draws is `repeat_want`,
+    the sum of the squared probabilities), the steps run and replays."""
+    import torch
+
+    from k8s_llm_scheduler_tpu_torch.engine.fused.loop import fused_draw, step_uniforms
+    from k8s_llm_scheduler_tpu_torch.engine.fused.sampler import sample_fused
+    from k8s_llm_scheduler_tpu_torch.engine.graphs import GraphRunner
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    runner = GraphRunner(dev, True, generator=gen)
+    base = torch.randn(vocab, generator=torch.Generator().manual_seed(seed)) * 0.5
+    logits = base.to(dev).expand(slots, vocab).contiguous()
+    st = torch.zeros(slots, dtype=torch.int32, device=dev)
+    table = torch.zeros((1, vocab), dtype=torch.int32, device=dev)
+    act = torch.ones(slots, dtype=torch.bool, device=dev)
+    budget = torch.full((slots,), steps, dtype=torch.int32, device=dev)
+    toks = torch.zeros((slots, steps), dtype=torch.int32, device=dev)
+
+    class Buf:
+        u = torch.zeros((steps, slots), dtype=torch.float32, device=dev)
+        j = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def step() -> None:
+        tok, _ = sample_fused(logits, st, table, gen, temperature, 0, False, vocab,
+                              u=step_uniforms(Buf, temperature))
+        toks.index_copy_(1, Buf.j.view(1), tok[:, None])
+        Buf.j.add_(1)
+
+    def chunk() -> None:
+        Buf.j.zero_()
+        fused_draw(Buf, gen, temperature)
+        runner.while_live(act, budget, step, Buf.j, steps)
+
+    prog = runner.program("chunk draws", chunk)
+    runs, steps_run = [], []
+    for _ in range(replays):
+        prog.run()
+        runs.append(toks.clone())
+        steps_run.append(Buf.j.clone())
+    draws = torch.stack(runs).cpu()  # [replays, slots, steps]
+    want = torch.softmax(base / temperature, dim=-1).double()
+    got = torch.bincount(draws.flatten().long(), minlength=vocab).double() / draws.numel()
+    return {
+        "tv": float(0.5 * (got - want).abs().sum()),
+        "repeat": float((draws[..., 1:] == draws[..., :1]).double().mean()),
+        "repeat_want": float((want * want).sum()),
+        "steps_run": [int(n) for n in torch.stack(steps_run).cpu()],
+        "replays": runner.replays,
+        "draws": draws.numel(),
+    }

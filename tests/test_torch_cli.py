@@ -247,8 +247,8 @@ def test_cli_run_without_a_cluster_exits_2(monkeypatch, tmp_path, capsys):
 
 def test_cli_run_refuses_an_unported_switch_before_a_model(monkeypatch, tmp_path):
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("PERSISTENT_LOOP", "true")
-    with pytest.raises(NotImplementedError, match="llm.persistent_loop.*item 6"):
+    monkeypatch.setenv("SPEC_ENABLED", "true")
+    with pytest.raises(NotImplementedError, match="llm.spec_enabled.*item 5"):
         cli.main(["run", "--fake-cluster", "--device", "cpu"])
 
 

@@ -90,9 +90,7 @@ def test_backend_kwargs_agree_on_every_key_the_port_honours(tmp_path, yaml_name,
     # or to JAX alone (its mesh and compile cache)
     assert set(want) - set(got) == {
         "mesh_axes", "compile_cache_dir", "spec_enabled", "spec_arm", "spec_draft_model",
-        "spec_draft_checkpoint", "spec_k", "spec_disable_threshold", "fused_decode",
-        "persistent_loop", "persistent_suffix_bucket", "persistent_telemetry",
-        "persistent_stats_every", "persistent_blackbox_depth"}
+        "spec_draft_checkpoint", "spec_k", "spec_disable_threshold"}
 
 
 def test_backend_kwargs_name_build_local_backend_parameters():
@@ -155,7 +153,9 @@ def test_defaults_pass_and_warn_for_the_two_switches_on_by_default(caplog):
         cli.check_switches(cfg)
     text = caplog.text
     assert "observability.profiler" in text and "item 8" in text
-    assert "llm.fused_decode" in text and "item 4" in text
+    # the fused runtime and the persistent loop are ported: no warning
+    assert "llm.fused_decode" not in text and "persistent" not in text
+    cli.check_switches(_cfg(**{"llm.persistent_loop": True}))
     caplog.clear()
     with caplog.at_level(logging.WARNING, logger="k8s_llm_scheduler_tpu_torch.cli"):
         cli.check_switches(_cfg(**{"observability.profiler": False, "llm.fused_decode": False}))

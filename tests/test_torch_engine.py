@@ -317,6 +317,13 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "k8s_llm_scheduler_tpu_torch.cluster.wire_fake, "
         "k8s_llm_scheduler_tpu_torch.engine.tokenizer, "
         "k8s_llm_scheduler_tpu_torch.models.loader, "
+        "k8s_llm_scheduler_tpu_torch.engine.fused.tables, "
+        "k8s_llm_scheduler_tpu_torch.engine.fused.sampler, "
+        "k8s_llm_scheduler_tpu_torch.engine.fused.loop, "
+        "k8s_llm_scheduler_tpu_torch.engine.persistent.ring, "
+        "k8s_llm_scheduler_tpu_torch.engine.persistent.loop, "
+        "k8s_llm_scheduler_tpu_torch.engine.persistent.server, "
+        "k8s_llm_scheduler_tpu_torch.observability.resident, "
         "k8s_llm_scheduler_tpu_torch.cli\n"
         "bad = sorted(m for m in sys.modules"
         " if m in ('jax', 'yaml', 'safetensors', 'transformers')"

@@ -261,7 +261,7 @@ def test_decode_chunks_in_place_match_jax(tiny_params, cluster_prompts, paged_at
     jeng = JEngine(jp, JTINY, JByteTokenizer(), paged_attn="gather", fused_decode=False,
                    **common)
     teng = TEngine(tp, TTINY, ByteTokenizer(), paged_attn=paged_attn, graphs=False,
-                   **common)
+                   fused_decode=False, **common)
     results = []
     for eng, tok, build in ((jeng, jeng.tokenizer, jconstrained),
                             (teng, teng.tokenizer, tconstrained)):
