@@ -160,6 +160,31 @@ Phases, each of which must pass:
    mode counts them) and no dispatch booked, K1 and K2 launched by the
    loop's admissions. Then a quiesce mid-stream and step_fused to the end:
    the reference's tokens again.
+6g. Spec: speculative decoding (spec/) on the 8B bf16 weights of the
+   resident backend, K = 4, two of the path B prompts behind the cluster
+   prefix, 64 new tokens each: (a) the draft arm (a random TINY draft)
+   and (b) the hidden arm (a random [4, 4096, 4096] head), greedy, with
+   disable_threshold 0 so that every round speculates, in graph mode (two
+   prompts) and eagerly (one); each prompt also through
+   generate(use_spec=False) for ms a token beside ms a round. Every
+   emitted token within 5e-2 of the largest |logit| of the target's argmax
+   under one teacher-forced forward of prompt + output (bf16: the first
+   divergence from the plain path is reported, not gated); one host sync
+   at start and one a verify round; K1 launched 32 times at admission and
+   32 times a verify round; graph and eager tokens identical. (c) the
+   draft arm sampled at 0.3: every token legal. (d) the draft arm at the
+   default threshold 0.3 with no prefix installed (K1 at prefix_len 0): the
+   stream is handed back after 4 rounds and finishes through fused chunks,
+   K4 launched. (e) TINY bf16 (the kernels take bf16), graphs: each arm
+   (a random draft, the self-draft, the hidden head) token-identical to
+   plain generate, unconstrained and under the decision grammar; the
+   self-draft accepts K every round; sampled at 0.3, four streams of one
+   prompt legal and not all equal (replays draw afresh). (f) `cli complete
+   --spec` at TINY in a child, greedy through LLM_TEMPERATURE=0: exit 0
+   and the stdout of the same command without --spec. (g) K1 at the verify
+   shapes q[1,5] and q[1,1] against the 8B prefix buffer (prefix_len
+   5,488) and the empty one (64 slots, prefix_len 0), held and timed as
+   the other K1 shapes.
 6a. Checkpoint: a TINY HF-layout safetensors checkpoint from a seed,
    written in the format's own few lines (no `safetensors` package), vocab
    widened for the builtin numeric tokenizer, loaded through
@@ -2798,6 +2823,407 @@ def persistent_tiny() -> tuple[bool, dict]:
     return ok, rec
 
 
+# ------------------------------------------------------------------ spec phase
+SPEC_K = 4  # the config's llm.spec_k
+SPEC_NEW_TOKENS = 64
+SPEC_PROMPTS = 2
+SPEC_TEMPERATURE = 0.3  # the config's llm.temperature
+# Greedy at 8B bf16 is held token by token to the target's own argmax: each
+# emitted token's logit, under one teacher-forced forward of prompt +
+# output, within 5e-2 of the largest |logit| of the largest (the bf16
+# tolerance of the reference phase); a verify block and a one-token step
+# round differently, so near-ties may flip between the two paths.
+SPEC_TF_TOL = 5e-2
+# The self-draft's acceptance at TINY bf16: 1.0 in f32 (tests/test_torch_
+# spec.py); a random draft's is ~0.
+SPEC_SELF_ACCEPT = 0.75
+SPEC_TINY_PROMPT = "The quick brown fox jumps over the lazy dog. " * 2
+SPEC_TINY_NODES = ["node-a", "node-b", "node-west-1"]
+SPEC_COMPLETE_PROMPT = "Schedule pod web-1 on the least loaded node."
+
+
+def _sync_s(fn):
+    """(fn(), host seconds of it, ending in a device sync)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _verify_runs(spec) -> int:
+    """Verify programs run (eager, warm-up or replay) by a decoder."""
+    return sum(p.program.runs for p in spec._programs.values())
+
+
+def _teacher_forced(eng, sfx, out):
+    """The target's logits [len(out), V] f32 predicting each token of `out`,
+    from one forward of sfx + out[:-1] against the engine's prefix (K1 and
+    K2, as a suffix prefill computes them), and the mask of the ids plain
+    decode may emit (pad and ids past the tokenizer excluded)."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.models import llama
+
+    params, cfg, dev = eng.params, eng.cfg, eng.device
+    pfx = eng._prefix or eng._get_empty_prefix()
+    ids = list(sfx) + list(out[:-1])
+    S = len(ids)
+    tokens = torch.tensor([ids], dtype=torch.int32, device=dev)
+    plen = torch.tensor(pfx.length, dtype=torch.int32, device=dev)
+    positions = plen + torch.arange(S, dtype=torch.int32, device=dev)[None]
+    lens = torch.tensor([S], dtype=torch.int32, device=dev)
+    inv = llama.rope_inv_freq(cfg, dev)
+    with torch.no_grad():
+        x = params["embed"][tokens.long()]
+        for i in range(cfg.n_layers):
+            x, _, _ = llama._suffix_layer(llama._layer(params["layers"], i), cfg, x,
+                                          positions, lens, pfx.k[i], pfx.v[i], plen, inv)
+        logits = llama._logits(params, cfg, x[0, len(sfx) - 1:])
+    V = logits.shape[-1]
+    ids_v = torch.arange(V, device=dev)
+    legal = ids_v != eng.tokenizer.pad_id
+    if eng._vocab_limit is not None:
+        legal &= ids_v < eng._vocab_limit
+    return logits, legal
+
+
+def _argmax_check(eng, sfx, out) -> dict:
+    """Each token of `out` against the teacher-forced argmax (SPEC_TF_TOL),
+    over the ids plain decode may emit there: under a grammar, those its
+    dense table allows in the state the output has reached."""
+    import torch
+
+    logits, legal = _teacher_forced(eng, sfx, out)
+    legal = legal.expand(len(out), -1)
+    dense = eng.dense_grammar()
+    if dense is not None:
+        table = dense.cpu()
+        st, rows = eng._dfa_start, []
+        for t in out:
+            rows.append(table[st] >= 0)
+            st = int(table[st, t])
+        legal = legal & torch.stack(rows).to(logits.device)
+    masked = torch.where(legal, logits, float("-inf"))
+    top = masked.max(dim=-1).values
+    scale = torch.where(legal, logits.abs(), 0.0).max(dim=-1).values
+    got = masked.gather(1, torch.tensor(out, device=logits.device)[:, None].long())[:, 0]
+    gap = ((top - got) / scale).cpu()
+    exact = (masked.argmax(dim=-1).cpu() == torch.tensor(out)).tolist()
+    return {"max_gap_rel": float(gap.max()), "exact_argmax": sum(exact),
+            "tokens": len(out), "ok": bool((gap <= SPEC_TF_TOL).all())}
+
+
+def _first_divergence(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def _spec_drive(eng, spec, prompts, check=True) -> dict:
+    """Each prompt through generate(use_spec=False) and then the attached
+    decoder, timed (and its start(): the admission, the first token's
+    fetch and the draft's prefill); the decoder's books, host syncs, verify
+    runs and kernel launches of its runs, every token held against the
+    teacher-forced argmax."""
+    import torch
+
+    n = SPEC_NEW_TOKENS
+    rec = {"prompts": [], "plain_s": 0.0, "spec_s": 0.0, "start_s": 0.0, "plain_tokens": 0,
+           "spec_tokens": 0, "syncs": 0}
+    real_start = spec.start
+
+    def timed_start(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_start(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec["start_s"] += time.perf_counter() - t0
+        return out
+
+    spec.start = timed_start
+    s0 = spec.stats.snapshot()
+    runs0 = _verify_runs(spec)
+    launches = {k: 0 for k in _launch_counts()}
+    for sfx in prompts:
+        plain, plain_s = _sync_s(lambda: eng.generate(sfx, n, use_spec=False))
+        before, syncs0 = _launch_counts(), eng.stats["syncs"]
+        fin, spec_s = _sync_s(lambda: eng.generate(sfx, n))
+        rec["syncs"] += eng.stats["syncs"] - syncs0
+        for k, v in _launch_counts().items():
+            launches[k] += v - before[k]
+        rec["plain_s"] += plain_s
+        rec["spec_s"] += spec_s
+        rec["plain_tokens"] += len(plain.token_ids)
+        rec["spec_tokens"] += len(fin.token_ids)
+        p = {"tokens": len(fin.token_ids), "plain_tokens": len(plain.token_ids),
+             "first_divergence": _first_divergence(fin.token_ids, plain.token_ids),
+             "spec_ids": fin.token_ids}
+        if check:
+            p["argmax"] = _argmax_check(eng, sfx, fin.token_ids)
+        rec["prompts"].append(p)
+    s1 = spec.stats.snapshot()
+    d = {k: s1[k] - s0[k] for k in ("requests", "rounds", "proposed", "accepted", "emitted",
+                                     "disables", "fallback_requests", "overlapped_rounds",
+                                     "ahead_wasted")}
+    rec.update(books=d, acceptance_rate=d["accepted"] / max(d["proposed"], 1),
+               verify_runs=_verify_runs(spec) - runs0,
+               launches=launches)
+    # a round: a verify (and the draft arm's proposals), its one fetch and
+    # the host's books, start() left out
+    rec["ms_per_round"] = ((rec["spec_s"] - rec["start_s"]) * 1000.0
+                           / max(rec["verify_runs"], 1))
+    del spec.start
+    rec["ms_per_token"] = rec["spec_s"] * 1000.0 / max(rec["spec_tokens"], 1)
+    rec["plain_ms_per_token"] = rec["plain_s"] * 1000.0 / max(rec["plain_tokens"], 1)
+    # admission launches K1 n_layers times a request, each verify n_layers
+    rec["k1_expected"] = eng.cfg.n_layers * (len(prompts) + rec["verify_runs"])
+    return rec
+
+
+def _spec_ok(rec, greedy=True, hand_off=False) -> bool:
+    b = rec["books"]
+    ok = (rec["launches"]["K1"] == rec["k1_expected"] and rec["verify_runs"] > 0
+          and all(1 <= p["tokens"] <= SPEC_NEW_TOKENS for p in rec["prompts"]))
+    if greedy:
+        ok = ok and all(p["argmax"]["ok"] for p in rec["prompts"])
+    if not hand_off:
+        # one sync at start, then one a round (the bootstrap rounds of the
+        # hidden arm are verify runs too)
+        ok = ok and rec["syncs"] == rec["verify_runs"] + b["requests"] and b["disables"] == 0
+    return ok
+
+
+def _spec_engine(params, cfg, **kw):
+    from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    return InferenceEngine(params, cfg, ByteTokenizer(), **{
+        "temperature": 0.0, "paged_attn": "pallas", "max_slots": 2, "page_size": 64,
+        "num_pages": 96, "max_pages_per_seq": 16, **kw})
+
+
+def _spec_8b(backend, nodes, pods) -> tuple[bool, dict]:
+    """(a)-(d) on the 8B bf16 weights of the resident backend."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.models.configs import get_config
+    from k8s_llm_scheduler_tpu_torch.spec import SpeculativeDecoder
+    from k8s_llm_scheduler_tpu_torch.spec.draft import build_random_draft
+
+    params, cfg = backend.engine.params, backend.engine.cfg
+    items = [backend._prepare_item(p, nodes) for p in pods[:SPEC_PROMPTS]]
+    prompts = [it.suffix_ids for it in items]
+    prefix = items[0].prefix_ids
+    vocab = backend.engine.tokenizer.vocab_size
+    draft_params, draft_cfg = build_random_draft(get_config("tiny"), vocab, seed=1,
+                                                 device="cuda")
+    rec, ok = {"draft": draft_cfg.name, "k": SPEC_K, "prefix_tokens": len(prefix),
+               "suffix_tokens": [len(p) for p in prompts]}, True
+
+    def draft_dec(eng, **kw):
+        return SpeculativeDecoder(eng, draft_params, draft_cfg, k=SPEC_K, **kw)
+
+    def hidden_dec(eng):
+        return SpeculativeDecoder(eng, arm="hidden", k=SPEC_K, hidden_seed=1,
+                                  disable_threshold=0.0)
+
+    for mode, graphs in MODES:
+        eng = _spec_engine(params, cfg, graphs=graphs)
+        eng.set_prefix(prefix)
+        drive = prompts if graphs else prompts[:1]
+        for arm, make in (("draft", lambda e: draft_dec(e, disable_threshold=0.0)),
+                          ("hidden", hidden_dec)):
+            spec = make(eng)
+            eng.attach_spec(spec)
+            r = _spec_drive(eng, spec, drive)
+            r["ok"] = _spec_ok(r)
+            rec[f"{arm} [{mode}]"] = r
+            ok = ok and r["ok"]
+            eng.attach_spec(None)
+            del spec
+            gc.collect()
+        if graphs:
+            # (d) auto-disable at the default threshold, no prefix (K1 at
+            # prefix_len 0): a random draft hands the slot back after
+            # min_rounds and the request finishes through the fused chunks
+            eng.set_prefix(None)
+            spec = draft_dec(eng)
+            eng.attach_spec(spec)
+            r = _spec_drive(eng, spec, prompts[:1])
+            r["handed_off"] = r["books"]["fallback_requests"] == 1 == r["books"]["disables"]
+            r["ms_per_round"] = None  # the fused chunks after the hand-off are in spec_s
+            r["ok"] = (_spec_ok(r, hand_off=True) and r["handed_off"]
+                       and r["launches"]["K4"] > 0)
+            rec["auto-disable [graphs]"] = r
+            ok = ok and r["ok"]
+            eng.attach_spec(None)
+            rec["graph_books"] = _graph_books(eng)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arm in ("draft", "hidden"):
+        g, e = rec[f"{arm} [graphs]"], rec[f"{arm} [eager]"]
+        same = g["prompts"][0]["spec_ids"] == e["prompts"][0]["spec_ids"]
+        rec[f"{arm} graphs vs eager identical"] = same
+        ok = ok and same
+    # (c) the draft arm sampled at the config's 0.3 (graphs): legal tokens
+    eng = _spec_engine(params, cfg, temperature=SPEC_TEMPERATURE)
+    eng.set_prefix(prefix)
+    spec = draft_dec(eng, disable_threshold=0.0)
+    eng.attach_spec(spec)
+    r = _spec_drive(eng, spec, prompts, check=False)
+    streams = [p["spec_ids"] for p in r["prompts"]]
+    r["legal"] = all(0 <= t < vocab and t != eng.tokenizer.pad_id for s in streams for t in s)
+    r["ok"] = _spec_ok(r, greedy=False) and r["legal"]
+    rec["draft sampled [graphs]"] = r
+    ok = ok and r["ok"]
+    del eng, spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, rec
+
+
+def _spec_tiny() -> tuple[bool, dict]:
+    """(e) TINY bf16 on the card (the kernels take bf16), graphs, greedy:
+    each arm (a random draft, the self-draft, the hidden head),
+    unconstrained and under the decision grammar behind a prefix, beside
+    plain generate: whether the tokens are identical and where they first
+    differ is reported; every token must hold the teacher-forced argmax
+    (grammar-masked) within SPEC_TF_TOL, and the self-draft must accept at
+    least SPEC_SELF_ACCEPT of its proposals (bf16 near-ties). Then the
+    draft arm sampled at 0.3: every token legal, and replays draw afresh
+    (the same prompt's streams are not all equal)."""
+    from k8s_llm_scheduler_tpu_torch.engine.constrained import build_decision_dfa
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
+    from k8s_llm_scheduler_tpu_torch.models.configs import TINY
+    from k8s_llm_scheduler_tpu_torch.models.llama import init_params
+    from k8s_llm_scheduler_tpu_torch.spec import SpeculativeDecoder
+    from k8s_llm_scheduler_tpu_torch.spec.draft import build_random_draft
+
+    tok = ByteTokenizer()
+    params = init_params(TINY, seed=0, device="cuda")
+    draft, draft_cfg = build_random_draft(TINY, tok.vocab_size, seed=1, device="cuda")
+    arms = {
+        "draft": lambda e: SpeculativeDecoder(e, draft, draft_cfg, k=SPEC_K,
+                                              disable_threshold=0.0),
+        "self-draft": lambda e: SpeculativeDecoder(e, params, TINY, k=SPEC_K),
+        "hidden": lambda e: SpeculativeDecoder(e, arm="hidden", k=SPEC_K, hidden_seed=1,
+                                               disable_threshold=0.0),
+    }
+    rec, ok = {}, True
+    for grammar in (False, True):
+        eng = _spec_engine(params, TINY, max_pages_per_seq=8, num_pages=32,
+                           prefill_buckets=(64, 128, 256))
+        if grammar:
+            eng.set_grammar(build_decision_dfa(tok, SPEC_TINY_NODES, max_reason_tokens=16))
+            eng.set_prefix(tok.encode("cluster: node-a node-b node-west-1. "))
+            prompt, n = tok.encode("Pick a node: "), 110
+        else:
+            prompt, n = tok.encode(SPEC_TINY_PROMPT), SPEC_NEW_TOKENS
+        plain = eng.generate(prompt, n, use_spec=False).token_ids
+        for arm, make in arms.items():
+            spec = make(eng)
+            eng.attach_spec(spec)
+            got = eng.generate(prompt, n).token_ids
+            snap = spec.stats.snapshot()
+            argmax = _argmax_check(eng, prompt, got)
+            good = argmax["ok"] and snap["rounds"] > 0
+            if arm == "self-draft":
+                # a self-draft disagrees with its target's verify only at
+                # bf16 near-ties (the draft attends in f32 over a dense
+                # buffer, the verify's prefix part rounds as K1 does)
+                good = good and snap["acceptance_rate"] >= SPEC_SELF_ACCEPT
+            r = {"identical": got == plain, "first_divergence": _first_divergence(got, plain),
+                 "tokens": len(got), "rounds": snap["rounds"], "argmax": argmax,
+                 "accepted_all": snap["accepted"] == SPEC_K * snap["rounds"],
+                 "acceptance_rate": snap["acceptance_rate"], "mode": spec._grammar_mode()[0],
+                 "ok": good}
+            rec[f"{arm} {'grammar' if grammar else 'free'}"] = r
+            ok = ok and good
+            eng.attach_spec(None)
+    eng = _spec_engine(params, TINY, max_pages_per_seq=8, num_pages=32,
+                       prefill_buckets=(64, 128, 256), temperature=SPEC_TEMPERATURE)
+    spec = arms["draft"](eng)
+    eng.attach_spec(spec)
+    prompt = tok.encode(SPEC_TINY_PROMPT)
+    replays0 = eng._graphs.replays
+    streams = [eng.generate(prompt, 32).token_ids for _ in range(4)]
+    legal = all(0 <= t < tok.vocab_size and t != tok.pad_id for s in streams for t in s)
+    r = {"streams": len(streams), "distinct": len({tuple(s) for s in streams}),
+         "legal": legal, "replays": eng._graphs.replays - replays0,
+         "rounds": spec.stats.rounds}
+    r["ok"] = legal and r["distinct"] > 1 and r["replays"] > 0
+    rec["draft sampled"] = r
+    ok = ok and r["ok"]
+    return ok, rec
+
+
+def _spec_complete() -> tuple[bool, dict]:
+    """(f) `cli complete --spec` at TINY in a child process (greedy through
+    LLM_TEMPERATURE=0), beside the same command without --spec: both exit
+    0 and print the same text."""
+    outs = {}
+    procs = {}
+    with tempfile.TemporaryDirectory() as cwd:
+        for name, extra in (("spec", ["--spec"]), ("plain", [])):
+            cmd = [sys.executable, "-m", "k8s_llm_scheduler_tpu_torch.cli", "complete",
+                   "--prompt", SPEC_COMPLETE_PROMPT, "--model", "tiny",
+                   "--max-new-tokens", "32", "--device", "cuda", *extra]
+            procs[name] = subprocess.Popen(cmd, cwd=cwd, env=_child_env(LLM_TEMPERATURE="0"),
+                                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True)
+        for name, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=300)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+            outs[name] = (proc.returncode, out, err)
+    rec = {name: {"rc": rc, "stdout_chars": len(out)} for name, (rc, out, _) in outs.items()}
+    rec["stdout_equal"] = outs["spec"][1] == outs["plain"][1]
+    ok = all(rc == 0 for rc, _, _ in outs.values()) and rec["stdout_equal"]
+    if not ok:
+        for name, (_, _, err) in outs.items():
+            print(f"cli complete {name} stderr: {err[-3000:]}", file=sys.stderr, flush=True)
+    return ok, rec
+
+
+def spec_phase(backend, nodes, pods) -> tuple[bool, dict]:
+    """Speculative decoding (spec/) on the resident 8B backend's weights and
+    at TINY; K1 at the verify shapes. See the module doc, phase 6g."""
+    import torch
+
+    ok8, rec = _spec_8b(backend, nodes, pods)
+    okt, rec["tiny"] = _spec_tiny()
+    okc, rec["cli_complete_spec"] = _spec_complete()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    n = len(backend._prepare_item(pods[0], nodes).prefix_ids)
+    chunk = min(backend.engine.prefix_chunk, backend.engine.prefill_buckets[-1])
+    sp = -(-n // chunk) * chunk + chunk  # the engine's chunked prefix buffer
+    from k8s_llm_scheduler_tpu_torch.engine.engine import EMPTY_PREFIX_SLOTS
+
+    k1 = []
+    for S, what in ((SPEC_K + 1, "draft / hidden verify"), (1, "hidden bootstrap")):
+        for Sp, plen in ((sp, n), (EMPTY_PREFIX_SLOTS, 0)):
+            good, r = _prefix_case(gen, f"spec {what}", 1, S, Sp, plen)
+            r["ok"] = good
+            r["bound_share"] = r["bound_ms"] / r["ms"]
+            _print_attention_case("K1", r)
+            k1.append(r)
+            torch.cuda.empty_cache()
+    rec["k1_cases"] = k1
+    okk = all(r["ok"] for r in k1)
+    rec["k1_spec_launches"] = sum(
+        v["launches"]["K1"] for k, v in rec.items() if isinstance(v, dict) and "launches" in v)
+    ok = ok8 and okt and okc and okk
+    summary = {k: ({kk: vv for kk, vv in v.items() if kk not in ("prompts",)}
+                   if isinstance(v, dict) else v) for k, v in rec.items() if k != "k1_cases"}
+    print(f"spec: {json.dumps(summary, default=str)} | {_smi()} | ok={ok} "
+          f"(8B {ok8}, TINY {okt}, cli complete --spec {okc}, K1 {okk})", flush=True)
+    return ok, rec
+
+
 # --------------------------------------------------------------- cli complete
 COMPLETE_MODEL = "llama-3.1-8b-instruct"
 COMPLETE_NEW_TOKENS = 64
@@ -3313,6 +3739,8 @@ def main() -> int:
         b_ok, path_b, k4_cases = _timed_phase("path B", path_b_phase, backend, nodes, pods)
         f_ok, fused = _timed_phase("fused", fused_phase, backend, nodes, pods, path_b)
         p8_ok, pers8 = _timed_phase("persistent 8B", persistent_8b, backend, nodes, pods)
+        sp_ok, spec = _timed_phase("spec", spec_phase, backend, nodes, pods)
+        k1 += spec["k1_cases"]
         cfg = backend.engine.cfg
     finally:
         backend.close()
@@ -3374,6 +3802,10 @@ def main() -> int:
                   run_launches=(run["launches"] or {}).get("K1"),
                   complete_launches=(complete.get("launches") or {}).get("K1"),
                   persistent_launches=(pers8.get("launches") or {}).get("K1"),
+                  spec_launches=spec["k1_spec_launches"],
+                  spec_verify={r["shape"]: {k: r.get(k) for k in (
+                      "ms", "ms_hot", "plain_ms", "bound_ms", "library_ms", "bound_share")}
+                      for r in spec["k1_cases"]},
                   pack_chunk={k: v for k, v in next(
                       r for r in k1 if r["step"] == "pack chunk").items() if k in (
                       "shape", "ms", "ms_hot", "plain_ms", "bound_ms", "library_ms")},
@@ -3406,12 +3838,13 @@ def main() -> int:
     phases = {"cli_verify": v_ok, "cli_run": run_ok, "kernels": k_ok, "reference": r_ok,
               "decision": d_ok, "admission": adm_ok, "loop": l_ok, "cli_demo": c_ok,
               "path_a": a_ok, "path_b": b_ok, "fused": f_ok, "persistent_8b": p8_ok,
+              "spec": sp_ok,
               "checkpoint": ck_ok, "sampled": s_ok, "persistent_tiny": pt_ok,
               "cli_complete": cc_ok, "k3": k3_ok, "k4": k4_ok}
     record = {"device": kind, "smi": smi, "build_s": build_s, "kernels": line,
               "cli_verify": verify, "cli_run": run, "reference": ref, "decision": dec,
               "admission": adm, "loop": loop, "cli_demo": demo, "path_a": path_a,
-              "path_b": path_b, "fused": fused, "persistent_8b": pers8,
+              "path_b": path_b, "fused": fused, "persistent_8b": pers8, "spec": spec,
               "checkpoint": ckpt, "sampled": sampled, "persistent_tiny": pers_tiny,
               "cli_complete": complete, "phases_ok": phases}
     if args.out:

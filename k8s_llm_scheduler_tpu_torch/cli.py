@@ -9,7 +9,7 @@
         [--decode-matmul ragged] [--eager] [--device cuda|cpu]
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] complete
         [--prompt TEXT] [--chat] [--max-new-tokens N] [--temperature T]
-        [--model NAME] [--device cuda|cpu]
+        [--model NAME] [--spec] [--device cuda|cpu]
 
 A port of the JAX package's cli.py: the configuration comes from
 `config.load_config` (env > config.yaml or `--config` > defaults), and
@@ -30,7 +30,8 @@ circuit breaker, the decision client and the scheduler (JAX cli.py:106-187).
 - `complete` (JAX cli.py:2450-2543) is general free-form completion
   through the paged path: the prompt (`--prompt`, else stdin) past the
   largest prefill bucket is installed as a chunked dense prefix, its tail
-  generated through the fused runtime; the text goes to stdout.
+  generated through the fused runtime, or speculatively with `--spec`
+  (spec/); the text goes to stdout.
 
 `--device` is the port's own flag: the model runs on "cuda" (the default;
 it raises without a GPU) unless "cpu" is asked for. The switches of paths
@@ -66,7 +67,6 @@ DEMO_DEADLINE_S = 600.0  # the demo gives up (exit 1) if pods are unbound by the
 # Config switches whose paths are not ported yet, with the ROADMAP queue 1
 # item each waits for. Setting one raises before any model is built.
 UNPORTED_SWITCHES = (
-    ("llm.spec_enabled", "speculative decoding", 5),
     ("durability.enabled", "the decision journal", 7),
     ("metrics.enabled", "the metrics endpoint", 7),
     ("slo.enabled", "the SLO engine", 7),
@@ -143,6 +143,13 @@ def _backend_kwargs(cfg: Config, **overrides) -> dict:
         delta_prompts=bool(cfg.get("admission.delta_prompts", True)),
         repin_fraction=float(cfg.get("admission.repin_fraction", 0.25)),
         max_pins=int(cfg.get("admission.max_pins", 4)),
+        # speculative decoding (spec/): serves generate(), never decisions
+        spec_enabled=bool(cfg.get("llm.spec_enabled", False)),
+        spec_arm=cfg.get("llm.spec_arm", "draft"),
+        spec_draft_model=cfg.get("llm.spec_draft_model", "tiny"),
+        spec_draft_checkpoint=cfg.get("llm.spec_draft_checkpoint", None),
+        spec_k=int(cfg.get("llm.spec_k", 4)),
+        spec_disable_threshold=float(cfg.get("llm.spec_disable_threshold", 0.3)),
     )
     kwargs.update(overrides)
     return kwargs
@@ -318,12 +325,9 @@ def cmd_complete(args: argparse.Namespace, cfg: Config) -> int:
     page table is sized for (tail + budget), and a prompt beyond the
     largest prefill bucket is installed as a chunked dense prefix
     (set_prefix) with only its tail going through the bucketed suffix
-    prefill and generate(), which decodes through the fused runtime."""
-    if args.spec or cfg.get("llm.spec_enabled", False):
-        raise NotImplementedError(
-            "--spec / llm.spec_enabled: speculative decoding is not ported yet "
-            "(ROADMAP queue 1 item 5)"
-        )
+    prefill and generate(), which decodes through the fused runtime, or
+    through the speculative decoder with `--spec` or llm.spec_enabled
+    (spec/; its arm, K and draft are the config's llm.spec_* keys)."""
     from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
     from k8s_llm_scheduler_tpu_torch.engine.tokenizer import (
         ByteTokenizer,
@@ -357,10 +361,14 @@ def cmd_complete(args: argparse.Namespace, cfg: Config) -> int:
     )
     if args.temperature is not None:
         overrides["temperature"] = args.temperature
-    backend = build_local_backend(**_backend_kwargs(cfg, **overrides))
+    if args.spec:
+        overrides["spec_enabled"] = True
+    kwargs = _backend_kwargs(cfg, **overrides)
+    backend = build_local_backend(**kwargs)
     try:
         engine = backend.engine
-        with spans.start_trace("completion", prompt_tokens=len(ids), spec=False) as trace:
+        with spans.start_trace("completion", prompt_tokens=len(ids),
+                               spec=bool(kwargs["spec_enabled"])) as trace:
             if len(ids) > tail:
                 engine.set_prefix(ids[:-tail])
             fin = engine.generate(ids[-tail:], max_new_tokens=args.max_new_tokens)
@@ -577,7 +585,7 @@ def build_parser() -> argparse.ArgumentParser:
     complete.add_argument("--chat", action="store_true",
                           help="wrap the prompt in the chat template")
     complete.add_argument("--spec", action="store_true",
-                          help="speculative decoding (not ported yet: raises)")
+                          help="speculative decoding (llm.spec_* settings)")
     device_flag(complete)
     complete.set_defaults(func=cmd_complete)
     return parser

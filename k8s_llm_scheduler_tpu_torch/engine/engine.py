@@ -72,7 +72,10 @@ engine/engine.py).
   command ring and streams emissions into a token ring; `step_persistent`
   harvests. Dispatch-path entry points drain it first, as the JAX ones do.
 
-Speculative decoding of the JAX engine is not ported.
+- **Speculative decoding** (spec/): `attach_spec` hands `generate` to a
+  SpeculativeDecoder, which drives one request's slot itself
+  (`_Request.external`: every harvest path skips it) and finishes it
+  through `release_slot`, or hands it back to the fused runtime.
 """
 
 from __future__ import annotations
@@ -567,6 +570,12 @@ class _Request:
     # parked tokens (_finish_harvest skips those columns). Reset to 0 once
     # the parked list is consumed.
     park_floor: int = 0
+    # Driven by an EXTERNAL decoder (spec/decoder.py): the slot is
+    # deactivated in the decode batch and every harvest path skips it, so
+    # fused chunks and open speculative rounds share one device stream. The
+    # owner finishes the request through release_slot, or hands it back by
+    # clearing this flag and re-arming the slot (the auto-disable path).
+    external: bool = False
     submitted_at: float = dataclasses.field(default_factory=time.perf_counter)
 
 
@@ -737,6 +746,9 @@ class InferenceEngine:
         self.persistent_blackbox_depth = int(persistent_blackbox_depth)
         self._persistent = None  # PersistentServer | None
         self._persistent_wedged = False
+        # Speculative decoder (spec/decoder.py), attached by attach_spec:
+        # generate() routes through it.
+        self.spec = None
         self._pers_ctr_final: dict[str, int] | None = None
         # The resident loop and the wave dispatcher never run device work at
         # the same time: each holds this lock around its programs.
@@ -1876,6 +1888,10 @@ class InferenceEngine:
         finished: list[Finished] = []
         pad = self.tokenizer.pad_id
         for slot, req in list(self._by_slot.items()):
+            if req.external:
+                # an open speculative stream: its slot is inactive in the
+                # batch, its completion and teardown belong to its owner
+                continue
             if req.first_pending:
                 req.generated.append(int(first_np[slot]))
                 req.first_pending = False
@@ -2020,7 +2036,9 @@ class InferenceEngine:
         if not self._fused_ready():
             self.stats["fused_fallbacks"] += 1
             out: list[Finished] = list(pend)
-            while self._by_slot:
+            # external (spec-driven) requests never finish through step():
+            # draining on them would spin forever
+            while any(not r.external for r in self._by_slot.values()):
                 out.extend(self.step())
             return out
         emissions: list[torch.Tensor] = self._pending_emissions
@@ -2050,13 +2068,46 @@ class InferenceEngine:
             [e.numpy() for e in emissions], act_np, budget_np, first_np
         )
 
-    def generate(self, prompt_ids: list[int], max_new_tokens: int = 200) -> Finished:
-        """Synchronous single-request generation. While the resident loop
-        serves, the request goes through its command ring and the token
-        ring is drained until it completes; otherwise it decodes through
-        the FUSED runtime (decode_fused, which falls back to step() when
-        the grammar can't fuse). Other requests that finish meanwhile are
-        parked for the next harvest."""
+    def release_slot(self, slot: int) -> None:
+        """Tear down one admitted slot out of band: drop its request, free
+        its pages, and clear its host and device decode state. The teardown
+        of completions that bypass step() (spec/decoder.py finishes and
+        failures)."""
+        del self._by_slot[slot]
+        self.kv.free_slot(slot)
+        self._act_np[slot] = False
+        self._budget_np[slot] = 0
+        self._state.act[slot] = False
+        self._state.budget[slot] = 0
+
+    def attach_spec(self, decoder) -> None:
+        """Attach a speculative decoder (spec/decoder.SpeculativeDecoder), or
+        detach with None. generate() then routes single-request completions
+        through it; the fused runtime stays the fallback (prompts it does
+        not support, auto-disable), and add_requests/step are unchanged. An
+        open speculative stream occupies only its own slot
+        (_Request.external). A resident loop drains first: spec rounds are
+        dispatches of their own, which cannot run beside it
+        (persistent_supported is False while a decoder is attached)."""
+        if decoder is not None and self.persistent_active:
+            self.exit_persistent()
+        self.spec = decoder
+
+    def generate(self, prompt_ids: list[int], max_new_tokens: int = 200,
+                 use_spec: bool | None = None) -> Finished:
+        """Synchronous single-request generation. `use_spec`: None =
+        speculative when a decoder is attached (attach_spec) and the
+        request fits it; True/False force the path. Otherwise, while the
+        resident loop serves, the request goes through its command ring
+        and the token ring is drained until it completes; else it decodes
+        through the FUSED runtime (decode_fused, which falls back to step()
+        when the grammar can't fuse). Other requests that finish meanwhile
+        are parked for the next harvest."""
+        if use_spec is None:
+            use_spec = self.spec is not None
+        if use_spec and self.spec is not None and self.spec.supports(
+                prompt_ids, max_new_tokens):
+            return self.spec.generate(prompt_ids, max_new_tokens)
         req_id = self.add_request(prompt_ids, max_new_tokens)
         if self.persistent_active:
             while True:
@@ -2078,9 +2129,13 @@ class InferenceEngine:
     def persistent_supported(self) -> bool:
         """Whether the resident loop can serve the CURRENT engine state.
         False routes to the dispatch path: flag off, a prior wedge
-        (latched: a wedging workload must not relaunch-thrash), or the
-        fused runtime unavailable (the loop's body IS the fused step)."""
+        (latched: a wedging workload must not relaunch-thrash), a
+        speculative decoder attached (spec drives slots through dispatches
+        of its own), or the fused runtime unavailable (the loop's body IS
+        the fused step)."""
         if not self.persistent_loop or self._persistent_wedged:
+            return False
+        if self.spec is not None:
             return False
         return self._fused_ready()
 
@@ -2230,6 +2285,8 @@ class InferenceEngine:
             self.stats["persistent_steps"] += int(b.steps_run)
             self.stats["persistent_chunks"] += 1
             for slot, req in list(self._by_slot.items()):
+                if req.external:
+                    continue
                 if req.first_pending:
                     # admitted through the ring, its admission batch later in
                     # the stream: this batch's row is a previous occupant's
@@ -2295,4 +2352,6 @@ class InferenceEngine:
             out["dispatches_per_decision"] = round(
                 self.stats["dispatches"] / self.stats["completed"], 4
             )
+        if self.spec is not None:
+            out["spec"] = self.spec.stats.snapshot()
         return out

@@ -2,7 +2,8 @@
 shared memory pool.
 
 PyTorch's counterpart of the JAX engine's `jax.jit` of `_wave_impl` and
-`_decode_chunk_impl` (JAX package, engine/engine.py): where JAX traces a
+`_decode_chunk_impl` (JAX package, engine/engine.py), and of its spec/
+verify programs (spec/verify.VerifyProgram): where JAX traces a
 program once per shape and dispatches the compiled executable, the port
 captures a `Program` (a Python function over static buffers, which neither
 allocates what outlives it nor syncs the host) as a CUDA graph the first

@@ -1040,6 +1040,66 @@ class LocalLLMBackend:
         return out
 
 
+def _attach_spec(
+    engine: InferenceEngine,
+    *,
+    arm: str,
+    draft_model: str,
+    draft_checkpoint: str | None,
+    k: int,
+    disable_threshold: float,
+    rng_seed: int,
+) -> None:
+    """Build the speculative arm and attach a SpeculativeDecoder (JAX
+    local.py:1340-1412).
+
+    `arm="draft"`: a second, small model serving the SAME tokenizer as the
+    target; a random draft narrower than the tokenizer is widened so every
+    legal token can be proposed (spec/draft.build_random_draft), a draft
+    checkpoint (models/loader.restore_checkpoint's format) must already
+    match. `arm="hidden"`: the draft-free hidden-transfer head
+    (spec/hidden.py), random from rng_seed + 1; `draft_checkpoint` would
+    name a trained head, whose training and format are not ported yet
+    (ROADMAP queue 1 item 10)."""
+    from k8s_llm_scheduler_tpu_torch.spec import SpeculativeDecoder
+
+    if arm not in ("draft", "hidden"):
+        # a typo must not silently serve the wrong pipeline
+        raise ValueError(f"unknown llm.spec_arm {arm!r}")
+    if arm == "hidden":
+        if draft_checkpoint:
+            raise NotImplementedError(
+                "llm.spec_draft_checkpoint with llm.spec_arm hidden: the hidden-"
+                "transfer head's training and checkpoint format are not ported yet "
+                "(ROADMAP queue 1 item 10)"
+            )
+        engine.attach_spec(SpeculativeDecoder(
+            engine, arm="hidden", hidden_seed=rng_seed + 1, k=k,
+            disable_threshold=disable_threshold,
+        ))
+        logger.info("speculative decoding attached: arm=hidden k=%d disable<%.2f "
+                    "(random-init)", k, disable_threshold)
+        return
+    from k8s_llm_scheduler_tpu_torch.spec.draft import build_random_draft
+
+    draft_cfg = get_config(draft_model)
+    if draft_checkpoint:
+        from k8s_llm_scheduler_tpu_torch.models.loader import restore_checkpoint
+
+        draft_params = restore_checkpoint(Path(draft_checkpoint), draft_cfg,
+                                          device=engine.device)
+    else:
+        draft_params, draft_cfg = build_random_draft(
+            draft_cfg, engine.tokenizer.vocab_size, rng_seed + 1, device=engine.device)
+    engine.attach_spec(SpeculativeDecoder(
+        engine, draft_params, draft_cfg, k=k, disable_threshold=disable_threshold,
+    ))
+    logger.info(
+        "speculative decoding attached: draft=%s k=%d disable<%.2f%s", draft_cfg.name,
+        k, disable_threshold, " (checkpoint)" if draft_checkpoint else " (random-init)",
+    )
+
+
 def build_local_backend(
     model: str = "tiny",
     device: str | torch.device = "cuda",
@@ -1081,6 +1141,12 @@ def build_local_backend(
     persistent_telemetry: bool = True,
     persistent_stats_every: int = 8,
     persistent_blackbox_depth: int = 64,
+    spec_enabled: bool = False,
+    spec_arm: str = "draft",
+    spec_draft_model: str = "tiny",
+    spec_draft_checkpoint: str | None = None,
+    spec_k: int = 4,
+    spec_disable_threshold: float = 0.3,
 ) -> LocalLLMBackend:
     """The local stack on `device` with the JAX package's settings and
     defaults (JAX local.py:1431-1480): params, tokenizer, engine and a
@@ -1102,7 +1168,9 @@ def build_local_backend(
     `decode_matmul="ragged"` runs block decode's matmuls through K3;
     `graphs=False` runs the engine's waves eagerly where it would replay
     CUDA graphs. The admission plane's settings are the config's
-    `admission.*` keys."""
+    `admission.*` keys. `spec_enabled` attaches a speculative decoder
+    (spec/; `spec_*` are its settings, the config's `llm.spec_*`), which
+    serves the engine's generate(); decisions never speculate."""
     from k8s_llm_scheduler_tpu_torch.engine.tokenizer import (
         HFTokenizerAdapter,
         build_builtin_tokenizer,
@@ -1159,6 +1227,12 @@ def build_local_backend(
         persistent_stats_every=persistent_stats_every,
         persistent_blackbox_depth=persistent_blackbox_depth,
     )
+    if spec_enabled:
+        _attach_spec(
+            engine, arm=spec_arm, draft_model=spec_draft_model,
+            draft_checkpoint=spec_draft_checkpoint, k=spec_k,
+            disable_threshold=spec_disable_threshold, rng_seed=seed,
+        )
     return LocalLLMBackend(
         engine, tokenizer, max_new_tokens=max_new_tokens, constrained=constrained,
         request_timeout_s=request_timeout_s,

@@ -3,7 +3,9 @@
 Both packages keep one layout (models/llama.py), so conversion is a tensor
 per leaf: the caller hands over the JAX `init_params` tree as numpy arrays
 (`jax.tree_util.tree_map(np.asarray, params)`), and the port computes with
-exactly the same weights. bf16 leaves arrive as numpy's extension dtype
+exactly the same weights; the same call carries the speculative
+decoder's hidden-transfer head (`{"transfer": [K, D, D]}`,
+models/llama.init_hidden_transfer) and a draft model's params. bf16 leaves arrive as numpy's extension dtype
 `bfloat16`; they are moved bit for bit. An int8 weight pair (models/quant.py)
 keeps its types: `q` stays int8 and `scale` f32 whatever `dtype` asks.
 """

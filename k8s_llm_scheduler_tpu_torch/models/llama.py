@@ -15,7 +15,10 @@ block-diagonal chunk of the admission plane `forward_prefill_packed`;
 and MLP matmul through K3); and the paged decode steps
 `forward_decode_buffered` (the general path's chunked decode; own-token
 attention through K4 with own_impl="pallas") and `forward_decode` (the
-manual-page API; K4 normalized with paged_attn="pallas"). bf16 weights and
+manual-page API; K4 normalized with paged_attn="pallas"). The hidden-transfer
+head of the draft-free speculative arm (`init_hidden_transfer`,
+`hidden_transfer_hidden`, `hidden_transfer_logits`) turns a final-layer
+hidden state into proposals for the next tokens. bf16 weights and
 activations, or int8 weight pairs (models/quant.py); norms, RoPE, softmax
 and the LM head accumulate in f32.
 """
@@ -670,3 +673,48 @@ def forward_decode(
         x = x + _dense(attn.reshape(B, cfg.n_heads * cfg.head_dim), lp["wo"])
         x = x + _mlp(lp, cfg, x)
     return _logits(params, cfg, x), k_cache, v_cache
+
+
+# ------------------------------------------------ hidden-transfer head
+def init_hidden_transfer(
+    cfg: LlamaConfig, k: int, seed: int = 0, device: str | torch.device = "cuda"
+) -> Params:
+    """Random-init a hidden-transfer multi-token prediction head (*Hidden
+    Transfer*, PAPERS.md): `k` per-offset transfer matrices [k, D, D]
+    applied RESIDUALLY to the target's final-layer hidden state, x_h = x +
+    x @ T_h, then pushed through the model's own final norm and LM head.
+
+    The init is small (N(0, 1) * 0.02 / sqrt(D), from a seeded
+    torch.Generator) so x_h ~= x: the untrained head predicts roughly the
+    current position's distribution for every offset, which is never a
+    correctness hazard (the verifier accepts only target-consistent
+    tokens)."""
+    if k < 1:
+        raise ValueError(f"hidden-transfer k must be >= 1, got {k}")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    D = cfg.d_model
+    t = torch.empty((k, D, D), dtype=cfg.dtype, device=dev)
+    for h in range(k):
+        t[h] = (torch.randn((D, D), generator=gen, dtype=torch.float32, device=dev)
+                * (0.02 * D**-0.5)).to(cfg.dtype)
+    return {"transfer": t}
+
+
+def hidden_transfer_hidden(ht: Params, x: torch.Tensor, h: int) -> torch.Tensor:
+    """Pseudo hidden state for future offset `h` (0-based head index):
+    x [..., D] -> x + x @ T_h. The caller runs _logits on the result."""
+    return x + _dense(x, ht["transfer"][h])
+
+
+def hidden_transfer_logits(
+    params: Params, cfg: LlamaConfig, ht: Params, x: torch.Tensor
+) -> torch.Tensor:
+    """All heads' logits from one hidden state: x [..., D] -> [..., k, V],
+    through one LM-head product for the k pseudo hidden states."""
+    xs = torch.stack(
+        [hidden_transfer_hidden(ht, x, h) for h in range(ht["transfer"].shape[0])],
+        dim=-2,
+    )  # [..., k, D]
+    return _logits(params, cfg, xs)

@@ -245,11 +245,34 @@ def test_cli_run_without_a_cluster_exits_2(monkeypatch, tmp_path, capsys):
     assert "--fake-cluster" in capsys.readouterr().err
 
 
-def test_cli_run_refuses_an_unported_switch_before_a_model(monkeypatch, tmp_path):
+def test_cli_run_refuses_an_unported_switch_before_a_model(monkeypatch, tmp_path, capsys):
+    """An unported switch raises before any model is built. llm.spec_enabled
+    is ported: `cli run` builds its backend with a speculative decoder
+    attached (it serves generate(); decisions never speculate) and exits 0
+    on SIGINT with its stats."""
+    from k8s_llm_scheduler_tpu_torch.engine import local as tlocal
+
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("SPEC_ENABLED", "true")
-    with pytest.raises(NotImplementedError, match="llm.spec_enabled.*item 5"):
+    monkeypatch.setenv("DURABILITY_ENABLED", "true")
+    with pytest.raises(NotImplementedError, match="durability.enabled.*item 7"):
         cli.main(["run", "--fake-cluster", "--device", "cpu"])
+    monkeypatch.delenv("DURABILITY_ENABLED")
+    monkeypatch.setenv("SPEC_ENABLED", "true")
+    built = []
+    real = tlocal.build_local_backend
+
+    def recording(**kwargs):
+        built.append(real(**kwargs))
+        return built[-1]
+
+    monkeypatch.setattr(tlocal, "build_local_backend", recording)
+    rc, stats = _port_run(monkeypatch, capsys,
+                          ["run", "--fake-cluster", "--fake-nodes", "2", "--device", "cpu"],
+                          lambda: bool(built))
+    assert rc == 0 and stats["total_scheduled"] == 0
+    spec = built[0].engine.spec
+    assert spec is not None and spec.arm == "draft" and spec.k == 4
+    assert not built[0].engine.persistent_supported()
 
 
 def test_cli_verify_fast_runs_on_the_cpu(monkeypatch, tmp_path, capsys):

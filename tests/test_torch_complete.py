@@ -4,8 +4,8 @@ safetensors checkpoint both packages load, the byte tokenizer, temperature
 0, prefill buckets of 32 and 64 tokens), the same prompt, the same text on
 stdout (exact), for a prompt within the largest bucket and for one past it
 (its head installed through set_prefix's chunked path, its tail generated
-through the fused runtime). `--spec` and llm.spec_enabled raise, naming
-the ROADMAP item speculative decoding waits for.
+through the fused runtime). `--spec` (or llm.spec_enabled, either arm)
+prints the same text through the speculative decoder.
 """
 
 import dataclasses
@@ -100,10 +100,28 @@ def test_complete_prints_the_jax_text(config_file, prompt, capsys, monkeypatch):
 
 
 def test_spec_raises_naming_its_roadmap_item(config_file, monkeypatch, capsys):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cli.main(["--config", str(config_file), "complete", "--prompt", "x", "--spec",
-                  "--device", "cpu"])
+    """Speculative decoding is ported: `complete --spec` (and
+    llm.spec_enabled) decodes through the decoder the backend attaches,
+    greedy through the config, and prints the text of the same command
+    without --spec and of the JAX package's `complete --spec`."""
+    from k8s_llm_scheduler_tpu_torch.spec import SpeculativeDecoder
+
+    want = _complete(jcli.main, config_file, SHORT, capsys, "--spec")
+    plain = _complete(cli.main, config_file, SHORT, capsys, "--device", "cpu")
+    runs = []
+    real = SpeculativeDecoder.generate
+
+    def spy(self, *args, **kw):
+        runs.append(self.arm)
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(SpeculativeDecoder, "generate", spy)
+    got = _complete(cli.main, config_file, SHORT, capsys, "--spec", "--device", "cpu")
+    assert got == plain == want and got.strip()
+    assert runs == ["draft"]
+    (trace,) = [t for t in spans.flight.list(n=None) if t["name"] == "completion"][-1:]
+    assert spans.flight.get(trace["trace_id"])["spans"][0]["attrs"]["spec"] is True
     monkeypatch.setenv("SPEC_ENABLED", "true")
-    with pytest.raises(NotImplementedError, match="llm.spec_enabled.*item 5"):
-        cli.main(["--config", str(config_file), "complete", "--prompt", "x",
-                  "--device", "cpu"])
+    monkeypatch.setenv("SPEC_ARM", "hidden")
+    assert _complete(cli.main, config_file, SHORT, capsys, "--device", "cpu") == plain
+    assert runs == ["draft", "hidden"]

@@ -38,6 +38,8 @@ ENVS = {
                   "ADMISSION_MAX_PINS": "3"},
     "checkpoint": {"LLM_CHECKPOINT_PATH": "/ckpt", "LLM_TOKENIZER": "numeric",
                    "SCHED_DECISION_DEADLINE_MS": "0", "CACHE_ENABLED": "false"},
+    "speculative": {"SPEC_ENABLED": "true", "SPEC_ARM": "hidden", "SPEC_K": "3",
+                    "SPEC_DRAFT_MODEL": "small", "SPEC_DISABLE_THRESHOLD": "0.5"},
 }
 
 
@@ -85,12 +87,9 @@ def test_backend_kwargs_agree_on_every_key_the_port_honours(tmp_path, yaml_name,
     got = cli._backend_kwargs(tconfig.load_config(yaml_path=path, env=ENVS[env]))
     assert set(got) <= set(want)
     assert got == {k: want[k] for k in got}
-    # the keys the JAX mapping has beyond the port's belong to paths the
-    # port refuses or warns about (cli.UNPORTED_SWITCHES / WARNED_SWITCHES)
-    # or to JAX alone (its mesh and compile cache)
-    assert set(want) - set(got) == {
-        "mesh_axes", "compile_cache_dir", "spec_enabled", "spec_arm", "spec_draft_model",
-        "spec_draft_checkpoint", "spec_k", "spec_disable_threshold"}
+    # the keys the JAX mapping has beyond the port's belong to JAX alone
+    # (its mesh and compile cache)
+    assert set(want) - set(got) == {"mesh_axes", "compile_cache_dir"}
 
 
 def test_backend_kwargs_name_build_local_backend_parameters():

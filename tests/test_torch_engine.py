@@ -324,6 +324,11 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "k8s_llm_scheduler_tpu_torch.engine.persistent.loop, "
         "k8s_llm_scheduler_tpu_torch.engine.persistent.server, "
         "k8s_llm_scheduler_tpu_torch.observability.resident, "
+        "k8s_llm_scheduler_tpu_torch.spec, "
+        "k8s_llm_scheduler_tpu_torch.spec.decoder, "
+        "k8s_llm_scheduler_tpu_torch.spec.draft, "
+        "k8s_llm_scheduler_tpu_torch.spec.hidden, "
+        "k8s_llm_scheduler_tpu_torch.spec.verify, "
         "k8s_llm_scheduler_tpu_torch.cli\n"
         "bad = sorted(m for m in sys.modules"
         " if m in ('jax', 'yaml', 'safetensors', 'transformers')"
