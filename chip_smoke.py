@@ -20,13 +20,22 @@ Phases, each of which must pass:
    transport, LLM_MODEL=llama-3.1-8b-instruct, the config's defaults:
    temperature 0.3, packed admission and delta prompts on); then 24
    pending pods of 12 shapes are created over the wire (12 leaders against
-   8 slots: two waves). Once the fake shows all 24 bound (deadline 600 s)
+   8 slots: two waves), and once they are bound 8 more of 8 new shapes (a
+   warm R=8 wave). Once the fake shows all 32 bound (deadline 600 s)
    the child gets SIGINT and must exit 0 with its stats JSON. Every pod
    bound to a ready, feasible node, no fallback, every decision parsed,
    K1 and K2 launched in the child (counts zeroed just before cli.main).
    Prints each pod's pending -> bound time, the seconds between the two
-   waves' harvests and the child's peak memory. It runs first, while no
-   other 8B model is resident.
+   waves' harvests and the child's peak memory. The child runs with the
+   operating plane on: the decision journal (durability.enabled, in its
+   temporary directory), the wave profiler (on by default), metrics on
+   port 0 and the SLO engine (one error-rate objective). Before SIGINT the
+   phase scrapes /metrics, /debug/profile and /debug/slo and prints on one
+   line the wave segments, device_compute, mfu_decode with the peak it
+   used, dispatches_per_decision and prefill_tokens_per_decision. Fails
+   if a record's segments do not sum to its wall, if they cover under 95%
+   of it, or if an MFU share is above 1. It runs first, while no other 8B
+   model is resident.
    Every child of the smoke runs in a temporary directory with the
    repository on its PYTHONPATH: the repo root's config.yaml would be
    read there, and a machine without PyYAML refuses a config file.
@@ -83,7 +92,12 @@ Phases, each of which must pass:
    R=8 waves submitted back to back the first must be harvested within
    1.25x a lone one's time, counted from its submit, with the tokens of
    the same waves run alone (`two_wave_overlap`: submit_wave returns at
-   once; the wave dispatcher thread runs its iterations).
+   once; the wave dispatcher thread runs its iterations). Last, still in
+   graph mode, two warm singles without the wave profiler and two with it
+   (observability/profiler.EngineProfiler attached), then one more with
+   it under torch.profiler: the profiler's cost in ms a decision is
+   printed, and host launch calls a model call and host synchronizations
+   a decision must equal those of the profiled decision without it.
 4a. Admission, on the graph-mode engine of phase 4 (no second copy of
    the weights): (a) a LocalLLMBackend with the admission plane of
    the config's defaults takes the batch of 8 through
@@ -201,6 +215,14 @@ Phases, each of which must pass:
    the card (graphs, temperature 0.3, suffix bucket 1024): 6 decisions at
    once, every one admitted through the resident loop (no wave, no
    fallback, no wedge), parsed and feasible.
+6h. Journal restart: `cli run` at TINY in a child over the port's
+   WireFakeK8s with the decision journal on (durability.enabled, fsync
+   "intent"); the child is SIGKILLed after its first bind, more pods are
+   created while it is dead, and a second child restarts on the same
+   journal (recovery, then the watch resumed from the journaled
+   resourceVersion). Every pod must be bound exactly once (one binding
+   POST a pod, no 409) to a ready node, the second child exit 0 on SIGINT,
+   and `cli journal fsck` exit 0 with the journal clean.
 6f. cli complete: `python -m k8s_llm_scheduler_tpu_torch.cli complete` at
    8B in a child process started after phase 6d (the TINY phases run
    beside it), greedy, 64 new tokens, on an 11,349-token prompt (past the
@@ -1214,13 +1236,17 @@ HOST_KERNEL_CALLS = frozenset(
     ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
 HOST_LAUNCH_CALLS = HOST_KERNEL_CALLS | {"cudaGraphLaunch", "cudaMemcpyAsync",
                                          "cudaMemsetAsync"}
+# The host's waits on the device as torch.profiler traces them.
+HOST_SYNC_CALLS = frozenset(("cudaDeviceSynchronize", "cudaStreamSynchronize",
+                             "cudaEventSynchronize"))
 
 
 def launch_census(fn) -> dict:
     """fn() under torch.profiler, ending in a synchronize: the host's launch
     calls (HOST_LAUNCH_CALLS), of them the kernel launches outside graphs
-    and the graph launches, and the operations the device ran (kernels,
-    copies, sets)."""
+    and the graph launches, the host's waits on the device
+    (HOST_SYNC_CALLS, the closing synchronize included), and the
+    operations the device ran (kernels, copies, sets)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1229,13 +1255,15 @@ def launch_census(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     rec = {"host_launches": 0, "host_kernel_launches": 0, "graph_launches": 0,
-           "device_ops": 0}
+           "host_syncs": 0, "device_ops": 0}
     # the trace's raw records: an eager decision has ~1.4M, which
     # prof.events() is far slower to build into a tree than to read raw
     for ev in prof.profiler.kineto_results.events():
         name = ev.name()
         if ev.device_type() == torch.autograd.DeviceType.CUDA:
             rec["device_ops"] += 1
+        elif name in HOST_SYNC_CALLS:
+            rec["host_syncs"] += 1
         elif name in HOST_LAUNCH_CALLS:
             rec["host_launches"] += 1
             rec["host_kernel_launches"] += name in HOST_KERNEL_CALLS
@@ -1513,12 +1541,13 @@ def _memory(start: int) -> dict:
             "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
 
 
-def _drive_modes(make_backend, nodes, pods) -> dict:
+def _drive_modes(make_backend, nodes, pods, profiled=False) -> dict:
     """_serve in graph mode, then eagerly (graphs=False), each on a backend
     from make_backend(graphs) that is closed after it; every launch count
     is zeroed just before a mode's drive and read just after it. An eager
     backend has nothing to capture: it is built with an idle grace that
-    never passes, so no prewarm dummy wave runs in its drive."""
+    never passes, so no prewarm dummy wave runs in its drive. With
+    `profiled`, graph mode's backend then runs profiler_cost."""
     import torch
 
     recs = {}
@@ -1538,12 +1567,80 @@ def _drive_modes(make_backend, nodes, pods) -> dict:
             recs[mode] = {**served, "main_s": main_s, "launches": launches,
                           "steps": steps, "stats": stats,
                           **_graph_books(backend.engine), **_memory(start)}
+            if graphs and profiled:
+                recs[mode]["profiler"] = profiler_cost(backend, nodes, pods,
+                                                       served["census"])
         finally:
             backend.close()
         del backend
         gc.collect()  # an engine and its graphs hold each other
         torch.cuda.empty_cache()
     return recs
+
+
+PROFILED_SINGLES = 2
+
+
+def profiler_cost(backend, nodes, pods, census_off) -> dict:
+    """The wave profiler's cost on warm bf16 singles in graph mode:
+    PROFILED_SINGLES decisions without it and the same with an
+    EngineProfiler attached, then pods[0] again with it under
+    torch.profiler (launch_census), against `census_off`, pods[0]'s
+    census without it. Host launch calls a model call and host waits on
+    the device a decision must not change (the fences read perf_counter
+    and query events); ok says whether they did not."""
+    from k8s_llm_scheduler_tpu_torch.observability.profiler import EngineProfiler
+
+    eng = backend.engine
+
+    def singles():
+        ms, syncs0 = [], eng.stats["syncs"]
+        for pod in pods[:PROFILED_SINGLES]:
+            t = time.perf_counter()
+            backend.get_scheduling_decision(pod, nodes)
+            ms.append((time.perf_counter() - t) * 1000.0)
+        return ms, eng.stats["syncs"] - syncs0
+
+    off_ms, off_syncs = singles()
+    prof = EngineProfiler(cfg=eng.cfg)
+    eng.attach_profiler(prof)
+    try:
+        on_ms, on_syncs = singles()
+        calls0 = eng.stats["wave_model_calls"]
+        census_on = launch_census(lambda: backend.get_scheduling_decision(pods[0], nodes))
+        census_on["model_calls"] = eng.stats["wave_model_calls"] - calls0
+        snap = prof.snapshot()
+    finally:
+        eng.attach_profiler(None)
+
+    def launches_a_call(c):
+        return c["host_launches"] / max(c["model_calls"], 1)
+
+    rec = {
+        "singles_ms_without": off_ms, "singles_ms_with": on_ms,
+        "cost_ms_per_decision": (sum(on_ms) - sum(off_ms)) / PROFILED_SINGLES,
+        "engine_syncs_without": off_syncs, "engine_syncs_with": on_syncs,
+        "host_launches_per_model_call_without": launches_a_call(census_off),
+        "host_launches_per_model_call_with": launches_a_call(census_on),
+        "host_syncs_without": census_off["host_syncs"],
+        "host_syncs_with": census_on["host_syncs"],
+        "model_calls_without": census_off["model_calls"],
+        "model_calls_with": census_on["model_calls"],
+        "waves_profiled": snap["waves_profiled"],
+    }
+    rec["ok"] = (off_syncs == on_syncs
+                 and census_on["model_calls"] == census_off["model_calls"]
+                 and census_on["host_launches"] == census_off["host_launches"]
+                 and census_on["host_syncs"] == census_off["host_syncs"]
+                 and snap["waves_profiled"] == PROFILED_SINGLES + 1)
+    print(f"decision: wave profiler cost {rec['cost_ms_per_decision']:.3f} ms a decision "
+          f"(singles {[round(x, 1) for x in off_ms]} ms without, "
+          f"{[round(x, 1) for x in on_ms]} ms with); host launch calls a model call "
+          f"{rec['host_launches_per_model_call_without']:.4f} without, "
+          f"{rec['host_launches_per_model_call_with']:.4f} with; host syncs a decision "
+          f"{rec['host_syncs_without']} / {rec['host_syncs_with']}; engine syncs "
+          f"{off_syncs} / {on_syncs} | {_smi()} | ok={rec['ok']}", flush=True)
+    return rec
 
 
 def _mode_summary(rec, decisions) -> dict:
@@ -1613,7 +1710,7 @@ def decision_phase(backend, build_s, nodes, pods) -> tuple[bool, dict]:
                             graphs=False),
             request_timeout_s=600.0, prewarm_idle_delay_s=NO_PREWARM_S)
 
-    recs = _drive_modes(make, nodes, pods)
+    recs = _drive_modes(make, nodes, pods, profiled=True)
     ok = _modes_agree(recs, "decision")
     rec = {"model": "llama-3.1-8b-instruct", "nodes": len(nodes), "backend_build_s": build_s}
     for mode, _ in MODES:
@@ -1630,6 +1727,8 @@ def decision_phase(backend, build_s, nodes, pods) -> tuple[bool, dict]:
     rec["batch_tokens"] = g["waves"][N_SINGLES]["tokens"]
     ok = (ok and g["launches"]["K1"] > 0 and g["launches"]["K2"] > 0
           and sum(rec["k1_launches_by_step"].values()) == g["launches"]["K1"])
+    rec["profiler"] = g["profiler"]
+    ok = ok and rec["profiler"]["ok"]
     rec["gil"] = gil_probe()
     o_ok, rec["two_waves"] = two_wave_overlap(backend, nodes, pods)
     return ok and o_ok and rec["gil"]["released"], rec
@@ -3356,16 +3455,34 @@ RUN_MODEL = "llama-3.1-8b-instruct"
 RUN_NODES = 32
 RUN_PODS = 24
 RUN_SHAPES = 12  # 12 leaders against 8 slots: two waves, 12 single-flight followers
+# Once those are bound, 8 pods of 8 new shapes: one R=8 wave at the suffix
+# bucket the first burst captured (the snapshot's delta rides the prefix),
+# so the profiler books a warm wave.
+RUN_SECOND_PODS = 8
 RUN_DEADLINE_S = 600.0
+# The run phase's SLO objective (slo.objectives, which no environment
+# variable sets): failed binds over decisions.
+RUN_SLO_OBJECTIVES = [{"name": "bind_errors", "kind": "error_rate",
+                       "numerator": "failed_bindings", "denominator": "total_scheduled",
+                       "budget": 0.01}]
+# The operating plane's switches, as the run phase's child gets them.
+RUN_PLANE_ENV = {"DURABILITY_ENABLED": "true", "METRICS_ENABLED": "true",
+                 "METRICS_PORT": "0", "SLO_ENABLED": "true", "SLO_INTERVAL_S": "1.0",
+                 "OBS_SAMPLER_INTERVAL_S": "0.5"}
 # The child of the run phase: `cli run` against the wire fake at argv[1],
 # at the config's defaults (temperature 0.3, packed admission and delta
-# prompts on) with LLM_MODEL from its environment. Its K1/K2 counts are
-# zeroed before cli.main and read after it; each harvest_wave return and
-# each parsed decision is booked. Last line: one JSON object of them.
+# prompts on) with LLM_MODEL from its environment, the operating plane's
+# switches on (RUN_PLANE_ENV, the journal in its directory) and the SLO
+# objectives of SMOKE_SLO_OBJECTIVES. It writes its metrics port to the
+# file metrics_port. Its K1/K2 counts are zeroed before cli.main and read
+# after it; each harvest_wave return and each parsed decision is booked.
+# Last line: one JSON object of them.
 RUN_CHILD = r"""
-import json, sys, time
+import json, os, sys, time
+from pathlib import Path
 import torch
 from k8s_llm_scheduler_tpu_torch import cli
+from k8s_llm_scheduler_tpu_torch import config as config_mod
 from k8s_llm_scheduler_tpu_torch.cluster import httpapi
 from k8s_llm_scheduler_tpu_torch.engine import engine as engine_mod
 from k8s_llm_scheduler_tpu_torch.engine import local as local_mod
@@ -3392,8 +3509,17 @@ def booked_parse(self, text):
     parsed.append({"ok": True, "node": d.selected_node})
     return d
 
+start_metrics = cli._start_metrics
+
+def port_file(*args, **kwargs):
+    server, sampler = start_metrics(*args, **kwargs)
+    Path("metrics_port").write_text(str(server.port))
+    return server, sampler
+
 engine_mod.InferenceEngine.harvest_wave = timed_harvest
 local_mod.LocalLLMBackend._parse = booked_parse
+cli._start_metrics = port_file
+config_mod.DEFAULTS["slo"]["objectives"] = json.loads(os.environ["SMOKE_SLO_OBJECTIVES"])
 pa.reset_launch_counts()
 rc = cli.main(["run"])
 launches = {"K1": pa.flash_prefix_attention_parts.launches,
@@ -3405,6 +3531,98 @@ sys.exit(rc)
 """
 
 
+def _scrape_plane(port_path: Path, timeout_s: float = 30.0) -> dict:
+    """/metrics, /debug/profile and /debug/slo of the run phase's child,
+    its port read from the file it wrote. {} when it never wrote one."""
+    import urllib.request
+
+    end = time.perf_counter() + timeout_s
+    while not port_path.exists() and time.perf_counter() < end:
+        time.sleep(0.1)
+    if not port_path.exists():
+        return {}
+    port = int(port_path.read_text())
+    out = {}
+    for path in ("/metrics", "/debug/profile", "/debug/slo"):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+            out[path] = resp.read().decode()
+    return out
+
+
+def _plane_summary(scraped: dict) -> tuple[bool, dict]:
+    """The run phase's operating plane from its scrapes: the wave segments
+    and device_compute with the event-timed device ms beside it, mfu_decode
+    with the peak it used, the flow gauges, the SLO engine's evaluations.
+    ok: every record's segments (waves, packs, fused harvests) sum to its
+    wall, they cover at least 95% of the waves' wall (all of them, and the
+    warm ones, which carry the MFU decomposition), each wave's timed device
+    span lies inside its wall, and no MFU share is above 1."""
+    if not scraped:
+        print("run: the child's metrics server never answered | ok=False", flush=True)
+        return False, {}
+    from k8s_llm_scheduler_tpu_torch.observability.profiler import SEGMENTS
+
+    prof = json.loads(scraped["/debug/profile"])
+    slo = json.loads(scraped["/debug/slo"])
+    gauges = {}
+    for line in scraped["/metrics"].splitlines():
+        name, _, value = line.partition(" ")
+        if name.endswith(("dispatches_per_decision", "prefill_tokens_per_decision")):
+            gauges[name] = float(value)
+    records = list(prof["ring"])
+    for family in ("packs", "fused", "spec", "persistent"):
+        records += (prof.get(family) or {}).get("ring", [])
+    sums_ok = all(abs(sum(r["segments_ms"].values()) - r["wall_ms"]) <= 1e-6 * max(
+        r["wall_ms"], 1.0) for r in records)
+    # every wave's coverage, the cold ones (capture) included; the
+    # snapshot's coverage_frac and mfu cover the warm ones
+    wall = sum(r["wall_ms"] for r in prof["ring"])
+    covered = sum(r["wall_ms"] - r["segments_ms"]["unattributed"] for r in prof["ring"])
+    mfu = prof.get("mfu") or {}
+    shares = [mfu.get("decode"), mfu.get("device"), mfu.get("busy_frac"),
+              *(mfu.get("loss") or {}).values(), (prof.get("fused") or {}).get("mfu_decode")]
+    shares = [x for x in shares if x is not None]
+    rec = {
+        "device_kind": prof["device_kind"], "peak_bf16_tflops": prof["peak_bf16_tflops"],
+        "waves_profiled": prof["waves_profiled"],
+        "warm_waves_in_window": prof["warm_waves_in_window"],
+        "wall_ms_total": prof["wall_ms_total"],
+        "segments_ms_total": prof["segments_ms_total"],
+        "device_compute_ms_total": prof["device_compute_ms_total"],
+        "device_event_ms_total": prof.get("device_event_ms_total"),
+        "coverage_frac": prof["coverage_frac"],
+        "coverage_frac_all_waves": covered / wall if wall > 0 else 0.0, "mfu": mfu,
+        "achieved_tflops": prof["achieved_tflops"],
+        "dispatches_per_decision": prof.get("dispatches_per_decision"),
+        "prefill_tokens_per_decision": prof.get("prefill_tokens_per_decision"),
+        "metrics_gauges": gauges,
+        "packs_profiled": (prof.get("packs") or {}).get("packs_profiled", 0),
+        "fused_profiled": (prof.get("fused") or {}).get("harvests_profiled", 0),
+        "records": len(records), "segments_sum_to_wall": sums_ok,
+        "slo_evaluations": slo["evaluations"], "slo_tripped": slo["tripped"],
+        "wave_segments": [{"wall_ms": r["wall_ms"], "cold": r["cold_compile"],
+                           "device_compute_ms": r["device_compute_ms"],
+                           "device_event_ms": r.get("device_event_ms"),
+                           **{k: r["segments_ms"][k] for k in SEGMENTS}} for r in prof["ring"]],
+    }
+    warm = rec["warm_waves_in_window"] > 0
+    # the event-timed device span of a wave lies inside its wall
+    events_ok = all(0 < r["device_event_ms"] <= r["wall_ms"]
+                    for r in prof["ring"] if "device_event_ms" in r)
+    ok = (sums_ok and events_ok and rec["waves_profiled"] > 0
+          and rec["coverage_frac_all_waves"] >= 0.95
+          and (not warm or (rec["coverage_frac"] >= 0.95 and bool(mfu)))
+          and all(0 <= x <= 1 for x in shares) and rec["slo_evaluations"] > 0)
+    print("run: profile " + json.dumps({k: rec[k] for k in (
+        "segments_ms_total", "device_compute_ms_total", "device_event_ms_total",
+        "wall_ms_total", "coverage_frac", "coverage_frac_all_waves",
+        "mfu", "peak_bf16_tflops", "device_kind", "dispatches_per_decision",
+        "prefill_tokens_per_decision", "metrics_gauges", "waves_profiled",
+        "warm_waves_in_window", "packs_profiled", "fused_profiled", "segments_sum_to_wall",
+        "slo_evaluations")}) + f" | {_smi()} | ok={ok}", flush=True)
+    return ok, rec
+
+
 def run_phase() -> tuple[bool, dict]:
     """`cli run` at full width on the card against the wire-level fake API
     server: the port's WireFakeK8s holding synthetic_nodes(RUN_NODES), a
@@ -3412,7 +3630,8 @@ def run_phase() -> tuple[bool, dict]:
     path that does not exist, the API server set with
     httpapi.set_active_config, LLM_MODEL=RUN_MODEL, the config's default
     temperature 0.3) that runs `cli.main(["run"])`; then RUN_PODS pending
-    pods of RUN_SHAPES shapes created over the wire. Once the fake shows
+    pods of RUN_SHAPES shapes created over the wire, and once they are
+    bound RUN_SECOND_PODS more of new shapes. Once the fake shows
     every pod bound (deadline RUN_DEADLINE_S) the child gets SIGINT; it must
     exit 0 with the stats JSON. Fails unless every pod is bound to a node
     that is ready and feasible for it, no decision fell back or failed to
@@ -3428,11 +3647,18 @@ def run_phase() -> tuple[bool, dict]:
         srv.add_node(n.name, cpu=str(int(n.available_cpu_cores)),
                      memory=f"{int(n.available_memory_gb)}Gi", pods=str(n.max_pods),
                      labels=n.labels)
-    pods = pod_burst(RUN_PODS, distinct_shapes=RUN_SHAPES)
-    rec: dict = {"model": RUN_MODEL, "nodes": RUN_NODES, "pods": RUN_PODS,
-                 "shapes": RUN_SHAPES}
+    first = pod_burst(RUN_PODS, distinct_shapes=RUN_SHAPES)
+    n_shapes = RUN_SHAPES + RUN_SECOND_PODS
+    second = [dataclasses.replace(p, name=f"second-pod-{i}") for i, p in enumerate(
+        pod_burst(n_shapes, distinct_shapes=n_shapes)[RUN_SHAPES:])]
+    pods = first + second
+    rec: dict = {"model": RUN_MODEL, "nodes": RUN_NODES, "pods": len(pods),
+                 "shapes": n_shapes}
+    scraped: dict = {}
     with tempfile.TemporaryDirectory() as cwd:
-        env = _child_env(KUBECONFIG=str(Path(cwd) / "no-kubeconfig"), LLM_MODEL=RUN_MODEL)
+        env = _child_env(KUBECONFIG=str(Path(cwd) / "no-kubeconfig"), LLM_MODEL=RUN_MODEL,
+                         DURABILITY_JOURNAL_DIR=str(Path(cwd) / "journal"),
+                         SMOKE_SLO_OBJECTIVES=json.dumps(RUN_SLO_OBJECTIVES), **RUN_PLANE_ENV)
         env.pop("KUBERNETES_SERVICE_HOST", None)
         t0 = time.perf_counter()
         child = subprocess.Popen([sys.executable, "-c", RUN_CHILD, srv.base_url], cwd=cwd,
@@ -3446,17 +3672,21 @@ def run_phase() -> tuple[bool, dict]:
                    and not any("watch=true" in r for r in srv.request_log)):
                 time.sleep(0.1)
             rec["start_s"] = time.perf_counter() - t0
-            pending_at = {}
-            for pod in pods:
-                req = pod.container_requests[0]
-                srv.add_pod(pod.name, requests=dict(req), priority=pod.priority)
-                pending_at[pod.name] = time.perf_counter()
-            bound_at = {}
-            while child.poll() is None and time.perf_counter() < end and len(bound_at) < len(pods):
-                now = time.perf_counter()
-                for _, name, _node in list(srv.bindings):
-                    bound_at.setdefault(name, now)
-                time.sleep(0.01)
+            pending_at, bound_at = {}, {}
+            for burst in (first, second):
+                for pod in burst:
+                    req = pod.container_requests[0]
+                    srv.add_pod(pod.name, requests=dict(req), priority=pod.priority)
+                    pending_at[pod.name] = time.perf_counter()
+                while (child.poll() is None and time.perf_counter() < end
+                       and len(bound_at) < len(pending_at)):
+                    now = time.perf_counter()
+                    for _, name, _node in list(srv.bindings):
+                        bound_at.setdefault(name, now)
+                    time.sleep(0.01)
+            if child.poll() is None:
+                time.sleep(1.5)  # an SLO evaluation and a sample after the last bind
+                scraped = _scrape_plane(Path(cwd) / "metrics_port")
             if child.poll() is None:
                 child.send_signal(signal.SIGINT)
             out, err = child.communicate(timeout=120)
@@ -3495,17 +3725,18 @@ def run_phase() -> tuple[bool, dict]:
         "client_fallbacks": (stats.get("client") or {}).get("fallback_decisions"),
         "total_scheduled": stats.get("total_scheduled"),
     })
+    plane_ok, rec["plane"] = _plane_summary(scraped)
     times = sorted(rec["pending_to_bound_s"].values())
     ok = (child.returncode == 0 and len(placed) == len(pods) and feasible
           and rec["fallback_decisions"] == 0 and rec["client_fallbacks"] == 0
           and rec["parsed"] > 0 and rec["unparsed"] == 0
           and bool(rec["launches"]) and rec["launches"]["K1"] > 0
-          and rec["launches"]["K2"] > 0)
+          and rec["launches"]["K2"] > 0 and plane_ok)
     for name in sorted(rec["pending_to_bound_s"], key=rec["pending_to_bound_s"].get):
         print(f"  run: {name} pending -> bound {rec['pending_to_bound_s'][name]:.3f} s "
               f"on {placed.get(name)}", flush=True)
     print(f"run: cli run ({RUN_MODEL}, temperature {rec['temperature']}) over HTTP bound "
-          f"{len(placed)} of {len(pods)} pods ({RUN_SHAPES} shapes) in "
+          f"{len(placed)} of {len(pods)} pods ({n_shapes} shapes, two bursts) in "
           f"{len(waves)} waves {rec['waves']}; pending -> bound first "
           f"{times[0] if times else float('nan'):.3f} s, last "
           f"{times[-1] if times else float('nan'):.3f} s; between the waves' harvests "
@@ -3516,6 +3747,139 @@ def run_phase() -> tuple[bool, dict]:
           flush=True)
     if not ok:
         print(err[-6000:], file=sys.stderr, flush=True)
+    return ok, rec
+
+
+# ------------------------------------------------------- journal restart phase
+JOURNAL_NODES = 4
+JOURNAL_PODS = 8  # 4 created before the kill, 4 while the child is dead
+JOURNAL_DEADLINE_S = 300.0
+# `cli run` (the config's defaults, LLM_MODEL and the journal from the
+# environment) against the wire fake at argv[1].
+JOURNAL_CHILD = r"""
+import sys
+from k8s_llm_scheduler_tpu_torch import cli
+from k8s_llm_scheduler_tpu_torch.cluster import httpapi
+httpapi.set_active_config(sys.argv[1])
+sys.exit(cli.main(["run"]))
+"""
+
+
+def journal_restart_phase() -> tuple[bool, dict]:
+    """Crash and restart of `cli run` on one decision journal: a TINY child
+    over the port's WireFakeK8s with durability.enabled (fsync "intent")
+    is SIGKILLed once the first of JOURNAL_PODS // 2 pods is bound; the
+    other half is created while it is dead; a second child restarts on the
+    same journal (recovery, then the watch from the journaled
+    resourceVersion) and gets SIGINT once every pod is bound. Fails unless
+    each pod is bound exactly once to a ready node (one 201 a pod, and no
+    binding refused as already bound: a pod decided twice would meet a
+    409), the second child exits 0, and `cli journal fsck` exits 0 with the
+    journal clean and no lifecycle open. A binding POST the SIGKILL tore
+    mid-request reaches the fake without its body and gets no answer; the
+    binding POSTs the fake logged are reported beside the answers."""
+    from collections import Counter
+
+    from k8s_llm_scheduler_tpu_torch.cluster.wire_fake import WireFakeK8s
+    from k8s_llm_scheduler_tpu_torch.testing import pod_burst, synthetic_nodes
+
+    nodes = synthetic_nodes(JOURNAL_NODES)
+    srv = WireFakeK8s()
+    for n in nodes:
+        srv.add_node(n.name, cpu=str(int(n.available_cpu_cores)),
+                     memory=f"{int(n.available_memory_gb)}Gi", pods=str(n.max_pods),
+                     labels=n.labels)
+    answers = []  # the status code of every answered binding POST
+    send = srv._send_json
+
+    def answered(handler, code, obj):
+        if handler.command == "POST" and handler.path.endswith("/bindings"):
+            answers.append(code)
+        send(handler, code, obj)
+
+    srv._send_json = answered
+    pods = pod_burst(JOURNAL_PODS, distinct_shapes=JOURNAL_PODS)
+    half = JOURNAL_PODS // 2
+    rec: dict = {"model": "tiny", "nodes": JOURNAL_NODES, "pods": JOURNAL_PODS}
+    t0 = time.perf_counter()
+    end = t0 + JOURNAL_DEADLINE_S
+    with tempfile.TemporaryDirectory() as cwd:
+        journal = Path(cwd) / "journal"
+        env = _child_env(KUBECONFIG=str(Path(cwd) / "no-kubeconfig"), LLM_MODEL="tiny",
+                         DURABILITY_ENABLED="true", DURABILITY_JOURNAL_DIR=str(journal))
+        env.pop("KUBERNETES_SERVICE_HOST", None)
+        logs = [Path(cwd) / "first.log", Path(cwd) / "second.log"]
+
+        def start(log):
+            with open(log, "w") as fh:
+                return subprocess.Popen([sys.executable, "-c", JOURNAL_CHILD, srv.base_url],
+                                        cwd=cwd, env=env, stdout=fh, stderr=subprocess.STDOUT)
+
+        def wait(child, done):
+            while child.poll() is None and time.perf_counter() < end and not done():
+                time.sleep(0.01)
+
+        def add(burst):
+            for pod in burst:
+                srv.add_pod(pod.name, requests=dict(pod.container_requests[0]),
+                            priority=pod.priority)
+
+        child = start(logs[0])
+        try:
+            wait(child, lambda: any("watch=true" in r for r in srv.request_log))
+            add(pods[:half])
+            wait(child, lambda: len(srv.bindings) >= 1)
+            child.kill()  # SIGKILL: no shutdown path runs
+            child.wait(timeout=60)
+            rec["bound_at_kill"] = len(srv.bindings)
+            add(pods[half:])
+            n_log = len(srv.request_log)
+            child = start(logs[1])
+            wait(child, lambda: len(srv.bindings) >= len(pods))
+            if child.poll() is None:
+                child.send_signal(signal.SIGINT)
+            child.wait(timeout=120)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        fsck = subprocess.run(
+            [sys.executable, "-m", "k8s_llm_scheduler_tpu_torch.cli", "journal", "fsck",
+             "--dir", str(journal)], cwd=cwd, env=env, capture_output=True, text=True,
+            timeout=120)
+        second_log = logs[1].read_text()
+    srv.close()
+    posts = sum(r.startswith("POST ") and r.endswith("/bindings") for r in srv.request_log)
+    per_pod = Counter(name for _, name, _ in srv.bindings)
+    try:
+        report = json.loads(fsck.stdout)
+    except ValueError:
+        report = {}
+    recovery = next((ln[ln.index("journal recovery:"):] for ln in second_log.splitlines()
+                     if "journal recovery:" in ln), None)
+    resumed = [r for r in srv.request_log[n_log:] if "watch=true" in r
+               and "resourceVersion=" in r and "/pods" in r]
+    ready = {n.name for n in nodes if n.is_ready}
+    rec.update({
+        "wall_s": time.perf_counter() - t0, "rc": child.returncode,
+        "bound": len(per_pod), "binding_posts": posts,
+        "binding_answers": dict(sorted(Counter(answers).items())),
+        "bound_more_than_once": sorted(p for p, c in per_pod.items() if c > 1),
+        "on_ready_nodes": all(node in ready for _, _, node in srv.bindings),
+        "recovery": recovery, "watch_resumed_from_rv": bool(resumed),
+        "fsck_rc": fsck.returncode, "fsck": {k: report.get(k) for k in (
+            "ok", "torn_bytes", "open_decisions", "open_intents", "acked", "last_rv")},
+    })
+    ok = (rec["rc"] == 0 and rec["bound"] == len(pods)
+          and rec["binding_answers"] == {201: len(pods)}
+          and not rec["bound_more_than_once"] and rec["on_ready_nodes"]
+          and recovery is not None and fsck.returncode == 0 and report.get("ok") is True
+          and report.get("open_decisions") == 0 and report.get("open_intents") == 0
+          and report.get("acked") == len(pods))
+    print(f"journal restart: {json.dumps(rec)} | {_smi()} | ok={ok}", flush=True)
+    if not ok:
+        print(second_log[-6000:], fsck.stdout[-2000:], fsck.stderr[-2000:],
+              file=sys.stderr, flush=True)
     return ok, rec
 
 
@@ -3753,6 +4117,7 @@ def main() -> int:
     ck_ok, ckpt = _timed_phase("checkpoint", checkpoint_phase)
     s_ok, sampled = _timed_phase("sampled", sampled_phase)
     pt_ok, pers_tiny = _timed_phase("persistent TINY", persistent_tiny)
+    jr_ok, journal_restart = _timed_phase("journal restart", journal_restart_phase)
     cc_ok, complete = _timed_phase("cli complete", finish_complete, complete_child)
     k3_ok, k3 = _timed_phase("K3", k3_phase, cfg, totals)
     k4_ok, k4 = _timed_phase("K4", k4_phase, k4_cases, long_cases=[k4_long_case()])
@@ -3840,13 +4205,14 @@ def main() -> int:
               "path_a": a_ok, "path_b": b_ok, "fused": f_ok, "persistent_8b": p8_ok,
               "spec": sp_ok,
               "checkpoint": ck_ok, "sampled": s_ok, "persistent_tiny": pt_ok,
-              "cli_complete": cc_ok, "k3": k3_ok, "k4": k4_ok}
+              "journal_restart": jr_ok, "cli_complete": cc_ok, "k3": k3_ok, "k4": k4_ok}
     record = {"device": kind, "smi": smi, "build_s": build_s, "kernels": line,
               "cli_verify": verify, "cli_run": run, "reference": ref, "decision": dec,
               "admission": adm, "loop": loop, "cli_demo": demo, "path_a": path_a,
               "path_b": path_b, "fused": fused, "persistent_8b": pers8, "spec": spec,
               "checkpoint": ckpt, "sampled": sampled, "persistent_tiny": pers_tiny,
-              "cli_complete": complete, "phases_ok": phases}
+              "journal_restart": journal_restart, "cli_complete": complete,
+              "phases_ok": phases}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

@@ -1,4 +1,4 @@
-"""Command line of the port: run / verify / demo / complete.
+"""Command line of the port: run / verify / demo / complete / journal / trace.
 
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] run
         [--fake-cluster] [--fake-nodes N] [--device cuda|cpu]
@@ -10,6 +10,10 @@
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] complete
         [--prompt TEXT] [--chat] [--max-new-tokens N] [--temperature T]
         [--model NAME] [--spec] [--device cuda|cpu]
+    python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] journal
+        fsck|show|compact [--dir DIR] [--limit N]
+    python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] trace
+        list|show ID|tail|export [--host H] [--port P]
 
 A port of the JAX package's cli.py: the configuration comes from
 `config.load_config` (env > config.yaml or `--config` > defaults), and
@@ -17,11 +21,17 @@ A port of the JAX package's cli.py: the configuration comes from
 (JAX cli.py:39-104), which `build_stack` wraps in the decision cache, the
 circuit breaker, the decision client and the scheduler (JAX cli.py:106-187).
 
-- `run` (JAX cli.py:444-485) watches and binds through `KubeCluster` (the
+- `run` (JAX cli.py:231-485) watches and binds through `KubeCluster` (the
   in-tree REST transport, cluster/httpapi.py, when the `kubernetes` package
   is absent), or an in-memory synthetic cluster with `--fake-cluster`. It
   runs until SIGINT, then prints the scheduler's stats as JSON on stdout
   and exits 0. The banner goes to stderr, so stdout holds only the stats.
+  Its operating plane, as in the JAX package: the durable decision journal
+  with crash recovery before the watch starts (`durability.*`;
+  sched/journal.py, sched/recovery.py), the wave profiler
+  (`observability.profiler`, on by default), the SLO burn-rate engine with
+  its breaker advisory and client brownout (`slo.*`), and the engine
+  sampler with the metrics server (`metrics.*`: /metrics and /debug/*).
 - `verify` is the preflight (JAX cli.py:697-790) for torch and CUDA: one
   `[ok]`/`[FAIL]` line per check, exit 1 on any failure.
 - `demo` schedules the reference's three fixture pods on an in-memory
@@ -32,12 +42,14 @@ circuit breaker, the decision client and the scheduler (JAX cli.py:106-187).
   largest prefill bucket is installed as a chunked dense prefix, its tail
   generated through the fused runtime, or speculatively with `--spec`
   (spec/); the text goes to stdout.
+- `journal` (JAX cli.py:1155-1196) checks, dumps or compacts a decision
+  journal; `trace` (JAX cli.py:1861-2026) reads a running scheduler's
+  flight recorder over its metrics port.
 
 `--device` is the port's own flag: the model runs on "cuda" (the default;
 it raises without a GPU) unless "cpu" is asked for. The switches of paths
 the port has not ported yet raise NotImplementedError before any model is
-built (`UNPORTED_SWITCHES`); the one of them that is on by default logs a
-warning instead (`WARNED_SWITCHES`).
+built (`UNPORTED_SWITCHES`).
 """
 
 from __future__ import annotations
@@ -67,22 +79,15 @@ DEMO_DEADLINE_S = 600.0  # the demo gives up (exit 1) if pods are unbound by the
 # Config switches whose paths are not ported yet, with the ROADMAP queue 1
 # item each waits for. Setting one raises before any model is built.
 UNPORTED_SWITCHES = (
-    ("durability.enabled", "the decision journal", 7),
-    ("metrics.enabled", "the metrics endpoint", 7),
-    ("slo.enabled", "the SLO engine", 7),
     ("distributed.enabled", "multi-host serving", 9),
     ("distributed.replica_addrs", "replica fan-out", 9),
     ("router.enabled", "the decision router", 9),
-)
-# Switches that are on by default but not ported: a warning each.
-WARNED_SWITCHES = (
-    ("observability.profiler", "the wave profiler", 8, "no profile is kept"),
 )
 
 
 def check_switches(cfg: Config) -> None:
     """Raise NotImplementedError for a switch of an unported path, naming
-    it and the ROADMAP item it waits for; warn for those on by default."""
+    it and the ROADMAP item it waits for."""
     for key, what, item in UNPORTED_SWITCHES:
         if cfg.get(key, None):
             raise NotImplementedError(
@@ -102,10 +107,6 @@ def check_switches(cfg: Config) -> None:
             "fleet.prefill_addrs / fleet.decode_addrs: disaggregated pools "
             "are not ported yet (ROADMAP queue 1 item 9)"
         )
-    for key, what, item, effect in WARNED_SWITCHES:
-        if cfg.get(key, None):
-            logger.warning("%s: %s is not ported yet (ROADMAP queue 1 item %d); %s",
-                           key, what, item, effect)
 
 
 def _backend_kwargs(cfg: Config, **overrides) -> dict:
@@ -261,7 +262,195 @@ def _close(backend) -> None:
         close()
 
 
+def _maybe_journal(cfg: Config):
+    """The durable decision journal when the `durability` block enables it
+    (sched/journal.py); None otherwise."""
+    if not cfg.get("durability.enabled", False):
+        return None
+    journal_dir = cfg.get("durability.journal_dir", None)
+    if not journal_dir:
+        raise SystemExit(
+            "durability.enabled is set but durability.journal_dir is not "
+            "(DURABILITY_JOURNAL_DIR)"
+        )
+    from k8s_llm_scheduler_tpu_torch.sched.journal import DecisionJournal
+
+    return DecisionJournal(
+        journal_dir,
+        fsync_policy=str(cfg.get("durability.fsync", "intent")),
+        segment_max_records=int(cfg.get("durability.segment_max_records", 4096)),
+    )
+
+
+def _recovery_lookup(cluster):
+    """The cluster-truth probe recovery needs (sched/recovery.PodLookup),
+    from whatever cluster driver is in play."""
+    factory = getattr(cluster, "recovery_lookup", None)  # KubeCluster
+    if factory is not None:
+        return factory()  # one list snapshot answers the whole pass
+    get_pod = getattr(cluster, "get_pod", None)  # FakeCluster
+
+    def lookup(ns: str, name: str):
+        raw = get_pod(ns, name)
+        if raw is None:
+            return ("gone", None)
+        if raw.node_name:
+            return ("bound", raw.node_name)
+        return ("pending", None)
+
+    return lookup
+
+
+def _recover(scheduler, cluster, journal) -> None:
+    """Journal the binder's decide/intent/ack lifecycle and the breaker's
+    trips, then reconcile what a previous incarnation left open BEFORE the
+    watch starts: a decided-but-unbound pod completes without a model
+    call, a bound-but-unacked one just gets its ack (JAX cli.py:236-262)."""
+    from k8s_llm_scheduler_tpu_torch.sched import recovery as recovery_mod
+    from k8s_llm_scheduler_tpu_torch.sched.recovery import JournaledBinder
+
+    scheduler.binder = JournaledBinder(scheduler.binder, journal)
+    breaker = scheduler.client.breaker
+    if breaker is not None:
+        breaker.journal_sink = journal.record_breaker
+    report = recovery_mod.recover(
+        journal, pod_lookup=_recovery_lookup(cluster), binder=scheduler.binder,
+        breaker=breaker,
+    )
+    logger.info(
+        "journal recovery: %d acked, %d completed, %d dropped, %d refused "
+        "(resume rv=%s)", report.acked, report.rebound, report.dropped,
+        report.failed, report.resume_rv,
+    )
+
+
+def _attach_profiler(cfg: Config, scheduler, engine):
+    """The continuous wave profiler (observability/profiler.py), attached
+    to `engine` when `observability.profiler` is on: per-wave dispatch and
+    sync fences and the MFU loss decomposition, served at /debug/profile
+    and as llm_scheduler_engine_profile_* gauges. With the resident loop,
+    the scheduler attaches the engine's in-loop decision latency to each
+    trace. None when off, or with no engine (the stub backend)."""
+    if engine is None or not cfg.get("observability.profiler", True):
+        return None
+    from k8s_llm_scheduler_tpu_torch.observability.profiler import EngineProfiler
+
+    profiler = EngineProfiler(
+        cfg=engine.cfg, window=int(cfg.get("observability.profiler_window", 256)))
+    engine.attach_profiler(profiler)
+    if engine.persistent_loop:
+        scheduler.resident_latency_fn = engine.resident_decision_latency
+    return profiler
+
+
+def _start_slo(cfg: Config, scheduler, profiler):
+    """The SLO burn-rate engine (observability/slo.py) over the scheduler's
+    stats, with the profiler's gauges mounted under `engine_profile` and
+    `persistent`; its trips reach the breaker as an advisory and, with
+    `slo.brownout`, shed the client's LLM rung until they clear. Started;
+    None when `slo.enabled` is off (JAX cli.py:286-331)."""
+    from k8s_llm_scheduler_tpu_torch.observability import slo as slo_mod
+
+    provider = scheduler.get_stats
+    if profiler is not None:
+        def provider(_base=scheduler.get_stats, _prof=profiler):
+            return {**_base(), "engine_profile": _prof.gauges(),
+                    "persistent": _prof.persistent_gauges()}
+
+    slo_engine = slo_mod.from_config(cfg.section("slo"), provider)
+    if slo_engine is None:
+        return None
+    breaker = scheduler.client.breaker
+    if breaker is not None:
+        slo_engine.on_trip.append(lambda name, _detail: breaker.slo_advisory(name))
+    if cfg.get("slo.brownout", True):
+        # a sustained burn sheds the LLM rung until it clears: the falling
+        # edge matters as much as the rising one
+        client = scheduler.client
+        slo_engine.on_trip.append(lambda name, _d: client.enter_brownout(f"slo:{name}"))
+        slo_engine.on_clear.append(lambda name, _d: client.exit_brownout(f"slo:{name}"))
+    slo_engine.start(interval_s=float(cfg.get("slo.interval_s", 10.0)))
+    return slo_engine
+
+
+def _start_metrics(cfg: Config, scheduler, engine, profiler, slo_engine):
+    """(metrics server, engine sampler), both started when
+    `metrics.enabled` is on, else (None, None) (JAX cli.py:334-375). The
+    sampler (observability/sampler.py) rings occupancy, KV use, prefix hit
+    rate, tokens/s and device memory at /debug/engine; the server answers
+    /metrics and /debug/* (observability/metrics.py)."""
+    if not cfg.get("metrics.enabled"):
+        return None, None
+    from k8s_llm_scheduler_tpu_torch.observability.metrics import MetricsServer
+
+    sampler = None
+    stats_provider = scheduler.get_stats
+    if engine is not None:
+        from k8s_llm_scheduler_tpu_torch.observability.sampler import EngineSampler
+
+        sampler = EngineSampler(
+            engine,
+            interval_s=float(cfg.get("observability.sampler_interval_s", 1.0)),
+            window=int(cfg.get("observability.sampler_window", 600)),
+        )
+        sampler.start()
+
+        def stats_provider(_base=scheduler.get_stats, _sampler=sampler):
+            return {**_base(), "engine_telemetry": _sampler.latest()}
+
+    server = MetricsServer(
+        stats_provider,
+        port=cfg.get("metrics.port"),
+        is_alive=lambda: scheduler.running,
+        engine_sampler=sampler,
+        engine_profiler=profiler,
+        slo_engine=slo_engine,
+        # /debug/blackbox: the resident loop's last iterations
+        blackbox_provider=(engine.persistent_blackbox
+                           if engine is not None and engine.persistent_loop else None),
+    )
+    server.start()
+    return server, sampler
+
+
+def _run_scheduler(cfg: Config, cluster, *, device: str, journal=None) -> int:
+    """Build the stack over `cluster` and serve until SIGINT, with the
+    operating plane the config asks for (JAX cli.py:231-422): journal and
+    recovery, profiler, SLO engine, sampler and metrics server. They stop
+    in the JAX package's order: the sampler and the SLO engine first (no
+    thread may read an engine mid-teardown), then the metrics server, then
+    the backend (whose close flushes the profiler's open fences), then the
+    journal; last, the stats go to stdout as JSON."""
+    scheduler, backend = build_stack(cfg, cluster, device=device)
+    sampler = slo_engine = metrics_server = None
+    try:
+        if journal is not None:
+            _recover(scheduler, cluster, journal)
+        engine = getattr(backend, "engine", None)
+        profiler = _attach_profiler(cfg, scheduler, engine)
+        slo_engine = _start_slo(cfg, scheduler, profiler)
+        metrics_server, sampler = _start_metrics(cfg, scheduler, engine, profiler,
+                                                 slo_engine)
+        print(BANNER, file=sys.stderr)
+        logger.info("scheduler %r starting", cfg.get("scheduler.name"))
+        asyncio.run(_serve(scheduler, cluster))
+    finally:
+        if sampler is not None:
+            sampler.stop()
+        if slo_engine is not None:
+            slo_engine.stop()
+        if metrics_server is not None:
+            metrics_server.stop()
+        _close(backend)
+        if journal is not None:
+            journal.close()
+        # final stats dump (reference scheduler.py:803-819)
+        print(json.dumps(scheduler.get_stats(), indent=2, default=str), flush=True)
+    return 0
+
+
 def cmd_run(args: argparse.Namespace, cfg: Config) -> int:
+    journal = _maybe_journal(cfg)
     if args.fake_cluster:
         from k8s_llm_scheduler_tpu_torch.testing import synthetic_cluster
 
@@ -269,24 +458,25 @@ def cmd_run(args: argparse.Namespace, cfg: Config) -> int:
     else:
         from k8s_llm_scheduler_tpu_torch.cluster.kube import KubeCluster
 
+        kube_kwargs = {}
+        if journal is not None:
+            # resume the watch after the journaled resourceVersion (one
+            # reconciling relist covers anything older) and keep the
+            # journal's resume point current as events stream
+            kube_kwargs = {"resume_rv": journal.state.last_rv,
+                           "rv_hook": journal.record_rv}
         try:
-            cluster = KubeCluster(watch_timeout_seconds=cfg.get("scheduler.watch_interval"))
+            cluster = KubeCluster(
+                watch_timeout_seconds=cfg.get("scheduler.watch_interval"), **kube_kwargs)
         except Exception as exc:
             # a client is always importable (the in-tree transport); a
             # missing or unreachable kubeconfig surfaces here
             print(f"cannot reach a Kubernetes cluster ({exc}); use --fake-cluster "
                   f"for the in-memory cluster", file=sys.stderr)
+            if journal is not None:
+                journal.close()
             return 2
-    scheduler, backend = build_stack(cfg, cluster, device=args.device)
-    print(BANNER, file=sys.stderr)
-    logger.info("scheduler %r starting", cfg.get("scheduler.name"))
-    try:
-        asyncio.run(_serve(scheduler, cluster))
-    finally:
-        _close(backend)
-        # final stats dump (reference scheduler.py:803-819)
-        print(json.dumps(scheduler.get_stats(), indent=2, default=str), flush=True)
-    return 0
+    return _run_scheduler(cfg, cluster, device=args.device, journal=journal)
 
 
 def cmd_demo(args: argparse.Namespace, cfg: Config) -> int:
@@ -382,6 +572,181 @@ def cmd_complete(args: argparse.Namespace, cfg: Config) -> int:
         return 0
     finally:
         backend.close()
+
+
+def cmd_journal(args: argparse.Namespace, cfg: Config) -> int:
+    """Durable decision journal tooling (sched/journal.py):
+
+        cli journal fsck     # per-segment integrity + the folded state
+        cli journal show     # record stream (JSONL)
+        cli journal compact  # fold completed lifecycles into one segment
+    """
+    from k8s_llm_scheduler_tpu_torch.sched import journal as journal_mod
+
+    root = args.dir or cfg.get("durability.journal_dir", None)
+    if not root:
+        raise SystemExit(
+            "no journal: pass --dir DIR or set durability.journal_dir "
+            "(DURABILITY_JOURNAL_DIR)"
+        )
+    if args.journal_cmd == "fsck":
+        report = journal_mod.fsck(root)
+        print(json.dumps(report, indent=1, sort_keys=True))
+        return 0 if report["ok"] else 1  # 1: torn bytes found
+    if args.journal_cmd == "show":
+        n = 0
+        for seg, rec in journal_mod.iter_records(root):
+            print(json.dumps({"segment": seg, **rec}, sort_keys=True))
+            n += 1
+            if args.limit and n >= args.limit:
+                break
+        return 0
+    # compact: open (replays and truncates any torn tail) and rotate. The
+    # journal's single-writer lock refuses a directory a live scheduler is
+    # writing.
+    try:
+        journal = journal_mod.DecisionJournal(root)
+    except journal_mod.JournalError as exc:
+        raise SystemExit(str(exc)) from exc
+    try:
+        stats = journal.compact()
+    finally:
+        journal.close()
+    print(json.dumps(stats, sort_keys=True))
+    return 0
+
+
+def _debug_get(host: str, port: int, path: str, timeout: float = 5.0) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{host}:{port}{path}", timeout=timeout) as resp:
+        return resp.read().decode()
+
+
+def _format_span_tree(node: dict, depth: int = 0) -> list[str]:
+    dur = node.get("dur_ms")
+    dur_txt = f"{dur:.2f}ms" if isinstance(dur, (int, float)) else "open"
+    attrs = node.get("attrs") or {}
+    attr_txt = " " + " ".join(f"{k}={v}" for k, v in sorted(attrs.items())) if attrs else ""
+    status = "" if node.get("status", "ok") == "ok" else " [ERROR]"
+    lines = [f"{'  ' * depth}{node['name']}  {dur_txt}{status}{attr_txt}"]
+    for child in node.get("children", []):
+        lines.extend(_format_span_tree(child, depth + 1))
+    return lines
+
+
+def _export_traces(host: str, port: int) -> list[str]:
+    """Every held trace as a JSONL line, following /debug/export's cursor
+    (a capped body ends in a {"truncated": true, "next_cursor": N} trailer,
+    kept out of the result)."""
+    lines: list[str] = []
+    since = 0
+    while True:
+        body = _debug_get(host, port, f"/debug/export?since={since}", timeout=30.0)
+        chunk = [ln for ln in body.splitlines() if ln.strip()]
+        trailer = None
+        if chunk:
+            try:
+                last = json.loads(chunk[-1])
+            except ValueError:
+                last = None
+            if (isinstance(last, dict) and last.get("truncated") is True
+                    and set(last) == {"truncated", "next_cursor"}):
+                trailer = last
+                chunk = chunk[:-1]
+        lines.extend(chunk)
+        if trailer is None:
+            return lines
+        since = int(trailer["next_cursor"])
+
+
+def cmd_trace(args: argparse.Namespace, cfg: Config) -> int:
+    """Query a RUNNING scheduler's decision flight recorder over its metrics
+    port (observability/spans.py; /debug/decisions, /debug/trace, /debug/export):
+
+        cli trace list                 # newest decision traces
+        cli trace show <trace-id>      # one trace's span tree
+        cli trace tail                 # follow new traces as they complete
+        cli trace export --out f.jsonl # the ring as JSONL
+    """
+    import urllib.error
+
+    from k8s_llm_scheduler_tpu_torch.observability.spans import build_span_tree
+
+    host = args.host
+    port = args.port if args.port is not None else int(cfg.get("metrics.port"))
+
+    def summarize(entry: dict) -> str:
+        meta = entry.get("meta") or {}
+        dur = entry.get("dur_ms")
+        return (
+            f"{entry['trace_id']:<16} {entry['name']:<10} "
+            f"{(f'{dur:.1f}ms' if dur is not None else 'open'):>10} "
+            f"{meta.get('source', '-'):<9} "
+            f"{meta.get('selected_node', '-'):<20} "
+            f"{str(meta.get('shard_id', '-')):>5} "
+            f"{meta.get('cache_tier', '-'):<9} "
+            f"{meta.get('outcome', meta.get('fallback_reason', '-'))}"
+        )
+
+    try:
+        if args.trace_cmd == "list":
+            data = json.loads(_debug_get(host, port, f"/debug/decisions?n={args.n}"))
+            print(f"{'trace_id':<16} {'name':<10} {'duration':>10} {'source':<9} "
+                  f"{'node':<20} {'shard':>5} {'tier':<9} outcome")
+            for entry in data["traces"]:
+                print(summarize(entry))
+            rec = data["recorder"]
+            print(f"-- {rec['held']}/{rec['capacity']} held, "
+                  f"{rec['recorded']} recorded total")
+            return 0
+        if args.trace_cmd == "show":
+            try:
+                body = _debug_get(host, port, f"/debug/trace/{args.trace_id}")
+            except urllib.error.HTTPError as exc:
+                if exc.code == 404:
+                    print(f"trace {args.trace_id!r} not found (ring may have evicted it)",
+                          file=sys.stderr)
+                    return 1
+                raise
+            entry = json.loads(body)
+            print(f"trace {entry['trace_id']}  meta={json.dumps(entry.get('meta') or {})}")
+            for line in _format_span_tree(build_span_tree(entry["spans"])):
+                print(line)
+            return 0
+        if args.trace_cmd == "tail":
+            since = 0
+            while True:
+                data = json.loads(_debug_get(
+                    host, port, f"/debug/decisions?n=1000&since={since}"))
+                for entry in data["traces"]:
+                    print(summarize(entry), flush=True)
+                    since = max(since, entry["seq"])
+                time.sleep(args.interval)
+        if args.trace_cmd == "export":
+            lines = _export_traces(host, port)
+            out_body = "".join(line + "\n" for line in lines)
+            if args.out:
+                with open(args.out, "w", encoding="utf-8") as fh:
+                    fh.write(out_body)
+                print(f"wrote {len(lines)} trace(s) to {args.out}")
+            else:
+                sys.stdout.write(out_body)
+            return 0
+    except KeyboardInterrupt:
+        return 0
+    except urllib.error.HTTPError as exc:
+        # before OSError (HTTPError subclasses it): a server-side 500
+        # carries the handler's exception text in its body
+        body = exc.read().decode(errors="replace").strip()
+        print(f"metrics endpoint at {host}:{port} answered {exc.code}: "
+              f"{body or exc.reason}", file=sys.stderr)
+        return 2
+    except OSError as exc:
+        print(f"cannot reach scheduler metrics endpoint at {host}:{port} ({exc}) "
+              f"— is it running with metrics.enabled?", file=sys.stderr)
+        return 2
+    raise SystemExit(f"unknown trace command {args.trace_cmd!r}")
 
 
 def _smi() -> str:
@@ -588,6 +953,44 @@ def build_parser() -> argparse.ArgumentParser:
                           help="speculative decoding (llm.spec_* settings)")
     device_flag(complete)
     complete.set_defaults(func=cmd_complete)
+
+    journal = sub.add_parser(
+        "journal", help="durable decision journal: fsck/show/compact "
+                        "(sched/journal.py; durability.* config block)")
+    jsub = journal.add_subparsers(dest="journal_cmd", required=True)
+    for name, help_text in (
+        ("fsck", "per-segment integrity report + the folded end state"),
+        ("show", "dump the record stream as JSONL"),
+        ("compact", "fold completed lifecycles into one fresh segment"),
+    ):
+        p_j = jsub.add_parser(name, help=help_text)
+        p_j.add_argument("--dir", default=None,
+                         help="journal directory (default: durability.journal_dir)")
+        if name == "show":
+            p_j.add_argument("--limit", type=int, default=0,
+                             help="stop after N records (0 = all)")
+    journal.set_defaults(func=cmd_journal)
+
+    trace = sub.add_parser(
+        "trace", help="decision flight recorder: list/show/tail/export traces from "
+                      "a running scheduler's /debug endpoints")
+    tsub = trace.add_subparsers(dest="trace_cmd", required=True)
+
+    def endpoint(p):
+        p.add_argument("--host", default="127.0.0.1")
+        p.add_argument("--port", type=int, default=None,
+                       help="metrics port (default: metrics.port)")
+        return p
+
+    endpoint(tsub.add_parser("list", help="newest decision traces")).add_argument(
+        "-n", type=int, default=20)
+    endpoint(tsub.add_parser("show", help="one trace's span tree")).add_argument("trace_id")
+    endpoint(tsub.add_parser(
+        "tail", help="follow new traces as they complete (Ctrl-C to stop)")).add_argument(
+        "--interval", type=float, default=1.0)
+    endpoint(tsub.add_parser("export", help="the ring as JSONL")).add_argument(
+        "--out", default=None, help="file (default stdout)")
+    trace.set_defaults(func=cmd_trace)
     return parser
 
 

@@ -76,6 +76,13 @@ engine/engine.py).
   SpeculativeDecoder, which drives one request's slot itself
   (`_Request.external`: every harvest path skips it) and finishes it
   through `release_slot`, or hands it back to the fused runtime.
+- **Profiler** (observability/profiler.py): `attach_profiler` hands the
+  engine an EngineProfiler. Waves, packs, fused harvests, resident
+  harvests and prefix prefills then book their fences into it, as the JAX
+  engine's do. The fences read perf_counter on the owner thread and query
+  CUDA events; none synchronizes. The wave dispatcher only stamps the end
+  of a wave's dispatch on its handle (`dispatch_end`), and harvest_wave
+  books it. Without a profiler each of them pays one None check.
 """
 
 from __future__ import annotations
@@ -121,7 +128,14 @@ from k8s_llm_scheduler_tpu_torch.models.llama import (
     forward_prefill_suffix,
     forward_prefill_suffix_dense,
 )
-from k8s_llm_scheduler_tpu_torch.observability.resident import counters_dict
+from k8s_llm_scheduler_tpu_torch.observability.resident import (
+    CTR_ADMITS,
+    CTR_IDLE_CHUNKS,
+    CTR_ITERS,
+    CTR_STEPS,
+    N_COUNTERS,
+    counters_dict,
+)
 from k8s_llm_scheduler_tpu_torch.ops.attention import NEG_INF
 
 logger = logging.getLogger(__name__)
@@ -593,7 +607,12 @@ class WaveHandle:
     returns it at once; the dispatcher fills in the results' host buffers,
     the iteration count and the fence of their copies once it has queued
     the wave's last iteration, then sets `dispatched` (JAX: a dispatched
-    program with `copy_to_host_async`). A failed dispatch leaves `error`."""
+    program with `copy_to_host_async`). A failed dispatch leaves `error`.
+    With a profiler attached, the dispatcher also stamps `dispatch_end`
+    (perf_counter) once it has queued the wave's suffix prefill, its first
+    device program, and on a card `timing`: two timing events recorded on
+    the stream before the wave's first copy and after its last, outside
+    any capture."""
 
     n: int                # real prompts in this wave (<= R)
     max_new_tokens: int
@@ -609,6 +628,8 @@ class WaveHandle:
     iters: int = 0        # model calls actually run (early exit)
     done: Fence | None = None  # the copies to the host have landed
     error: BaseException | None = None
+    dispatch_end: float | None = None
+    timing: tuple | None = None  # (start, end) torch.cuda.Event
     dispatched: threading.Event = dataclasses.field(default_factory=threading.Event)
 
     def is_ready(self) -> bool:
@@ -750,6 +771,20 @@ class InferenceEngine:
         # generate() routes through it.
         self.spec = None
         self._pers_ctr_final: dict[str, int] | None = None
+        # Continuous wave profiler (observability/profiler.py), attached by
+        # attach_profiler. None = one None check a wave, nothing else.
+        self.profiler = None
+        # Resident-loop profiler books: the wall anchor of step_persistent's
+        # windows, the counter baselines its loop_resident decomposition
+        # takes deltas against, and the EWMA of in-loop decision latency.
+        self._pers_tok_last = 0.0
+        self._pers_ctr_last = np.zeros(N_COUNTERS, dtype=np.int64)
+        self._pers_stall_last = 0
+        self._resident_latency_ms: float | None = None
+        # Decision-flow books of the dispatches_per_decision gauge: the
+        # counters when a completion window was last booked.
+        self._flow_dispatches_last = 0
+        self._flow_completed_last = 0
         # The resident loop and the wave dispatcher never run device work at
         # the same time: each holds this lock around its programs.
         self._device_lock = threading.Lock()
@@ -983,6 +1018,8 @@ class InferenceEngine:
             if activate:
                 self._prefix = cached
             self.stats["prefix_hits"] += 1
+            if self.profiler is not None:
+                self.profiler.note_prefix_prefill(0, cached.length)
             return
         n = len(prompt_ids)
         if n > self.cfg.max_seq_len:
@@ -1031,6 +1068,8 @@ class InferenceEngine:
         self.stats["prefix_prefills"] += 1
         self.stats["dispatches"] += 1
         self.stats["prefill_tokens"] += prefilled
+        if self.profiler is not None:
+            self.profiler.note_prefix_prefill(prefilled, n)
 
     def pin_prefix(self, prompt_ids: list[int]) -> tuple[tuple[int, ...], int]:
         """Prefill (or cache-hit) `prompt_ids` as a PINNED prefix-cache
@@ -1265,7 +1304,8 @@ class InferenceEngine:
                 self._constrained)
 
     def _run_wave(self, key, R, bucket, n_iters, F, max_new_tokens,
-                  tokens, suffix_lens, max_new, prefix=None, grammar=None):
+                  tokens, suffix_lens, max_new, prefix=None, grammar=None,
+                  stamp=None):
         """Dispatch one wave on this thread: `prefix` (default: the active
         one) into the static prefix buffer, a new variant's grammar tables
         `grammar` (default: the installed grammar), its inputs into the
@@ -1274,13 +1314,20 @@ class InferenceEngine:
         read one iteration behind; then the copies of its results to the
         host. Returns (variant, tokens on the host, valid tokens of each
         call on the host, iterations counted, the copies' fence). Holds the
-        device lock: a resident loop's micro-chunks wait for the wave."""
+        device lock: a resident loop's micro-chunks wait for the wave.
+        `stamp`, a WaveHandle, gets its `dispatch_end` once the suffix
+        prefill is queued, and on a card its `timing` events."""
         with self._device_lock:
             return self._run_wave_locked(key, R, bucket, n_iters, F, max_new_tokens,
-                                         tokens, suffix_lens, max_new, prefix, grammar)
+                                         tokens, suffix_lens, max_new, prefix, grammar,
+                                         stamp)
 
     def _run_wave_locked(self, key, R, bucket, n_iters, F, max_new_tokens,
-                         tokens, suffix_lens, max_new, prefix, grammar):
+                         tokens, suffix_lens, max_new, prefix, grammar, stamp):
+        timed = stamp is not None and self.device.type == "cuda"
+        if timed:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
         static_prefix = self._bind_prefix(prefix)
         var = self._wave_variants.get(key)
         if var is None:
@@ -1289,6 +1336,8 @@ class InferenceEngine:
             self._wave_variants[key] = var
         var.load(tokens, suffix_lens, max_new)
         var.prefill.run()
+        if stamp is not None:
+            stamp.dispatch_end = time.perf_counter()
         fences = (Fence(self.device), Fence(self.device))
         iters = n_iters
         for q in range(n_iters):
@@ -1305,6 +1354,11 @@ class InferenceEngine:
         counts_h = host_buffer(var.counts.shape, torch.int32, self.device)
         toks_h.copy_(var.out, non_blocking=True)
         counts_h.copy_(var.counts, non_blocking=True)
+        if timed:
+            # before `done`, so that `done` having landed means it has too
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            stamp.timing = (start, end)
         done = Fence(self.device)
         done.record()
         return var, toks_h, counts_h, iters, done
@@ -1333,12 +1387,13 @@ class InferenceEngine:
                 if not self._dispatch_cv.wait(timeout=1.0) and not self._dispatcher.is_alive():
                     raise RuntimeError("the wave dispatcher thread died")
 
-    def _dispatch_wave(self, handle: WaveHandle, args: tuple) -> None:
+    def _dispatch_wave(self, handle: WaveHandle, args: tuple, stamp) -> None:
         """The dispatcher's job for one wave: run it and fill in `handle`,
-        or record the failure there; harvest_wave reads either."""
+        or record the failure there; harvest_wave reads either. `stamp`
+        (the handle, with a profiler attached) gets the dispatch's end."""
         try:
             var, handle.toks_h, handle.blk_tokens_h, handle.iters, handle.done = (
-                self._run_wave(*args))
+                self._run_wave(*args, stamp=stamp))
             # Recorded only after a successful dispatch (capture and
             # replays queued): a failed one leaves the geometry cold.
             self._wave_compiled[handle.geo_key] = (var.prefill, var.iteration)
@@ -1377,8 +1432,11 @@ class InferenceEngine:
             )
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        self._prefix = self._prefix or self._get_empty_prefix()
+        # the dispatch fence opens before prompt packing, as the JAX
+        # engine's does; the dispatcher closes it (WaveHandle.dispatch_end)
+        prof = self.profiler
         submitted_at = time.perf_counter()
+        self._prefix = self._prefix or self._get_empty_prefix()
 
         bucket = self._bucket_for(max(len(p) for p in prompts))
         R, n_iters, F = self._wave_geometry(len(prompts), max_new_tokens)
@@ -1403,22 +1461,44 @@ class InferenceEngine:
         # dispatcher in FIFO order
         args = (geo_key, R, bucket, n_iters, F, max_new_tokens, tokens, suffix_lens,
                 max_new, self._prefix, self._grammar())
-        self._dispatch(lambda: self._dispatch_wave(handle, args))
+        stamp = handle if prof is not None else None
+        self._dispatch(lambda: self._dispatch_wave(handle, args, stamp))
         self.stats["waves"] += 1
         self.stats["dispatches"] += 1
         self.stats["prefill_tokens"] += int(suffix_lens.sum())
         self.stats["requests"] += len(prompts)
+        if prof is not None:
+            prof.on_submit(
+                handle, submitted_at, time.perf_counter(),
+                suffix_tokens=int(suffix_lens.sum()), n_requests=len(prompts),
+                prefix_len=self._prefix.length, cold_compile=handle.cold_compile,
+            )
         return handle
 
     def harvest_wave(self, handle: WaveHandle) -> list[Finished]:
         """One wave's results from the host buffers: waits for its dispatch,
-        then for their copy. A failed dispatch raises BackendError."""
+        then for their copy. A failed dispatch raises BackendError. With a
+        profiler attached, it books the wave's fences: its dispatch end
+        (the dispatcher's stamp, or this entry if that came later, so the
+        segments telescope), the entry, the results' arrival and the end
+        of the decode."""
+        prof = self.profiler
+        if prof is not None:
+            t_harvest0 = time.perf_counter()
+            ready_at_entry = handle.is_ready()
         while not handle.dispatched.wait(timeout=1.0):
             if self._dispatcher is None or not self._dispatcher.is_alive():
                 raise BackendError("the wave dispatcher stopped before this wave ran")
         if handle.error is not None:
             raise BackendError(f"wave dispatch failed: {handle.error}") from handle.error
         handle.done.synchronize()
+        if prof is not None:
+            t_sync = time.perf_counter()
+            # both timing events have completed: `done`, recorded after
+            # them on one stream, has
+            device_event_s = None
+            if handle.timing is not None:
+                device_event_s = handle.timing[0].elapsed_time(handle.timing[1]) / 1000.0
         toks_np = handle.toks_h.numpy()
         self.block_tokens.extend(handle.blk_tokens_h[: handle.iters].tolist())
         self.stats["wave_model_calls"] += handle.iters
@@ -1426,11 +1506,13 @@ class InferenceEngine:
         latency_ms = (time.perf_counter() - handle.submitted_at) * 1000.0
         self.stats["wave_ms"] += latency_ms
         out: list[Finished] = []
+        decode_tokens = 0
         for row in range(handle.n):
             ids = [int(t) for t in toks_np[row] if t != pad]
             ids = ids[: handle.max_new_tokens]
             self.stats["completed"] += 1
             self.stats["decode_tokens"] += len(ids)
+            decode_tokens += len(ids)
             out.append(
                 Finished(
                     req_id=handle.req_ids[row],
@@ -1438,6 +1520,14 @@ class InferenceEngine:
                     text=self.tokenizer.decode(ids),
                     latency_ms=latency_ms,
                 )
+            )
+        if prof is not None:
+            if handle.dispatch_end is not None:  # None: submitted before attach
+                prof.note_dispatch_end(handle, min(handle.dispatch_end, t_harvest0))
+            prof.on_harvest(
+                handle, t_harvest0, t_sync, time.perf_counter(),
+                decode_tokens=decode_tokens, model_calls=handle.iters,
+                ready_at_entry=ready_at_entry, device_event_s=device_event_s,
             )
         return out
 
@@ -1621,6 +1711,10 @@ class InferenceEngine:
             self.exit_persistent()
         from k8s_llm_scheduler_tpu_torch.engine.admission.packer import pack_prompts
 
+        # host-side enqueue walls, never synced (the JAX engine's books)
+        prof = self.profiler
+        t0 = time.perf_counter() if prof is not None else 0.0
+        chunk_prefill_s = piggyback_s = 0.0
         prefix = self._prefix or self._get_empty_prefix()
         self._prefix = prefix
         # Parked emissions that predate this admission belong to earlier
@@ -1649,14 +1743,20 @@ class InferenceEngine:
             inputs = self._pack_inputs(plan, slots, prefix.length, max_new_tokens)
             sp = self._bind_prefix()
             for ci, chunk in enumerate(plan.chunks):
+                t_d = time.perf_counter() if prof is not None else 0.0
                 self._pack_chunk(sp, inputs, ci, carry_k, carry_v, carry_seg)
+                if prof is not None:
+                    chunk_prefill_s += time.perf_counter() - t_d
                 ended += len(chunk.ends)
                 # SARATHI piggyback: between prefill chunks, every in-flight
                 # decode slot (earlier requests AND pack prompts that already
                 # ended) advances one decode chunk; no host sync.
                 if piggyback_decode and ci + 1 < plan.n_chunks and (self._by_slot or ended):
+                    t_d = time.perf_counter() if prof is not None else 0.0
                     self._pending_emissions.append(self._chunk_dispatch())
                     self.stats["piggyback_chunks"] += 1
+                    if prof is not None:
+                        piggyback_s += time.perf_counter() - t_d
         except Exception:
             # Roll back the allocation AND the device slot state: a prompt
             # that ended in an earlier chunk set act in its slot, and a
@@ -1693,6 +1793,12 @@ class InferenceEngine:
         self.stats["prefill_tokens"] += plan.total_tokens
         self.stats["packed_admissions"] += 1
         self.stats["packed_prompts"] += len(prompts)
+        if prof is not None:
+            prof.on_pack(
+                wall_s=time.perf_counter() - t0, chunk_prefill_s=chunk_prefill_s,
+                piggyback_s=piggyback_s, n_prompts=len(prompts),
+                tokens=plan.total_tokens, chunks=plan.n_chunks,
+            )
         return [r.req_id for r in reqs]
 
     def _pack_inputs(self, plan, slots: list[int], prefix_len: int,
@@ -1911,7 +2017,23 @@ class InferenceEngine:
                     latency_ms=(time.perf_counter() - req.submitted_at) * 1000.0,
                 ))
                 self.stats["completed"] += 1
+        self._book_decision_flow()
         return finished
+
+    def _book_decision_flow(self) -> None:
+        """Feed the profiler's dispatches_per_decision gauge: the delta of
+        engine dispatches over the delta of completed decisions since the
+        last completion was booked. Dispatches accumulate across harvests
+        that complete nothing, so the telescoped ratio is exact."""
+        if self.profiler is None:
+            return
+        d_done = self.stats["completed"] - self._flow_completed_last
+        if d_done <= 0:
+            return
+        d_disp = self.stats["dispatches"] - self._flow_dispatches_last
+        self._flow_completed_last = self.stats["completed"]
+        self._flow_dispatches_last = self.stats["dispatches"]
+        self.profiler.on_decision_flow(d_disp, d_done)
 
     # ---------------------------------------------------------- fused decode
     def dense_grammar(self) -> torch.Tensor | None:
@@ -1986,26 +2108,56 @@ class InferenceEngine:
         if not self._fused_ready():
             self.stats["fused_fallbacks"] += 1
             return pend + self.step(chunks)
+        prof = self.profiler
+        t0 = time.perf_counter() if prof is not None else 0.0
         emissions: list[torch.Tensor] = self._pending_emissions
         self._pending_emissions = []
         handles = []
         any_active = bool(
             (self._act_np & (self._budget_np > 0))[list(self._by_slot)].any()
         )
+        ctx = self._mean_decode_ctx() if prof is not None else 0.0
         if any_active:
             for _ in range(max(1, chunks)):
                 toks, steps, prog = self._fused_chunk_dispatch()
                 emissions.append(toks)
                 handles.append((steps, prog))
+        t_disp = time.perf_counter() if prof is not None else 0.0
         # ONE host sync (the blocking copies below wait for the stream)
         act_np = self._state.act.cpu().numpy()
         budget_np = self._state.budget.cpu().numpy()
         first_np = self._state.first.cpu().numpy()
+        t_sync = time.perf_counter() if prof is not None else 0.0
         self.stats["syncs"] += 1
-        self._book_fused_steps(handles)
-        return pend + self._finish_harvest(
+        steps_run = self._book_fused_steps(handles)
+        tok_before = self.stats["decode_tokens"]
+        finished = self._finish_harvest(
             [e.numpy() for e in emissions], act_np, budget_np, first_np
         )
+        if prof is not None:
+            self._book_fused(prof, t0, t_disp, t_sync, steps_run,
+                             self.stats["decode_tokens"] - tok_before, len(handles), ctx)
+        return pend + finished
+
+    def _book_fused(self, prof, t0, t_disp, t_sync, steps, tokens, chunks, ctx) -> None:
+        """One fused harvest's FUSED_SEGMENTS: dispatch (the chunks queued
+        back to back), host_sync (until the results are on the host),
+        harvest (the token decode after it)."""
+        now = time.perf_counter()
+        prof.on_fused(
+            wall_s=now - t0, dispatch_s=t_disp - t0, sync_s=t_sync - t_disp,
+            harvest_s=now - t_sync, steps=steps, tokens=tokens, chunks=chunks,
+            ctx=ctx,
+        )
+
+    def _mean_decode_ctx(self) -> float:
+        """Host-side mean attention context of in-flight decode slots
+        (prefix + prompt + generated so far): the profiler's fused FLOP
+        books, without a device read."""
+        if not self._by_slot:
+            return float(self.prefix_len)
+        own = [req.prompt_len + len(req.generated) for req in self._by_slot.values()]
+        return self.prefix_len + sum(own) / len(own)
 
     def _book_fused_steps(self, handles) -> int:
         """Book the steps each harvested fused chunk ran (its host buffers
@@ -2041,6 +2193,9 @@ class InferenceEngine:
             while any(not r.external for r in self._by_slot.values()):
                 out.extend(self.step())
             return out
+        prof = self.profiler
+        t0 = time.perf_counter() if prof is not None else 0.0
+        ctx = self._mean_decode_ctx() if prof is not None else 0.0
         emissions: list[torch.Tensor] = self._pending_emissions
         self._pending_emissions = []
         live = list(self._by_slot)
@@ -2053,6 +2208,7 @@ class InferenceEngine:
             handles.append((steps, prog))
             fences.append(Fence(self.device))
             fences[-1].record()
+        t_disp = time.perf_counter() if prof is not None else 0.0
         if len(emissions) > n_chunks:
             # parked piggyback emissions: chronologically first, fetched by
             # the first sync below (counted, as the JAX engine does)
@@ -2060,13 +2216,19 @@ class InferenceEngine:
         for fence in fences:
             fence.synchronize()  # one sync a chunk
             self.stats["syncs"] += 1
-        self._book_fused_steps(handles)
+        t_sync = time.perf_counter() if prof is not None else 0.0
+        steps_run = self._book_fused_steps(handles)
         act_np = self._state.act.cpu().numpy()
         budget_np = self._state.budget.cpu().numpy()
         first_np = self._state.first.cpu().numpy()
-        return pend + self._finish_harvest(
+        tok_before = self.stats["decode_tokens"]
+        finished = self._finish_harvest(
             [e.numpy() for e in emissions], act_np, budget_np, first_np
         )
+        if prof is not None:
+            self._book_fused(prof, t0, t_disp, t_sync, steps_run,
+                             self.stats["decode_tokens"] - tok_before, n_chunks, ctx)
+        return pend + finished
 
     def release_slot(self, slot: int) -> None:
         """Tear down one admitted slot out of band: drop its request, free
@@ -2092,6 +2254,13 @@ class InferenceEngine:
         if decoder is not None and self.persistent_active:
             self.exit_persistent()
         self.spec = decoder
+
+    def attach_profiler(self, profiler) -> None:
+        """Attach a continuous wave profiler (observability/profiler.py
+        EngineProfiler), or detach with None. Waves, packs, fused and
+        resident harvests and prefix prefills then book their fences into
+        it; engine/local.py adds the queue-stall and ready-edge fences."""
+        self.profiler = profiler
 
     def generate(self, prompt_ids: list[int], max_new_tokens: int = 200,
                  use_spec: bool | None = None) -> Finished:
@@ -2183,9 +2352,19 @@ class InferenceEngine:
                 blackbox_depth=self.persistent_blackbox_depth,
             )
         self._persistent.launch()
+        # A fresh residency restarts the device counter block at zero, so
+        # the host's delta baselines restart too.
+        self._pers_ctr_last = np.zeros(N_COUNTERS, dtype=np.int64)
+        self._pers_stall_last = self._persistent.tokens.stalls
         self._pers_ctr_final = None
         self.stats["persistent_launches"] += 1
         self.stats["dispatches"] += 1
+        # The launch (and any set-up dispatch since the last completion
+        # window) amortizes over the residency: re-baseline the flow books,
+        # or the zero-dispatch gauge would read the set-up in its first
+        # steady-state window.
+        self._flow_dispatches_last = self.stats["dispatches"]
+        self._pers_tok_last = time.perf_counter()
         return True
 
     def exit_persistent(self) -> None:
@@ -2248,13 +2427,94 @@ class InferenceEngine:
             out.extend(self._pending_finished)
             self._pending_finished = []
             return out
-        out.extend(self._persistent_harvest(srv.harvest_steady(timeout_s)))
+        prof = self.profiler
+        t0 = time.perf_counter()
+        tok_before = self.stats["decode_tokens"]
+        step_before = self.stats["persistent_steps"]
+        batches = srv.harvest_steady(timeout_s)
+        t1 = time.perf_counter()
+        out.extend(self._persistent_harvest(batches))
+        if prof is not None:
+            # PERSISTENT_SEGMENTS over the window since the last harvest,
+            # each clamped to the wall so they sum to it exactly
+            now = time.perf_counter()
+            wall = max(now - self._pers_tok_last, 0.0)
+            ring_wait = min(t1 - t0, wall)
+            harvest = min(now - t1, wall - ring_wait)
+            loop_resident = max(wall - ring_wait - harvest, 0.0)
+            prof.on_persistent(
+                wall_s=wall, ring_wait_s=ring_wait, harvest_s=harvest,
+                loop_resident_s=loop_resident,
+                steps=self.stats["persistent_steps"] - step_before,
+                tokens=self.stats["decode_tokens"] - tok_before,
+                batches=len(batches),
+                loop_segments=self._decompose_loop_resident(srv, loop_resident),
+            )
+            self._pers_tok_last = now
         return out
 
+    def _decompose_loop_resident(self, srv, loop_resident_s: float) -> dict[str, float] | None:
+        """Split the opaque `loop_resident` window into
+        PERSISTENT_LOOP_SEGMENTS (admit / decode / ring_stall / idle) in
+        proportion to the resident counters' deltas since the previous
+        window (the StatsRing's newest snapshot): admissions taken, decode
+        steps run, token-ring stalls (a host book) and idle chunks. The
+        last segment is the exact remainder, so they sum to the window.
+        Also feeds the EWMA of in-loop decision latency (admission to first
+        emission, in iterations, times the mean iteration wall). None (the
+        sub-books unchanged) when telemetry is off or no snapshot landed in
+        this window."""
+        if not srv.telemetry:
+            return None
+        snaps = srv.stats_ring.drain(0.0)
+        if not snaps:
+            return None
+        last = snaps[-1]
+        cur = np.asarray(last.counters, dtype=np.int64)
+        iters_start = int(self._pers_ctr_last[CTR_ITERS])
+        d = cur - self._pers_ctr_last
+        d_stalls = max(int(last.token_stalls) - self._pers_stall_last, 0)
+        self._pers_ctr_last = cur
+        self._pers_stall_last = int(last.token_stalls)
+        d_iters = int(d[CTR_ITERS])
+        weights = {
+            "admit": float(max(int(d[CTR_ADMITS]), 0)),
+            "decode": float(max(int(d[CTR_STEPS]), 0)),
+            "ring_stall": float(d_stalls),
+            "idle": float(max(int(d[CTR_IDLE_CHUNKS]), 0)),
+        }
+        total_w = sum(weights.values())
+        seg: dict[str, float] = {}
+        remaining = max(float(loop_resident_s), 0.0)
+        if total_w <= 0:
+            # a window with no counted event is a parked loop: idle
+            seg = {"admit": 0.0, "decode": 0.0, "ring_stall": 0.0}
+        else:
+            for name in ("admit", "decode", "ring_stall"):
+                share = min(loop_resident_s * weights[name] / total_w, remaining)
+                seg[name] = share
+                remaining -= share
+        seg["idle"] = remaining
+        if d_iters > 0:
+            mean_iter_ms = loop_resident_s / d_iters * 1000.0
+            a_it = np.asarray(last.admit_iter)
+            f_em = np.asarray(last.first_emit)
+            fresh = (a_it >= iters_start) & (f_em >= a_it)
+            if fresh.any():
+                lat_ms = float((f_em[fresh] - a_it[fresh] + 1).mean()) * mean_iter_ms
+                self._resident_latency_ms = (
+                    lat_ms if self._resident_latency_ms is None
+                    else 0.7 * self._resident_latency_ms + 0.3 * lat_ms
+                )
+        return seg
+
     def resident_decision_latency(self) -> float | None:
-        """The JAX engine's EWMA of in-loop per-decision latency reads its
-        profiler, which the port does not have yet: None."""
-        return None
+        """EWMA of in-loop per-decision latency (ms): admission-to-first-
+        emission iterations x mean resident iteration wall, from the
+        counter deltas step_persistent books with a profiler attached. None
+        until a ring-served admission completed a telemetry window.
+        sched/loop.py attaches it as a synthetic `loop_resident` span."""
+        return self._resident_latency_ms
 
     def persistent_counter_totals(self) -> dict[str, int] | None:
         """Exact device counter totals of the last drained residency: its
@@ -2303,6 +2563,7 @@ class InferenceEngine:
                         latency_ms=(time.perf_counter() - req.submitted_at) * 1000.0,
                     ))
                     self.stats["completed"] += 1
+        self._book_decision_flow()
         return finished
 
     def _add_requests_persistent(
@@ -2346,12 +2607,19 @@ class InferenceEngine:
                "slots_free": self.free_slots}
         if self._persistent is not None:
             out.update(self._persistent.stats())
-        if self.stats["completed"]:
-            # a residency books one dispatch, its launch (as the JAX engine
-            # does); its micro-chunks book none
-            out["dispatches_per_decision"] = round(
-                self.stats["dispatches"] / self.stats["completed"], 4
-            )
+        # windowed from the profiler's flow books when attached, else the
+        # lifetime ratio; a residency books one dispatch, its launch (as
+        # the JAX engine does), its micro-chunks none
+        dpd = self.profiler.dispatches_per_decision() if self.profiler is not None else None
+        if dpd is None and self.stats["completed"]:
+            dpd = round(self.stats["dispatches"] / self.stats["completed"], 4)
+        if dpd is not None:
+            out["dispatches_per_decision"] = dpd
+        # the resident loop's gauge family, as a subtree
+        if self.profiler is not None and (
+            self.profiler.persistent_profiled or self.stats["persistent_launches"]
+        ):
+            out["persistent"] = self.profiler.persistent_gauges()
         if self.spec is not None:
             out["spec"] = self.spec.stats.snapshot()
         return out

@@ -47,9 +47,13 @@ and the worker drains its token ring every tick (`_drive_persistent`);
 oversized items ride waves, which run beside the loop. The loop exits at a
 control barrier, after a failed tick and at shutdown.
 
-Not ported yet: the KV plane and the engine profiler's fences (ROADMAP
-Queue 1 item 8), speculative decoding, and the fleet pool role
-(`pool_role`, `_check_role`).
+The engine profiler's queue-side fences (JAX local.py:648-655, 1117-1123):
+a wave's oldest item's enqueue time at submit (`note_admission`), and the
+ready edge the poll observes (`note_ready`); `close()` flushes the
+profiler's open fences once the worker has joined.
+
+Not ported yet: the KV plane (ROADMAP Queue 1 item 8) and the fleet pool
+role (`pool_role`, `_check_role`, item 9).
 """
 
 from __future__ import annotations
@@ -550,6 +554,13 @@ class LocalLLMBackend:
                 for item in batch:
                     item.fail(BackendError(str(exc)))
             else:
+                # getattr: engine test doubles don't carry the attribute
+                prof = getattr(self.engine, "profiler", None)
+                if prof is not None:
+                    # queue-stall fence: the oldest item's enqueue anchors
+                    # the wave's timeline (admission wait, coalescing window
+                    # and group-switch holds all land there)
+                    prof.note_admission(handle, min(i.enqueued_at for i in batch))
                 waves.append((handle, batch))
 
         def run_group(items: list[_WorkItem]) -> None:
@@ -684,6 +695,12 @@ class LocalLLMBackend:
             pending.append(got)
             self._drain_queue(pending, block=False)
             pending = self._submit_waves(pending, waves, packs)
+        prof = getattr(self.engine, "profiler", None)
+        if prof is not None and handle.is_ready():
+            # the ready edge the poll observed (or already there when its
+            # deadline passed): the device-compute estimate ends here, not
+            # at the blocking harvest
+            prof.note_ready(handle)
         waves.popleft()
         try:
             fins = self.engine.harvest_wave(handle)
@@ -1019,6 +1036,11 @@ class LocalLLMBackend:
         close_engine = getattr(self.engine, "close", None)  # engine test doubles
         if close_engine is not None and not self._worker.is_alive():
             close_engine()
+        prof = getattr(self.engine, "profiler", None)
+        if prof is not None:
+            # flush the half-open wave fences once the worker has joined:
+            # its in-flight waves were failed upstream and never harvest
+            prof.close()
 
     def get_stats(self) -> dict[str, Any]:
         out = self.engine.get_stats()

@@ -1,5 +1,6 @@
-"""Per-phase timing with histogram buckets (copied from the JAX package's
-observability/trace.py, all but `device_trace`).
+"""Per-phase timing with histogram buckets, plus optional torch.profiler
+capture (the JAX package's observability/trace.py; `device_trace` wraps
+torch.profiler where the JAX one wraps jax.profiler).
 
 The reference's only instrumentation is a running average of remote-API wall
 time (reference scheduler.py:435-441; SURVEY §5 tracing: "none"). Here every
@@ -14,10 +15,6 @@ decide on, and "bind p99 under burst" is unanswerable from a mean. The bucket
 bounds are shared process-wide (`BUCKET_BOUNDS_S`), so two snapshots of the
 same recorder subtract bucket-by-bucket — which is how per-wave and burn-in
 WINDOW percentiles are derived (`delta_hist`, `hist_percentiles`).
-
-Not copied: the reference's `device_trace` (trace.py:191-207), a context
-manager around `jax.profiler`. Its port wraps `torch.profiler` and comes
-with the device seams (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -188,3 +185,34 @@ class PhaseRecorder:
 
 # Global default recorder — components grab phases without plumbing.
 recorder = PhaseRecorder()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str) -> Iterator[None]:
+    """Capture a torch.profiler trace (CPU and, with a card, CUDA
+    activity) around a block and export it as a Chrome trace into
+    `log_dir` (trace-<pid>-<n>.json).
+
+    The stop is guarded: a failed capture teardown (CUPTI died, disk full)
+    must never MASK the block's own exception — the original error is what
+    the operator needs."""
+    import os
+
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        try:
+            prof.stop()
+            os.makedirs(log_dir, exist_ok=True)
+            n = len([f for f in os.listdir(log_dir) if f.startswith("trace-")])
+            prof.export_chrome_trace(
+                os.path.join(log_dir, f"trace-{os.getpid()}-{n}.json"))
+        except Exception:
+            logger.exception("device trace capture failed to stop cleanly")

@@ -37,8 +37,9 @@ The per-request acceptance EWMA auto-disables a draft that stops earning
 its keep (after `min_rounds` rounds); the grammar-safe
 PagedKVCache.truncate absorbs every mis-speculated tail; `on_swap` rolls
 back any open block before new weights install. The draft/verify/rollback
-seconds of each stream are booked in `_Stream.seg`; the JAX package's
-profiler books them (SPEC_SEGMENTS), which the port does not have yet.
+seconds of each stream are booked in `_Stream.seg`, and handed at its close
+to the engine's profiler, when one is attached (SPEC_SEGMENTS,
+observability/profiler.py).
 """
 
 from __future__ import annotations
@@ -590,10 +591,11 @@ class SpeculativeDecoder:
 
     # ------------------------------------------------------------- teardown
     def _profile_stream(self, s: _Stream, disabled: bool) -> None:
-        """The JAX decoder hands a stream's books to the engine's profiler
-        (SPEC_SEGMENTS); the port's engine has none yet, so the books stay
-        in `s.seg`."""
-        prof = getattr(self.engine, "profiler", None)
+        """Hand a closed stream's books to the engine's profiler
+        (SPEC_SEGMENTS), as the JAX decoder does: at completion, or at the
+        auto-disable hand-off (`disabled`), when the record covers only the
+        speculative phase."""
+        prof = self.engine.profiler
         if prof is None:
             return
         prof.on_spec(

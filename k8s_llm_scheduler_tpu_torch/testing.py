@@ -3,7 +3,8 @@ chip smoke and `cli demo`.
 
 `chunk_draws` runs the fused decode loop's sampling alone over constant
 probabilities, on the CPU or captured on a card, for the tests and the chip
-smoke to hold against the softmax.
+smoke to hold against the softmax. `cap_torch_threads` caps a test
+process's torch threads.
 
 `synthetic_nodes(n)` returns exactly the NodeMetrics that
 `synthetic_cluster(n).get_node_metrics()` reports for a cluster with no pods
@@ -69,6 +70,22 @@ class _Py310Deadline:
                         f"deadline of {self._seconds}s expired"
                     ) from None
         return False
+
+
+# torch's intra-op threads in a test process (cap_torch_threads).
+TEST_TORCH_THREADS = 2
+
+
+def cap_torch_threads() -> None:
+    """Cap torch's intra-op thread pool at TEST_TORCH_THREADS (never raise
+    it). Each test process (an xdist worker among several) otherwise sizes
+    its pool to every core of the machine, beside the JAX CPU backend's
+    own, and the workers oversubscribe the cores. The port's test files
+    call this when they are imported."""
+    import torch
+
+    if torch.get_num_threads() > TEST_TORCH_THREADS:
+        torch.set_num_threads(TEST_TORCH_THREADS)
 
 
 def async_deadline(seconds: float):

@@ -52,6 +52,8 @@ from k8s_llm_scheduler_tpu_torch.models import configs as tconfigs
 from k8s_llm_scheduler_tpu_torch.models.convert import params_from_jax
 from k8s_llm_scheduler_tpu_torch.models.llama import forward_prefill_packed as tforward
 
+ttesting.cap_torch_threads()
+
 TOK = ByteTokenizer()
 _MICRO = dict(name="admission-micro", vocab_size=512, d_model=64, n_layers=2,
               n_heads=2, n_kv_heads=1, d_ff=128, max_seq_len=4096,
@@ -69,16 +71,6 @@ ADMISSION_KEYS = ("packed_admission", "admission_chunk_tokens", "delta_prompts",
 def params():
     jp = jinit_params(jax.random.PRNGKey(0), JMICRO)
     return jp, params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """The tier-1 run shares the machine's cores among several test
-    processes: two intra-op threads keep this file from crowding them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 ENGINE_KW = dict(num_pages=128, page_size=16, max_slots=4, max_pages_per_seq=16,

@@ -38,6 +38,9 @@ from k8s_llm_scheduler_tpu_torch.ops.prefix_attention import (
     causal_block_plan,
     flash_causal_attention_parts,
 )
+from k8s_llm_scheduler_tpu_torch.testing import cap_torch_threads
+
+cap_torch_threads()
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(rtol=3e-2, atol=3e-2)

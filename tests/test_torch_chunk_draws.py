@@ -15,6 +15,8 @@ import torch
 
 from k8s_llm_scheduler_tpu_torch import testing
 
+testing.cap_torch_threads()
+
 TV_LIMIT = 0.05  # test_torch_sampling.py's bound for 4,000 draws; 16,384 here
 REPEAT_LIMIT = 0.25  # a step's draw equals step 0's by chance: ~sum(p^2) = 0.04 here
 

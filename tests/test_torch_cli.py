@@ -40,6 +40,8 @@ from k8s_llm_scheduler_tpu_torch.cluster import httpapi as thttp
 from k8s_llm_scheduler_tpu_torch.cluster import wire_fake as twire
 from k8s_llm_scheduler_tpu_torch.models import configs as tconfigs
 
+ttesting.cap_torch_threads()
+
 WAIT_S = 600.0
 MODEL = "tiny-f32-cli"  # TINY in f32: the two packages' greedy tokens agree
 N_NODES = 4
@@ -53,10 +55,6 @@ def _tiny_f32(monkeypatch):
                         dataclasses.replace(jconfigs.TINY, name=MODEL, dtype=jnp.float32))
     monkeypatch.setitem(tconfigs._REGISTRY, MODEL,
                         dataclasses.replace(tconfigs.TINY, name=MODEL, dtype=torch.float32))
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _hf_checkpoint(path):
@@ -253,10 +251,10 @@ def test_cli_run_refuses_an_unported_switch_before_a_model(monkeypatch, tmp_path
     from k8s_llm_scheduler_tpu_torch.engine import local as tlocal
 
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("DURABILITY_ENABLED", "true")
-    with pytest.raises(NotImplementedError, match="durability.enabled.*item 7"):
+    monkeypatch.setenv("ROUTER_ENABLED", "true")
+    with pytest.raises(NotImplementedError, match="router.enabled.*item 9"):
         cli.main(["run", "--fake-cluster", "--device", "cpu"])
-    monkeypatch.delenv("DURABILITY_ENABLED")
+    monkeypatch.delenv("ROUTER_ENABLED")
     monkeypatch.setenv("SPEC_ENABLED", "true")
     built = []
     real = tlocal.build_local_backend

@@ -20,6 +20,9 @@ from k8s_llm_scheduler_tpu_torch import cli
 from k8s_llm_scheduler_tpu_torch.engine import engine as tengine
 from k8s_llm_scheduler_tpu_torch.models import configs as tconfigs
 from k8s_llm_scheduler_tpu_torch.observability import spans
+from k8s_llm_scheduler_tpu_torch.testing import cap_torch_threads
+
+cap_torch_threads()
 
 MODEL = "tiny-f32-complete"  # TINY in f32: the two packages' greedy tokens agree
 SHORT = "Schedule pod web-1 on the least loaded node."
@@ -33,10 +36,6 @@ def _tiny_f32(monkeypatch):
                         dataclasses.replace(jconfigs.TINY, name=MODEL, dtype=jnp.float32))
     monkeypatch.setitem(tconfigs._REGISTRY, MODEL,
                         dataclasses.replace(tconfigs.TINY, name=MODEL, dtype=torch.float32))
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -14,7 +14,9 @@ from k8s_llm_scheduler_tpu import cli as jcli
 from k8s_llm_scheduler_tpu import config as jconfig
 from k8s_llm_scheduler_tpu_torch import cli
 from k8s_llm_scheduler_tpu_torch import config as tconfig
-from k8s_llm_scheduler_tpu_torch.testing import synthetic_cluster
+from k8s_llm_scheduler_tpu_torch.testing import cap_torch_threads, synthetic_cluster
+
+cap_torch_threads()
 
 YAMLS = {
     "empty": "",
@@ -147,13 +149,18 @@ def test_each_unported_switch_raises_before_a_model_is_built(monkeypatch, key, v
 
 
 def test_defaults_pass_and_warn_for_the_two_switches_on_by_default(caplog):
+    """Every switch on by default is ported now, the profiler last: the
+    defaults pass without a warning, and so do the operating plane's
+    switches (journal, metrics, SLO)."""
     cfg = _cfg()
     with caplog.at_level(logging.WARNING, logger="k8s_llm_scheduler_tpu_torch.cli"):
         cli.check_switches(cfg)
-    text = caplog.text
-    assert "observability.profiler" in text and "item 8" in text
-    # the fused runtime and the persistent loop are ported: no warning
-    assert "llm.fused_decode" not in text and "persistent" not in text
+        cli.check_switches(_cfg(**{"durability.enabled": True, "metrics.enabled": True,
+                                   "slo.enabled": True}))
+    assert caplog.text == ""
+    assert not hasattr(cli, "WARNED_SWITCHES")
+    assert {key for key, _, _ in cli.UNPORTED_SWITCHES}.isdisjoint(
+        {"durability.enabled", "metrics.enabled", "slo.enabled", "observability.profiler"})
     cli.check_switches(_cfg(**{"llm.persistent_loop": True}))
     caplog.clear()
     with caplog.at_level(logging.WARNING, logger="k8s_llm_scheduler_tpu_torch.cli"):

@@ -19,6 +19,9 @@ from k8s_llm_scheduler_tpu_torch.sched.delta import SnapshotDeltaEncoder as TEnc
 from k8s_llm_scheduler_tpu_torch.types import NodeMetrics as TNodeMetrics
 
 from conftest import make_node
+from k8s_llm_scheduler_tpu_torch.testing import cap_torch_threads
+
+cap_torch_threads()
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -39,6 +39,8 @@ from k8s_llm_scheduler_tpu_torch.models import configs as tconfigs
 from k8s_llm_scheduler_tpu_torch.models.convert import params_from_jax
 from k8s_llm_scheduler_tpu_torch.ops import prefix_attention as tpa
 
+ttesting.cap_torch_threads()
+
 REPO = Path(__file__).resolve().parent.parent
 JTINY = dataclasses.replace(jconfigs.TINY, dtype=jnp.float32)
 TTINY = dataclasses.replace(tconfigs.TINY, dtype=torch.float32)
@@ -73,6 +75,10 @@ COPIES = [
     ("sched/loop.py", None),
     ("observability/spans.py", None),
     ("observability/trace.py", "\n\n@contextlib.contextmanager\ndef device_trace("),
+    ("observability/metrics.py", None),
+    ("observability/slo.py", None),
+    ("sched/journal.py", None),
+    ("sched/recovery.py", None),
 ]
 
 
@@ -80,14 +86,15 @@ class TestCopiedModules:
     @pytest.mark.parametrize("path,cut", COPIES, ids=[p for p, _ in COPIES])
     def test_copy_matches_the_reference_text(self, path, cut):
         """A copy is the reference's text with the package name rewritten;
-        a module that leaves something out (`cut`) is compared below its
-        own docstring, the reference's text ending at the cut."""
+        a module that ports its tail its own way (`cut`: trace.py's
+        device_trace over torch.profiler) is compared below its own
+        docstring, up to the cut in both."""
         want = (REPO / "k8s_llm_scheduler_tpu" / path).read_text().replace(
             "k8s_llm_scheduler_tpu.", "k8s_llm_scheduler_tpu_torch.")
         got = (REPO / "k8s_llm_scheduler_tpu_torch" / path).read_text()
         if cut is not None:
-            assert cut in want and cut not in got
-            want = want[:want.index(cut)]
+            assert cut in want and cut in got
+            want, got = want[:want.index(cut)], got[:got.index(cut)]
             body = "\nfrom __future__ import annotations\n"
             want, got = want[want.index(body):], got[got.index(body):]
         assert got == want
@@ -329,6 +336,12 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "k8s_llm_scheduler_tpu_torch.spec.draft, "
         "k8s_llm_scheduler_tpu_torch.spec.hidden, "
         "k8s_llm_scheduler_tpu_torch.spec.verify, "
+        "k8s_llm_scheduler_tpu_torch.sched.journal, "
+        "k8s_llm_scheduler_tpu_torch.sched.recovery, "
+        "k8s_llm_scheduler_tpu_torch.observability.profiler, "
+        "k8s_llm_scheduler_tpu_torch.observability.sampler, "
+        "k8s_llm_scheduler_tpu_torch.observability.metrics, "
+        "k8s_llm_scheduler_tpu_torch.observability.slo, "
         "k8s_llm_scheduler_tpu_torch.cli\n"
         "bad = sorted(m for m in sys.modules"
         " if m in ('jax', 'yaml', 'safetensors', 'transformers')"

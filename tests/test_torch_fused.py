@@ -49,7 +49,13 @@ from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
 from k8s_llm_scheduler_tpu_torch.models import configs as tconfigs
 from k8s_llm_scheduler_tpu_torch.models.convert import params_from_jax
-from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
+from k8s_llm_scheduler_tpu_torch.testing import (
+    cap_torch_threads,
+    fixture_pods,
+    synthetic_nodes,
+)
+
+cap_torch_threads()
 
 JCFG = dataclasses.replace(jconfigs.TINY, dtype=jnp.float32, n_layers=2)
 TCFG = dataclasses.replace(tconfigs.TINY, dtype=torch.float32, n_layers=2)
@@ -61,14 +67,6 @@ TEMPERATURE = 0.3
 DRAWS = 4000
 TV_LIMIT = 0.05  # the bound of test_torch_sampling.py for 4,000 draws
 PROMPTS = ["pod-a needs a node", "pod-b: a somewhat longer request line", "p-c"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

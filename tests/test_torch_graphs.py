@@ -31,6 +31,8 @@ from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
 from k8s_llm_scheduler_tpu_torch.models import configs as tconfigs
 from k8s_llm_scheduler_tpu_torch.models.convert import params_from_jax
 
+ttesting.cap_torch_threads()
+
 JTINY = dataclasses.replace(jconfigs.TINY, dtype=jnp.float32)
 TTINY = dataclasses.replace(tconfigs.TINY, dtype=torch.float32)
 NAMES = [f"node-{i}" for i in range(4)]
@@ -246,37 +248,55 @@ def test_prefix_switch_refreshes_the_static_buffer(tiny_params, grammar):
     assert got[0] != got[1]
 
 
+CHUNKS = dict(num_pages=32, page_size=64, max_slots=4, max_pages_per_seq=8,
+              prefill_buckets=(128, 256, 2048), temperature=0.0, chunk_steps=4)
+
+
+def _drive_chunks(eng, tok, build, cluster_prompts, grammar):
+    prefix, suffixes = cluster_prompts
+    eng.set_prefix(prefix)
+    if grammar:
+        eng.set_grammar(build.build_decision_dfa(tok, NAMES, max_reason_tokens=6))
+    pages0 = eng.kv.pages_free
+    ids = eng.add_requests(suffixes[:3], max_new_tokens=11)
+    fins = []
+    while eng.has_active:
+        fins += eng.step(chunks=2)
+    by_id = {f.req_id: f.token_ids for f in fins}
+    gen = eng.generate(suffixes[3], max_new_tokens=9)
+    return ([by_id[i] for i in ids], gen.token_ids, eng.kv.pages_free == pages0,
+            eng.stats["chunks"])
+
+
+@pytest.fixture(scope="module")
+def jax_chunks(tiny_params, cluster_prompts):
+    """The JAX general path's decode-chunk results by grammar, computed once
+    for both of the port's paged_attn modes."""
+    memo = {}
+
+    def get(grammar):
+        if grammar not in memo:
+            jeng = JEngine(tiny_params[0], JTINY, JByteTokenizer(), paged_attn="gather",
+                           fused_decode=False, **CHUNKS)
+            memo[grammar] = _drive_chunks(jeng, jeng.tokenizer, jconstrained,
+                                          cluster_prompts, grammar)
+        return memo[grammar]
+
+    return get
+
+
 @pytest.mark.parametrize("grammar", [False, True], ids=["free", "grammar"])
 @pytest.mark.parametrize("paged_attn", ["gather", "pallas"])
-def test_decode_chunks_in_place_match_jax(tiny_params, cluster_prompts, paged_attn,
-                                          grammar):
+def test_decode_chunks_in_place_match_jax(tiny_params, cluster_prompts, jax_chunks,
+                                          paged_attn, grammar):
     """Two decode chunks a step() (one host sync), the slot state updated
     in place and the page tables in their static buffer: the JAX general
     path's tokens (fused_decode=False), then one more admission (the tables
     change) and generate(). One chunk variant serves it all."""
-    jp, tp = tiny_params
-    prefix, suffixes = cluster_prompts
-    common = dict(num_pages=32, page_size=64, max_slots=4, max_pages_per_seq=8,
-                  prefill_buckets=(128, 256, 2048), temperature=0.0, chunk_steps=4)
-    jeng = JEngine(jp, JTINY, JByteTokenizer(), paged_attn="gather", fused_decode=False,
-                   **common)
-    teng = TEngine(tp, TTINY, ByteTokenizer(), paged_attn=paged_attn, graphs=False,
-                   fused_decode=False, **common)
-    results = []
-    for eng, tok, build in ((jeng, jeng.tokenizer, jconstrained),
-                            (teng, teng.tokenizer, tconstrained)):
-        eng.set_prefix(prefix)
-        if grammar:
-            eng.set_grammar(build.build_decision_dfa(tok, NAMES, max_reason_tokens=6))
-        pages0 = eng.kv.pages_free
-        ids = eng.add_requests(suffixes[:3], max_new_tokens=11)
-        fins = []
-        while eng.has_active:
-            fins += eng.step(chunks=2)
-        by_id = {f.req_id: f.token_ids for f in fins}
-        gen = eng.generate(suffixes[3], max_new_tokens=9)
-        results.append(([by_id[i] for i in ids], gen.token_ids,
-                         eng.kv.pages_free == pages0, eng.stats["chunks"]))
+    teng = TEngine(tiny_params[1], TTINY, ByteTokenizer(), paged_attn=paged_attn,
+                   graphs=False, fused_decode=False, **CHUNKS)
+    results = [jax_chunks(grammar),
+               _drive_chunks(teng, teng.tokenizer, tconstrained, cluster_prompts, grammar)]
     assert results[1] == results[0]
     assert results[1][2]
     assert len(teng._chunk_variants) == 1

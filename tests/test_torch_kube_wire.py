@@ -22,7 +22,9 @@ import k8s_llm_scheduler_tpu.cluster.wire_fake as jwire
 import k8s_llm_scheduler_tpu_torch.cluster.httpapi as thttp
 import k8s_llm_scheduler_tpu_torch.cluster.kube as tkube
 import k8s_llm_scheduler_tpu_torch.cluster.wire_fake as twire
-from k8s_llm_scheduler_tpu_torch.testing import async_deadline
+from k8s_llm_scheduler_tpu_torch.testing import async_deadline, cap_torch_threads
+
+cap_torch_threads()
 
 SCHED = "ai-llama-scheduler"
 PKGS = {

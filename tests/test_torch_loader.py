@@ -21,6 +21,9 @@ from k8s_llm_scheduler_tpu_torch.models import configs as tconfigs
 from k8s_llm_scheduler_tpu_torch.models import loader as tloader
 from k8s_llm_scheduler_tpu_torch.models.convert import params_from_jax
 from k8s_llm_scheduler_tpu_torch.models.quant import quantize_params
+from k8s_llm_scheduler_tpu_torch.testing import cap_torch_threads
+
+cap_torch_threads()
 
 SHAPE = dict(d_model=64, n_layers=3, n_heads=4, n_kv_heads=2, d_ff=128, max_seq_len=512,
              rope_theta=10000.0)

@@ -28,6 +28,9 @@ from k8s_llm_scheduler_tpu.engine.tokenizer import ByteTokenizer as JByteTokeniz
 from k8s_llm_scheduler_tpu_torch import types as ttypes
 from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend as TBackend
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer as TByteTokenizer
+from k8s_llm_scheduler_tpu_torch.testing import cap_torch_threads
+
+cap_torch_threads()
 
 WAIT_S = 30.0  # generous bound on every wait for an event
 NEVER_S = 1e6  # an EMA or fairness bound no test run reaches

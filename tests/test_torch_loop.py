@@ -46,6 +46,8 @@ from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
 from k8s_llm_scheduler_tpu_torch.models import configs as tconfigs
 from k8s_llm_scheduler_tpu_torch.models.convert import params_from_jax
 
+ttesting.cap_torch_threads()
+
 REPO = Path(__file__).resolve().parent.parent
 JTINY = dataclasses.replace(jconfigs.TINY, dtype=jnp.float32)
 TTINY = dataclasses.replace(tconfigs.TINY, dtype=torch.float32)
@@ -130,16 +132,6 @@ def _torch_loop(tp, decode_matmul):
         return placed, stats, dict(backend.counters)
     finally:
         backend.close()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """The tier-1 run shares the machine's cores among several test
-    processes: two intra-op threads keep this file from crowding them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,9 @@ from k8s_llm_scheduler_tpu.models import llama as jllama
 from k8s_llm_scheduler_tpu_torch.models import configs as tconfigs
 from k8s_llm_scheduler_tpu_torch.models import llama as tllama
 from k8s_llm_scheduler_tpu_torch.models.convert import params_from_jax
+from k8s_llm_scheduler_tpu_torch.testing import cap_torch_threads
+
+cap_torch_threads()
 
 F32 = dict(rtol=1e-4, atol=1e-4)
 

@@ -39,6 +39,9 @@ from k8s_llm_scheduler_tpu_torch.ops.prefix_attention import (
     prefix_attention_parts_plain,
     split_prefix_parts_plain,
 )
+from k8s_llm_scheduler_tpu_torch.testing import cap_torch_threads
+
+cap_torch_threads()
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
@@ -444,9 +447,7 @@ class TestSmokeStepLaunches:
         # Under the tier-1 run's six test processes, torch's default of one
         # intra-op thread per core oversubscribed the CPU and this eager TINY
         # decision outran the backend's default 60 s request timeout: two
-        # threads, and the loop tests' 600 s timeout.
-        threads = torch.get_num_threads()
-        torch.set_num_threads(2)
+        # threads (cap_torch_threads), and the loop tests' 600 s timeout.
         backend = build_local_backend("tiny", device="cpu", request_timeout_s=600.0)
         backend.prewarm_idle_delay_s = 3600.0  # no sibling prewarm in the window
         try:
@@ -462,7 +463,6 @@ class TestSmokeStepLaunches:
         finally:
             backend.close()
             prefix_attention.reset_launch_counts()
-            torch.set_num_threads(threads)
         L = eng.cfg.n_layers
         R = eng.max_slots // 2  # a single decision's wave
         by_step = {step: (rec["runs"], rec["K1"]) for step, rec in steps.items()}

@@ -48,6 +48,8 @@ from k8s_llm_scheduler_tpu_torch.ops.paged_attention import (
     paged_decode_attention_parts,
 )
 
+ttesting.cap_torch_threads()
+
 F32 = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
 MODEL_F32 = dict(rtol=1e-4, atol=1e-4)

@@ -34,6 +34,9 @@ from k8s_llm_scheduler_tpu_torch.ops.paged_attention import (
     split_page_ranges,
     split_paged_parts_plain,
 )
+from k8s_llm_scheduler_tpu_torch.testing import cap_torch_threads
+
+cap_torch_threads()
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 

@@ -55,7 +55,13 @@ from k8s_llm_scheduler_tpu_torch.engine.persistent import (
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
 from k8s_llm_scheduler_tpu_torch.models import configs as tconfigs
 from k8s_llm_scheduler_tpu_torch.models.convert import params_from_jax
-from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
+from k8s_llm_scheduler_tpu_torch.testing import (
+    cap_torch_threads,
+    fixture_pods,
+    synthetic_nodes,
+)
+
+cap_torch_threads()
 
 JCFG = dataclasses.replace(jconfigs.TINY, dtype=jnp.float32, n_layers=2)
 TCFG = dataclasses.replace(tconfigs.TINY, dtype=torch.float32, n_layers=2)
@@ -65,14 +71,6 @@ ENGINE = dict(num_pages=128, page_size=16, max_slots=4, max_pages_per_seq=16,
               prefill_buckets=(32, 64, 128, 256, 512), chunk_steps=4, temperature=0.0,
               prefix_chunk=64, persistent_loop=True)
 WAIT_S = 120.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

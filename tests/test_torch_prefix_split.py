@@ -27,6 +27,9 @@ from k8s_llm_scheduler_tpu_torch.ops.prefix_attention import (
     split_prefix_parts_plain,
     workspace_cap_bytes,
 )
+from k8s_llm_scheduler_tpu_torch.testing import cap_torch_threads
+
+cap_torch_threads()
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 H100_SMS = 132

@@ -55,6 +55,8 @@ from k8s_llm_scheduler_tpu_torch.ops.ragged_matmul import (
     split_parts_plain,
 )
 
+ttesting.cap_torch_threads()
+
 F32 = dict(rtol=1e-4, atol=1e-4)
 INT8_F32 = dict(rtol=1e-2, atol=1e-2)
 

@@ -35,9 +35,15 @@ from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
 from k8s_llm_scheduler_tpu_torch.models import configs as tconfigs
 from k8s_llm_scheduler_tpu_torch.models.convert import params_from_jax
-from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
+from k8s_llm_scheduler_tpu_torch.testing import (
+    cap_torch_threads,
+    fixture_pods,
+    synthetic_nodes,
+)
 from k8s_llm_scheduler_tpu_torch.types import DecisionSource
 from k8s_llm_scheduler_tpu_torch.utils.json_extract import parse_decision_json
+
+cap_torch_threads()
 
 TEMPERATURE = 0.3  # the reference config's llm.temperature
 DRAWS = 4000
@@ -45,14 +51,6 @@ TV_LIMIT = 0.05
 JTINY = dataclasses.replace(jconfigs.TINY, dtype=jnp.float32)
 TTINY = dataclasses.replace(tconfigs.TINY, dtype=torch.float32)
 NAMES = [f"node-{i}" for i in range(4)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("packed", [False, True], ids=["waves", "packed"])

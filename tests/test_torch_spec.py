@@ -53,6 +53,9 @@ from k8s_llm_scheduler_tpu_torch.models.llama import hidden_transfer_logits
 from k8s_llm_scheduler_tpu_torch.spec import SpeculativeDecoder
 from k8s_llm_scheduler_tpu_torch.spec import draft as tdraft
 from k8s_llm_scheduler_tpu_torch.spec import verify as tverify
+from k8s_llm_scheduler_tpu_torch.testing import cap_torch_threads
+
+cap_torch_threads()
 
 TOK = ByteTokenizer()
 JTOK = JByteTokenizer()
@@ -77,14 +80,6 @@ TOL = dict(rtol=1e-4, atol=1e-4)  # f32, as tests/test_torch_model.py
 K = 4
 DRAWS = 4000
 TV_LIMIT = 0.05  # the bound of test_torch_sampling.py for 4,000 draws
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

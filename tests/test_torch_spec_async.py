@@ -41,6 +41,9 @@ from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
 from k8s_llm_scheduler_tpu_torch.models.configs import LlamaConfig
 from k8s_llm_scheduler_tpu_torch.models.convert import params_from_jax
 from k8s_llm_scheduler_tpu_torch.spec import SpeculativeDecoder
+from k8s_llm_scheduler_tpu_torch.testing import cap_torch_threads
+
+cap_torch_threads()
 
 TOK = ByteTokenizer()
 JTOK = JByteTokenizer()
@@ -58,14 +61,6 @@ ENGINE = dict(num_pages=96, page_size=64, max_slots=4, max_pages_per_seq=16,
               prefill_buckets=(128, 256, 512), chunk_steps=8, temperature=0.0)
 PROMPT = TOK.encode("The quick brown fox jumps over the lazy dog. " * 2)
 NAMES = ["node-a", "node-b", "node-west-1"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _convert(jp):

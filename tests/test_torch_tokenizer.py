@@ -16,7 +16,13 @@ from k8s_llm_scheduler_tpu.models import configs as jconfigs
 from k8s_llm_scheduler_tpu_torch.core.prompt import PromptEngine, pod_suffix
 from k8s_llm_scheduler_tpu_torch.engine import tokenizer as ttok
 from k8s_llm_scheduler_tpu_torch.models import configs as tconfigs
-from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
+from k8s_llm_scheduler_tpu_torch.testing import (
+    cap_torch_threads,
+    fixture_pods,
+    synthetic_nodes,
+)
+
+cap_torch_threads()
 
 REPO = Path(__file__).resolve().parent.parent
 J_FIXTURE = REPO / "k8s_llm_scheduler_tpu" / "assets" / "bpe4k"

@@ -33,7 +33,13 @@ from k8s_llm_scheduler_tpu_torch.engine.backend import BackendError
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
 from k8s_llm_scheduler_tpu_torch.models import configs as tconfigs
 from k8s_llm_scheduler_tpu_torch.models.convert import params_from_jax
-from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
+from k8s_llm_scheduler_tpu_torch.testing import (
+    cap_torch_threads,
+    fixture_pods,
+    synthetic_nodes,
+)
+
+cap_torch_threads()
 
 WAIT_S = 120.0
 JTINY = dataclasses.replace(jconfigs.TINY, dtype=jnp.float32)
@@ -59,6 +65,22 @@ def prompts():
     suffixes = [tok.chat_prompt_parts(pe.system_prompt, "c", pod_suffix(p))[1]
                 for p in fixture_pods(8)]
     return prefixes, suffixes
+
+
+@pytest.fixture(scope="module")
+def decided(tparams):
+    """decide_wave's tokens on a fresh engine by (prefix, grammar, prompts),
+    each computed once for the module: the references several tests hold
+    the dispatcher's waves to."""
+    memo = {}
+
+    def get(prefix, prompts, grammar=True):
+        key = (tuple(prefix), grammar, tuple(map(tuple, prompts)))
+        if key not in memo:
+            memo[key] = _tokens(_engine(tparams, prefix, grammar).decide_wave(prompts, BUDGET))
+        return memo[key]
+
+    return get
 
 
 def _engine(tparams, prefix, grammar=True):
@@ -93,9 +115,9 @@ def _tokens(fins):
 
 
 def test_submit_returns_before_the_gate_opens_with_decide_waves_tokens(tparams, prompts,
-                                                                       gate):
+                                                                       gate, decided):
     (p4, _), suffixes = prompts
-    want = _tokens(_engine(tparams, p4).decide_wave(suffixes[:5], BUDGET))
+    want = decided(p4, suffixes[:5])
     gate.clear()
     eng = _engine(tparams, p4)
     handle = eng.submit_wave(suffixes[:5], BUDGET)
@@ -108,9 +130,10 @@ def test_submit_returns_before_the_gate_opens_with_decide_waves_tokens(tparams, 
 
 
 @pytest.mark.parametrize("switch", ["prefix", "grammar", "both"])
-def test_a_later_switch_waits_and_leaves_the_wave_alone(tparams, prompts, gate, switch):
+def test_a_later_switch_waits_and_leaves_the_wave_alone(tparams, prompts, gate, decided,
+                                                        switch):
     (p4, p5), suffixes = prompts
-    want = _tokens(_engine(tparams, p4).decide_wave(suffixes[:3], BUDGET))
+    want = decided(p4, suffixes[:3])
     gate.clear()
     eng = _engine(tparams, p4)
     handle = eng.submit_wave(suffixes[:3], BUDGET)
@@ -131,17 +154,17 @@ def test_a_later_switch_waits_and_leaves_the_wave_alone(tparams, prompts, gate, 
     assert _tokens(eng.harvest_wave(handle)) == want
     # the next wave runs under the switch
     after = _tokens(eng.decide_wave(suffixes[:3], BUDGET))
-    ref = _engine(tparams, p5 if switch != "grammar" else p4, grammar=switch == "prefix")
-    assert after == _tokens(ref.decide_wave(suffixes[:3], BUDGET))
+    assert after == decided(p5 if switch != "grammar" else p4, suffixes[:3],
+                            grammar=switch == "prefix")
     eng.close()
 
 
 @pytest.mark.parametrize("split", [(4, 4), (8, 3), (2, 6)], ids=["same-R", "R8-R4", "R4-R8"])
-def test_back_to_back_waves_run_in_order_with_their_own_tokens(tparams, prompts, split):
+def test_back_to_back_waves_run_in_order_with_their_own_tokens(tparams, prompts, decided,
+                                                               split):
     (p4, _), suffixes = prompts
     a, b = suffixes[:split[0]], suffixes[::-1][:split[1]]
-    ref = _engine(tparams, p4)
-    want = (_tokens(ref.decide_wave(a, BUDGET)), _tokens(ref.decide_wave(b, BUDGET)))
+    want = (decided(p4, a), decided(p4, b))
     eng = _engine(tparams, p4)
     ha, hb = eng.submit_wave(a, BUDGET), eng.submit_wave(b, BUDGET)
     order = []
