@@ -98,6 +98,21 @@ Phases, each of which must pass:
    it under torch.profiler: the profiler's cost in ms a decision is
    printed, and host launch calls a model call and host synchronizations
    a decision must equal those of the profiled decision without it.
+4s. Swap 8B, on the graph-mode engine of phase 4 (swap_phase): the batch
+   of 8 as one greedy wave; a second random 8B tree (init_params seed 1)
+   built on the card as a staging tree; 4 single decisions in flight, and
+   the hot swap through run_quiesced (engine.swap_params copies the tree
+   into the serving tensors at the wave barrier); the batch again; then
+   the seed-0 tree swapped back and the batch once more. Every served
+   tensor keeps its data_ptr, the burst's decisions all succeed, the
+   post-swap wave differs from the pre-swap one and each of its sampled
+   tokens is within 5e-2 of the largest |logit| of the argmax, over the
+   tokens the grammar allows, of one eager teacher-forced forward on the
+   new weights (forced tokens are the grammar's), the wave after the swap
+   back replays the pre-swap tokens byte for byte, and those two waves
+   replay their captured programs with no capture. Prints the pause, the
+   install's ms beside its bound (2 x the tree's bytes over 3.35 TB/s) and
+   the card's memory before, with the staging tree and after.
 4a. Admission, on the graph-mode engine of phase 4 (no second copy of
    the weights): (a) a LocalLLMBackend with the admission plane of
    the config's defaults takes the batch of 8 through
@@ -138,11 +153,20 @@ Phases, each of which must pass:
 4c. cli demo: `python -m k8s_llm_scheduler_tpu_torch.cli demo --model tiny
    --fake-nodes 4` in a process of its own (sampled at the config's 0.3):
    exit 0, 3 binds, no fallback.
+4e. Sim: the arena (sim/) twice with one seed, 12 nodes, 16 pods in 2
+   waves over the WireFakeK8s and the whole stack, the `llm` arm served
+   greedily by phase 4's engine in graph mode (one LocalLLMBackend passed
+   in with owned=False: no second 8B engine) beside the teacher: the two
+   traces byte-identical, every pod placed or counted unschedulable, K1
+   launched in each run; the card's free memory after each arm.
 5. Path A: the same 8B weights quantized to int8 on the card, in an engine
    with decode_matmul="ragged", the same drive in both modes, held the
    same way; all feasible, K3 and K1 launched, K3 7 times a layer (224)
    per block-decode run in both modes. The valid tokens of every
-   block-decode call are recorded for phase 7.
+   block-decode call are recorded for phase 7. Between the modes, phase
+   4s's swap on the graph-mode int8 engine (staging trees quantized from
+   init_params seeds 1 and 0): K3 reads the swapped weights through the
+   tensor maps its captured launches hold.
 6. Path B: the bf16 8B weights in an engine with paged_attn="pallas",
    max_slots 8, pages of 64: the cluster prefix installed, 8 suffixes
    admitted (unconstrained, greedy, 64 new tokens), step() until all
@@ -223,6 +247,17 @@ Phases, each of which must pass:
    resourceVersion). Every pod must be bound exactly once (one binding
    POST a pod, no 409) to a ready node, the second child exit 0 on SIGINT,
    and `cli journal fsck` exit 0 with the journal clean.
+6i. Rollout TINY: three random TINY checkpoints; v1 and v2 published, v1
+   active; `cli rollout promote --version 2` in a child (the gate's two
+   arms on the card; the phase's gate tolerances pass any verdict: it
+   checks the machinery); then a `cli rollout watch` child over the
+   WireFakeK8s with --shadow-frac 0.5 and metrics on port 0: v3 is
+   published while it serves, 6 pods are created once v3 is shadowed, the
+   watch gates v3 and hot-swaps it in (the registry's active pointer
+   moves to 3), 6 more pods follow; once all are bound, /metrics is
+   scraped for the rollout gauges and the child gets SIGINT. Promote exits
+   0 with v2 active, the watch exits 0, every pod is bound once to a ready
+   node, one promotion and one swap, the shadow mirrored decisions.
 6f. cli complete: `python -m k8s_llm_scheduler_tpu_torch.cli complete` at
    8B in a child process started after phase 6d (the TINY phases run
    beside it), greedy, 64 new tokens, on an 11,349-token prompt (past the
@@ -1460,6 +1495,9 @@ def build_backend():
         "llama-3.1-8b-instruct", device="cuda", seed=0, request_timeout_s=600.0,
         temperature=0.0, packed_admission=False, max_pages_per_seq=64,
     )
+    # the smoke's 8B phases share this engine through backends of their
+    # own, so closing one must not release it: main frees it at the end
+    backend.owns_engine = False
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     print(f"decision: 8B backend built in {build_s:.1f} s, "
@@ -1541,13 +1579,15 @@ def _memory(start: int) -> dict:
             "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
 
 
-def _drive_modes(make_backend, nodes, pods, profiled=False) -> dict:
+def _drive_modes(make_backend, nodes, pods, profiled=False, after_graphs=None) -> dict:
     """_serve in graph mode, then eagerly (graphs=False), each on a backend
     from make_backend(graphs) that is closed after it; every launch count
     is zeroed just before a mode's drive and read just after it. An eager
     backend has nothing to capture: it is built with an idle grace that
     never passes, so no prewarm dummy wave runs in its drive. With
-    `profiled`, graph mode's backend then runs profiler_cost."""
+    `profiled`, graph mode's backend then runs profiler_cost. With
+    `after_graphs`, graph mode's engine is handed to it once its backend
+    is closed (and before the eager mode), its result in recs["after"]."""
     import torch
 
     recs = {}
@@ -1572,6 +1612,8 @@ def _drive_modes(make_backend, nodes, pods, profiled=False) -> dict:
                                                        served["census"])
         finally:
             backend.close()
+        if graphs and after_graphs is not None:
+            recs["after"] = after_graphs(backend.engine)
         del backend
         gc.collect()  # an engine and its graphs hold each other
         torch.cuda.empty_cache()
@@ -2383,10 +2425,13 @@ def path_a_phase(backend, nodes, pods):
         return LocalLLMBackend(engine, request_timeout_s=600.0,
                                prewarm_idle_delay_s=0.5 if graphs else NO_PREWARM_S)
 
-    recs = _drive_modes(make, nodes, pods)
-    ok = _modes_agree(recs, "path A")
+    recs = _drive_modes(make, nodes, pods, after_graphs=lambda eng: swap_phase(
+        eng, nodes, pods, _int8_staging(cfg), "int8 + ragged (K3)"))
+    swap_ok, swap = recs.pop("after")
+    ok = _modes_agree(recs, "path A") and swap_ok
     rec = {"model": "llama-3.1-8b-instruct int8 weight-only, decode_matmul=ragged",
-           "quantize_s": quant_s, "int8_param_gib": param_bytes(params) / 2**30}
+           "quantize_s": quant_s, "int8_param_gib": param_bytes(params) / 2**30,
+           "swap": swap}
     k3_per_block = 7 * cfg.n_layers
     for mode, _ in MODES:
         r = recs[mode]
@@ -4046,6 +4091,439 @@ def checkpoint_phase() -> tuple[bool, dict]:
     return ok, rec
 
 
+# ------------------------------------------------------------ rollout phases
+SWAP_BURST = 4  # single decisions in flight while a swap waits at the barrier
+
+
+def _leaf_ptrs(tree) -> list[int]:
+    """data_ptr of every tensor leaf of a params tree, in walk order."""
+    if isinstance(tree, dict):
+        return [p for v in tree.values() for p in _leaf_ptrs(v)]
+    return [tree.data_ptr()]
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _grammar_argmax_check(eng, sfx, out) -> dict:
+    """Each token of a constrained greedy output against one teacher-forced
+    forward on the engine's weights (`_teacher_forced`): walking the
+    grammar's sparse tables, a forced state's token must be the forced one,
+    and a sampled state's token within SPEC_TF_TOL of the largest |logit|
+    of the argmax over the tokens that state allows."""
+    import torch
+
+    logits, _ = _teacher_forced(eng, sfx, out)
+    logits = logits.float().cpu()
+    sp_tok, sp_next = eng._sp_tokens.cpu(), eng._sp_next.cpu()
+    forced, forced_next = eng._forced.cpu(), eng._forced_next.cpu()
+    st, worst, sampled, exact, ok = eng._dfa_start, 0.0, 0, 0, True
+    for t, tok in enumerate(out):
+        if st == eng._done_state:
+            break
+        if int(forced[st]) >= 0:
+            ok = ok and tok == int(forced[st])
+            st = int(forced_next[st])
+            continue
+        allowed = sp_tok[st] >= 0
+        cand = sp_tok[st][allowed].long()
+        row = logits[t, cand]
+        hit = (cand == tok).nonzero()
+        if not len(hit):
+            ok = False
+            break
+        gap = float((row.max() - row[hit[0, 0]]) / row.abs().max().clamp_min(1e-30))
+        worst, sampled = max(worst, gap), sampled + 1
+        exact += int(cand[row.argmax()] == tok)
+        ok = ok and gap <= SPEC_TF_TOL
+        st = int(sp_next[st][allowed][hit[0, 0]])
+    return {"sampled": sampled, "exact_argmax": exact, "max_gap_rel": worst, "ok": ok}
+
+
+def swap_phase(engine, nodes, pods, make_staging, label: str) -> tuple[bool, dict]:
+    """A hot swap of the served 8B weights on `engine` (its waves captured
+    by an earlier phase): the batch of `pods` as one constrained greedy
+    wave; a second random tree (make_staging(1)) built on the card as a
+    staging tree; SWAP_BURST single decisions submitted and, with them in
+    flight, the swap through run_quiesced (engine.swap_params copies the
+    tree into the serving tensors at the wave barrier); the batch again on
+    the new weights; then make_staging(0), the tree the engine was built
+    with, swapped back the same way, and the batch once more. Fails unless
+    no tensor of the served tree moved (data_ptr), every decision of the
+    burst succeeded on a feasible node, the post-swap wave differs from the
+    pre-swap one and each of its rows is the teacher-forced argmax of the
+    new weights under the grammar (_grammar_argmax_check), the wave after
+    the swap back replays the pre-swap tokens byte for byte, and those two
+    waves replayed their captured programs without a capture."""
+    import concurrent.futures as cf
+
+    import torch
+    from k8s_llm_scheduler_tpu_torch.core.validation import feasible_nodes
+    from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend
+
+    backend = LocalLLMBackend(engine, request_timeout_s=600.0,
+                              prewarm_idle_delay_s=NO_PREWARM_S)
+    items = [backend._prepare_item(p, nodes) for p in pods]
+
+    def wave():
+        books = _graph_books(engine)
+        backend._switch_group(items[0])
+        fins = engine.decide_wave([it.suffix_ids for it in items], backend.max_new_tokens)
+        after = _graph_books(engine)
+        return ([f.token_ids for f in fins], after["captures"] - books["captures"],
+                after["replays"] - books["replays"])
+
+    def install(tree):
+        def fn():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.swap_params(tree)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1000.0
+        return fn
+
+    gib = 2**30
+    rec: dict = {"engine": label, "param_gib": _tree_bytes(engine.params) / gib}
+    rec["bound_ms"] = 2 * _tree_bytes(engine.params) / PEAK_BYTES_PER_S * 1e3
+    ptrs = _leaf_ptrs(engine.params)
+    try:
+        pre, _, _ = wave()
+        torch.cuda.synchronize()
+        rec["mem_before_gib"] = torch.cuda.memory_allocated() / gib
+        staging = make_staging(1)
+        torch.cuda.synchronize()
+        rec["mem_staged_gib"] = torch.cuda.memory_allocated() / gib
+        burst = [dataclasses.replace(p, name=f"swap-{p.name}") for p in pods[:SWAP_BURST]]
+        with cf.ThreadPoolExecutor(SWAP_BURST) as pool:
+            futs = [pool.submit(backend.get_scheduling_decision, p, nodes) for p in burst]
+            time.sleep(0.05)  # the burst's wave is submitted before the swap waits
+            rec["swap_install_ms"], pause_s = backend.run_quiesced(install(staging),
+                                                                   timeout_s=600.0)
+            decided = [f.result(timeout=600.0) for f in futs]
+        rec["pause_ms"] = pause_s * 1000.0
+        del staging
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["mem_after_gib"] = torch.cuda.memory_allocated() / gib
+        burst_ok = all(d.selected_node in {n.name for n in feasible_nodes(p, nodes)}
+                       for p, d in zip(burst, decided))
+        post, post_captures, post_replays = wave()
+        checks = [_grammar_argmax_check(engine, it.suffix_ids, out)
+                  for it, out in zip(items, post)]
+        staging = make_staging(0)
+        rec["swap_back_install_ms"], back_pause = backend.run_quiesced(install(staging),
+                                                                       timeout_s=600.0)
+        rec["swap_back_pause_ms"] = back_pause * 1000.0
+        del staging
+        gc.collect()
+        torch.cuda.empty_cache()
+        back, back_captures, back_replays = wave()
+    finally:
+        backend.close()
+    rec.update({
+        "ptrs_unchanged": _leaf_ptrs(engine.params) == ptrs,
+        "burst_ok": burst_ok, "rows_changed": sum(a != b for a, b in zip(pre, post)),
+        "argmax": {"ok": all(c["ok"] for c in checks),
+                   "sampled": sum(c["sampled"] for c in checks),
+                   "exact_argmax": sum(c["exact_argmax"] for c in checks),
+                   "max_gap_rel": max(c["max_gap_rel"] for c in checks)},
+        "swap_back_replays_pre": back == pre,
+        "captures_after_swap": post_captures + back_captures,
+        "replays_after_swap": post_replays + back_replays,
+        "weight_swaps": engine.stats["weight_swaps"], "prefix_epoch": engine.prefix_epoch,
+    })
+    rec["install_bound_share"] = rec["bound_ms"] / rec["swap_install_ms"]
+    ok = (rec["ptrs_unchanged"] and burst_ok and rec["rows_changed"] > 0
+          and rec["argmax"]["ok"] and rec["swap_back_replays_pre"]
+          and rec["captures_after_swap"] == 0 and rec["replays_after_swap"] > 0)
+    print(f"swap [{label}]: {json.dumps(rec)} | {_smi()} | ok={ok}", flush=True)
+    return ok, rec
+
+
+def swap_8b(backend, nodes, pods) -> tuple[bool, dict]:
+    """swap_phase on the decision phase's warm graph-mode bf16 engine, the
+    staging trees from init_params (seed 1, then seed 0: the engine's)."""
+    from k8s_llm_scheduler_tpu_torch.models.llama import init_params
+
+    cfg = backend.engine.cfg
+    return swap_phase(backend.engine, nodes, pods,
+                      lambda seed: init_params(cfg, seed=seed, device="cuda"), "bf16")
+
+
+def _int8_staging(cfg):
+    """make_staging for path A: the int8 tree of init_params(seed), as path
+    A quantizes its weights (its bf16 transient dropped)."""
+    from k8s_llm_scheduler_tpu_torch.models.llama import init_params
+    from k8s_llm_scheduler_tpu_torch.models.quant import quantize_params
+
+    def make(seed):
+        bf16 = init_params(cfg, seed=seed, device="cuda")
+        return quantize_params(bf16)
+
+    return make
+
+
+SIM_NODES = 12
+SIM_PODS = 16
+SIM_WAVES = 2
+SIM_SEED = 0
+
+
+def sim_phase(backend) -> tuple[bool, dict]:
+    """The arena (sim/) twice with one seed: SIM_NODES nodes, SIM_PODS pods
+    in SIM_WAVES waves over the port's WireFakeK8s and the whole stack, the
+    `llm` arm served greedily by the decision phase's warm 8B engine in
+    graph mode through one LocalLLMBackend passed in with owned=False (no
+    second 8B engine), beside the teacher. Fails unless the two runs'
+    traces are byte-identical, every pod of the llm arm is placed or
+    counted unschedulable, and K1 launched in each run. Prints K1 launches
+    and the card's free memory after each arm."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch import sim
+    from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend
+    from k8s_llm_scheduler_tpu_torch.sim.trace import build_trace, canonical_bytes
+
+    spec = sim.ScenarioSpec(name="smoke", seed=SIM_SEED, n_nodes=SIM_NODES,
+                            n_pods=SIM_PODS, arrival="waves", n_waves=SIM_WAVES)
+    arm_backend = LocalLLMBackend(backend.engine, request_timeout_s=600.0,
+                                  prewarm_idle_delay_s=NO_PREWARM_S)
+    runs = []
+    try:
+        for _ in range(2):
+            free: dict = {}
+
+            def done(name, _report, free=free):
+                torch.cuda.synchronize()
+                free[name] = torch.cuda.mem_get_info()[0] / 2**30
+
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            report = sim.run_arena(
+                sim.generate_scenario(spec),
+                [sim.ArmSpec(name="llm", kind="stack", make=lambda: arm_backend,
+                             owned=False), sim.teacher_arm()],
+                wave_timeout_s=600.0, on_arm_done=done)
+            runs.append({"wall_s": time.perf_counter() - t0, "k1": _launch_counts()["K1"],
+                         "free_gib_after_arm": free,
+                         "trace": canonical_bytes(build_trace(report)),
+                         "scores": report["arms"]["llm"]["scores"],
+                         "stats": report["arms"]["llm"]["stats"]})
+    finally:
+        arm_backend.close()
+    llm = runs[0]["scores"]
+    rec = {"nodes": SIM_NODES, "pods": SIM_PODS, "waves": SIM_WAVES,
+           "identical_traces": runs[0]["trace"] == runs[1]["trace"],
+           "trace_bytes": len(runs[0]["trace"]),
+           "llm_scores": llm, "llm_stats": runs[0]["stats"],
+           "runs": [{k: r[k] for k in ("wall_s", "k1", "free_gib_after_arm")} for r in runs]}
+    ok = (rec["identical_traces"] and llm["n_bound"] + llm["n_unschedulable"] == SIM_PODS
+          and all(r["k1"] > 0 for r in runs)
+          and runs[0]["stats"].get("llm_decisions", 0) > 0)
+    print(f"sim: {json.dumps(rec)} | {_smi()} | ok={ok}", flush=True)
+    return ok, rec
+
+
+ROLLOUT_NODES = 4
+ROLLOUT_PODS = 6  # a burst while v3 is the shadowed candidate, one after its swap
+ROLLOUT_DEADLINE_S = 300.0
+# The gate's scenario and tolerances in the rollout phase's children: the
+# phase checks the machinery (gate, promote, swap), not whether one random
+# checkpoint places better than another, so every check passes.
+ROLLOUT_GATE = {"seed": 0, "nodes": 6, "pods": 12, "shapes": 4, "waves": 2,
+                "spread_tolerance": 1.0, "constraint_tolerance": 1.0,
+                "bound_tolerance": 1.0}
+# `cli <argv[2:]>` with ROLLOUT_GATE and a 0.5 s controller poll in the
+# config's defaults (no environment variable sets them), the wire fake at
+# argv[1] ("-" for none), and the metrics port written to metrics_port.
+ROLLOUT_CHILD = r"""
+import json, os, sys
+from pathlib import Path
+from k8s_llm_scheduler_tpu_torch import cli
+from k8s_llm_scheduler_tpu_torch import config as config_mod
+from k8s_llm_scheduler_tpu_torch.cluster import httpapi
+
+if sys.argv[1] != "-":
+    httpapi.set_active_config(sys.argv[1])
+config_mod.DEFAULTS["rollout"]["gate"].update(json.loads(os.environ["SMOKE_GATE"]))
+config_mod.DEFAULTS["rollout"]["poll_seconds"] = 0.5
+start_metrics = cli._start_metrics
+
+def port_file(*args, **kwargs):
+    server, sampler = start_metrics(*args, **kwargs)
+    if server is not None:
+        Path("metrics_port").write_text(str(server.port))
+    return server, sampler
+
+cli._start_metrics = port_file
+sys.exit(cli.main(sys.argv[2:]))
+"""
+
+
+def _gauges(text: str, prefix: str) -> dict:
+    """Prometheus samples of /metrics whose name starts with `prefix`."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(prefix):
+            name, _, value = line.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+def rollout_tiny() -> tuple[bool, dict]:
+    """Live rollout at TINY on the card through `cli rollout`: three random
+    TINY checkpoints (seeds 0, 1, 2) saved with models/loader; v1 and v2
+    published and v1 made active; `cli rollout promote --version 2` in a
+    child (the gate's two arms, incumbent v1 and candidate v2, on the
+    card); then a `cli rollout watch` child over the port's WireFakeK8s
+    (ROLLOUT_NODES nodes) with --shadow-frac 0.5 and metrics on port 0.
+    While it serves v2, v3 is published: once /metrics shows v3 as the
+    shadowed candidate, ROLLOUT_PODS pods are created; the watch gates v3
+    (two arms on the card), hot-swaps it in and the registry's active
+    pointer moves to 3; ROLLOUT_PODS more pods are created. Once every pod
+    is bound, /metrics is scraped for the rollout gauges and the child gets
+    SIGINT. Fails unless promote exits 0 with the gate passed, the watch
+    exits 0 with its stats, every pod is bound once to a ready node, the
+    watch promoted v3 with one swap and the shadow mirrored decisions."""
+    from k8s_llm_scheduler_tpu_torch.cluster.wire_fake import WireFakeK8s
+    from k8s_llm_scheduler_tpu_torch.models.configs import TINY
+    from k8s_llm_scheduler_tpu_torch.models.llama import init_params
+    from k8s_llm_scheduler_tpu_torch.models.loader import save_checkpoint
+    from k8s_llm_scheduler_tpu_torch.rollout import CheckpointRegistry
+    from k8s_llm_scheduler_tpu_torch.testing import pod_burst, synthetic_nodes
+
+    import urllib.request
+
+    rec: dict = {"model": "tiny", "gate": ROLLOUT_GATE}
+    nodes = synthetic_nodes(ROLLOUT_NODES)
+    srv = WireFakeK8s()
+    for n in nodes:
+        srv.add_node(n.name, cpu=str(int(n.available_cpu_cores)),
+                     memory=f"{int(n.available_memory_gb)}Gi", pods=str(n.max_pods),
+                     labels=n.labels)
+    pods = pod_burst(2 * ROLLOUT_PODS, distinct_shapes=2 * ROLLOUT_PODS)
+    t0 = time.perf_counter()
+    end = t0 + ROLLOUT_DEADLINE_S
+    child = None
+    with tempfile.TemporaryDirectory() as cwd:
+        reg_dir = Path(cwd) / "registry"
+        registry = CheckpointRegistry(reg_dir)
+        for seed in (0, 1, 2):
+            save_checkpoint(Path(cwd) / f"ckpt{seed}", init_params(TINY, seed=seed, device="cpu"))
+        for seed in (0, 1):
+            registry.publish(Path(cwd) / f"ckpt{seed}", cfg=TINY, note=f"seed {seed}")
+        registry.set_active(1)
+        env = _child_env(KUBECONFIG=str(Path(cwd) / "no-kubeconfig"), LLM_MODEL="tiny",
+                         METRICS_ENABLED="true", METRICS_PORT="0",
+                         SMOKE_GATE=json.dumps(ROLLOUT_GATE))
+        env.pop("KUBERNETES_SERVICE_HOST", None)
+        promote = subprocess.run(
+            [sys.executable, "-c", ROLLOUT_CHILD, "-", "rollout", "promote", "--registry",
+             str(reg_dir), "--version", "2"], cwd=cwd, env=env, capture_output=True,
+            text=True, timeout=600)
+        try:
+            verdict = json.loads(promote.stdout.strip().splitlines()[-1])
+        except (ValueError, IndexError):
+            verdict = {}
+        rec["promote"] = {"rc": promote.returncode, "pass": verdict.get("pass"),
+                          "active": verdict.get("active"),
+                          "incumbent": verdict.get("incumbent"),
+                          "candidate": verdict.get("candidate")}
+        log = Path(cwd) / "watch.log"
+        out = Path(cwd) / "watch.out"
+        port_path = Path(cwd) / "metrics_port"
+        scraped, shadow_max = "", 0.0
+
+        def scrape() -> str:
+            # the last good scrape when the child does not answer (it may be
+            # exiting); the checks below read what the scrapes got
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{int(port_path.read_text())}/metrics",
+                        timeout=30) as resp:
+                    return resp.read().decode()
+            except OSError as exc:
+                print(f"rollout TINY: /metrics scrape failed: {exc!r}", flush=True)
+                return scraped
+
+        def wait(done):
+            nonlocal scraped, shadow_max
+            while child.poll() is None and time.perf_counter() < end and not done():
+                if port_path.exists():
+                    scraped = scrape()
+                    shadow_max = max([shadow_max, *_gauges(
+                        scraped, "llm_scheduler_shadow_mirrored").values()])
+                time.sleep(0.2)
+
+        def add(burst):
+            for pod in burst:
+                srv.add_pod(pod.name, requests=dict(pod.container_requests[0]),
+                            priority=pod.priority)
+
+        with open(log, "w") as err, open(out, "w") as stdout:
+            child = subprocess.Popen(
+                [sys.executable, "-c", ROLLOUT_CHILD, srv.base_url, "rollout", "watch",
+                 "--registry", str(reg_dir), "--shadow-frac", "0.5"],
+                cwd=cwd, env=env, stdout=stdout, stderr=err)
+        try:
+            wait(lambda: port_path.exists()
+                 and any("watch=true" in r for r in srv.request_log))
+            registry.publish(Path(cwd) / "ckpt2", cfg=TINY, note="seed 2")
+            wait(lambda: _gauges(scraped, "llm_scheduler_shadow_candidate_version")
+                 or registry.active() == 3)
+            rec["shadowed_before_pods"] = bool(
+                _gauges(scraped, "llm_scheduler_shadow_candidate_version"))
+            add(pods[:ROLLOUT_PODS])
+            wait(lambda: registry.active() == 3 and len(srv.bindings) >= ROLLOUT_PODS)
+            add(pods[ROLLOUT_PODS:])
+            wait(lambda: len(srv.bindings) >= len(pods))
+            if child.poll() is None and port_path.exists():
+                scraped = scrape()
+            if child.poll() is None:
+                child.send_signal(signal.SIGINT)
+            child.wait(timeout=120)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        text = out.read_text()
+        watch_log = log.read_text()
+        active = registry.active()
+    srv.close()
+    try:
+        stats = json.loads(text[text.index("{"):])
+    except ValueError:
+        stats = {}
+    rollout = stats.get("rollout", {})
+    gauges = _gauges(scraped, "llm_scheduler_rollout_")
+    ready = {n.name for n in nodes if n.is_ready}
+    rec.update({
+        "wall_s": time.perf_counter() - t0, "watch_rc": child.returncode,
+        "active": active, "bound": len({name for _, name, _ in srv.bindings}),
+        "bindings": len(srv.bindings),
+        "on_ready_nodes": all(node in ready for _, _, node in srv.bindings),
+        "shadow_mirrored_max": shadow_max,
+        "rollout": {k: rollout.get(k) for k in ("promotions", "gate_pass", "gate_fail",
+                                                "rollbacks", "burn_in_open", "rejected")},
+        "swap": {k: (rollout.get("swap") or {}).get(k) for k in (
+            "swaps", "last_pause_s", "last_mode", "active_version")},
+        "metrics_gauges": {k: v for k, v in gauges.items() if any(
+            s in k for s in ("promotions", "gate_pass", "swap_swaps", "swap_last_pause_s",
+                             "active_version"))},
+    })
+    ok = (rec["promote"]["rc"] == 0 and rec["promote"]["pass"] is True
+          and rec["promote"]["active"] == 2 and rec["watch_rc"] == 0 and active == 3
+          and rec["bound"] == rec["bindings"] == len(pods) and rec["on_ready_nodes"]
+          and rec["rollout"]["promotions"] == 1 and rec["swap"]["swaps"] == 1
+          and shadow_max > 0 and bool(rec["metrics_gauges"]))
+    print(f"rollout TINY: {json.dumps(rec)} | {_smi()} | ok={ok}", flush=True)
+    if not ok:
+        print(promote.stderr[-3000:], watch_log[-6000:], file=sys.stderr, flush=True)
+    return ok, rec
+
+
 def _timed_phase(name, fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -4094,10 +4572,12 @@ def main() -> int:
         k_ok, k1, k2 = _timed_phase("kernels", kernel_phase, k1_cases, k2_cases)
         r_ok, ref = _timed_phase("reference", reference_phase)
         d_ok, dec = _timed_phase("decision", decision_phase, backend, backend_s, nodes, pods)
+        sw_ok, swap = _timed_phase("swap 8B", swap_8b, backend, nodes, pods)
         adm_ok, adm = _timed_phase("admission", admission_phase, backend.engine, nodes, pods,
                                    dec["batch_tokens"])
         l_ok, loop = _timed_phase("loop", loop_phase, backend.engine)
         c_ok, demo = _timed_phase("cli demo", demo_phase)
+        sim_ok, simrec = _timed_phase("sim", sim_phase, backend)
         a_ok, path_a, totals = _timed_phase("path A", path_a_phase, backend, nodes, pods)
         torch.cuda.empty_cache()
         b_ok, path_b, k4_cases = _timed_phase("path B", path_b_phase, backend, nodes, pods)
@@ -4118,6 +4598,7 @@ def main() -> int:
     s_ok, sampled = _timed_phase("sampled", sampled_phase)
     pt_ok, pers_tiny = _timed_phase("persistent TINY", persistent_tiny)
     jr_ok, journal_restart = _timed_phase("journal restart", journal_restart_phase)
+    ro_ok, rollout = _timed_phase("rollout TINY", rollout_tiny)
     cc_ok, complete = _timed_phase("cli complete", finish_complete, complete_child)
     k3_ok, k3 = _timed_phase("K3", k3_phase, cfg, totals)
     k4_ok, k4 = _timed_phase("K4", k4_phase, k4_cases, long_cases=[k4_long_case()])
@@ -4201,14 +4682,17 @@ def main() -> int:
         "not_ported": [],
     }
     phases = {"cli_verify": v_ok, "cli_run": run_ok, "kernels": k_ok, "reference": r_ok,
-              "decision": d_ok, "admission": adm_ok, "loop": l_ok, "cli_demo": c_ok,
+              "decision": d_ok, "swap_8b": sw_ok, "admission": adm_ok, "loop": l_ok,
+              "cli_demo": c_ok, "sim": sim_ok,
               "path_a": a_ok, "path_b": b_ok, "fused": f_ok, "persistent_8b": p8_ok,
               "spec": sp_ok,
               "checkpoint": ck_ok, "sampled": s_ok, "persistent_tiny": pt_ok,
-              "journal_restart": jr_ok, "cli_complete": cc_ok, "k3": k3_ok, "k4": k4_ok}
+              "journal_restart": jr_ok, "rollout_tiny": ro_ok, "cli_complete": cc_ok,
+              "k3": k3_ok, "k4": k4_ok}
     record = {"device": kind, "smi": smi, "build_s": build_s, "kernels": line,
               "cli_verify": verify, "cli_run": run, "reference": ref, "decision": dec,
-              "admission": adm, "loop": loop, "cli_demo": demo, "path_a": path_a,
+              "swap_8b": swap, "admission": adm, "loop": loop, "cli_demo": demo,
+              "sim": simrec, "rollout_tiny": rollout, "path_a": path_a,
               "path_b": path_b, "fused": fused, "persistent_8b": pers8, "spec": spec,
               "checkpoint": ckpt, "sampled": sampled, "persistent_tiny": pers_tiny,
               "journal_restart": journal_restart, "cli_complete": complete,

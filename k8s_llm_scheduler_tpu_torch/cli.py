@@ -1,4 +1,5 @@
-"""Command line of the port: run / verify / demo / complete / journal / trace.
+"""Command line of the port: run / verify / demo / complete / journal /
+eval / sim / rollout / trace.
 
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] run
         [--fake-cluster] [--fake-nodes N] [--device cuda|cpu]
@@ -12,6 +13,15 @@
         [--model NAME] [--spec] [--device cuda|cpu]
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] journal
         fsck|show|compact [--dir DIR] [--limit N]
+    python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] eval
+        [--checkpoint DIR] [--model NAME] [--cases N] [--scenarios]
+        [--device cuda|cpu]
+    python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] sim
+        [--seed S] [--nodes N] [--pods N] [--arrival burst|poisson|waves]
+        [--arms llm,stub,teacher,...] [--trace F] [--replay F]
+        [--device cuda|cpu]
+    python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] rollout
+        publish|status|fsck|rollback|promote|watch [--registry DIR] ...
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] trace
         list|show ID|tail|export [--host H] [--port P]
 
@@ -45,6 +55,17 @@ circuit breaker, the decision client and the scheduler (JAX cli.py:106-187).
 - `journal` (JAX cli.py:1155-1196) checks, dumps or compacts a decision
   journal; `trace` (JAX cli.py:1861-2026) reads a running scheduler's
   flight recorder over its metrics port.
+- `eval` (JAX cli.py:884-908) prints the decision-quality report card
+  (train/eval.py) as one JSON line; `sim` (JAX cli.py:969-1078) runs the
+  seeded arena (sim/) across decision arms and records or replays its
+  trace.
+- `rollout` (JAX cli.py:1241-1605) files checkpoints in the versioned
+  registry, gates a candidate against the incumbent in the arena, moves
+  the active pointer, and `watch` serves the active version while it
+  shadow-scores, gates, hot-swaps and burns in new versions
+  (rollout/). A swap copies the new weights into the serving tensors in
+  place (engine.swap_params): the engine's captured CUDA graphs and K3's
+  tensor maps hold the weights' addresses.
 
 `--device` is the port's own flag: the model runs on "cuda" (the default;
 it raises without a GPU) unless "cpu" is asked for. The switches of paths
@@ -373,18 +394,25 @@ def _start_slo(cfg: Config, scheduler, profiler):
     return slo_engine
 
 
-def _start_metrics(cfg: Config, scheduler, engine, profiler, slo_engine):
+def _start_metrics(cfg: Config, scheduler, engine, profiler, slo_engine,
+                   extra_stats=None):
     """(metrics server, engine sampler), both started when
     `metrics.enabled` is on, else (None, None) (JAX cli.py:334-375). The
     sampler (observability/sampler.py) rings occupancy, KV use, prefix hit
     rate, tokens/s and device memory at /debug/engine; the server answers
-    /metrics and /debug/* (observability/metrics.py)."""
+    /metrics and /debug/* (observability/metrics.py). `extra_stats()`, when
+    given, adds its subtrees to every scrape (`rollout watch`: the rollout
+    gauges)."""
     if not cfg.get("metrics.enabled"):
         return None, None
     from k8s_llm_scheduler_tpu_torch.observability.metrics import MetricsServer
 
     sampler = None
     stats_provider = scheduler.get_stats
+    if extra_stats is not None:
+        def stats_provider(_base=scheduler.get_stats):
+            return {**_base(), **extra_stats()}
+
     if engine is not None:
         from k8s_llm_scheduler_tpu_torch.observability.sampler import EngineSampler
 
@@ -395,7 +423,7 @@ def _start_metrics(cfg: Config, scheduler, engine, profiler, slo_engine):
         )
         sampler.start()
 
-        def stats_provider(_base=scheduler.get_stats, _sampler=sampler):
+        def stats_provider(_base=stats_provider, _sampler=sampler):
             return {**_base(), "engine_telemetry": _sampler.latest()}
 
     server = MetricsServer(
@@ -613,6 +641,501 @@ def cmd_journal(args: argparse.Namespace, cfg: Config) -> int:
     finally:
         journal.close()
     print(json.dumps(stats, sort_keys=True))
+    return 0
+
+
+def cmd_eval(args: argparse.Namespace, cfg: Config) -> int:
+    """Decision-quality report card (train/eval.py): teacher agreement on
+    held-out clusters + placement load-spread vs the fallback scorer and a
+    random placer, through the served stack (JAX cli.py:884-908). The
+    backend is the config's (`_backend_kwargs`) at `--temperature`, an
+    eval parameter that defaults to greedy so the report is reproducible;
+    serving keeps llm.temperature. (The JAX package's _eval_backend_kwargs
+    also drops multi-host mesh axes, which the port does not have.)"""
+    from k8s_llm_scheduler_tpu_torch.train.eval import evaluate_checkpoint
+
+    check_switches(cfg)
+    report = evaluate_checkpoint(
+        args.model or cfg.get("llm.model", "tiny"),
+        args.checkpoint,
+        n_cases=args.cases,
+        placement_pods=args.placement_pods,
+        backend_kwargs=_backend_kwargs(cfg, temperature=args.temperature,
+                                       device=args.device),
+        scenarios=args.scenarios,
+        scenario_cases_n=args.scenario_cases,
+    )
+    print(json.dumps(report))
+    if args.scenarios and report.get("scenarios"):
+        # human-readable table after the JSON line
+        print(f"{'scenario':<18}{'agree%':>8}{'chance%':>9}{'valid%':>8}{'n':>5}",
+              file=sys.stderr)
+        for kind, row in report["scenarios"].items():
+            print(f"{kind:<18}{row['agreement_pct']:>8}{row['chance_pct']:>9}"
+                  f"{row['valid_pct']:>8}{row['n_cases']:>5}", file=sys.stderr)
+    return 0
+
+
+def _sim_arms(args: argparse.Namespace, cfg: Config) -> list:
+    """Arm names -> ArmSpecs (JAX cli.py:918-966). `llm` serves the
+    CONFIGURED decision backend (llm.backend: local builds the engine on
+    --device at temperature 0, greedy, so the arena's determinism contract
+    holds; stub is the zero-weights stand-in). `stub` always means
+    StubBackend through the full stack. Heuristic names come from
+    core/fallback.SCORERS; `teacher` is the sim/teacher.py reference."""
+    from k8s_llm_scheduler_tpu_torch.core.fallback import SCORERS
+    from k8s_llm_scheduler_tpu_torch.engine.backend import StubBackend
+    from k8s_llm_scheduler_tpu_torch.sim import ArmSpec, HeuristicBackend, teacher_arm
+
+    specs: list = []
+    for name in [a.strip() for a in args.arms.split(",") if a.strip()]:
+        if name == "llm":
+            if cfg.get("llm.backend") == "stub":
+                specs.append(ArmSpec(name="llm", kind="stack", make=StubBackend))
+            else:
+                check_switches(cfg)
+
+                def make_llm():
+                    from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
+
+                    return build_local_backend(**_backend_kwargs(
+                        cfg, temperature=0.0, device=args.device))
+
+                specs.append(ArmSpec(name="llm", kind="stack", make=make_llm))
+        elif name == "stub":
+            specs.append(ArmSpec(name="stub", kind="stack", make=StubBackend))
+        elif name == "teacher":
+            specs.append(teacher_arm())
+        elif name in SCORERS:
+            specs.append(ArmSpec(name=name, kind="stack",
+                                 make=lambda n=name: HeuristicBackend(n)))
+        else:
+            raise SystemExit(
+                f"unknown arm {name!r} (known: llm, stub, teacher, {', '.join(SCORERS)})")
+    return specs
+
+
+def cmd_sim(args: argparse.Namespace, cfg: Config) -> int:
+    """Cluster-twin scenario arena (sim/, JAX cli.py:969-1078): seeded
+    burst/Poisson workloads through the REAL stack over the wire-level fake
+    API server, scored across decision arms, recorded as a bit-identically
+    replayable trace."""
+    from k8s_llm_scheduler_tpu_torch.sim import (
+        ChurnEvent,
+        ScenarioSpec,
+        generate_scenario,
+        run_arena,
+        save_trace,
+        verify_trace,
+    )
+
+    if args.replay:
+        ok, detail = verify_trace(args.replay)
+        print(json.dumps({"metric": "sim_replay", "ok": ok, "trace": args.replay,
+                          "detail": detail}))
+        return 0 if ok else 1
+
+    churn = []
+    for entry in args.churn or []:
+        try:
+            wave_s, kind, node = entry.split(":", 2)
+            churn.append(ChurnEvent(wave=int(wave_s), kind=kind, node=node))
+        except ValueError:
+            raise SystemExit(f"--churn {entry!r}: expected WAVE:KIND:NODE "
+                             f"(e.g. 2:fail:sim-node-003)") from None
+    spec = ScenarioSpec(
+        name=args.name,
+        seed=args.seed,
+        n_nodes=args.nodes,
+        n_pods=args.pods,
+        shapes=args.shapes,
+        arrival=args.arrival,
+        arrival_rate=args.arrival_rate,
+        n_waves=args.waves,
+        hetero=not args.homogeneous,
+        taint_frac=args.taint_frac,
+        constraint_mix=tuple(c.strip() for c in args.constraints.split(",") if c.strip()),
+        churn=tuple(churn),
+    )
+    try:
+        scenario = generate_scenario(spec)
+    except ValueError as exc:
+        raise SystemExit(str(exc)) from None
+    arms = _sim_arms(args, cfg)
+
+    live: dict = {"arena": {"done_arms": 0, "arms": {}}}
+    metrics_server = None
+    if args.metrics_port is not None:
+        from k8s_llm_scheduler_tpu_torch.observability.metrics import MetricsServer
+
+        metrics_server = MetricsServer(lambda: live["arena"], port=args.metrics_port)
+        metrics_server.start()
+
+    def on_arm_done(name: str, arm_report: dict) -> None:
+        live["arena"]["done_arms"] += 1
+        live["arena"]["arms"][name] = {"scores": arm_report["scores"],
+                                       "waves": arm_report["waves"]}
+        print(json.dumps({"metric": "sim_arm", "arm": name, "scores": arm_report["scores"],
+                          "placements_digest": arm_report["placements_digest"]}),
+              flush=True)
+
+    try:
+        report = run_arena(scenario, arms, wave_timeout_s=args.wave_timeout,
+                           on_arm_done=on_arm_done)
+    finally:
+        if metrics_server is not None:
+            metrics_server.stop()
+
+    if args.trace:
+        save_trace(report, args.trace)
+    report.pop("_traces")
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as fh:
+            json.dump(report, fh, indent=1, sort_keys=True)
+    # headline: one line, deterministic fields only
+    print(json.dumps({
+        "metric": "sim_arena",
+        "seed": spec.seed,
+        "nodes": spec.n_nodes,
+        "pods": spec.n_pods,
+        "waves": len(scenario.waves),
+        "arms": {
+            name: {
+                "spread": arm["scores"]["spread"],
+                "bound_frac": arm["scores"]["bound_frac"],
+                "constraint_satisfaction": arm["scores"]["constraint_satisfaction"],
+                "placements_digest": arm["placements_digest"],
+            }
+            for name, arm in report["arms"].items()
+        },
+    }))
+    return 0
+
+
+def _rollout_registry(args: argparse.Namespace, cfg: Config):
+    from k8s_llm_scheduler_tpu_torch.rollout import CheckpointRegistry
+
+    root = getattr(args, "registry", None) or cfg.get("rollout.registry_dir", None)
+    if not root:
+        raise SystemExit(
+            "no registry: pass --registry DIR or set rollout.registry_dir "
+            "(ROLLOUT_REGISTRY_DIR)"
+        )
+    return CheckpointRegistry(root)
+
+
+def _gate_from_cfg(cfg: Config, seed: int | None = None):
+    from k8s_llm_scheduler_tpu_torch.rollout import GateConfig
+
+    g = cfg.section("rollout").get("gate", {})
+    return GateConfig(
+        seed=seed if seed is not None else int(g.get("seed", 0)),
+        nodes=int(g.get("nodes", 12)),
+        pods=int(g.get("pods", 48)),
+        shapes=int(g.get("shapes", 8)),
+        waves=int(g.get("waves", 2)),
+        spread_tolerance=float(g.get("spread_tolerance", 0.02)),
+        constraint_tolerance=float(g.get("constraint_tolerance", 0.0)),
+        bound_tolerance=float(g.get("bound_tolerance", 0.0)),
+    )
+
+
+def cmd_rollout(args: argparse.Namespace, cfg: Config) -> int:
+    """Live-rollout surface (rollout/, JAX cli.py:1241-1315): publish a
+    trained checkpoint into the versioned registry, inspect or verify it,
+    gate-and-promote a candidate, roll the active pointer back, or run the
+    live watch loop (shadow scoring + canary controller + hot swap)
+    against a serving stack. Retention pins from an incident corpus
+    (learn.corpus_dir) wait for the learn loop (ROADMAP queue 1 item 10):
+    `rollout.retain` keeps the newest versions, the active one and its
+    parent."""
+    registry = _rollout_registry(args, cfg)
+
+    if args.rollout_cmd == "publish":
+        from k8s_llm_scheduler_tpu_torch.models.configs import get_config
+
+        model = args.model or cfg.get("llm.model", "tiny")
+        manifest = registry.publish(
+            args.checkpoint,
+            cfg=get_config(model),
+            tokenizer=cfg.get("llm.tokenizer", "byte"),
+            parent=args.parent,
+            note=args.note,
+        )
+        retain = int(cfg.get("rollout.retain", 0))
+        if retain:
+            registry.retain(retain)
+        print(json.dumps({
+            "metric": "rollout_publish",
+            "version": manifest.version,
+            "config": manifest.config_name,
+            "fingerprint": manifest.config_fingerprint,
+            "parent": manifest.parent,
+            "n_files": len(manifest.files),
+        }))
+        return 0
+
+    if args.rollout_cmd == "status":
+        print(json.dumps(registry.status(), indent=1, sort_keys=True))
+        return 0
+
+    if args.rollout_cmd == "fsck":
+        report = registry.fsck()
+        bad = {v: p for v, p in report.items() if p}
+        print(json.dumps({
+            "metric": "rollout_fsck",
+            "versions": len(report),
+            "clean": len(report) - len(bad),
+            "problems": {str(v): p for v, p in bad.items()},
+        }, indent=1, sort_keys=True))
+        return 1 if bad else 0
+
+    if args.rollout_cmd == "rollback":
+        active = registry.active()
+        if active is None:
+            print("no active version to roll back from", file=sys.stderr)
+            return 2
+        target = registry.get(active).parent
+        if target is None:
+            versions = [v for v in registry.versions() if v < active]
+            target = versions[-1] if versions else None
+        if target is None:
+            print(f"active version {active} has no predecessor", file=sys.stderr)
+            return 2
+        registry.set_active(target)
+        print(json.dumps({"metric": "rollout_rollback", "from": active, "to": target}))
+        return 0
+
+    if args.rollout_cmd == "promote":
+        return _rollout_promote(args, cfg, registry)
+
+    if args.rollout_cmd == "watch":
+        return _rollout_watch(args, cfg, registry)
+
+    raise SystemExit(f"unknown rollout command {args.rollout_cmd!r}")
+
+
+def _rollout_backend_factory(cfg: Config, checkpoint_path: str | None, device: str):
+    """make() for a gate or shadow arm: the configured local stack serving
+    `checkpoint_path` greedily (the arena's determinism contract) on
+    `device`. The backend owns its engine: closing the arm frees its
+    device memory."""
+    def make():
+        from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
+
+        return build_local_backend(**_backend_kwargs(
+            cfg, temperature=0.0, checkpoint_path=checkpoint_path, device=device))
+
+    return make
+
+
+def _rollout_promote(args: argparse.Namespace, cfg: Config, registry) -> int:
+    """Gate a candidate against the incumbent and move the active pointer
+    (JAX cli.py:1332-1381). The incumbent arm serves the ACTIVE registry
+    version (or the config's llm.checkpoint_path, or random-init when
+    neither exists); the two arms run one after the other, each closed
+    before the next is built. In-process hot swapping of a running
+    scheduler is `rollout watch`'s job; promote moves the durable pointer
+    that serving processes read at startup."""
+    from k8s_llm_scheduler_tpu_torch.rollout import run_gate
+
+    candidate = registry.get(args.version)
+    if args.no_gate:
+        registry.set_active(args.version)
+        print(json.dumps({"metric": "rollout_promote", "version": args.version,
+                          "gate": "skipped"}))
+        return 0
+    check_switches(cfg)
+    active = registry.active()
+    incumbent_ckpt = (
+        str(registry.get(active).checkpoint_path)
+        if active is not None
+        else cfg.get("llm.checkpoint_path", None)
+    )
+    verdict = run_gate(
+        _rollout_backend_factory(cfg, incumbent_ckpt, args.device),
+        _rollout_backend_factory(cfg, str(candidate.checkpoint_path), args.device),
+        _gate_from_cfg(cfg, seed=args.seed),
+    )
+    registry.record_scores(args.version, {"gate": {
+        "pass": verdict["pass"], "checks": verdict["checks"],
+        "candidate": verdict["candidate"],
+    }})
+    if verdict["pass"]:
+        registry.set_active(args.version)
+    print(json.dumps({
+        "metric": "rollout_promote",
+        "version": args.version,
+        "pass": verdict["pass"],
+        "checks": verdict["checks"],
+        "incumbent": verdict["incumbent"],
+        "candidate": verdict["candidate"],
+        "active": registry.active(),
+    }))
+    return 0 if verdict["pass"] else 1
+
+
+class _ShadowArm:
+    """The watch loop's shadow arm (JAX cli.py:1477-1511): a ShadowScorer
+    over a backend serving the newest PROMOTABLE candidate (newer than the
+    active version and not rejected), rebuilt when that version changes
+    and dropped when there is none or the fraction is 0. Anything else (a
+    superseded or rejected version) would hold a whole model's device
+    memory scoring a policy that can never be promoted."""
+
+    def __init__(self, scheduler, registry, controller, fraction: float, make_backend):
+        self.scheduler = scheduler
+        self.registry = registry
+        self.controller = controller
+        self.fraction = fraction
+        self.make_backend = make_backend  # checkpoint path -> backend
+        self.scorer = None
+
+    def refresh(self) -> None:
+        from k8s_llm_scheduler_tpu_torch.rollout import ShadowScorer
+
+        active = self.registry.active() or 0
+        versions = [v for v in self.registry.versions()
+                    if v > active and v not in self.controller.rejected]
+        newest = versions[-1] if versions and self.fraction > 0 else None
+        if self.scorer is not None and self.scorer.candidate_version == newest:
+            return
+        self.close()
+        if newest is not None:
+            self.scorer = ShadowScorer(
+                self.make_backend(str(self.registry.get(newest).checkpoint_path)),
+                fraction=self.fraction, candidate_version=newest)
+            self.scheduler.shadow = self.scorer
+
+    def close(self) -> None:
+        if self.scorer is not None:
+            self.scheduler.shadow = None
+            self.scorer.close()
+            self.scorer.candidate.close()
+            self.scorer = None
+
+
+def _rollout_watch(args: argparse.Namespace, cfg: Config, registry) -> int:
+    """Live rollout loop (JAX cli.py:1384-1605): serve the active version,
+    shadow-score the newest candidate, gate / promote / burn in / roll back
+    as new versions land; until SIGINT, then the stats JSON (with the
+    rollout subtree) on stdout and exit 0. The stack is `cli run`'s: the
+    journal with recovery, the wave profiler, the SLO engine (its trips
+    also roll an open burn-in back) and the metrics server, whose /metrics
+    carries the rollout gauges. Promotions hot-swap the serving engine in
+    place (rollout/hotswap.py, mode `rollout.swap_mode`); gate arms and
+    the shadow arm are backends of their own, each freed when closed."""
+    import threading
+
+    from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
+    from k8s_llm_scheduler_tpu_torch.models.configs import get_config
+    from k8s_llm_scheduler_tpu_torch.rollout import CanaryController, HotSwapper
+
+    if cfg.get("llm.backend") == "stub":
+        print("rollout watch needs llm.backend: local", file=sys.stderr)
+        return 2
+    check_switches(cfg)
+    active = registry.active()
+    active_ckpt = str(registry.get(active).checkpoint_path) if active is not None else None
+    backend = build_local_backend(**_backend_kwargs(
+        cfg, checkpoint_path=active_ckpt or cfg.get("llm.checkpoint_path"),
+        device=args.device))
+    journal = _maybe_journal(cfg)
+    if args.fake_cluster:
+        from k8s_llm_scheduler_tpu_torch.testing import synthetic_cluster
+
+        cluster = synthetic_cluster(args.fake_nodes)
+    else:
+        from k8s_llm_scheduler_tpu_torch.cluster.kube import KubeCluster
+
+        kube_kwargs = {}
+        if journal is not None:
+            kube_kwargs = {"resume_rv": journal.state.last_rv,
+                           "rv_hook": journal.record_rv}
+        cluster = KubeCluster(
+            watch_timeout_seconds=cfg.get("scheduler.watch_interval"), **kube_kwargs)
+    scheduler, _ = build_stack(cfg, cluster, backend=backend)
+    client = scheduler.client
+
+    def factory(ckpt):
+        return _rollout_backend_factory(cfg, ckpt, args.device)
+
+    def incumbent_factory():
+        # resolved at GATE time: after a promotion the next candidate is
+        # compared with the CURRENT active version
+        active_now = registry.active()
+        ckpt = (str(registry.get(active_now).checkpoint_path) if active_now is not None
+                else cfg.get("llm.checkpoint_path"))
+        return factory(ckpt)()
+
+    swapper = HotSwapper(
+        backend, registry, backend.engine.cfg,
+        quantize=cfg.get("llm.quantization"),
+        cache=client.cache, mode=cfg.get("rollout.swap_mode", "auto"),
+    )
+    stop = threading.Event()
+    ctl_thread = sampler = slo_engine = metrics_server = shadow = None
+    try:
+        if journal is not None:
+            _recover(scheduler, cluster, journal)
+        profiler = _attach_profiler(cfg, scheduler, backend.engine)
+        slo_engine = _start_slo(cfg, scheduler, profiler)
+        controller = CanaryController(
+            registry, swapper,
+            stats_provider=scheduler.get_stats,
+            incumbent_factory=incumbent_factory,
+            candidate_factory=lambda v: factory(str(registry.get(v).checkpoint_path)),
+            gate=_gate_from_cfg(cfg),
+            burn_in_decisions=int(cfg.get("rollout.burn_in_decisions", 200)),
+            trip_fallback_rate=float(cfg.get("rollout.trip_fallback_rate", 0.2)),
+            trip_invalid_rate=float(cfg.get("rollout.trip_invalid_rate", 0.05)),
+            trip_bind_failure_rate=float(cfg.get("rollout.trip_bind_failure_rate", 0.05)),
+            trip_decide_p99_ms=cfg.get("rollout.trip_decide_p99_ms", None),
+            slo_engine=slo_engine,
+        )
+        shadow_frac = (args.shadow_frac if args.shadow_frac is not None
+                       else float(cfg.get("rollout.shadow_fraction", 0.0)))
+        shadow = _ShadowArm(scheduler, registry, controller, shadow_frac,
+                            lambda ckpt: factory(ckpt)())
+
+        def controller_loop():
+            poll = float(cfg.get("rollout.poll_seconds", 5.0))
+            while not stop.wait(poll):
+                try:
+                    shadow.refresh()
+                    controller.tick()
+                except Exception:
+                    logger.exception("rollout controller tick failed")
+
+        ctl_thread = threading.Thread(target=controller_loop, daemon=True,
+                                      name="rollout-controller")
+        ctl_thread.start()
+        metrics_server, sampler = _start_metrics(
+            cfg, scheduler, backend.engine, profiler, slo_engine,
+            extra_stats=lambda: {"rollout": controller.stats()})
+        print(BANNER, file=sys.stderr)
+        logger.info("rollout watch: registry=%s active=%s shadow_frac=%.3f",
+                    registry.root, registry.active(), shadow_frac)
+        asyncio.run(_serve(scheduler, cluster))
+    finally:
+        stop.set()
+        if ctl_thread is not None:
+            ctl_thread.join(timeout=30)
+        if sampler is not None:
+            sampler.stop()
+        if slo_engine is not None:
+            slo_engine.stop()
+        if metrics_server is not None:
+            metrics_server.stop()
+        if shadow is not None:
+            shadow.close()
+        _close(backend)
+        if journal is not None:
+            journal.close()
+        stats = scheduler.get_stats()
+        if ctl_thread is not None:
+            stats["rollout"] = controller.stats()
+        print(json.dumps(stats, indent=2, default=str), flush=True)
     return 0
 
 
@@ -970,6 +1493,106 @@ def build_parser() -> argparse.ArgumentParser:
             p_j.add_argument("--limit", type=int, default=0,
                              help="stop after N records (0 = all)")
     journal.set_defaults(func=cmd_journal)
+
+    p_eval = sub.add_parser(
+        "eval", help="decision-quality report: teacher agreement + placement spread")
+    p_eval.add_argument("--checkpoint", default=None,
+                        help="native or safetensors checkpoint dir "
+                             "(default: random-init floor)")
+    p_eval.add_argument("--model", default=None, help="config name")
+    p_eval.add_argument("--cases", type=int, default=64)
+    p_eval.add_argument("--temperature", type=float, default=0.0,
+                        help="eval-time sampling temperature (default 0.0 = greedy, the "
+                             "deterministic report card; serving keeps llm.temperature)")
+    p_eval.add_argument("--placement-pods", type=int, default=32)
+    p_eval.add_argument("--scenarios", action="store_true",
+                        help="add the per-scenario-class agreement table (heterogeneous "
+                             "capacities, taints, selectors, affinity)")
+    p_eval.add_argument("--scenario-cases", type=int, default=32)
+    device_flag(p_eval)
+    p_eval.set_defaults(func=cmd_eval)
+
+    p_sim = sub.add_parser(
+        "sim", help="cluster-twin scenario arena: seeded workloads through the "
+                    "real stack, scored across decision arms (sim/)")
+    p_sim.add_argument("--name", default="scenario")
+    p_sim.add_argument("--seed", type=int, default=0)
+    p_sim.add_argument("--nodes", type=int, default=16)
+    p_sim.add_argument("--pods", type=int, default=64)
+    p_sim.add_argument("--shapes", type=int, default=8)
+    p_sim.add_argument("--arrival", choices=("burst", "poisson", "waves"), default="burst")
+    p_sim.add_argument("--arrival-rate", type=float, default=500.0,
+                       help="pods/sec for --arrival poisson")
+    p_sim.add_argument("--waves", type=int, default=4, help="wave count for --arrival waves")
+    p_sim.add_argument("--homogeneous", action="store_true",
+                       help="uniform node SKUs (default: heterogeneous ladder)")
+    p_sim.add_argument("--taint-frac", type=float, default=0.0)
+    p_sim.add_argument("--constraints", default="uniform",
+                       help="comma list of scenario classes cycled over pod shapes "
+                            "(train/eval.SCENARIO_CLASSES: uniform, hetero-capacity, "
+                            "tainted, selector, affinity)")
+    p_sim.add_argument("--churn", action="append", default=None, metavar="WAVE:KIND:NODE",
+                       help="node churn applied before WAVE (kind: fail|recover|add|"
+                            "delete); repeatable")
+    p_sim.add_argument("--arms", default="stub,resource_balanced,least_loaded,round_robin,teacher",
+                       help="comma list: llm (configured backend, greedy), stub, teacher, "
+                            "or any core/fallback strategy")
+    p_sim.add_argument("--trace", default=None, help="record trace here")
+    p_sim.add_argument("--replay", default=None,
+                       help="verify a recorded trace replays bit-identically, then exit")
+    p_sim.add_argument("--out", default=None, help="full JSON report path")
+    p_sim.add_argument("--wave-timeout", type=float, default=300.0)
+    p_sim.add_argument("--metrics-port", type=int, default=None,
+                       help="serve live arena scores on /metrics while running")
+    device_flag(p_sim)
+    p_sim.set_defaults(func=cmd_sim)
+
+    p_rollout = sub.add_parser(
+        "rollout", help="live policy rollout: checkpoint registry, canary gate, "
+                        "shadow scoring, hot weight swap (rollout/)")
+    rsub = p_rollout.add_subparsers(dest="rollout_cmd", required=True)
+
+    def with_registry(p):
+        p.add_argument("--registry", default=None,
+                       help="registry dir (default: rollout.registry_dir / "
+                            "ROLLOUT_REGISTRY_DIR)")
+        return p
+
+    p_publish = with_registry(rsub.add_parser(
+        "publish", help="register a trained checkpoint as a new version"))
+    p_publish.add_argument("--checkpoint", required=True,
+                           help="checkpoint dir (models/loader.save_checkpoint's, or "
+                                "HF safetensors)")
+    p_publish.add_argument("--model", default=None,
+                           help="config name the checkpoint is shaped for (default "
+                                "llm.model; stamps the fingerprint hot-swap "
+                                "compatibility is checked against)")
+    p_publish.add_argument("--parent", type=int, default=None)
+    p_publish.add_argument("--note", default="")
+    with_registry(rsub.add_parser(
+        "status", help="list versions, scores, and the active pointer"))
+    with_registry(rsub.add_parser(
+        "fsck", help="digest-verify every version (exit 1 on any damage)"))
+    with_registry(rsub.add_parser(
+        "rollback", help="move the active pointer back to its parent"))
+    p_promote = with_registry(rsub.add_parser(
+        "promote", help="arena-gate a candidate vs the incumbent; set active on pass"))
+    p_promote.add_argument("--version", type=int, required=True)
+    p_promote.add_argument("--seed", type=int, default=None,
+                           help="gate scenario seed (default rollout.gate.seed)")
+    p_promote.add_argument("--no-gate", action="store_true",
+                           help="skip the arena gate (set active unconditionally)")
+    device_flag(p_promote)
+    p_watch = with_registry(rsub.add_parser(
+        "watch", help="serve the active version and run the live canary loop "
+                      "(shadow scoring, gate-promote, burn-in auto-rollback)"))
+    p_watch.add_argument("--shadow-frac", type=float, default=None,
+                         help="fraction of live decisions mirrored through the newest "
+                              "candidate (default rollout.shadow_fraction)")
+    p_watch.add_argument("--fake-cluster", action="store_true")
+    p_watch.add_argument("--fake-nodes", type=int, default=3)
+    device_flag(p_watch)
+    p_rollout.set_defaults(func=cmd_rollout)
 
     trace = sub.add_parser(
         "trace", help="decision flight recorder: list/show/tail/export traces from "

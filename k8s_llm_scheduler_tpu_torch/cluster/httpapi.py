@@ -316,8 +316,9 @@ def _open(
     query: dict[str, Any] | None = None,
     body: dict | None = None,
     timeout: float | None = 30.0,
+    cfg: _ClusterConfig | None = None,
 ):
-    cfg = _require_config()
+    cfg = cfg or _require_config()
     url = cfg.host + path
     if query:
         url += "?" + urllib.parse.urlencode(
@@ -340,8 +341,9 @@ def _open(
         raise ApiException(status=0, reason=str(exc)) from exc
 
 
-def _get_json(path: str, query: dict | None = None) -> K8sObject:
-    with _open("GET", path, query=query) as resp:
+def _get_json(path: str, query: dict | None = None,
+              cfg: _ClusterConfig | None = None) -> K8sObject:
+    with _open("GET", path, query=query, cfg=cfg) as resp:
         return K8sObject(json.loads(resp.read().decode("utf-8")))
 
 
@@ -350,6 +352,7 @@ def _watch_stream(
     resource_version: str | None,
     timeout_seconds: int | None,
     allow_watch_bookmarks: bool,
+    cfg: _ClusterConfig | None = None,
 ) -> Iterator[dict]:
     """One chunked watch GET, yielding {"type", "object"} events until the
     server closes the stream (its timeoutSeconds). The read timeout leaves
@@ -362,7 +365,7 @@ def _watch_stream(
         "allowWatchBookmarks": "true" if allow_watch_bookmarks else None,
     }
     read_timeout = (timeout_seconds or 60) + 30
-    with _open("GET", path, query=query, timeout=read_timeout) as resp:
+    with _open("GET", path, query=query, timeout=read_timeout, cfg=cfg) as resp:
         for line in resp:
             line = line.strip()
             if not line:
@@ -379,8 +382,9 @@ class _WatchableList:
     (returns the parsed list response) and via Watch (watch=True kwarg
     returns the event iterator)."""
 
-    def __init__(self, path: str, name: str) -> None:
+    def __init__(self, path: str, name: str, cfg: _ClusterConfig | None = None) -> None:
         self._path = path
+        self._cfg = cfg
         self.__name__ = name  # kube.py logs list_fn.__name__
 
     def __call__(self, watch: bool = False, **kwargs):
@@ -390,18 +394,23 @@ class _WatchableList:
                 resource_version=kwargs.get("resource_version"),
                 timeout_seconds=kwargs.get("timeout_seconds"),
                 allow_watch_bookmarks=bool(kwargs.get("allow_watch_bookmarks")),
+                cfg=self._cfg,
             )
-        return _get_json(self._path)
+        return _get_json(self._path, cfg=self._cfg)
 
 
 class CoreV1Api:
-    """The slice of the official CoreV1Api the scheduler consumes."""
+    """The slice of the official CoreV1Api the scheduler consumes. It binds
+    the cluster configuration active when it is built, as the official
+    client's ApiClient copies the default Configuration: a later
+    set_active_config (an arena run or a canary gate in the same process,
+    sim/arena.py) does not move a client that is already serving."""
 
     def __init__(self) -> None:
-        _require_config()
-        self.list_node = _WatchableList("/api/v1/nodes", "list_node")
+        self._cfg = _require_config()
+        self.list_node = _WatchableList("/api/v1/nodes", "list_node", self._cfg)
         self.list_pod_for_all_namespaces = _WatchableList(
-            "/api/v1/pods", "list_pod_for_all_namespaces"
+            "/api/v1/pods", "list_pod_for_all_namespaces", self._cfg
         )
 
     def create_namespaced_binding(
@@ -412,7 +421,7 @@ class CoreV1Api:
         # client's Binding-deserialization bug has no analog here.
         with _open(
             "POST", f"/api/v1/namespaces/{namespace}/bindings",
-            body=body.to_dict(),
+            body=body.to_dict(), cfg=self._cfg,
         ) as resp:
             raw = resp.read()
         try:

@@ -111,6 +111,7 @@ from k8s_llm_scheduler_tpu_torch.engine.fused import (
 )
 from k8s_llm_scheduler_tpu_torch.engine.fused.loop import fused_begin, fused_flush, fused_gather
 from k8s_llm_scheduler_tpu_torch.engine.graphs import (
+    DEVICE_WIDE,
     Fence,
     GraphRunner,
     Program,
@@ -640,6 +641,27 @@ class WaveHandle:
         return self.error is not None or self.done.query()
 
 
+def _match_tree(serving, new, path: str, pairs: list) -> None:
+    """Append (serving leaf, new leaf) for every leaf of `serving` to
+    `pairs`; raise ValueError at the first path where `new` differs in
+    structure, shape or dtype."""
+    if isinstance(serving, dict):
+        if not isinstance(new, dict) or set(new) != set(serving):
+            got = sorted(new) if isinstance(new, dict) else type(new).__name__
+            raise ValueError(
+                f"swap_params: {path} has keys {got}, the serving tree {sorted(serving)}")
+        for key in serving:
+            _match_tree(serving[key], new[key], f"{path}.{key}", pairs)
+        return
+    if not isinstance(new, torch.Tensor):
+        raise ValueError(f"swap_params: {path} is a {type(new).__name__}, not a tensor")
+    if new.shape != serving.shape or new.dtype != serving.dtype:
+        raise ValueError(
+            f"swap_params: {path} is {new.dtype} {tuple(new.shape)}, the serving "
+            f"leaf {serving.dtype} {tuple(serving.shape)}")
+    pairs.append((serving, new))
+
+
 def _dispatch_loop(jobs: "queue.SimpleQueue") -> None:
     """The wave dispatcher thread: run the queued jobs in FIFO order until
     a None arrives. It holds no reference to the engine between jobs, so
@@ -819,7 +841,7 @@ class InferenceEngine:
         self._empty_prefix: _PrefixKV | None = None
         # Pinned prefix-cache keys (pin_prefix): exempt from byte-pressure
         # eviction. prefix_epoch stamps pin handles with the weight
-        # generation; a hot swap would bump it (the port has none yet).
+        # generation; a hot swap (swap_params) bumps it.
         self._pinned_prefix_keys: set[tuple[int, ...]] = set()
         self.prefix_epoch = 0
         # Packed admission (admit_packed): the chunk width of the packed
@@ -899,6 +921,7 @@ class InferenceEngine:
             "persistent_chunks": 0,
             "persistent_fallbacks": 0,
             "persistent_wedges": 0,
+            "weight_swaps": 0,
             # host wall time, device work included (both end in a sync)
             "prefix_prefill_ms": 0.0,
             "wave_ms": 0.0,
@@ -1004,7 +1027,8 @@ class InferenceEngine:
         self._set_prefix_inner(prompt_ids)
         if self.device.type == "cuda":
             # a group switch is rare; the wave after it needs the KV anyway
-            torch.cuda.synchronize(self.device)
+            with DEVICE_WIDE:
+                torch.cuda.synchronize(self.device)
         self.stats["prefix_prefill_ms"] += (time.perf_counter() - t0) * 1000.0
 
     @torch.no_grad()
@@ -1085,7 +1109,8 @@ class InferenceEngine:
         t0 = time.perf_counter()
         self._set_prefix_inner(prompt_ids, activate=False)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with DEVICE_WIDE:
+                torch.cuda.synchronize(self.device)
         self.stats["prefix_prefill_ms"] += (time.perf_counter() - t0) * 1000.0
         if key not in self._pinned_prefix_keys:
             self._pinned_prefix_keys.add(key)
@@ -1415,6 +1440,50 @@ class InferenceEngine:
             self._jobs.put(None)
             self._dispatcher.join()
             self._dispatcher = self._jobs = None
+
+    def release(self) -> None:
+        """Close, then drop every device tensor the engine holds: the
+        params, the paged KV, the prefix cache and its static buffers, the
+        slot state, the grammar tables, every captured program with its
+        static buffers (their graphs and the pool memory under them), the
+        resident loop and the speculative decoder's own (spec.release). A
+        backend that built the engine calls this at its close, so a closed
+        arm returns its device memory without waiting for garbage
+        collection. Afterwards get_stats() still answers (with the last
+        page and slot counts); anything else raises. A second call does
+        nothing."""
+        if self.kv is None:
+            return
+        self.close()
+        if self.persistent_active:
+            self.exit_persistent()
+        self._released_kv_stats = {"pages_free": self.kv.pages_free,
+                                   "slots_free": self.free_slots}
+        self._persistent = None
+        if self.spec is not None:
+            self.spec.release()
+        self.params = None
+        self.kv = None
+        self._by_slot.clear()
+        self._prefix = self._empty_prefix = None
+        self._prefix_cache.clear()
+        self._pinned_prefix_keys.clear()
+        self._static_prefix.clear()
+        self._wave_variants.clear()
+        self._wave_compiled.clear()
+        self._chunk = None
+        self._chunk_variants.clear()
+        self._fused_variants.clear()
+        self._fused_next_d = self._fused_dummy = None
+        self._grammar_tables.clear()
+        self._sp_tokens = self._sp_next = self._forced = self._forced_next = None
+        self._dfa_start_d = self._done_state_d = self._plen_d = None
+        self._state = None
+        self._tables_d = self._tables_src = None
+        self._pending_emissions = []
+        self._pending_finished = []
+        with DEVICE_WIDE:  # a pool's destruction must not meet a capture
+            self._graphs.body_pool = None
 
     def submit_wave(
         self, prompts: list[list[int]], max_new_tokens: int = 200
@@ -2242,6 +2311,66 @@ class InferenceEngine:
         self._state.act[slot] = False
         self._state.budget[slot] = 0
 
+    # ---------------------------------------------------------------- swap
+    @torch.no_grad()
+    def swap_params(self, params: Params) -> Params:
+        """Install new weights by COPYING each leaf of `params` into the
+        serving tensor of the same path (the JAX engine's swap_params,
+        JAX engine.py:2813-2872, rebinds `self.params` instead). Returns
+        `params`, the staging tree, which the caller drops; the serving
+        tensors never move.
+
+        Why a copy and not a pointer swap: every program the engine replays
+        (the wave and decode-chunk CUDA graphs, the fused WHILE program,
+        the speculative verify programs) baked the address of every weight
+        in at capture, and K3 reads its weight through a TMA tensor map that
+        a captured launch holds by value. A rebind would leave them reading
+        the old weights, or the freed memory under them; the copy keeps
+        every captured program valid, reading the new values, with no
+        recapture. A tied head reads `embed` (models/llama._logits), so
+        copying `embed` swaps both.
+
+        `params` must have the serving tree's structure (keys, int8
+        {q, scale} pairs, an untied `lm_head` where the config has one),
+        and each leaf its shape and dtype; it may lie on another device
+        (the donate mode's host tree). A tree that differs raises
+        ValueError before any leaf is written.
+
+        Engine-owner thread only, at a wave barrier (LocalLLMBackend.
+        run_quiesced): the copies queue after every wave submitted before,
+        so those waves read the old weights and the next one the new.
+        Everything derived from the old weights is invalidated, as in the
+        JAX engine: the resident loop exits (it relaunches lazily), open
+        speculative streams roll back (spec/decoder.on_swap), the prefix
+        cache and the pins clear and prefix_epoch bumps (a pin taken under
+        the old weights never serves again), and the active prefix drops
+        unless paged slots are in flight (they continue against it:
+        token-identical only for identical params). The decision cache
+        above the engine bumps its own generation (rollout/hotswap.py)."""
+        pairs: list[tuple[torch.Tensor, torch.Tensor]] = []
+        _match_tree(self.params, params, "params", pairs)
+        self._await_dispatch()
+        if self.persistent_active:
+            self.exit_persistent()
+        if self.spec is not None:
+            self.spec.on_swap()
+        for dst, src in pairs:
+            if src is not dst:
+                dst.copy_(src)
+        self._prefix_cache.clear()
+        self._pinned_prefix_keys.clear()
+        self.prefix_epoch += 1
+        if self._by_slot:
+            logger.warning(
+                "weight swap with %d paged request(s) in flight — they "
+                "continue against the pre-swap prefix KV (token-identical "
+                "only for identical params)", len(self._by_slot),
+            )
+        else:
+            self._prefix = None
+        self.stats["weight_swaps"] += 1
+        return params
+
     def attach_spec(self, decoder) -> None:
         """Attach a speculative decoder (spec/decoder.SpeculativeDecoder), or
         detach with None. generate() then routes single-request completions
@@ -2603,8 +2732,11 @@ class InferenceEngine:
         return [r.req_id for r in reqs]
 
     def get_stats(self) -> dict:
-        out = {**self.stats, "pages_free": self.kv.pages_free,
-               "slots_free": self.free_slots}
+        if self.kv is None:  # released
+            out = {**self.stats, **self._released_kv_stats}
+        else:
+            out = {**self.stats, "pages_free": self.kv.pages_free,
+                   "slots_free": self.free_slots}
         if self._persistent is not None:
             out.update(self._persistent.stats())
         # windowed from the profiler's flow books when attached, else the

@@ -45,10 +45,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 import time
 from typing import Callable
 
 import torch
+
+# A CUDA graph capture on one thread forbids, on every other thread of the
+# process, a device-wide synchronize, the caching allocator's empty_cache
+# and the destruction of a memory pool (and torch.cuda.graph synchronizes
+# and empties the cache itself before it begins). Every capture holds this
+# lock, and so does every engine's device-wide synchronize and release, so
+# that engines sharing a process (the serving engine beside a canary
+# gate's arms and a shadow arm in `cli rollout watch`) capture and free
+# their memory without breaking each other's captures.
+DEVICE_WIDE = threading.RLock()
 
 
 def launch_counted() -> tuple:
@@ -172,7 +183,12 @@ class GraphRunner:
 
     def capture(self, prog: Program) -> None:
         """Warm-up run (the real work of this run), capture, and for an
-        idempotent program one replay. Raises on any failure."""
+        idempotent program one replay, under DEVICE_WIDE. Raises on any
+        failure."""
+        with DEVICE_WIDE:
+            self._capture(prog)
+
+    def _capture(self, prog: Program) -> None:
         if self.body_pool is None:
             # cuBLAS's handle and workspace for the body stream, made
             # outside any capture

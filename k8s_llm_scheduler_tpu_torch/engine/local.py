@@ -52,13 +52,18 @@ a wave's oldest item's enqueue time at submit (`note_admission`), and the
 ready edge the poll observes (`note_ready`); `close()` flushes the
 profiler's open fences once the worker has joined.
 
-Not ported yet: the KV plane (ROADMAP Queue 1 item 8) and the fleet pool
-role (`pool_role`, `_check_role`, item 9).
+A backend built by build_local_backend owns its engine: its close()
+releases the engine's device memory (engine.release), so a closed arena or
+gate arm returns its card memory at once.
+
+Not ported yet: the KV plane and the fleet pool role (`pool_role`,
+`_check_role`), ROADMAP queue 1 item 9.
 """
 
 from __future__ import annotations
 
 import asyncio
+import gc
 import logging
 import queue
 import threading
@@ -83,6 +88,7 @@ from k8s_llm_scheduler_tpu_torch.engine.backend import (
 from k8s_llm_scheduler_tpu_torch.engine.admission.pinned import PinnedPrefixManager
 from k8s_llm_scheduler_tpu_torch.engine.constrained import build_decision_dfa
 from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
+from k8s_llm_scheduler_tpu_torch.engine.graphs import DEVICE_WIDE
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import Tokenizer
 from k8s_llm_scheduler_tpu_torch.models.configs import get_config
 from k8s_llm_scheduler_tpu_torch.models.llama import init_params
@@ -178,8 +184,12 @@ class LocalLLMBackend:
         repin_fraction: float = 0.25,
         max_pins: int = 4,
         persistent_loop: bool = False,
+        owns_engine: bool = False,
     ) -> None:
         self.engine = engine
+        # close() releases the engine's device memory only when this backend
+        # built it (build_local_backend): other owners may reuse an engine
+        self.owns_engine = bool(owns_engine)
         # Persistent serving (engine/persistent/): the worker feeds the
         # resident loop's rings instead of submitting waves for what fits.
         # The backend flag is authoritative: it arms the engine gate too.
@@ -1041,6 +1051,13 @@ class LocalLLMBackend:
             # flush the half-open wave fences once the worker has joined:
             # its in-flight waves were failed upstream and never harvest
             prof.close()
+        if self.owns_engine and not self._worker.is_alive():
+            self.engine.release()
+            with DEVICE_WIDE:  # another engine of the process may be capturing
+                # the engine's programs and their buffers hold each other
+                gc.collect()
+                if self.engine.device.type == "cuda":
+                    torch.cuda.empty_cache()
 
     def get_stats(self) -> dict[str, Any]:
         out = self.engine.get_stats()
@@ -1268,4 +1285,5 @@ def build_local_backend(
         repin_fraction=repin_fraction,
         max_pins=max_pins,
         persistent_loop=persistent_loop,
+        owns_engine=True,
     )

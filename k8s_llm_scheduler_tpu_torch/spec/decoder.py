@@ -662,14 +662,24 @@ class SpeculativeDecoder:
         every open stream's speculative tail through the grammar-safe
         PagedKVCache.truncate and drop proposal blocks on the device, which
         were computed under the old weights. Emitted tokens stand; the
-        stream re-proposes from its last verified token. The port has no
-        hot swap yet (ROADMAP.md item 8): nothing calls this but a test."""
+        stream re-proposes from its last verified token. Called by
+        engine.swap_params, the hot swap's install (rollout/hotswap.py)."""
         for s in self._streams.values():
             self.engine.kv.truncate(s.slot, s.n_own)
             if s.pending is not None:
                 s.pending = None
                 self.stats.ahead_wasted += 1
             self.stats.swap_rollbacks += 1
+
+    def release(self) -> None:
+        """Drop every device tensor the decoder holds (the draft model and
+        its KV buffers, the hidden head, the verify programs and their
+        buffers, open streams): engine.release, when a closed backend
+        frees its engine. The arm, K and the books stay."""
+        self._streams.clear()
+        self._programs.clear()
+        self.draft = None
+        self.hidden_head = None
 
     @property
     def open_streams(self) -> int:

@@ -342,6 +342,18 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "k8s_llm_scheduler_tpu_torch.observability.sampler, "
         "k8s_llm_scheduler_tpu_torch.observability.metrics, "
         "k8s_llm_scheduler_tpu_torch.observability.slo, "
+        "k8s_llm_scheduler_tpu_torch.rollout, "
+        "k8s_llm_scheduler_tpu_torch.rollout.hotswap, "
+        "k8s_llm_scheduler_tpu_torch.rollout.registry, "
+        "k8s_llm_scheduler_tpu_torch.rollout.shadow, "
+        "k8s_llm_scheduler_tpu_torch.rollout.canary, "
+        "k8s_llm_scheduler_tpu_torch.sim, "
+        "k8s_llm_scheduler_tpu_torch.sim.arena, "
+        "k8s_llm_scheduler_tpu_torch.sim.scenarios, "
+        "k8s_llm_scheduler_tpu_torch.sim.teacher, "
+        "k8s_llm_scheduler_tpu_torch.sim.trace, "
+        "k8s_llm_scheduler_tpu_torch.train.eval, "
+        "k8s_llm_scheduler_tpu_torch.train.distill, "
         "k8s_llm_scheduler_tpu_torch.cli\n"
         "bad = sorted(m for m in sys.modules"
         " if m in ('jax', 'yaml', 'safetensors', 'transformers')"
