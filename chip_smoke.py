@@ -223,6 +223,19 @@ Phases, each of which must pass:
    shapes q[1,5] and q[1,1] against the 8B prefix buffer (prefix_len
    5,488) and the empty one (64 slots, prefix_len 0), held and timed as
    the other K1 shapes.
+6j. Hidden 8B: a K = 4 hidden-transfer head trained on the resident 8B
+   bf16 target with train/hidden.train_hidden_transfer (10 steps at 4 x
+   512 on the distill stream, lr 1e-3; the target frozen), saved to a
+   temporary dir, restored (equal to the trained head) and served by
+   build_local_backend(spec_arm="hidden", spec_draft_checkpoint=<dir>,
+   disable threshold 0) over the same seed-0 target: speculative generate
+   on two path B prompts behind the prefix, greedy, 64 new tokens, held as
+   phase 6g holds its arms (every token within 5e-2 of the largest |logit|
+   of the teacher-forced argmax, one sync a verify round, K1 launched 32
+   times at admission and 32 times a verify round). Fails on a non-finite
+   loss or gradient norm. Prints ms a training step, acceptance, ms an
+   emitted token and whether the output equals plain generate's (bf16:
+   reported, not gated).
 6a. Checkpoint: a TINY HF-layout safetensors checkpoint from a seed,
    written in the format's own few lines (no `safetensors` package), vocab
    widened for the builtin numeric tokenizer, loaded through
@@ -265,6 +278,19 @@ Phases, each of which must pass:
    text printed, the prompt's head through set_prefix's chunked path, K1
    and K2 launched in the child, the tail decoded by fused chunks; its
    wall time and peak memory.
+6k. Train 1B: `llama-3.2-1b-instruct` at full width and depth (d_model
+   2048, 16 layers, 32/8 heads, head dim 64, d_ff 8192, vocab 128,256,
+   tied), bf16, random from seed 0, byte tokenizer:
+   train/distill.train_and_save for 10 steps at 4 x 2048 (cli train's
+   defaults, lr 3e-4) on make_batches, its native checkpoint restored
+   through restore_checkpoint. Fails on a non-finite loss or gradient
+   norm, a last loss not below the first, a step-1 loss more than 1e-2
+   from a no-grad forward without recomputation on the same batch and
+   params, or a restored tree not equal to the trained one. Prints ms a
+   step, the host's ms to build a batch, tokens/s, MFU (8N a token, the
+   forward recomputed, against 989 TFLOP/s) and peak GiB. Then one greedy
+   decision served from the checkpoint through build_local_backend: it
+   parses, names a feasible node and launches K1 and K2 (head dim 64).
 7. K3, untimed, at `K3_EDGE_CASES` (TINY's widths, N and K not whole
    tiles, M = 96 and 384, totals 0 / 1 / 64 / 65 / M), then at the seven 8B
    weight shapes, int8 pairs and bf16, x [R*24, K] for R = 4 and 8, and
@@ -305,6 +331,7 @@ import functools
 import gc
 import itertools
 import json
+import math
 import os
 import signal
 import statistics
@@ -3368,6 +3395,241 @@ def spec_phase(backend, nodes, pods) -> tuple[bool, dict]:
     return ok, rec
 
 
+# ------------------------------------------------------------ training phases
+TRAIN_MODEL = "llama-3.2-1b-instruct"
+TRAIN_STEPS = 10
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048  # cli train's defaults
+TRAIN_LR = 3e-4  # cli train's default
+TRAIN_REF_TOL = 1e-2  # step 1's loss against a no-grad forward without recomputation
+RECOMPUTE = 4.0 / 3.0  # a recomputing step runs the forward twice: 8N, not 6N, a token
+HIDDEN_K = SPEC_K
+HIDDEN_STEPS = 10
+HIDDEN_BATCH, HIDDEN_SEQ = 4, 512  # train_hidden_transfer's defaults
+
+
+def _step_books():
+    """An on_step callback that records each step's loss, gradient norm (of
+    the tensors the callback is handed a gradient on) and the host seconds
+    since the previous step ended (each ends in a device sync)."""
+    import torch
+
+    rec = {"loss": [], "grad_norm": [], "step_s": [], "t": time.perf_counter()}
+
+    def on_step(step, loss, tensors):
+        grads = [t.grad.float() for t in tensors if t.grad is not None]
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g)
+                                                     for g in grads]))
+        rec["loss"].append(float(loss))
+        rec["grad_norm"].append(float(norm))
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec["step_s"].append(now - rec["t"])
+        rec["t"] = now
+
+    return rec, on_step
+
+
+def _warm_ms(step_s) -> float:
+    """Mean ms a step after the first (which also builds cuBLAS plans and the
+    allocator's pools)."""
+    warm = step_s[1:] or step_s
+    return 1000.0 * sum(warm) / len(warm)
+
+
+def train_1b() -> tuple[bool, dict]:
+    """Llama-3.2-1B at full width and depth, bf16, random from seed 0:
+    train_and_save for TRAIN_STEPS steps at 4 x 2048 on make_batches (the
+    byte tokenizer), the checkpoint restored through restore_checkpoint and
+    one greedy decision served from it. See the module doc, phase 6k."""
+    import torch
+
+    from k8s_llm_scheduler_tpu_torch.core.validation import feasible_nodes
+    from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import build_builtin_tokenizer
+    from k8s_llm_scheduler_tpu_torch.models.configs import get_config
+    from k8s_llm_scheduler_tpu_torch.models.llama import forward_prefill, init_params
+    from k8s_llm_scheduler_tpu_torch.models.loader import restore_checkpoint
+    from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
+    from k8s_llm_scheduler_tpu_torch.train.distill import make_batches, train_and_save
+    from k8s_llm_scheduler_tpu_torch.train.train_step import causal_lm_loss, param_leaves
+    from k8s_llm_scheduler_tpu_torch.types import DecisionSource
+
+    tokenizer, cfg = build_builtin_tokenizer("byte", get_config(TRAIN_MODEL))
+    # the reference for step 1: the params train_and_save draws (init_params,
+    # seed 0) on its first batch (make_batches, seed 0), forward with no
+    # recomputation and no gradient
+    stream = make_batches(tokenizer, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    t0 = time.perf_counter()
+    batch = next(stream)
+    for _ in range(2):
+        next(stream)
+    # the host's share of a step: building a batch of teacher pairs
+    batch_ms = (time.perf_counter() - t0) * 1000.0 / 3
+    tokens, lens, starts, weights = (torch.as_tensor(a).cuda() for a in batch)
+    params = init_params(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in param_leaves(params))
+    with torch.no_grad():
+        logits, _, _ = forward_prefill(params, cfg, tokens.long(), lens)
+        ref = float(causal_lm_loss(logits, tokens, lens, starts, weights))
+    del params, logits
+    torch.cuda.empty_cache()
+
+    books, record = _step_books()
+    kept = {}
+
+    def on_step(step, loss, state):
+        record(step, loss, param_leaves(state.params))
+        kept["params"] = state.params
+
+    rec = {"model": TRAIN_MODEL, "params": n_params, "steps": TRAIN_STEPS,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "lr": TRAIN_LR, "ref_loss": ref,
+           "batch_host_ms": batch_ms}
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d) / "ckpt"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        final = train_and_save(cfg, str(out), steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                               seq_len=TRAIN_SEQ, lr=TRAIN_LR, seed=0, log_every=TRAIN_STEPS,
+                               device="cuda", on_step=on_step)
+        rec["train_and_save_s"] = time.perf_counter() - t0
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        trained = kept.pop("params")
+        for t in param_leaves(trained):
+            t.grad = None
+        t0 = time.perf_counter()
+        restored = restore_checkpoint(out, cfg, device="cuda")
+        rec["restore_s"] = time.perf_counter() - t0
+        same = all(torch.equal(a.detach(), b) for a, b in
+                   zip(param_leaves(trained), param_leaves(restored)))
+        del trained, restored
+        torch.cuda.empty_cache()
+        ms = _warm_ms(books["step_s"])
+        toks = TRAIN_BATCH * TRAIN_SEQ
+        rec.update(
+            losses=books["loss"], grad_norms=books["grad_norm"], final_loss=final,
+            step_ms=[1000.0 * s for s in books["step_s"]], ms_per_step=ms,
+            tokens_per_s=toks / (ms / 1000.0),
+            mfu=6.0 * n_params * toks * RECOMPUTE / (ms / 1000.0) / PEAK_BF16_FLOPS,
+            restored_equal=same)
+
+        # one greedy decision served from the restored checkpoint
+        nodes, pod = synthetic_nodes(4), fixture_pods(1)[0]
+        b = build_local_backend(TRAIN_MODEL, device="cuda", checkpoint_path=str(out),
+                                temperature=0.0, request_timeout_s=600.0,
+                                prewarm_idle_delay_s=NO_PREWARM_S)
+        try:
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            decision = b.get_scheduling_decision(pod, nodes)
+            rec["decision_s"] = time.perf_counter() - t0
+            rec["decision_launches"] = _launch_counts()
+        finally:
+            b.close()
+    names = {n.name for n in feasible_nodes(pod, nodes)}
+    rec["decision"] = decision.selected_node
+    finite = all(math.isfinite(x) for x in books["loss"] + books["grad_norm"])
+    checks = {
+        "finite": finite,
+        "falls": books["loss"][-1] < books["loss"][0],
+        "step1_vs_ref": abs(books["loss"][0] - ref) <= TRAIN_REF_TOL,
+        "restored_equal": same,
+        "decision": (decision.source == DecisionSource.LLM and decision.selected_node in names
+                     and rec["decision_launches"]["K1"] > 0
+                     and rec["decision_launches"]["K2"] > 0),
+    }
+    rec["checks"] = checks
+    ok = all(checks.values())
+    print(f"train 1B: {TRAIN_MODEL} ({n_params:,} params) bf16, {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: losses {[round(x, 4) for x in books['loss']]} "
+          f"(step 1 against a no-grad forward {ref:.5f}), grad norms "
+          f"{[round(x, 3) for x in books['grad_norm']]}; {ms:.1f} ms a step (steps 2-"
+          f"{TRAIN_STEPS}; {batch_ms:.1f} ms of it a batch built on the host), "
+          f"{rec['tokens_per_s']:.0f} tokens/s, MFU {rec['mfu']:.4f} "
+          f"(8N a token against {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s), peak "
+          f"{rec['peak_gib']:.2f} GiB; restore {rec['restore_s']:.2f} s, equal {same}; "
+          f"decision {decision.selected_node} in {rec['decision_s']:.2f} s, launches "
+          f"{rec['decision_launches']} | {_smi()} | checks {checks} ok={ok}", flush=True)
+    return ok, rec
+
+
+def hidden_8b(backend, nodes, pods) -> tuple[bool, dict]:
+    """A K=4 hidden-transfer head trained on the resident 8B bf16 target
+    (train_hidden_transfer, 10 steps at 4 x 512 on the distill stream),
+    saved, and served by build_local_backend(spec_arm="hidden",
+    spec_draft_checkpoint=...): speculative generate on two path B prompts
+    behind the prefix. See the module doc, phase 6j."""
+    import torch
+
+    from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
+    from k8s_llm_scheduler_tpu_torch.train.hidden import (
+        restore_hidden_transfer,
+        train_hidden_transfer,
+    )
+
+    params, cfg = backend.engine.params, backend.engine.cfg
+    items = [backend._prepare_item(p, nodes) for p in pods[:SPEC_PROMPTS]]
+    prompts = [it.suffix_ids for it in items]
+    prefix = items[0].prefix_ids
+    books, record = _step_books()
+    rec = {"k": HIDDEN_K, "steps": HIDDEN_STEPS, "batch": [HIDDEN_BATCH, HIDDEN_SEQ]}
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        ht, loss = train_hidden_transfer(
+            params, cfg, k=HIDDEN_K, steps=HIDDEN_STEPS, batch_size=HIDDEN_BATCH,
+            seq_len=HIDDEN_SEQ, seed=0, out_dir=d, log_every=0,
+            on_step=lambda step, l, head: record(step, l, [head["transfer"]]))
+        rec["peak_above_start_gib"] = (torch.cuda.max_memory_allocated() - start) / 2**30
+        restored = restore_hidden_transfer(d, cfg, HIDDEN_K, device="cuda")
+        rec["restored_equal"] = torch.equal(restored["transfer"], ht["transfer"])
+        del restored
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        served = build_local_backend(
+            cfg.name, device="cuda", seed=0, temperature=0.0, request_timeout_s=600.0,
+            prewarm_idle_delay_s=NO_PREWARM_S, spec_enabled=True, spec_arm="hidden",
+            spec_draft_checkpoint=d, spec_k=HIDDEN_K, spec_disable_threshold=0.0)
+        rec["backend_s"] = time.perf_counter() - t0
+    try:
+        eng = served.engine
+        # the head serves the target it was trained on (init_params seed 0)
+        rec["same_target"] = torch.equal(eng.params["embed"], params["embed"])
+        rec["served_equal"] = torch.equal(eng.spec.hidden_head["transfer"], ht["transfer"])
+
+        def drive():
+            eng.set_prefix(prefix)
+            return _spec_drive(eng, eng.spec, prompts)
+
+        r, _pause = served.run_quiesced(drive, 600.0)
+    finally:
+        served.close()
+    del served, ht
+    gc.collect()
+    torch.cuda.empty_cache()
+    r["ok"] = _spec_ok(r)
+    r["identical_to_plain"] = all(p["first_divergence"] is None for p in r["prompts"])
+    ms = _warm_ms(books["step_s"])
+    rec.update(losses=books["loss"], grad_norms=books["grad_norm"], final_loss=loss,
+               step_ms=[1000.0 * s for s in books["step_s"]], ms_per_step=ms, serve=r)
+    finite = all(math.isfinite(x) for x in books["loss"] + books["grad_norm"])
+    checks = {"finite": finite, "restored_equal": rec["restored_equal"],
+              "served_equal": rec["served_equal"], "same_target": rec["same_target"],
+              "spec": r["ok"]}
+    rec["checks"] = checks
+    ok = all(checks.values())
+    print(f"hidden 8B: K={HIDDEN_K} head, {HIDDEN_STEPS} steps of {HIDDEN_BATCH} x "
+          f"{HIDDEN_SEQ}: losses {[round(x, 4) for x in books['loss']]}, {ms:.1f} ms a "
+          f"step (steps 2-{HIDDEN_STEPS}), +{rec['peak_above_start_gib']:.2f} GiB peak; "
+          f"served backend built in {rec['backend_s']:.1f} s; acceptance "
+          f"{r['acceptance_rate']:.3f}, {r['ms_per_token']:.2f} ms a token (plain "
+          f"{r['plain_ms_per_token']:.2f}), {r['ms_per_round']:.2f} ms a round, "
+          f"{r['verify_runs']} verify runs, K1 {r['launches']['K1']} (expected "
+          f"{r['k1_expected']}), identical to plain {r['identical_to_plain']} (first "
+          f"divergence {[p['first_divergence'] for p in r['prompts']]}) | {_smi()} | "
+          f"checks {checks} ok={ok}", flush=True)
+    return ok, rec
+
+
 # --------------------------------------------------------------- cli complete
 COMPLETE_MODEL = "llama-3.1-8b-instruct"
 COMPLETE_NEW_TOKENS = 64
@@ -4584,6 +4846,7 @@ def main() -> int:
         f_ok, fused = _timed_phase("fused", fused_phase, backend, nodes, pods, path_b)
         p8_ok, pers8 = _timed_phase("persistent 8B", persistent_8b, backend, nodes, pods)
         sp_ok, spec = _timed_phase("spec", spec_phase, backend, nodes, pods)
+        h8_ok, hidden = _timed_phase("hidden 8B", hidden_8b, backend, nodes, pods)
         k1 += spec["k1_cases"]
         cfg = backend.engine.cfg
     finally:
@@ -4600,6 +4863,7 @@ def main() -> int:
     jr_ok, journal_restart = _timed_phase("journal restart", journal_restart_phase)
     ro_ok, rollout = _timed_phase("rollout TINY", rollout_tiny)
     cc_ok, complete = _timed_phase("cli complete", finish_complete, complete_child)
+    tr_ok, train = _timed_phase("train 1B", train_1b)
     k3_ok, k3 = _timed_phase("K3", k3_phase, cfg, totals)
     k4_ok, k4 = _timed_phase("K4", k4_phase, k4_cases, long_cases=[k4_long_case()])
 
@@ -4649,6 +4913,8 @@ def main() -> int:
                   complete_launches=(complete.get("launches") or {}).get("K1"),
                   persistent_launches=(pers8.get("launches") or {}).get("K1"),
                   spec_launches=spec["k1_spec_launches"],
+                  hidden_8b_launches=hidden["serve"]["launches"]["K1"],
+                  train_1b_decision_launches=train["decision_launches"]["K1"],
                   spec_verify={r["shape"]: {k: r.get(k) for k in (
                       "ms", "ms_hot", "plain_ms", "bound_ms", "library_ms", "bound_share")}
                       for r in spec["k1_cases"]},
@@ -4663,7 +4929,8 @@ def main() -> int:
                   ratio=k2_main["ratio"], loop_launches=loop["launches"]["K2"],
                   run_launches=(run["launches"] or {}).get("K2"),
                   complete_launches=(complete.get("launches") or {}).get("K2"),
-                  persistent_launches=(pers8.get("launches") or {}).get("K2")),
+                  persistent_launches=(pers8.get("launches") or {}).get("K2"),
+                  train_1b_decision_launches=train["decision_launches"]["K2"]),
             entry("ragged_matmul", k3,
                   "k8s_llm_scheduler_tpu_torch/csrc/ragged_matmul.cu",
                   "k8s_llm_scheduler_tpu/ops/ragged_matmul.py:108",
@@ -4685,15 +4952,17 @@ def main() -> int:
               "decision": d_ok, "swap_8b": sw_ok, "admission": adm_ok, "loop": l_ok,
               "cli_demo": c_ok, "sim": sim_ok,
               "path_a": a_ok, "path_b": b_ok, "fused": f_ok, "persistent_8b": p8_ok,
-              "spec": sp_ok,
+              "spec": sp_ok, "hidden_8b": h8_ok,
               "checkpoint": ck_ok, "sampled": s_ok, "persistent_tiny": pt_ok,
               "journal_restart": jr_ok, "rollout_tiny": ro_ok, "cli_complete": cc_ok,
+              "train_1b": tr_ok,
               "k3": k3_ok, "k4": k4_ok}
     record = {"device": kind, "smi": smi, "build_s": build_s, "kernels": line,
               "cli_verify": verify, "cli_run": run, "reference": ref, "decision": dec,
               "swap_8b": swap, "admission": adm, "loop": loop, "cli_demo": demo,
               "sim": simrec, "rollout_tiny": rollout, "path_a": path_a,
               "path_b": path_b, "fused": fused, "persistent_8b": pers8, "spec": spec,
+              "hidden_8b": hidden, "train_1b": train,
               "checkpoint": ckpt, "sampled": sampled, "persistent_tiny": pers_tiny,
               "journal_restart": journal_restart, "cli_complete": complete,
               "phases_ok": phases}

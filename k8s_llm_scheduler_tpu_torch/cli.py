@@ -1,5 +1,5 @@
 """Command line of the port: run / verify / demo / complete / journal /
-eval / sim / rollout / trace.
+eval / train / sim / rollout / trace.
 
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] run
         [--fake-cluster] [--fake-nodes N] [--device cuda|cpu]
@@ -16,6 +16,9 @@ eval / sim / rollout / trace.
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] eval
         [--checkpoint DIR] [--model NAME] [--cases N] [--scenarios]
         [--device cuda|cpu]
+    python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] train --out DIR
+        [--steps N] [--batch-size B] [--seq-len S] [--model NAME] [--lr LR]
+        [--lr-schedule constant|cosine] [--resume] [--eval] ... [--device cuda|cpu]
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] sim
         [--seed S] [--nodes N] [--pods N] [--arrival burst|poisson|waves]
         [--arms llm,stub,teacher,...] [--trace F] [--replay F]
@@ -55,6 +58,12 @@ circuit breaker, the decision client and the scheduler (JAX cli.py:106-187).
 - `journal` (JAX cli.py:1155-1196) checks, dumps or compacts a decision
   journal; `trace` (JAX cli.py:1861-2026) reads a running scheduler's
   flight recorder over its metrics port.
+- `train` (JAX cli.py:792-862) fine-tunes the decision model on the
+  heuristic teacher's pairs on one device (train/distill.train_and_save)
+  and saves a native checkpoint that `llm.checkpoint_path` serves; with
+  `--eval` it then prints the checkpoint's report card. It honours
+  `llm.tokenizer` and `llm.answer_style`; an `llm.mesh` wider than one
+  device or `distributed.enabled` raises (`check_switches`).
 - `eval` (JAX cli.py:884-908) prints the decision-quality report card
   (train/eval.py) as one JSON line; `sim` (JAX cli.py:969-1078) runs the
   seeded arena (sim/) across decision arms and records or replays its
@@ -673,6 +682,58 @@ def cmd_eval(args: argparse.Namespace, cfg: Config) -> int:
         for kind, row in report["scenarios"].items():
             print(f"{kind:<18}{row['agreement_pct']:>8}{row['chance_pct']:>9}"
                   f"{row['valid_pct']:>8}{row['n_cases']:>5}", file=sys.stderr)
+    return 0
+
+
+def cmd_train(args: argparse.Namespace, cfg: Config) -> int:
+    """Fine-tune the decision model on heuristic-teacher pairs and save a
+    native checkpoint servable via llm.checkpoint_path (train/distill.py;
+    JAX cli.py:792-862)."""
+    from k8s_llm_scheduler_tpu_torch.models.configs import get_config
+    from k8s_llm_scheduler_tpu_torch.train.distill import train_and_save
+
+    check_switches(cfg)
+    answer_style = cfg.get("llm.answer_style", "direct")
+    if answer_style != "cot" and (args.micro_frac or args.cot_weight != 1.0):
+        # these knobs only shape CoT batches; ignoring them silently would
+        # waste a long run
+        print("--micro-frac/--cot-weight require llm.answer_style: cot "
+              "(set it in the config or LLM_ANSWER_STYLE)", file=sys.stderr)
+        return 2
+    loss = train_and_save(
+        get_config(args.model),
+        out_dir=args.out,
+        steps=args.steps,
+        batch_size=args.batch_size,
+        seq_len=args.seq_len,
+        lr=args.lr,
+        tokenizer_name=cfg.get("llm.tokenizer", "byte"),
+        name_weight=args.name_weight,
+        probe_every=args.probe_every,
+        lr_schedule=args.lr_schedule,
+        easy_frac=args.easy_frac,
+        save_every=args.save_every,
+        resume=args.resume,
+        answer_style=answer_style,
+        cot_weight=args.cot_weight,
+        micro_frac=args.micro_frac,
+        prompt_lm_frac=args.prompt_lm_frac,
+        placement_frac=args.placement_frac,
+        diverse_frac=args.diverse_frac,
+        seed=args.seed,
+        registry_dir=(None if args.no_publish
+                      else args.registry or cfg.get("rollout.registry_dir", None)),
+        device=args.device,
+    )
+    print(f"final loss {loss:.4f}; checkpoint at {args.out}")
+    if args.eval:
+        from k8s_llm_scheduler_tpu_torch.train.eval import evaluate_checkpoint
+
+        report = evaluate_checkpoint(
+            args.model, args.out, n_cases=args.eval_cases,
+            backend_kwargs=_backend_kwargs(cfg, temperature=0.0, device=args.device),
+        )
+        print(json.dumps(report))
     return 0
 
 
@@ -1511,6 +1572,75 @@ def build_parser() -> argparse.ArgumentParser:
     p_eval.add_argument("--scenario-cases", type=int, default=32)
     device_flag(p_eval)
     p_eval.set_defaults(func=cmd_eval)
+
+    p_train = sub.add_parser(
+        "train", help="fine-tune the decision model; save a native checkpoint")
+    p_train.add_argument("--out", required=True, help="checkpoint output dir")
+    p_train.add_argument("--steps", type=int, default=20)
+    p_train.add_argument("--batch-size", type=int, default=4)
+    p_train.add_argument("--seq-len", type=int, default=2048)
+    p_train.add_argument(
+        "--model", default="tiny",
+        help="config name (default tiny: bootstrap distillation targets small "
+             "configs; pass llm.model sizes deliberately)")
+    p_train.add_argument("--lr", type=float, default=3e-4)
+    p_train.add_argument("--lr-schedule", default="constant",
+                         choices=("constant", "cosine"))
+    p_train.add_argument(
+        "--name-weight", type=float, default=8.0,
+        help="loss upweight on the selected_node value tokens (the one "
+             "decision-bearing span of the answer)")
+    p_train.add_argument(
+        "--cot-weight", type=float, default=1.0,
+        help="loss weight on the CoT score tokens (answer_style=cot); the argmax "
+             "digit and name always carry --name-weight")
+    p_train.add_argument(
+        "--micro-frac", type=float, default=0.0,
+        help="fraction of batch rows replaced by bare argmax drills "
+             "(answer_style=cot; train-only scaffolding)")
+    p_train.add_argument(
+        "--placement-frac", type=float, default=0.0,
+        help="fraction of cases drawn from sequential-placement rollouts (the "
+             "fold manifold eval_placement walks; train/distill.py)")
+    p_train.add_argument(
+        "--diverse-frac", type=float, default=0.0,
+        help="fraction of cases drawn from constraint scenarios (hetero SKUs, "
+             "taints, selectors, affinity) at train-disjoint seeds")
+    p_train.add_argument(
+        "--prompt-lm-frac", type=float, default=0.0,
+        help="fraction of rows trained with plain full-sequence LM loss "
+             "(induction-head pressure from the repetitive prompt text)")
+    p_train.add_argument(
+        "--probe-every", type=int, default=0,
+        help="log greedy held-out teacher agreement every N steps (0=off)")
+    p_train.add_argument(
+        "--save-every", type=int, default=0,
+        help="snapshot the checkpoint every N steps (0=only at the end)")
+    p_train.add_argument(
+        "--resume", action="store_true",
+        help="resume params from --out's latest snapshot if present")
+    p_train.add_argument(
+        "--seed", type=int, default=0,
+        help="init + data-stream seed; vary it on resumed continuations so the "
+             "stream does not replay from the start")
+    p_train.add_argument(
+        "--easy-frac", type=float, default=0.0,
+        help="fraction of curriculum (wide-margin) cases mixed into the teacher "
+             "stream (train-only; eval never draws from it)")
+    p_train.add_argument(
+        "--eval", action="store_true",
+        help="after training, report teacher agreement + placement quality for "
+             "the saved checkpoint")
+    p_train.add_argument("--eval-cases", type=int, default=64)
+    p_train.add_argument(
+        "--registry", default=None,
+        help="publish the finished checkpoint into this rollout registry "
+             "(default: rollout.registry_dir when configured)")
+    p_train.add_argument(
+        "--no-publish", action="store_true",
+        help="skip registry publication even when a registry is configured")
+    device_flag(p_train)
+    p_train.set_defaults(func=cmd_train)
 
     p_sim = sub.add_parser(
         "sim", help="cluster-twin scenario arena: seeded workloads through the "

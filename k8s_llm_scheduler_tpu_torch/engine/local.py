@@ -265,9 +265,11 @@ class LocalLLMBackend:
         )
         self._worker.start()
 
-    def _count(self, key: str) -> None:
+    def _count(self, key: str, n: int = 1) -> None:
+        # the worker thread and callers both count; get_stats reads under
+        # the same lock
         with self._calls_lock:
-            self.counters[key] += 1
+            self.counters[key] += n
 
     # ------------------------------------------------------------- backend
     def _cluster_part(self, nodes: Sequence[NodeMetrics]):
@@ -458,7 +460,7 @@ class LocalLLMBackend:
         """Install item's (prefix, grammar) group on the engine. With a
         delta-encoded prompt the snapshot prefix is pinned first, so
         set_prefix LCP-seeds from the pin and prefills only the diff."""
-        self.counters["group_installs"] += 1
+        self._count("group_installs")
         if item.pin_spec is not None and self._pin_manager is not None:
             key, pin_ids = item.pin_spec
             try:
@@ -488,23 +490,23 @@ class LocalLLMBackend:
         snapshot matters, and it applies only when the engine is idle."""
         for stale in prewarms[:-1]:
             stale.resolve(False)
-        self.counters["prewarms_dropped"] += len(prewarms) - 1
+        self._count("prewarms_dropped", len(prewarms) - 1)
         latest = prewarms[-1]
         if latest.group_key == self._current_group:
             latest.resolve(True)
             return
         if busy:
-            self.counters["prewarms_dropped"] += 1
+            self._count("prewarms_dropped")
             latest.resolve(False)
             return
         try:
             self._switch_group(latest)
         except Exception:
             logger.exception("prefix prewarm failed")
-            self.counters["prewarms_dropped"] += 1
+            self._count("prewarms_dropped")
             latest.resolve(False)
         else:
-            self.counters["prewarms_installed"] += 1
+            self._count("prewarms_installed")
             latest.resolve(True)
 
     def _submit_pack(self, batch: list[_WorkItem], packs: list[dict]) -> None:
@@ -1097,27 +1099,28 @@ def _attach_spec(
     legal token can be proposed (spec/draft.build_random_draft), a draft
     checkpoint (models/loader.restore_checkpoint's format) must already
     match. `arm="hidden"`: the draft-free hidden-transfer head
-    (spec/hidden.py), random from rng_seed + 1; `draft_checkpoint` would
-    name a trained head, whose training and format are not ported yet
-    (ROADMAP queue 1 item 10)."""
+    (spec/hidden.py): with `draft_checkpoint`, a trained head
+    (train/hidden.restore_hidden_transfer, checked against [k, d_model,
+    d_model]), else random from rng_seed + 1."""
     from k8s_llm_scheduler_tpu_torch.spec import SpeculativeDecoder
 
     if arm not in ("draft", "hidden"):
         # a typo must not silently serve the wrong pipeline
         raise ValueError(f"unknown llm.spec_arm {arm!r}")
     if arm == "hidden":
+        hidden_head = None
         if draft_checkpoint:
-            raise NotImplementedError(
-                "llm.spec_draft_checkpoint with llm.spec_arm hidden: the hidden-"
-                "transfer head's training and checkpoint format are not ported yet "
-                "(ROADMAP queue 1 item 10)"
-            )
+            from k8s_llm_scheduler_tpu_torch.train.hidden import restore_hidden_transfer
+
+            hidden_head = restore_hidden_transfer(Path(draft_checkpoint), engine.cfg, k,
+                                                  device=engine.device)
         engine.attach_spec(SpeculativeDecoder(
-            engine, arm="hidden", hidden_seed=rng_seed + 1, k=k,
+            engine, arm="hidden", hidden_head=hidden_head, hidden_seed=rng_seed + 1, k=k,
             disable_threshold=disable_threshold,
         ))
-        logger.info("speculative decoding attached: arm=hidden k=%d disable<%.2f "
-                    "(random-init)", k, disable_threshold)
+        logger.info("speculative decoding attached: arm=hidden k=%d disable<%.2f%s", k,
+                    disable_threshold,
+                    " (checkpoint)" if draft_checkpoint else " (random-init)")
         return
     from k8s_llm_scheduler_tpu_torch.spec.draft import build_random_draft
 

@@ -29,6 +29,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from k8s_llm_scheduler_tpu_torch.device import resolve_device
 from k8s_llm_scheduler_tpu_torch.models.configs import LlamaConfig
@@ -161,6 +162,25 @@ def _layer(layers: Params, i: int) -> Params:
     }
 
 
+class _MmF32(torch.autograd.Function):
+    """torch.mm(x, w, out_dtype=float32) with a derivative (the op has none):
+    the f32 output gradient is rounded to the operands' dtype and both
+    products accumulate in f32, as a bf16 matmul's backward does."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x2, w = ctx.saved_tensors
+        g = grad.to(x2.dtype)
+        grad_x = g @ w.t() if ctx.needs_input_grad[0] else None
+        grad_w = x2.t() @ g if ctx.needs_input_grad[1] else None
+        return grad_x, grad_w
+
+
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ w [K, N] with f32 accumulation AND an f32 result, from
     operands in their own dtype: casting a 128k-vocab head to f32 would be
@@ -169,7 +189,10 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         out = x2 @ w.float()
     elif x.is_cuda:
-        out = torch.mm(x2, w, out_dtype=torch.float32)
+        if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+            out = _MmF32.apply(x2, w)
+        else:
+            out = torch.mm(x2, w, out_dtype=torch.float32)
     else:
         out = x2.float() @ w.float()
     return out.reshape(*x.shape[:-1], w.shape[-1])
@@ -220,31 +243,67 @@ def _kv_stacks(cfg, B, S, dtype, device):
     )
 
 
+def _unbound_layers(layers: Params, n_layers: int) -> list[Params]:
+    """Every layer's weights, as _layer gives them, from one unbind of each
+    stack: the backward of unbind stacks the L layers' gradients once, where
+    L selects would each add a full-size zero stack."""
+    def split(w):
+        if isinstance(w, dict):
+            parts = {kk: vv.unbind(0) for kk, vv in w.items()}
+            return [{kk: p[i] for kk, p in parts.items()} for i in range(n_layers)]
+        return w.unbind(0)
+
+    cols = {k: split(layers[k]) for k in LAYER_KEYS}
+    return [{k: cols[k][i] for k in LAYER_KEYS} for i in range(n_layers)]
+
+
 # ------------------------------------------------------------------ prefill
-@torch.no_grad()
+def _prefill_layer(lp, cfg, x, positions, seq_lens, inv_freq):
+    """One layer of full-prompt prefill: (x_out, k, v)."""
+    B, S = x.shape[:2]
+    q, k, v = _qkv(lp, cfg, x, positions, inv_freq)
+    attn = causal_prefill_attention(q, k, v, seq_lens)
+    x = x + _dense(attn.reshape(B, S, -1), lp["wo"])
+    return x + _mlp(lp, cfg, x), k, v
+
+
 def forward_prefill(
     params: Params,
     cfg: LlamaConfig,
     tokens: torch.Tensor,  # [B, S] int, left-aligned, padded
     seq_lens: torch.Tensor,  # [B]
     return_logits: bool = True,  # False skips the LM head (KV-only)
+    remat: bool = False,  # recompute each layer in the backward (training)
+    return_hidden: bool = False,  # also return the final-layer residual
 ):
     """Full-prompt forward pass: (logits [B, S, V] f32 or None,
-    k_all [L, B, S, n_kv, hd], v_all)."""
+    k_all [L, B, S, n_kv, hd], v_all), and with `return_hidden` the
+    final-layer residual stream before the final norm, [B, S, D], as a
+    fourth value (hidden-transfer head training).
+
+    Differentiable in `params` where they require grad (train/train_step.py).
+    `remat=True` runs each layer under torch.utils.checkpoint, so the
+    backward recomputes a layer's activations instead of keeping all L
+    layers' live (the JAX package's jax.checkpoint of the scanned layer).
+    The KV stacks hold detached copies: they are outputs for the engine,
+    never part of a gradient. The default arguments compute what serving
+    has always computed."""
     B, S = tokens.shape
     dev = tokens.device
     inv_freq = rope_inv_freq(cfg, dev)
     positions = torch.arange(S, device=dev).expand(B, S)
     x = params["embed"][tokens]
     k_all, v_all = _kv_stacks(cfg, B, S, x.dtype, dev)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        q, k, v = _qkv(lp, cfg, x, positions, inv_freq)
-        attn = causal_prefill_attention(q, k, v, seq_lens)
-        x = x + _dense(attn.reshape(B, S, -1), lp["wo"])
-        x = x + _mlp(lp, cfg, x)
-        k_all[i], v_all[i] = k, v
+    for i, lp in enumerate(_unbound_layers(params["layers"], cfg.n_layers)):
+        if remat:
+            x, k, v = checkpoint(_prefill_layer, lp, cfg, x, positions, seq_lens,
+                                 inv_freq, use_reentrant=False)
+        else:
+            x, k, v = _prefill_layer(lp, cfg, x, positions, seq_lens, inv_freq)
+        k_all[i], v_all[i] = k.detach(), v.detach()
     logits = _logits(params, cfg, x) if return_logits else None
+    if return_hidden:
+        return logits, k_all, v_all, x
     return logits, k_all, v_all
 
 

@@ -18,7 +18,9 @@ save/restore (the port of the JAX package's models/loader.py).
   match its shape raises, naming the tensor.
 - **Native checkpoints**: `save_checkpoint` / `restore_checkpoint` keep the
   params dict in a directory as one `torch.save` file, read back with
-  `torch.load(weights_only=True)`. The JAX package's orbax directories
+  `torch.load(weights_only=True)` (`read_native`). A hidden-transfer head,
+  `{"transfer": [K, D, D]}`, is saved the same way and read back by
+  train/hidden.restore_hidden_transfer. The JAX package's orbax directories
   cannot be read here.
 
 HF -> port tensor map (Llama 3.x family, JAX loader.py:24-38):
@@ -314,6 +316,27 @@ def save_checkpoint(path: str | Path, params: Params) -> None:
         shutil.rmtree(old)
 
 
+def read_native(path: str | Path):
+    """The tree a native checkpoint dir holds, on the CPU, unchecked (the
+    model's restore below, or train/hidden.restore_hidden_transfer for a
+    hidden-transfer head, checks its shapes). A missing dir or file, or one
+    torch.load cannot read, raises CheckpointError naming it."""
+    path = Path(path).resolve()
+    if not path.is_dir():
+        raise CheckpointError(f"checkpoint dir {path} does not exist")
+    file = path / NATIVE_FILE
+    if not file.exists():
+        raise CheckpointError(
+            f"{path} is not a native checkpoint of the port (no {NATIVE_FILE}): a "
+            f"partial save, an HF safetensors dir passed to the native restore, or "
+            f"an orbax checkpoint of the JAX package, which the port cannot read"
+        )
+    try:
+        return torch.load(file, map_location="cpu", weights_only=True)
+    except Exception as exc:
+        raise CheckpointError(f"{file} cannot be read: {exc}") from exc
+
+
 def restore_checkpoint(
     path: str | Path,
     cfg: LlamaConfig,
@@ -326,19 +349,7 @@ def restore_checkpoint(
     path and the first such param."""
     dev = resolve_device(device)
     path = Path(path).resolve()
-    if not path.is_dir():
-        raise CheckpointError(f"checkpoint dir {path} does not exist")
-    file = path / NATIVE_FILE
-    if not file.exists():
-        raise CheckpointError(
-            f"{path} is not a native checkpoint of the port (no {NATIVE_FILE}): a "
-            f"partial save, an HF safetensors dir passed to the native restore, or "
-            f"an orbax checkpoint of the JAX package, which the port cannot read"
-        )
-    try:
-        tree = torch.load(file, map_location="cpu", weights_only=True)
-    except Exception as exc:
-        raise CheckpointError(f"{file} cannot be read: {exc}") from exc
+    tree = read_native(path)
     shapes = _expected_shapes(cfg)
 
     def lookup(name: str):

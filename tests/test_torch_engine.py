@@ -354,6 +354,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "k8s_llm_scheduler_tpu_torch.sim.trace, "
         "k8s_llm_scheduler_tpu_torch.train.eval, "
         "k8s_llm_scheduler_tpu_torch.train.distill, "
+        "k8s_llm_scheduler_tpu_torch.train.train_step, "
+        "k8s_llm_scheduler_tpu_torch.train.hidden, "
         "k8s_llm_scheduler_tpu_torch.cli\n"
         "bad = sorted(m for m in sys.modules"
         " if m in ('jax', 'yaml', 'safetensors', 'transformers')"

@@ -15,6 +15,7 @@ group_switch_after_s; a quiesced control runs at the wave barrier.
 
 import contextlib
 import json
+import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -353,3 +354,74 @@ def test_quiesced_control_runs_at_the_wave_barrier(side):
         assert eng.count("prefix") == 2
     finally:
         backend.close()
+
+
+class LockedWrites(dict):
+    """A counters dict that records every key written while `lock` is free."""
+
+    def __init__(self, lock, *args):
+        super().__init__(*args)
+        self.lock = lock
+        self.unlocked = []
+
+    def __setitem__(self, key, value):
+        if not self.lock.locked():
+            self.unlocked.append(key)
+        super().__setitem__(key, value)
+
+
+def test_prewarm_counters_stay_exact_under_concurrent_stats():
+    """The worker's counter writes go through the lock get_stats reads under:
+    each branch of _apply_prewarms (stale, busy, installed, failed) writes
+    under it, and prewarms dropped from several threads at once, against
+    readers of get_stats, lose no update and never run backwards."""
+    eng = FakeEngine()
+    backend = TBackend(eng, tokenizer=TByteTokenizer(), max_new_tokens=160)
+    stale = SimpleNamespace(group_key=("other",), resolve=lambda ok: None)
+    backend.counters = LockedWrites(backend._calls_lock, backend.counters)
+    side = SIDES["torch"]
+    backend._apply_prewarms([stale, stale], busy=True)
+    backend._apply_prewarms([backend._prepare_prewarm(make_nodes(side, 3))], busy=False)
+    eng.set_prefix = lambda ids: 1 / 0  # the install fails: dropped
+    backend._apply_prewarms([backend._prepare_prewarm(make_nodes(side, 4))], busy=False)
+    assert backend.counters.unlocked == []
+    assert {k: backend.counters[k] for k in ("group_installs", "prewarms_installed",
+                                             "prewarms_dropped")} == {
+        "group_installs": 2, "prewarms_installed": 1, "prewarms_dropped": 3}
+    backend.counters["prewarms_dropped"] = 0
+    writers, calls = 8, 400
+    done = threading.Event()
+    backwards = []
+
+    def hammer():
+        for _ in range(calls):
+            # two stale prewarms dropped, the latest dropped as busy
+            backend._apply_prewarms([stale, stale, stale], busy=True)
+
+    def read():
+        last = 0
+        while not done.is_set():
+            now = backend.get_stats()["backend"]["prewarms_dropped"]
+            if now < last:
+                backwards.append((last, now))
+            last = now
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=hammer) for _ in range(writers)]
+        readers = [threading.Thread(target=read) for _ in range(2)]
+        for t in threads + readers:
+            t.start()
+        for t in threads:
+            t.join(WAIT_S)
+        done.set()
+        for t in readers:
+            t.join(WAIT_S)
+        assert not any(t.is_alive() for t in threads + readers)
+    finally:
+        sys.setswitchinterval(switch)
+        done.set()
+        backend.close()
+    assert not backwards
+    assert backend.get_stats()["backend"]["prewarms_dropped"] == 3 * writers * calls

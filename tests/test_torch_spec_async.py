@@ -18,7 +18,7 @@ the port's engines with graphs=False):
 - sampled speculation (temperature 0.8, the wider-vocab draft too) emits
   legal tokens within the budget, and use_spec=False forces plain decode;
 - _attach_spec / build_local_backend(spec_enabled=...) attach each arm,
-  refuse an unknown arm and a hidden-head checkpoint (not ported).
+  refuse an unknown arm and a hidden-head checkpoint dir that holds none.
 """
 
 import time
@@ -40,6 +40,7 @@ from k8s_llm_scheduler_tpu_torch.engine.local import _attach_spec, build_local_b
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
 from k8s_llm_scheduler_tpu_torch.models.configs import LlamaConfig
 from k8s_llm_scheduler_tpu_torch.models.convert import params_from_jax
+from k8s_llm_scheduler_tpu_torch.models.loader import CheckpointError
 from k8s_llm_scheduler_tpu_torch.spec import SpeculativeDecoder
 from k8s_llm_scheduler_tpu_torch.testing import cap_torch_threads
 
@@ -297,7 +298,9 @@ def test_attach_spec_builds_each_arm_and_refuses_the_rest(weights, tmp_path):
     with pytest.raises(ValueError, match="spec_arm"):
         _attach_spec(eng, arm="hiden", draft_model="tiny", draft_checkpoint=None, k=4,
                      disable_threshold=0.3, rng_seed=0)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a trained head is read from a native checkpoint (tests/test_torch_hidden_train.py
+    # serves one); an empty directory is none
+    with pytest.raises(CheckpointError, match="not a native checkpoint"):
         _attach_spec(eng, arm="hidden", draft_model="tiny", draft_checkpoint=str(tmp_path),
                      k=4, disable_threshold=0.3, rng_seed=0)
     _attach_spec(eng, arm="hidden", draft_model="tiny", draft_checkpoint=None, k=3,
