@@ -76,9 +76,11 @@ Phases, each of which must pass:
    of 8, then one more single decision under torch.profiler, for a 32-node
    synthetic cluster (a 5,488-token prefix: the chunked prefix prefill).
    It does so twice on the same weights: with the engine's waves as CUDA
-   graphs (the default), then eagerly (graphs=False). Every decision must
+   graphs (the default), then eagerly (graphs=False) without the singles
+   before the batch (host-bound, 15-26 s each). Every decision must
    parse, name a feasible node and carry a confidence in [0, 1]; the two
-   modes must emit identical greedy tokens wave for wave and row for row,
+   modes must emit identical greedy tokens wave for wave and row for row
+   (the batch and the last single),
    launch each kernel as often per run of every step (prefix chunk, suffix
    prefill and block decode by row count R; a graph replay counts what its
    capture recorded), and in graph mode the batch must find its geometry
@@ -159,6 +161,10 @@ Phases, each of which must pass:
    in with owned=False: no second 8B engine) beside the teacher: the two
    traces byte-identical, every pod placed or counted unschedulable, K1
    launched in each run; the card's free memory after each arm.
+4f. Two backends over phase 4's engine, one after the other: the first
+   decides on the 32-node cluster, the second on 12 nodes (a group of its
+   own), then the first again: it reinstalls its group (one more group
+   install), names a feasible node and repeats its first decision.
 5. Path A: the same 8B weights quantized to int8 on the card, in an engine
    with decode_matmul="ragged", the same drive in both modes, held the
    same way; all feasible, K3 and K1 launched, K3 7 times a layer (224)
@@ -236,6 +242,27 @@ Phases, each of which must pass:
    loss or gradient norm. Prints ms a training step, acceptance, ms an
    emitted token and whether the output equals plain generate's (bf16:
    reported, not gated).
+6m. Fleet (after phase 4b), on one card, over the decision phase's 8B
+   engine through a LocalLLMBackend of its own: (a) a worker
+   child serves `llama-3.2-1b-instruct` (random, seed 0, greedy) through
+   cli._run_worker_replica (sched/replica.ReplicaServer, port 0); once it
+   listens it gets one decision and a burst of 8 (its warm-up), then
+   cli.build_stack with `distributed.replica_addrs` naming it wraps the
+   8B backend in a FanoutBackend, and Scheduler.run() binds 16 pods of 8
+   shapes on synthetic_cluster(32): every pod bound once to a feasible
+   node, no fallback, decisions routed to both replicas, K1 and K2
+   launched here and in the worker during the burst (its counts pulled
+   over the wire before and after it; the warm-up's reported apart). (b) cli._maybe_router over the 8B backend (the big arm)
+   with router.fast_model TINY and the numeric tokenizer on the card
+   (big_cold_extra_ms 1000, complexity_threshold 1): 8 fixture pods one
+   at a time, both arms' sibling prewarm off and both workers drained
+   (run_quiesced) after each decision before its launches are read; the
+   cold snapshot goes fast and fires the big arm's prewarm (its launches
+   reported apart), the pods with a priority go big; both tiers serve,
+   every decision is feasible, K1 and K2 launch in each arm. (c) `cli fleet demo
+   --json` (64 pods, 3 stub replicas: every pod bound once), `cli fleet
+   shard` and `cli fleet top --once --replicas` against the worker. The
+   worker must exit 0 on SIGINT.
 6a. Checkpoint: a TINY HF-layout safetensors checkpoint from a seed,
    written in the format's own few lines (no `safetensors` package), vocab
    widened for the builtin numeric tokenizer, loaded through
@@ -291,6 +318,24 @@ Phases, each of which must pass:
    forward recomputed, against 989 TFLOP/s) and peak GiB. Then one greedy
    decision served from the checkpoint through build_local_backend: it
    parses, names a feasible node and launches K1 and K2 (head dim 64).
+6l. Learn 1B: the learn loop at Llama-3.2-1B through cli.main in this
+   process (config defaults with `LEARN_SETTINGS` merged in, a temporary
+   working dir): train 1B's checkpoint published into a temporary
+   registry and made active (`rollout publish`, `rollout promote
+   --no-gate`); `learn mine` (1 seed, 8 nodes, 24 pods in 3 waves),
+   `learn build`, `learn run --trace T` (mine again, 4 finetune steps at 4
+   x 1,024 from the incumbent, publish, 8 weakness cases on both arms, a
+   6-node 12-pod arena gate), `learn replay T` and `learn status`; then
+   two placeholder versions made active in turn and a third published
+   under `rollout.retain: 1`. On random weights the cycle is expected to
+   reject. Fails unless the verdict agrees with its weakness scores and
+   gate checks (and with run's exit code), the candidate's parent is the
+   incumbent, the corpus lineage is the incumbent, replay is ok, retention
+   keeps exactly the newest, the active, its parent and the lineage
+   version (the incumbent, kept by its pin alone), and K1 and
+   K2 launch in `mine`, the cycle's mining, the weakness gate and the
+   arena gate. Prints each stage's seconds, the finetune's ms a step, the
+   incidents mined, both weakness scores and the gate's verdict.
 7. K3, untimed, at `K3_EDGE_CASES` (TINY's widths, N and K not whole
    tiles, M = 96 and 384, totals 0 / 1 / 64 / 65 / M), then at the seven 8B
    weight shapes, int8 pairs and bf16, x [R*24, K] for R = 4 and 8, and
@@ -355,7 +400,12 @@ PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 COLD_BYTES = 134_217_728
 DEVICE = "cuda"  # where the K3/K4 cases run
 NEG_INF = -1e30
-N_SINGLES = 4  # single decisions before the batch of 8
+N_SINGLES = 4  # single decisions before the batch of 8, in graph mode
+# Eager mode's: none. An eager 8B single is host-bound (15-26 s on an H100
+# host), and with four in each eager drive the smoke ran 1,332.9 s, past
+# its 1,200 s limit. Eager mode still decides the batch and one single
+# (the census decision), each compared with graph mode's token for token.
+N_EAGER_SINGLES = 0
 BLOCK_F = 24  # the engine's wave block width
 PATH_B_NEW_TOKENS = 64
 # K3 against its plain version: both sum exact bf16 products in f32 and
@@ -1627,7 +1677,8 @@ def _drive_modes(make_backend, nodes, pods, profiled=False, after_graphs=None) -
             with launches_by_step(backend.engine) as steps:
                 _zero_launch_counts()
                 t0 = time.perf_counter()
-                served = _serve(backend, nodes, pods, N_SINGLES, prewarm=graphs)
+                served = _serve(backend, nodes, pods,
+                                N_SINGLES if graphs else N_EAGER_SINGLES, prewarm=graphs)
                 main_s = time.perf_counter() - t0
                 launches = _launch_counts()
             stats = backend.get_stats()
@@ -1747,18 +1798,20 @@ def _mode_summary(rec, decisions) -> dict:
 
 def _modes_agree(recs, what: str) -> bool:
     """Graph mode against eager: identical greedy tokens wave for wave and
-    row for row, equal kernel launches per device run of every step, the
-    batch of 8 warm in graph mode, and no kernel launched outside a graph
-    in graph mode's profiled decision."""
+    row for row (graph mode's singles past eager's N_EAGER_SINGLES have no
+    eager counterpart), equal kernel launches per device run of every step,
+    the batch of 8 warm in graph mode, and no kernel launched outside a
+    graph in graph mode's profiled decision."""
     g, e = recs["graphs"], recs["eager"]
-    same = [w["tokens"] for w in g["waves"]] == [w["tokens"] for w in e["waves"]]
+    g_waves = g["waves"][:N_EAGER_SINGLES] + g["waves"][N_SINGLES:]
+    same = [w["tokens"] for w in g_waves] == [w["tokens"] for w in e["waves"]]
     calls = per_call(g["steps"]) == per_call(e["steps"])
     warm = g["batch_cold_compile"] == [False]
     # the profiler saw the runtime's calls (a graph launch a model call at
     # least) and no kernel launch among them
     no_eager = (g["census"]["host_kernel_launches"] == 0
                 and g["census"]["graph_launches"] >= g["census"]["model_calls"])
-    print(f"{what}: graphs vs eager tokens identical={same} ({len(g['waves'])} waves), "
+    print(f"{what}: graphs vs eager tokens identical={same} ({len(e['waves'])} waves), "
           f"launches per run equal={calls}, batch warm={warm}, "
           f"graph-mode decision launched no kernel outside a graph={no_eager}", flush=True)
     return same and calls and warm and no_eager
@@ -3436,11 +3489,12 @@ def _warm_ms(step_s) -> float:
     return 1000.0 * sum(warm) / len(warm)
 
 
-def train_1b() -> tuple[bool, dict]:
+def train_1b(out_root: Path) -> tuple[bool, dict]:
     """Llama-3.2-1B at full width and depth, bf16, random from seed 0:
     train_and_save for TRAIN_STEPS steps at 4 x 2048 on make_batches (the
-    byte tokenizer), the checkpoint restored through restore_checkpoint and
-    one greedy decision served from it. See the module doc, phase 6k."""
+    byte tokenizer) into `out_root`/ckpt (kept: the learn phase's
+    incumbent), the checkpoint restored through restore_checkpoint and one
+    greedy decision served from it. See the module doc, phase 6k."""
     import torch
 
     from k8s_llm_scheduler_tpu_torch.core.validation import feasible_nodes
@@ -3484,47 +3538,47 @@ def train_1b() -> tuple[bool, dict]:
     rec = {"model": TRAIN_MODEL, "params": n_params, "steps": TRAIN_STEPS,
            "batch": [TRAIN_BATCH, TRAIN_SEQ], "lr": TRAIN_LR, "ref_loss": ref,
            "batch_host_ms": batch_ms}
-    with tempfile.TemporaryDirectory() as d:
-        out = Path(d) / "ckpt"
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        final = train_and_save(cfg, str(out), steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
-                               seq_len=TRAIN_SEQ, lr=TRAIN_LR, seed=0, log_every=TRAIN_STEPS,
-                               device="cuda", on_step=on_step)
-        rec["train_and_save_s"] = time.perf_counter() - t0
-        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        trained = kept.pop("params")
-        for t in param_leaves(trained):
-            t.grad = None
-        t0 = time.perf_counter()
-        restored = restore_checkpoint(out, cfg, device="cuda")
-        rec["restore_s"] = time.perf_counter() - t0
-        same = all(torch.equal(a.detach(), b) for a, b in
-                   zip(param_leaves(trained), param_leaves(restored)))
-        del trained, restored
-        torch.cuda.empty_cache()
-        ms = _warm_ms(books["step_s"])
-        toks = TRAIN_BATCH * TRAIN_SEQ
-        rec.update(
-            losses=books["loss"], grad_norms=books["grad_norm"], final_loss=final,
-            step_ms=[1000.0 * s for s in books["step_s"]], ms_per_step=ms,
-            tokens_per_s=toks / (ms / 1000.0),
-            mfu=6.0 * n_params * toks * RECOMPUTE / (ms / 1000.0) / PEAK_BF16_FLOPS,
-            restored_equal=same)
+    out = Path(out_root) / "ckpt"
+    rec["checkpoint"] = str(out)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final = train_and_save(cfg, str(out), steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                           seq_len=TRAIN_SEQ, lr=TRAIN_LR, seed=0, log_every=TRAIN_STEPS,
+                           device="cuda", on_step=on_step)
+    rec["train_and_save_s"] = time.perf_counter() - t0
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    trained = kept.pop("params")
+    for t in param_leaves(trained):
+        t.grad = None
+    t0 = time.perf_counter()
+    restored = restore_checkpoint(out, cfg, device="cuda")
+    rec["restore_s"] = time.perf_counter() - t0
+    same = all(torch.equal(a.detach(), b) for a, b in
+               zip(param_leaves(trained), param_leaves(restored)))
+    del trained, restored
+    torch.cuda.empty_cache()
+    ms = _warm_ms(books["step_s"])
+    toks = TRAIN_BATCH * TRAIN_SEQ
+    rec.update(
+        losses=books["loss"], grad_norms=books["grad_norm"], final_loss=final,
+        step_ms=[1000.0 * s for s in books["step_s"]], ms_per_step=ms,
+        tokens_per_s=toks / (ms / 1000.0),
+        mfu=6.0 * n_params * toks * RECOMPUTE / (ms / 1000.0) / PEAK_BF16_FLOPS,
+        restored_equal=same)
 
-        # one greedy decision served from the restored checkpoint
-        nodes, pod = synthetic_nodes(4), fixture_pods(1)[0]
-        b = build_local_backend(TRAIN_MODEL, device="cuda", checkpoint_path=str(out),
-                                temperature=0.0, request_timeout_s=600.0,
-                                prewarm_idle_delay_s=NO_PREWARM_S)
-        try:
-            _zero_launch_counts()
-            t0 = time.perf_counter()
-            decision = b.get_scheduling_decision(pod, nodes)
-            rec["decision_s"] = time.perf_counter() - t0
-            rec["decision_launches"] = _launch_counts()
-        finally:
-            b.close()
+    # one greedy decision served from the restored checkpoint
+    nodes, pod = synthetic_nodes(4), fixture_pods(1)[0]
+    b = build_local_backend(TRAIN_MODEL, device="cuda", checkpoint_path=str(out),
+                            temperature=0.0, request_timeout_s=600.0,
+                            prewarm_idle_delay_s=NO_PREWARM_S)
+    try:
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        decision = b.get_scheduling_decision(pod, nodes)
+        rec["decision_s"] = time.perf_counter() - t0
+        rec["decision_launches"] = _launch_counts()
+    finally:
+        b.close()
     names = {n.name for n in feasible_nodes(pod, nodes)}
     rec["decision"] = decision.selected_node
     finite = all(math.isfinite(x) for x in books["loss"] + books["grad_norm"])
@@ -4588,6 +4642,35 @@ def sim_phase(backend) -> tuple[bool, dict]:
     return ok, rec
 
 
+def resident_phase(engine, nodes) -> tuple[bool, dict]:
+    """Two backends over the decision phase's engine, one after the other:
+    the first decides on the 32-node cluster, the second on SIM_NODES
+    nodes (a group of its own), then the first again: it must reinstall
+    its group (one more install) and repeat its decision (greedy)."""
+    from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend
+    from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
+
+    pod = fixture_pods(1)[0]
+    first, second = (LocalLLMBackend(engine, request_timeout_s=600.0,
+                                     prewarm_idle_delay_s=NO_PREWARM_S) for _ in range(2))
+    try:
+        t0 = time.perf_counter()
+        before = first.get_scheduling_decision(pod, nodes)
+        installs = first.get_stats()["backend"]["group_installs"]
+        second.get_scheduling_decision(pod, synthetic_nodes(SIM_NODES))
+        after = first.get_scheduling_decision(pod, nodes)
+        rec = {"s": time.perf_counter() - t0,
+               "nodes": [before.selected_node, after.selected_node],
+               "reinstalls": first.get_stats()["backend"]["group_installs"] - installs}
+    finally:
+        second.close()
+        first.close()
+    ok = (_feasible(nodes, [(pod, before), (pod, after)]) and rec["reinstalls"] == 1
+          and (before.selected_node, before.reasoning) == (after.selected_node, after.reasoning))
+    print(f"resident: {json.dumps(rec)} | {_smi()} | ok={ok}", flush=True)
+    return ok, rec
+
+
 ROLLOUT_NODES = 4
 ROLLOUT_PODS = 6  # a burst while v3 is the shadowed candidate, one after its swap
 ROLLOUT_DEADLINE_S = 300.0
@@ -4786,6 +4869,518 @@ def rollout_tiny() -> tuple[bool, dict]:
     return ok, rec
 
 
+LEARN_MODEL = TRAIN_MODEL  # the largest model the port trains on one card
+LEARN_SETTINGS = {  # small, listed: the learn 1B phase's config over the defaults
+    "llm": {"model": LEARN_MODEL, "backend": "local", "temperature": 0.0},
+    "learn": {"mine_seeds": [0], "mine_nodes": 8, "mine_pods": 24, "mine_waves": 3,
+              "steps": 4, "batch_size": 4, "seq_len": 1024, "lr": 3e-4,
+              "weakness_cases": 8, "retain": 0},
+    "rollout": {"gate": {"seed": 0, "nodes": 6, "pods": 12, "shapes": 4, "waves": 2}},
+}
+
+
+@contextlib.contextmanager
+def _cli_in(cwd: Path, settings: dict):
+    """cli.main in this process with `settings` merged into the config's
+    defaults, run from `cwd` (no config file there: a card without PyYAML
+    refuses one); both are restored after."""
+    import copy
+
+    from k8s_llm_scheduler_tpu_torch import config as config_mod
+
+    saved = copy.deepcopy(config_mod.DEFAULTS)
+    for section, values in settings.items():
+        for key, value in values.items():
+            if isinstance(value, dict):
+                config_mod.DEFAULTS[section].setdefault(key, {}).update(value)
+            else:
+                config_mod.DEFAULTS[section][key] = value
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        yield
+    finally:
+        os.chdir(here)
+        config_mod.DEFAULTS.clear()
+        config_mod.DEFAULTS.update(saved)
+
+
+def _cli_json(argv) -> tuple[int, dict]:
+    """(exit code, the last JSON object on stdout) of cli.main(argv)."""
+    import io
+
+    from k8s_llm_scheduler_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    text = buf.getvalue().strip()
+    try:
+        return rc, json.loads(text)
+    except ValueError:
+        lines = [line for line in text.splitlines() if line.startswith("{")]
+        return rc, (json.loads(lines[-1]) if lines else {"stdout": text[-2000:]})
+
+
+def learn_1b(incumbent_ckpt: str) -> tuple[bool, dict]:
+    """The learn loop at Llama-3.2-1B through `cli.main` in this process:
+    the train 1B checkpoint published into a temporary registry and made
+    active, then `learn mine`, `build`, `run --trace T`, `replay T` and
+    `status`, and `rollout publish` under `rollout.retain: 1`. See the
+    module doc, phase 6l."""
+    import torch
+
+    from k8s_llm_scheduler_tpu_torch.learn import loop as loop_mod
+    from k8s_llm_scheduler_tpu_torch.rollout import CheckpointRegistry
+    from k8s_llm_scheduler_tpu_torch.train import train_step
+
+    rec: dict = {"model": LEARN_MODEL, "settings": LEARN_SETTINGS, "stages_s": {},
+                 "launches": {}}
+    stage_launches: dict[str, dict] = {}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            before = _launch_counts()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                total = stage_launches.setdefault(name, {"K1": 0, "K2": 0})
+                for k in total:
+                    total[k] += _launch_counts()[k] - before[k]
+        return wrapper
+
+    step_ms: list[float] = []
+    make_step = train_step.make_train_step
+
+    def timed_make_train_step(*args, **kwargs):
+        init_fn, step_fn = make_step(*args, **kwargs)
+
+        def timed_step(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(*a, **kw)
+            torch.cuda.synchronize()
+            step_ms.append(1000.0 * (time.perf_counter() - t0))
+            return out
+
+        timed_step.place_batch = step_fn.place_batch
+        return init_fn, timed_step
+
+    with tempfile.TemporaryDirectory() as d:
+        root = Path(d)
+        settings = json.loads(json.dumps(LEARN_SETTINGS))
+        settings["learn"]["corpus_dir"] = str(root / "corpus")
+        settings["rollout"]["registry_dir"] = str(root / "registry")
+        trace = root / "learn.trace"
+        patches = [(loop_mod.LearnLoop, "mine_sources"), (loop_mod, "weakness_report"),
+                   (loop_mod.LearnLoop, "_gate"), (train_step, "make_train_step")]
+        saved = [getattr(obj, name) for obj, name in patches]
+        loop_mod.LearnLoop.mine_sources = counted("cycle_mine", saved[0])
+        loop_mod.weakness_report = counted("weakness", saved[1])
+        loop_mod.LearnLoop._gate = counted("gate_total", saved[2])
+        train_step.make_train_step = timed_make_train_step
+        try:
+            with _cli_in(root, settings):
+                def stage(name, argv):
+                    _zero_launch_counts()
+                    t0 = time.perf_counter()
+                    out = _cli_json(argv)
+                    rec["stages_s"][name] = time.perf_counter() - t0
+                    rec["launches"][name] = _launch_counts()
+                    return out
+
+                rc_pub, pub = stage("publish", ["rollout", "publish", "--checkpoint",
+                                                incumbent_ckpt, "--model", LEARN_MODEL])
+                rc_act, _ = stage("activate", ["rollout", "promote", "--version",
+                                               str(pub.get("version")), "--no-gate"])
+                rc_mine, mine = stage("mine", ["learn", "mine", "--note", "smoke", "--device",
+                                                  "cuda"])
+                rc_build, build = stage("build", ["learn", "build"])
+                rc_run, run = stage("run", ["learn", "run", "--trace", str(trace),
+                                            "--work-dir", str(root / "work"), "--device",
+                                            "cuda"])
+                rc_replay, replay = stage("replay", ["learn", "replay", str(trace)])
+                rc_status, status = stage("status", ["learn", "status"])
+                registry = CheckpointRegistry(root / "registry")
+                incumbent = pub.get("version")
+                candidate = run.get("candidate_version")
+                manifest = registry.get(candidate) if candidate is not None else None
+                # retention: two placeholder versions published and made
+                # active in turn, then a third published under
+                # rollout.retain 1. Only the corpus lineage pin keeps the
+                # incumbent (neither newest, active nor the active's
+                # parent); the cycle's candidate goes, whatever its verdict
+                spare = root / "spare"
+                spare.mkdir()
+                (spare / "placeholder.bin").write_bytes(b"retention check")
+                spares = []
+                for i in range(2):
+                    _, v = stage(f"publish_spare{i}", ["rollout", "publish", "--checkpoint",
+                                                       str(spare), "--model", LEARN_MODEL])
+                    stage(f"activate_spare{i}", ["rollout", "promote", "--version",
+                                                 str(v.get("version")), "--no-gate"])
+                    spares.append(v.get("version"))
+            with _cli_in(root, {**settings, "rollout": {**settings["rollout"], "retain": 1}}):
+                rc_retain, last = _cli_json(["rollout", "publish", "--checkpoint", str(spare),
+                                             "--model", LEARN_MODEL])
+            kept = CheckpointRegistry(root / "registry").versions()
+        finally:
+            for (obj, name), fn in zip(patches, saved):
+                setattr(obj, name, fn)
+    gate_only = {k: stage_launches.get("gate_total", {}).get(k, 0)
+                 - stage_launches.get("weakness", {}).get(k, 0) for k in ("K1", "K2")}
+    rec["launches"].update(cycle_mine=stage_launches.get("cycle_mine"),
+                           weakness_gate=stage_launches.get("weakness"), arena_gate=gate_only)
+    weak_inc, weak_cand = run.get("weakness_incumbent"), run.get("weakness_candidate")
+    action = run.get("action")
+    scores = (manifest.scores.get("learn_gate", {}) if manifest is not None else {})
+    weakness_pass = scores.get("weakness", {}).get("pass")
+    base = scores.get("base", {})
+    rec.update(
+        incumbent_version=incumbent, candidate_version=candidate, action=action,
+        incidents_mined=mine.get("n_incidents"), cycle_corpus=run.get("corpus_version"),
+        per_class=mine.get("per_class"), build=build, weakness_incumbent=weak_inc,
+        weakness_candidate=weak_cand, gate_pass=run.get("gate_pass"),
+        gate_checks=base.get("checks"), train_loss=run.get("train_loss"),
+        finetune_ms_per_step=(statistics.mean(step_ms[1:] or step_ms) if step_ms else None),
+        finetune_step_ms=step_ms, replay=replay, lineage=status.get("lineage_versions"),
+        registry_active=status.get("registry_active"), kept_after_retain=kept,
+        parent=manifest.parent if manifest is not None else None)
+    consistent = (
+        weak_inc is not None and weak_cand is not None
+        and weakness_pass == (weak_cand > weak_inc + LEARN_SETTINGS["learn"].get(
+            "weakness_margin", 0.0))
+        and base.get("pass") == all((base.get("checks") or {"": False}).values())
+        and base.get("pass") == run.get("gate_pass")
+        and action == ("promoted" if weakness_pass and base.get("pass") else "rejected")
+        and rc_run == (0 if action == "promoted" else 1)
+        and scores.get("action") == action)
+    checks = {
+        "cli": (rc_pub, rc_act, rc_mine, rc_build, rc_replay, rc_status, rc_retain)
+               == (0,) * 7,
+        "mined": (mine.get("n_incidents") or 0) > 0
+                 and mine.get("checkpoint_version") == incumbent,
+        "verdict_consistent": consistent,
+        "lineage": rec["parent"] == incumbent and rec["lineage"] == [incumbent],
+        "replay_identical": replay.get("ok") is True,
+        "retain_keeps_lineage": kept == sorted([incumbent, *spares, last.get("version")]),
+        "finetune_ran": len(step_ms) == LEARN_SETTINGS["learn"]["steps"]
+                        and math.isfinite(run.get("train_loss") or float("nan")),
+        "launches": all((rec["launches"][k] or {}).get(x, 0) > 0
+                        for k in ("mine", "cycle_mine", "weakness_gate", "arena_gate")
+                        for x in ("K1", "K2")),
+    }
+    rec["checks"] = checks
+    ok = all(checks.values())
+    print(f"learn 1B: {LEARN_MODEL}, incumbent v{incumbent} (train 1B's checkpoint); "
+          f"mine: {mine.get('n_incidents')} incidents {mine.get('per_class')}; cycle: "
+          f"{action} candidate v{candidate} (parent {rec['parent']}), weakness "
+          f"{weak_inc} -> {weak_cand}, arena gate {run.get('gate_pass')} "
+          f"{base.get('checks')}, train loss {run.get('train_loss')}, finetune "
+          f"{rec['finetune_ms_per_step']} ms a step ({len(step_ms)} steps of "
+          f"{LEARN_SETTINGS['learn']['batch_size']} x {LEARN_SETTINGS['learn']['seq_len']}); "
+          f"replay {replay.get('ok')}; kept after retain 1: {kept}; stages s "
+          f"{ {k: round(v, 1) for k, v in rec['stages_s'].items()} }; launches "
+          f"{rec['launches']} | {_smi()} | checks {checks} ok={ok}", flush=True)
+    return ok, rec
+
+
+FLEET_WORKER_MODEL = TRAIN_MODEL
+FLEET_NODES = 32  # the decision phase's cluster
+FLEET_PODS = 16
+FLEET_SHAPES = 8
+FLEET_DEADLINE_S = 300.0
+FLEET_WORKER_START_S = 300.0
+FLEET_ROUTER = {"enabled": True, "big_cold_extra_ms": 1000.0, "complexity_threshold": 1}
+FLEET_ROUTER_PODS = 8
+
+FLEET_WORKER = r"""
+import sys
+from k8s_llm_scheduler_tpu_torch import cli
+from k8s_llm_scheduler_tpu_torch import config as config_mod
+from k8s_llm_scheduler_tpu_torch.engine import local as local_mod
+from k8s_llm_scheduler_tpu_torch.ops import prefix_attention as pa
+
+get_stats = local_mod.LocalLLMBackend.get_stats
+
+def counted_stats(self):
+    out = get_stats(self)
+    out["kernel_launches"] = {"K1": pa.flash_prefix_attention_parts.launches,
+                              "K2": pa.flash_causal_attention_parts.launches}
+    return out
+
+local_mod.LocalLLMBackend.get_stats = counted_stats
+config_mod.DEFAULTS["llm"].update(model=sys.argv[1], temperature=0.0)
+config_mod.DEFAULTS["distributed"].update(replica_port=0, replica_bind_host="127.0.0.1")
+pa.reset_launch_counts()
+sys.exit(cli._run_worker_replica(cli.load_config(), device="cuda"))
+"""
+
+
+def _start_worker(cwd: Path):
+    """The worker child and its port, read from the line it prints once it
+    listens (deadline FLEET_WORKER_START_S)."""
+    import queue
+
+    proc = subprocess.Popen([sys.executable, "-c", FLEET_WORKER, FLEET_WORKER_MODEL],
+                            cwd=cwd, env=_child_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
+    err: list[str] = []
+    threading.Thread(target=lambda: err.extend(proc.stderr), daemon=True).start()
+    end = time.perf_counter() + FLEET_WORKER_START_S
+    while time.perf_counter() < end and proc.poll() is None:
+        try:
+            line = lines.get(timeout=1.0)
+        except queue.Empty:
+            continue
+        if "serving decisions on :" in line:
+            return proc, int(line.rsplit(":", 1)[1]), err
+    return proc, None, err
+
+
+def _stop_worker(proc) -> int | None:
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    return proc.returncode
+
+
+def _fleet_fanout(backend, port) -> tuple[bool, dict]:
+    """(a) A burst through cli.build_stack with distributed.replica_addrs
+    naming the worker: FanoutBackend over the phase's 8B backend and the
+    worker's ReplicaClient, under Scheduler.run() over synthetic_cluster."""
+    import asyncio
+    from concurrent.futures import ThreadPoolExecutor
+
+    from k8s_llm_scheduler_tpu_torch.cli import build_stack, run_until_bound
+    from k8s_llm_scheduler_tpu_torch.cluster.interface import raw_pod_to_spec
+    from k8s_llm_scheduler_tpu_torch.core.validation import feasible_nodes
+    from k8s_llm_scheduler_tpu_torch.sched.replica import ReplicaClient
+    from k8s_llm_scheduler_tpu_torch.testing import (
+        fixture_pods,
+        pod_burst,
+        synthetic_cluster,
+        synthetic_nodes,
+    )
+
+    # the worker's warm-up, ahead of the burst: one decision, then a wave
+    warm = ReplicaClient("127.0.0.1", port, request_timeout_s=FLEET_DEADLINE_S)
+    try:
+        nodes = synthetic_nodes(FLEET_NODES)
+        t0 = time.perf_counter()
+        warm.get_scheduling_decision(fixture_pods(1)[0], nodes)
+        first_s = time.perf_counter() - t0
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            list(pool.map(lambda p: warm.get_scheduling_decision(p, nodes), fixture_pods(8)))
+        warm_s = time.perf_counter() - t0
+    finally:
+        warm.close()
+    cfg = _default_config()
+    cfg.data["distributed"]["replica_addrs"] = [f"127.0.0.1:{port}"]
+    cfg.data["llm"]["timeout"] = FLEET_DEADLINE_S
+    cluster = synthetic_cluster(FLEET_NODES)
+    pods = pod_burst(FLEET_PODS, distinct_shapes=FLEET_SHAPES)
+    for pod in pods:
+        cluster.add_pod(pod)
+    binds: dict[str, int] = {}
+    bind = cluster.bind_pod_to_node
+
+    def counted_bind(name, namespace, node):
+        ok = bind(name, namespace, node)
+        if ok:
+            binds[name] = binds.get(name, 0) + 1
+        return ok
+
+    cluster.bind_pod_to_node = counted_bind
+    snapshot = cluster.get_node_metrics()
+    scheduler, fan = build_stack(cfg, cluster, backend=backend)
+    worker = fan.replicas[1]
+    try:
+        # the worker's counts run from its start: the burst's are the
+        # difference of two pulls around it, its warm-up's the first pull
+        warm_launches = _worker_launches(worker)
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        all_bound = asyncio.run(run_until_bound(scheduler, cluster, len(pods),
+                                                FLEET_DEADLINE_S))
+        run_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        after = _worker_launches(worker)
+        fan_stats = fan.get_stats()
+    finally:
+        del cluster.bind_pod_to_node
+        for client in fan.replicas[1:]:  # the phase closes the 8B backend
+            client.close()
+    worker_launches = {k: after[k] - warm_launches[k] for k in ("K1", "K2")}
+    stats = scheduler.get_stats()
+    placed = {p.name: cluster.get_pod(p.namespace, p.name).node_name for p in pods}
+    feasible = all(placed[p.name] in {n.name for n in feasible_nodes(raw_pod_to_spec(p),
+                                                                     snapshot)}
+                   for p in pods)
+    routed = fan_stats["fanout_routed"]
+    rec = {"backend": type(fan).__name__, "pods": len(pods), "all_bound": all_bound,
+           "binds_per_pod": sorted(set(binds.values())), "feasible": feasible,
+           "routed": routed, "ema_ms": fan_stats["fanout_ema_ms"],
+           "llm_decisions": stats["llm_decisions"],
+           "fallbacks": stats["client"]["fallback_decisions"] + stats["fallback_decisions"],
+           "run_s": run_s, "worker_first_s": first_s, "worker_warm_s": warm_s,
+           "coordinator_launches": launches, "worker_launches": worker_launches,
+           "worker_warm_launches": warm_launches}
+    ok = (rec["backend"] == "FanoutBackend" and all_bound and feasible
+          and rec["binds_per_pod"] == [1] and len(binds) == len(pods)
+          and rec["fallbacks"] == 0 and all(r > 0 for r in routed)
+          and launches["K1"] > 0 and launches["K2"] > 0
+          and worker_launches["K1"] > 0 and worker_launches["K2"] > 0)
+    return ok, rec
+
+
+def _worker_launches(client) -> dict:
+    """The worker's K1/K2 launch counts since it started, from its stats."""
+    counts = client.telemetry_pull(timeout_s=60.0)["stats"]["kernel_launches"]
+    return {k: counts[k] for k in ("K1", "K2")}
+
+
+def _fleet_router(backend) -> tuple[bool, dict]:
+    """(b) cli._maybe_router over the phase's 8B backend: the fast arm is
+    router.fast_model (TINY) with router.fast_tokenizer (numeric) on the
+    card; a cold snapshot goes fast and fires the big arm's prewarm, a pod
+    with a priority goes big. Decisions one at a time with both arms'
+    sibling prewarm off; after each, both workers are drained through
+    run_quiesced before the K1/K2 counts are read, so a decision's launches
+    are its arm's (the cold one's also hold the big arm's prewarm)."""
+    from k8s_llm_scheduler_tpu_torch.cli import _maybe_router
+    from k8s_llm_scheduler_tpu_torch.core.validation import feasible_nodes
+    from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
+    from k8s_llm_scheduler_tpu_torch.types import DecisionSource
+
+    cfg = _default_config()
+    cfg.data["router"].update(FLEET_ROUTER)
+    cfg.data["llm"]["temperature"] = 0.0
+    routed = _maybe_router(backend, cfg, "cuda")
+    arms = (routed.big, routed.fast)
+    routed.fast.prewarm_idle_delay_s = NO_PREWARM_S  # the big arm's is already
+    nodes = synthetic_nodes(FLEET_NODES)
+    decisions = []
+    try:
+        t0 = time.perf_counter()
+        for pod in fixture_pods(FLEET_ROUTER_PODS):
+            before = routed.get_stats()["router"]
+            _zero_launch_counts()
+            t1 = time.perf_counter()
+            d = routed.get_scheduling_decision(pod, nodes)
+            decide_s = time.perf_counter() - t1
+            for arm in arms:
+                arm.run_quiesced(lambda: None, FLEET_DEADLINE_S)
+            launches = _launch_counts()
+            after = routed.get_stats()["router"]
+            reason = next(r for r, n in after["route_reasons"].items()
+                          if n > before["route_reasons"].get(r, 0))
+            names = {n.name for n in feasible_nodes(pod, nodes)}
+            decisions.append({
+                "pod": pod.name, "reason": reason, "s": decide_s,
+                "arm": "big" if after["routed_big"] > before["routed_big"] else "fast",
+                "node": d.selected_node, "launches": {k: launches[k] for k in ("K1", "K2")},
+                "feasible": d.selected_node in names and d.source == DecisionSource.LLM})
+        run_s = time.perf_counter() - t0
+        stats = routed.get_stats()["router"]
+    finally:
+        routed.fast.close()  # the phase closes the 8B arm
+    arm_launches = {
+        arm: {k: sum(x["launches"][k] for x in decisions
+                     if x["arm"] == arm and x["reason"] != "cold_snapshot")
+              for k in ("K1", "K2")}
+        for arm in ("big", "fast")}
+    cold = [x["launches"] for x in decisions if x["reason"] == "cold_snapshot"]
+    rec = {"fast_model": cfg.get("router.fast_model"),
+           "fast_tokenizer": cfg.get("router.fast_tokenizer"), "router": stats,
+           "decisions": decisions, "arm_launches": arm_launches,
+           "cold_launches": cold, "run_s": run_s}
+    ok = (stats["routed_big"] > 0 and stats["routed_fast"] > 0 and stats["cold_prewarms"] > 0
+          and stats["failovers"] == 0 and all(x["feasible"] for x in decisions)
+          and all(arm_launches[a][k] > 0 for a in arm_launches for k in ("K1", "K2")))
+    return ok, rec
+
+
+def _fleet_cli(port, cwd: Path) -> tuple[bool, dict]:
+    """(c) `cli fleet demo --json`, `cli fleet shard` and `cli fleet top
+    --once --replicas` against the worker, through cli.main here."""
+    import io
+
+    from k8s_llm_scheduler_tpu_torch import cli
+    from k8s_llm_scheduler_tpu_torch.sched.replica import ReplicaClient
+
+    with _cli_in(cwd, {}):
+        rc_demo, demo = _cli_json(["fleet", "demo", "--json", "--pods", "64", "--nodes",
+                                   "12", "--shapes", "16", "--replicas", "3"])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_shard = cli.main(["fleet", "shard", "default/web-1"])
+            shard = buf.getvalue().strip()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_top = cli.main(["fleet", "top", "--once", "--replicas", f"127.0.0.1:{port}"])
+            top = buf.getvalue()
+    client = ReplicaClient("127.0.0.1", port, request_timeout_s=60.0)
+    try:
+        worker_stats = client.telemetry_pull(timeout_s=60.0)["stats"]
+    finally:
+        client.close()
+    rec = {"demo": {k: demo.get(k) for k in ("total_scheduled", "bind_count", "n_shards",
+                                             "n_replicas", "fenced_binds", "wall_s")},
+           "shard": shard, "top": top[-1500:],
+           "worker_completed": worker_stats.get("completed")}
+    ok = (rc_demo == rc_shard == rc_top == 0 and demo.get("total_scheduled") == 64
+          and demo.get("bind_count") == 64 and demo.get("fenced_binds") == 0
+          and shard.isdigit() and f"127.0.0.1:{port}" in top)
+    return ok, rec
+
+
+def fleet_phase(engine) -> tuple[bool, dict]:
+    """Fleet and replicas on one card: (a) the fan-out to a worker child
+    serving Llama-3.2-1B through cli._run_worker_replica, (b) the router
+    with the 8B as its big arm, (c) `cli fleet demo|shard|top`. The 8B
+    arm is a LocalLLMBackend of its own over the decision phase's engine
+    (no second copy of the weights), as the loop and sim phases use one.
+    See the module doc, phase 6m."""
+    from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend
+
+    rec: dict = {"worker_model": FLEET_WORKER_MODEL}
+    backend = LocalLLMBackend(engine, request_timeout_s=600.0,
+                              prewarm_idle_delay_s=NO_PREWARM_S)
+    with tempfile.TemporaryDirectory() as d:
+        cwd = Path(d)
+        t0 = time.perf_counter()
+        proc, port, err = _start_worker(cwd)
+        rec["worker_start_s"] = time.perf_counter() - t0
+        try:
+            if port is None:
+                raise RuntimeError("fleet: the worker never listened\n"
+                                   + "".join(err)[-4000:])
+            a_ok, rec["fanout"] = _fleet_fanout(backend, port)
+            b_ok, rec["router"] = _fleet_router(backend)
+            c_ok, rec["cli"] = _fleet_cli(port, cwd)
+        finally:
+            rec["worker_rc"] = _stop_worker(proc)
+            backend.close()
+    rec["checks"] = {"fanout": a_ok, "router": b_ok, "cli": c_ok,
+                     "worker_exit": rec["worker_rc"] == 0}
+    ok = all(rec["checks"].values())
+    if not ok:
+        print("".join(err)[-4000:], file=sys.stderr, flush=True)
+    print(f"fleet: worker {FLEET_WORKER_MODEL} up in {rec['worker_start_s']:.1f} s; "
+          f"fan-out {json.dumps(rec['fanout'])}; router {json.dumps(rec['router'])}; cli "
+          f"{json.dumps({k: v for k, v in rec['cli'].items() if k != 'top'})}; worker exit "
+          f"{rec['worker_rc']} | {_smi()} | checks {rec['checks']} ok={ok}", flush=True)
+    print(rec["cli"]["top"], flush=True)
+    return ok, rec
+
+
 def _timed_phase(name, fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -4838,8 +5433,10 @@ def main() -> int:
         adm_ok, adm = _timed_phase("admission", admission_phase, backend.engine, nodes, pods,
                                    dec["batch_tokens"])
         l_ok, loop = _timed_phase("loop", loop_phase, backend.engine)
+        fl_ok, fleet = _timed_phase("fleet", fleet_phase, backend.engine)
         c_ok, demo = _timed_phase("cli demo", demo_phase)
         sim_ok, simrec = _timed_phase("sim", sim_phase, backend)
+        rs_ok, resident = _timed_phase("resident", resident_phase, backend.engine, nodes)
         a_ok, path_a, totals = _timed_phase("path A", path_a_phase, backend, nodes, pods)
         torch.cuda.empty_cache()
         b_ok, path_b, k4_cases = _timed_phase("path B", path_b_phase, backend, nodes, pods)
@@ -4863,7 +5460,9 @@ def main() -> int:
     jr_ok, journal_restart = _timed_phase("journal restart", journal_restart_phase)
     ro_ok, rollout = _timed_phase("rollout TINY", rollout_tiny)
     cc_ok, complete = _timed_phase("cli complete", finish_complete, complete_child)
-    tr_ok, train = _timed_phase("train 1B", train_1b)
+    with tempfile.TemporaryDirectory() as train_dir:
+        tr_ok, train = _timed_phase("train 1B", train_1b, Path(train_dir))
+        ln_ok, learn = _timed_phase("learn 1B", learn_1b, train["checkpoint"])
     k3_ok, k3 = _timed_phase("K3", k3_phase, cfg, totals)
     k4_ok, k4 = _timed_phase("K4", k4_phase, k4_cases, long_cases=[k4_long_case()])
 
@@ -4915,6 +5514,12 @@ def main() -> int:
                   spec_launches=spec["k1_spec_launches"],
                   hidden_8b_launches=hidden["serve"]["launches"]["K1"],
                   train_1b_decision_launches=train["decision_launches"]["K1"],
+                  learn_launches={k: (v or {}).get("K1") for k, v in learn["launches"].items()
+                                  if k in ("mine", "cycle_mine", "weakness_gate", "arena_gate")},
+                  fleet_launches={"coordinator": fleet["fanout"]["coordinator_launches"]["K1"],
+                                  "worker": fleet["fanout"]["worker_launches"]["K1"],
+                                  "router_big": fleet["router"]["arm_launches"]["big"]["K1"],
+                                  "router_fast": fleet["router"]["arm_launches"]["fast"]["K1"]},
                   spec_verify={r["shape"]: {k: r.get(k) for k in (
                       "ms", "ms_hot", "plain_ms", "bound_ms", "library_ms", "bound_share")}
                       for r in spec["k1_cases"]},
@@ -4930,7 +5535,13 @@ def main() -> int:
                   run_launches=(run["launches"] or {}).get("K2"),
                   complete_launches=(complete.get("launches") or {}).get("K2"),
                   persistent_launches=(pers8.get("launches") or {}).get("K2"),
-                  train_1b_decision_launches=train["decision_launches"]["K2"]),
+                  train_1b_decision_launches=train["decision_launches"]["K2"],
+                  learn_launches={k: (v or {}).get("K2") for k, v in learn["launches"].items()
+                                  if k in ("mine", "cycle_mine", "weakness_gate", "arena_gate")},
+                  fleet_launches={"coordinator": fleet["fanout"]["coordinator_launches"]["K2"],
+                                  "worker": fleet["fanout"]["worker_launches"]["K2"],
+                                  "router_big": fleet["router"]["arm_launches"]["big"]["K2"],
+                                  "router_fast": fleet["router"]["arm_launches"]["fast"]["K2"]}),
             entry("ragged_matmul", k3,
                   "k8s_llm_scheduler_tpu_torch/csrc/ragged_matmul.cu",
                   "k8s_llm_scheduler_tpu/ops/ragged_matmul.py:108",
@@ -4950,19 +5561,19 @@ def main() -> int:
     }
     phases = {"cli_verify": v_ok, "cli_run": run_ok, "kernels": k_ok, "reference": r_ok,
               "decision": d_ok, "swap_8b": sw_ok, "admission": adm_ok, "loop": l_ok,
-              "cli_demo": c_ok, "sim": sim_ok,
+              "cli_demo": c_ok, "sim": sim_ok, "resident": rs_ok,
               "path_a": a_ok, "path_b": b_ok, "fused": f_ok, "persistent_8b": p8_ok,
-              "spec": sp_ok, "hidden_8b": h8_ok,
+              "spec": sp_ok, "hidden_8b": h8_ok, "fleet": fl_ok,
               "checkpoint": ck_ok, "sampled": s_ok, "persistent_tiny": pt_ok,
               "journal_restart": jr_ok, "rollout_tiny": ro_ok, "cli_complete": cc_ok,
-              "train_1b": tr_ok,
+              "train_1b": tr_ok, "learn_1b": ln_ok,
               "k3": k3_ok, "k4": k4_ok}
     record = {"device": kind, "smi": smi, "build_s": build_s, "kernels": line,
               "cli_verify": verify, "cli_run": run, "reference": ref, "decision": dec,
               "swap_8b": swap, "admission": adm, "loop": loop, "cli_demo": demo,
-              "sim": simrec, "rollout_tiny": rollout, "path_a": path_a,
+              "sim": simrec, "resident": resident, "rollout_tiny": rollout, "path_a": path_a,
               "path_b": path_b, "fused": fused, "persistent_8b": pers8, "spec": spec,
-              "hidden_8b": hidden, "train_1b": train,
+              "hidden_8b": hidden, "train_1b": train, "fleet": fleet, "learn_1b": learn,
               "checkpoint": ckpt, "sampled": sampled, "persistent_tiny": pers_tiny,
               "journal_restart": journal_restart, "cli_complete": complete,
               "phases_ok": phases}

@@ -1,5 +1,5 @@
 """Command line of the port: run / verify / demo / complete / journal /
-eval / train / sim / rollout / trace.
+eval / train / sim / rollout / learn / fleet / trace.
 
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] run
         [--fake-cluster] [--fake-nodes N] [--device cuda|cpu]
@@ -25,6 +25,11 @@ eval / train / sim / rollout / trace.
         [--device cuda|cpu]
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] rollout
         publish|status|fsck|rollback|promote|watch [--registry DIR] ...
+    python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] learn
+        mine|build|status|run|replay [--corpus DIR] [--registry DIR] ...
+        [--device cuda|cpu]
+    python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] fleet
+        demo|shard POD|top [--replicas ...] ...
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] trace
         list|show ID|tail|export [--host H] [--port P]
 
@@ -75,6 +80,21 @@ circuit breaker, the decision client and the scheduler (JAX cli.py:106-187).
   (rollout/). A swap copies the new weights into the serving tensors in
   place (engine.swap_params): the engine's captured CUDA graphs and K3's
   tensor maps hold the weights' addresses.
+- `learn` (JAX cli.py:1606-1858) mines loss incidents of the serving
+  policy into a versioned corpus, prints its curriculum, runs one whole
+  cycle (learn/loop.LearnLoop: mine, finetune on `--device`, publish, the
+  weakness and arena gates, promote) and replays its trace.
+- `fleet` (JAX cli.py:2029-2417): `demo` runs a sharded fleet of stub
+  replicas with leases over a fake cluster, `shard` maps a pod to its
+  shard, `top` renders the merged telemetry of live replica servers.
+  `kvplane` waits for ROADMAP queue 1 item 9b, `autoscale` for 10c.
+
+`build_stack` wraps the backend as the JAX `_build_stack` does
+(JAX cli.py:534-688): the fan-out over `distributed.replica_addrs`
+(sched/replica.FanoutBackend), the prefill/decode pools of `fleet.*`
+(fleet/pools.DisaggregatedBackend) and the decision router of `router.*`
+(sched/router.RoutedBackend, its fast arm on `--device`), outermost.
+`_run_worker_replica` serves a backend to such a coordinator.
 
 `--device` is the port's own flag: the model runs on "cuda" (the default;
 it raises without a GPU) unless "cpu" is asked for. The switches of paths
@@ -109,9 +129,7 @@ DEMO_DEADLINE_S = 600.0  # the demo gives up (exit 1) if pods are unbound by the
 # Config switches whose paths are not ported yet, with the ROADMAP queue 1
 # item each waits for. Setting one raises before any model is built.
 UNPORTED_SWITCHES = (
-    ("distributed.enabled", "multi-host serving", 9),
-    ("distributed.replica_addrs", "replica fan-out", 9),
-    ("router.enabled", "the decision router", 9),
+    ("distributed.enabled", "multi-host serving", "9c"),
 )
 
 
@@ -128,14 +146,7 @@ def check_switches(cfg: Config) -> None:
     if wide:
         raise NotImplementedError(
             f"llm.mesh {wide}: the port serves on one device, tp 1 "
-            f"(tensor parallel: ROADMAP queue 1 item 9)"
-        )
-    if cfg.get("fleet.enabled", False) and (
-        cfg.get("fleet.prefill_addrs", None) or cfg.get("fleet.decode_addrs", None)
-    ):
-        raise NotImplementedError(
-            "fleet.prefill_addrs / fleet.decode_addrs: disaggregated pools "
-            "are not ported yet (ROADMAP queue 1 item 9)"
+            f"(tensor parallel: ROADMAP queue 1 item 9c)"
         )
 
 
@@ -187,13 +198,18 @@ def _backend_kwargs(cfg: Config, **overrides) -> dict:
 
 
 def build_stack(cfg: Config, cluster, *, backend=None, device: str = "cuda",
-                snapshot_ttl_s: float = 1.0, **backend_overrides):
+                snapshot_ttl_s: float = 1.0, wrap: bool = True, **backend_overrides):
     """(scheduler, backend) from `cfg` over `cluster` (its own binder), as
     the JAX package's `_build_stack` wires them: the backend (`backend`, or
-    the stub with `llm.backend: stub`, or build_local_backend on `device`),
-    the decision cache and the circuit breaker where enabled, the client
-    with its deadline ladder, and the scheduler. Unported switches raise
-    first (check_switches). The client is `scheduler.client`."""
+    the stub with `llm.backend: stub`, or build_local_backend on `device`)
+    wrapped, in the JAX order, in the replica fan-out
+    (`distributed.replica_addrs`), the disaggregated pools (`fleet.*`) and
+    the decision router outermost (`router.*`); then the decision cache and
+    the circuit breaker where enabled, the client with its deadline ladder,
+    and the scheduler. `wrap=False` leaves the fleet and router switches
+    unread, as the JAX rollout watch does: its client serves `backend`
+    itself. Unported switches raise first (check_switches). The client is
+    `scheduler.client`; the backend returned is the outermost wrapper."""
     from k8s_llm_scheduler_tpu_torch.core.breaker import CircuitBreaker
     from k8s_llm_scheduler_tpu_torch.core.cache import DecisionCache
     from k8s_llm_scheduler_tpu_torch.sched.client import DecisionClient
@@ -210,6 +226,19 @@ def build_stack(cfg: Config, cluster, *, backend=None, device: str = "cuda",
 
             backend = build_local_backend(
                 **_backend_kwargs(cfg, device=device, **backend_overrides))
+    if wrap:
+        # Coordinator fan-out across worker replicas (sched/replica.py).
+        # Sits below the cache and single-flight, so only leader decisions
+        # cross processes.
+        backend = _maybe_fanout(backend, cfg)
+        # Disaggregated prefill/decode pools (fleet/pools.py), around the
+        # (possibly fanned-out) backend.
+        backend = _maybe_disaggregate(backend, cfg)
+        # Per-decision routing between the big arm (everything built
+        # above) and a small fast tier (sched/router.py). Outermost, so
+        # routing sees the decision before any pool or fan-out spends
+        # big-arm capacity.
+        backend = _maybe_router(backend, cfg, device)
     cache = (
         DecisionCache(ttl_seconds=cfg.get("cache.ttl_seconds"),
                       max_size=cfg.get("cache.max_size"))
@@ -250,6 +279,179 @@ def build_stack(cfg: Config, cluster, *, backend=None, device: str = "cuda",
         prefix_prewarm_s=float(cfg.get("scheduler.prefix_prewarm_seconds", 0.25)),
     )
     return scheduler, backend
+
+
+def _run_worker_replica(cfg: Config, stop_event=None, ready=None, *,
+                        device: str = "cuda") -> int:
+    """A worker process's serving loop (JAX cli.py:487-531): build the
+    local backend (or the stub under `llm.backend: stub`) on `device` and
+    answer decision RPCs over sched/replica.ReplicaServer until the
+    process is terminated (SIGINT) or `stop_event` is set. `ready`, when
+    given, gets the bound port as `ready.port` and is set once the server
+    listens. The JAX `cmd_run` reaches this under `distributed.enabled`,
+    which the port still refuses (ROADMAP queue 1 item 9c): on one host a
+    worker is started by calling this function."""
+    import threading
+
+    from k8s_llm_scheduler_tpu_torch.sched.replica import ReplicaServer
+
+    if cfg.get("llm.backend") == "stub":
+        from k8s_llm_scheduler_tpu_torch.engine.backend import StubBackend
+
+        backend = StubBackend()
+    else:
+        from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
+
+        backend = build_local_backend(**_backend_kwargs(cfg, device=device))
+    server = ReplicaServer(
+        backend,
+        host=str(cfg.get("distributed.replica_bind_host")),
+        port=int(cfg.get("distributed.replica_port")),
+        max_inflight=int(cfg.get("distributed.replica_max_inflight")),
+    )
+    print(f"replica worker serving decisions on :{server.port}", flush=True)
+    if ready is not None:
+        ready.port = server.port
+        ready.set()
+    try:
+        (stop_event or threading.Event()).wait()  # serve until terminated
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+        _close(backend)
+    return 0
+
+
+def _parse_replica_addr(text: str, default_port: int, key: str) -> tuple[str, int]:
+    """Parse one replica-address config entry into (host, port)."""
+    if text.isdigit():
+        # bare port (older configs wrote '9901' for localhost:9901): keep
+        # that meaning rather than dialing a hostname made of digits
+        return "localhost", int(text)
+    if text.startswith("["):
+        # bracketed IPv6: '[::1]:9901' or '[::1]' (default port)
+        bracket_end = text.find("]")
+        if bracket_end < 0:
+            raise ValueError(
+                f"{key} entry {text!r}: unterminated '[' (expected '[v6-addr]:port')")
+        host = text[1:bracket_end]
+        rest = text[bracket_end + 1:]
+        if rest.startswith(":"):
+            try:
+                port = int(rest[1:])
+            except ValueError:
+                raise ValueError(
+                    f"{key} entry {text!r}: port {rest[1:]!r} is not an integer"
+                ) from None
+        elif rest:
+            raise ValueError(
+                f"{key} entry {text!r}: trailing {rest!r} after ']' "
+                f"(expected '[v6-addr]:port')")
+        else:
+            port = default_port
+        return host, port
+    if text.count(":") > 1:
+        # bare IPv6 literal: rpartition(':') would misparse '::1' as host
+        # ':' port 1, so brackets are demanded instead of a guess
+        raise ValueError(
+            f"{key} entry {text!r} looks like a bare IPv6 literal; write it "
+            f"bracketed ('[{text}]:port')")
+    host, sep, port_s = text.rpartition(":")
+    if sep:
+        try:
+            port = int(port_s)
+        except ValueError:
+            raise ValueError(
+                f"{key} entry {text!r}: port {port_s!r} is not an integer (expected "
+                f"'host:port' or bare 'host')") from None
+    else:
+        host, port = text, default_port  # bare host: default port
+    return host or "localhost", port
+
+
+def _replica_clients(cfg: Config, addrs, key: str) -> list:
+    from k8s_llm_scheduler_tpu_torch.sched.replica import ReplicaClient
+
+    default_port = int(cfg.get("distributed.replica_port"))
+    timeout_s = float(cfg.get("llm.timeout"))
+    return [
+        ReplicaClient(*_parse_replica_addr(str(addr), default_port, key),
+                      request_timeout_s=timeout_s)
+        for addr in addrs
+    ]
+
+
+def _maybe_fanout(backend, cfg: Config):
+    """The backend in a FanoutBackend over it and the worker replicas of
+    `distributed.replica_addrs`; the backend itself when there are none."""
+    addrs = cfg.get("distributed.replica_addrs") or []
+    if not addrs:
+        return backend
+    from k8s_llm_scheduler_tpu_torch.sched.replica import FanoutBackend
+
+    replicas = [backend] + _replica_clients(cfg, addrs, "distributed.replica_addrs")
+    logger.info("fanning decisions out over %d replicas", len(replicas))
+    return FanoutBackend(replicas)
+
+
+def _maybe_disaggregate(backend, cfg: Config):
+    """The backend in a DisaggregatedBackend when fleet pools are
+    configured: the prefill pool (the backend and `fleet.prefill_addrs`)
+    absorbs admission bursts, prepacked; the decode pool
+    (`fleet.decode_addrs`) keeps continuation latency flat. A no-op with
+    fleet.enabled off or no pool addresses."""
+    if not cfg.get("fleet.enabled"):
+        return backend
+    prefill_addrs = cfg.get("fleet.prefill_addrs") or []
+    decode_addrs = cfg.get("fleet.decode_addrs") or []
+    if not prefill_addrs and not decode_addrs:
+        return backend
+    from k8s_llm_scheduler_tpu_torch.fleet import DisaggregatedBackend
+
+    prefill_pool = [backend] + _replica_clients(cfg, prefill_addrs, "fleet.prefill_addrs")
+    decode_pool = _replica_clients(cfg, decode_addrs, "fleet.decode_addrs")
+    logger.info("disaggregated pools: %d prefill / %d decode worker(s)",
+                len(prefill_pool), len(decode_pool))
+    return DisaggregatedBackend(
+        prefill_pool,
+        decode_pool,
+        prepack_max_batch=int(cfg.get("fleet.prepack_max_batch")),
+        prepack_window_s=float(cfg.get("fleet.prepack_window_ms")) / 1000.0,
+    )
+
+
+def _maybe_router(backend, cfg: Config, device: str = "cuda"):
+    """The backend in a RoutedBackend when router.enabled: the big arm is
+    the stack built below it, the fast arm a small model served on
+    `device` (router.fast_model, router.fast_checkpoint,
+    router.fast_tokenizer). A no-op when the big arm is the stub."""
+    if not cfg.get("router.enabled"):
+        return backend
+    if cfg.get("llm.backend") == "stub":
+        logger.warning("router.enabled ignored: llm.backend is stub")
+        return backend
+    from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
+    from k8s_llm_scheduler_tpu_torch.sched.router import RoutedBackend, RouterPolicy
+
+    fast = build_local_backend(**_backend_kwargs(
+        cfg,
+        device=device,
+        model=cfg.get("router.fast_model", "tiny"),
+        checkpoint_path=cfg.get("router.fast_checkpoint"),
+        tokenizer_name=cfg.get("router.fast_tokenizer", "numeric"),
+        quantize=None,
+    ))
+    policy = RouterPolicy(
+        big_min_budget_ms=float(cfg.get("router.big_min_budget_ms", 120.0)),
+        big_cold_extra_ms=float(cfg.get("router.big_cold_extra_ms", 250.0)),
+        complexity_threshold=int(cfg.get("router.complexity_threshold", 2)),
+        prewarm_on_cold=bool(cfg.get("router.prewarm_on_cold", True)),
+    )
+    logger.info("routing decisions: big=%s fast=%s (min budget %.0fms, complexity >= %d)",
+                cfg.get("llm.model", "tiny"), cfg.get("router.fast_model", "tiny"),
+                policy.big_min_budget_ms, policy.complexity_threshold)
+    return RoutedBackend(backend, fast, policy)
 
 
 async def run_until_bound(scheduler, cluster, n_pods: int, deadline_s: float) -> bool:
@@ -885,6 +1087,18 @@ def _rollout_registry(args: argparse.Namespace, cfg: Config):
     return CheckpointRegistry(root)
 
 
+def _retention_pins(cfg: Config) -> set:
+    """Versions retention must keep beyond the keep-last window: every
+    checkpoint an incident corpus mined against (learn.corpus_dir lineage;
+    evicting one orphans the corpus's provenance)."""
+    corpus_dir = cfg.get("learn.corpus_dir", None)
+    if not corpus_dir or not os.path.isdir(str(corpus_dir)):
+        return set()
+    from k8s_llm_scheduler_tpu_torch.learn import IncidentCorpus
+
+    return IncidentCorpus(corpus_dir).lineage_versions()
+
+
 def _gate_from_cfg(cfg: Config, seed: int | None = None):
     from k8s_llm_scheduler_tpu_torch.rollout import GateConfig
 
@@ -906,10 +1120,9 @@ def cmd_rollout(args: argparse.Namespace, cfg: Config) -> int:
     trained checkpoint into the versioned registry, inspect or verify it,
     gate-and-promote a candidate, roll the active pointer back, or run the
     live watch loop (shadow scoring + canary controller + hot swap)
-    against a serving stack. Retention pins from an incident corpus
-    (learn.corpus_dir) wait for the learn loop (ROADMAP queue 1 item 10):
-    `rollout.retain` keeps the newest versions, the active one and its
-    parent."""
+    against a serving stack. `rollout.retain` keeps the newest versions,
+    the active one and its parent, and every version an incident corpus
+    (learn.corpus_dir) mined against (`_retention_pins`)."""
     registry = _rollout_registry(args, cfg)
 
     if args.rollout_cmd == "publish":
@@ -925,7 +1138,7 @@ def cmd_rollout(args: argparse.Namespace, cfg: Config) -> int:
         )
         retain = int(cfg.get("rollout.retain", 0))
         if retain:
-            registry.retain(retain)
+            registry.retain(retain, pinned=_retention_pins(cfg))
         print(json.dumps({
             "metric": "rollout_publish",
             "version": manifest.version,
@@ -1115,7 +1328,10 @@ def _rollout_watch(args: argparse.Namespace, cfg: Config, registry) -> int:
                            "rv_hook": journal.record_rv}
         cluster = KubeCluster(
             watch_timeout_seconds=cfg.get("scheduler.watch_interval"), **kube_kwargs)
-    scheduler, _ = build_stack(cfg, cluster, backend=backend)
+    # the JAX watch's client serves the swapped backend itself: no
+    # fan-out, pools or router around it (their replicas and fast arm
+    # would keep serving the old weights)
+    scheduler, _ = build_stack(cfg, cluster, backend=backend, device=args.device, wrap=False)
     client = scheduler.client
 
     def factory(ckpt):
@@ -1198,6 +1414,386 @@ def _rollout_watch(args: argparse.Namespace, cfg: Config, registry) -> int:
             stats["rollout"] = controller.stats()
         print(json.dumps(stats, indent=2, default=str), flush=True)
     return 0
+
+
+def _learn_corpus(args: argparse.Namespace, cfg: Config):
+    from k8s_llm_scheduler_tpu_torch.learn import IncidentCorpus
+
+    root = getattr(args, "corpus", None) or cfg.get("learn.corpus_dir", None)
+    if not root:
+        raise SystemExit(
+            "no incident corpus: pass --corpus DIR or set learn.corpus_dir "
+            "(LEARN_CORPUS_DIR)"
+        )
+    return IncidentCorpus(root)
+
+
+def _learn_config(args: argparse.Namespace, cfg: Config):
+    from k8s_llm_scheduler_tpu_torch.learn import LearnConfig
+
+    sect = cfg.section("learn")
+    seeds = getattr(args, "seeds", None)
+    if seeds:
+        mine_seeds = tuple(int(s) for s in seeds.split(",") if s.strip())
+    else:
+        mine_seeds = tuple(int(s) for s in sect.get("mine_seeds", [0, 1]))
+    replay_fraction = getattr(args, "replay_fraction", None)
+    return LearnConfig(
+        seed=int(getattr(args, "seed", 0) or 0),
+        mine_seeds=mine_seeds,
+        mine_nodes=int(sect.get("mine_nodes", 8)),
+        mine_pods=int(sect.get("mine_pods", 48)),
+        mine_waves=int(sect.get("mine_waves", 3)),
+        spread_margin=float(sect.get("spread_margin", 0.005)),
+        replay_fraction=float(
+            replay_fraction if replay_fraction is not None
+            else sect.get("replay_fraction", 0.3)
+        ),
+        steps=int(getattr(args, "steps", None) or sect.get("steps", 200)),
+        batch_size=int(sect.get("batch_size", 4)),
+        seq_len=int(sect.get("seq_len", 1024)),
+        lr=float(sect.get("lr", 3e-4)),
+        weakness_cases=int(sect.get("weakness_cases", 32)),
+        weakness_margin=float(sect.get("weakness_margin", 0.0)),
+        gate=_gate_from_cfg(cfg),
+        retain=int(sect.get("retain", 0)),
+    )
+
+
+def _learn_candidate_arm(cfg: Config, checkpoint_path: str | None, device: str):
+    """The serving policy as a stack arena arm for mining: the configured
+    backend (the stub, or the local stack serving `checkpoint_path`
+    greedily on `device`: the arena's determinism contract)."""
+    from k8s_llm_scheduler_tpu_torch.sim import ArmSpec
+
+    if cfg.get("llm.backend") == "stub":
+        from k8s_llm_scheduler_tpu_torch.engine.backend import StubBackend
+
+        return ArmSpec(name="llm", kind="stack", make=StubBackend)
+    return ArmSpec(name="llm", kind="stack",
+                   make=_rollout_backend_factory(cfg, checkpoint_path, device))
+
+
+def _learn_active_checkpoint(args, cfg: Config):
+    """(registry | None, active version | None, checkpoint path | None): the
+    incumbent the loop mines, gates against and finetunes from. The active
+    version is read here, once, with its path: a promotion landing between
+    this read and a later one would let the corpus's lineage point at a
+    checkpoint that never produced the mined placements."""
+    registry = None
+    if getattr(args, "registry", None) or cfg.get("rollout.registry_dir", None):
+        registry = _rollout_registry(args, cfg)
+    active = registry.active() if registry is not None else None
+    if active is not None:
+        return registry, active, str(registry.get(active).checkpoint_path)
+    return registry, None, cfg.get("llm.checkpoint_path", None)
+
+
+def cmd_learn(args: argparse.Namespace, cfg: Config) -> int:
+    """The closed policy-improvement loop (learn/; JAX cli.py:1689-1769):
+    mine loss incidents from seeded arena runs of the serving policy
+    against the spread-lookahead teacher, build replay-mixed finetune
+    batches, run the whole mine -> finetune -> publish -> gate -> promote
+    cycle, or inspect and replay its artifacts."""
+    from k8s_llm_scheduler_tpu_torch.learn import (
+        curriculum_summary,
+        mine_scenario,
+        verify_learn_trace,
+    )
+
+    if args.learn_cmd == "replay":
+        ok, detail = verify_learn_trace(args.trace)
+        print(json.dumps({"metric": "learn_replay", "ok": ok, "trace": args.trace,
+                          "detail": detail}))
+        return 0 if ok else 1
+
+    corpus = _learn_corpus(args, cfg)
+
+    if args.learn_cmd == "status":
+        status = corpus.status()
+        if getattr(args, "registry", None) or cfg.get("rollout.registry_dir", None):
+            registry = _rollout_registry(args, cfg)
+            status["registry_active"] = registry.active()
+            status["lineage_versions"] = sorted(corpus.lineage_versions())
+        print(json.dumps(status, indent=1, sort_keys=True))
+        return 0
+
+    if args.learn_cmd == "mine":
+        check_switches(cfg)
+        learn_cfg = _learn_config(args, cfg)
+        _registry, active_version, ckpt = _learn_active_checkpoint(args, cfg)
+        sources = [
+            mine_scenario(
+                spec, _learn_candidate_arm(cfg, ckpt, args.device),
+                spread_margin=learn_cfg.spread_margin,
+                wave_timeout_s=learn_cfg.gate.wave_timeout_s,
+            )
+            for spec in learn_cfg.mine_specs()
+        ]
+        record = corpus.add_version(
+            sources,
+            # the version read with the checkpoint path, before the mining
+            # pass: never a re-read
+            checkpoint_version=active_version,
+            note=args.note,
+        )
+        print(json.dumps({
+            "metric": "learn_mine",
+            "corpus_version": record["version"],
+            "n_incidents": record["n_incidents"],
+            "per_class": record["per_class"],
+            "digest": record["digest"],
+            "checkpoint_version": record["checkpoint_version"],
+            "sources": len(sources),
+        }))
+        return 0
+
+    if args.learn_cmd == "build":
+        record = corpus.get(args.version) if args.version else corpus.latest()
+        if record is None:
+            print("corpus has no versions — run `cli learn mine` first", file=sys.stderr)
+            return 2
+        learn_cfg = _learn_config(args, cfg)
+        print(json.dumps({"metric": "learn_build",
+                          **curriculum_summary(record, learn_cfg.replay_fraction)}))
+        return 0
+
+    if args.learn_cmd == "run":
+        return _learn_run(args, cfg, corpus)
+
+    raise SystemExit(f"unknown learn command {args.learn_cmd!r}")
+
+
+def _learn_run(args: argparse.Namespace, cfg: Config, corpus) -> int:
+    """One whole learn cycle against the configured local model on
+    `--device` (JAX cli.py:1772-1858): learn/loop.LearnLoop with the
+    incumbent (the registry's active version, else llm.checkpoint_path)
+    as the mining arm, the weakness gate's incumbent and the finetune's
+    base. Exit 0 when the candidate is promoted, 1 when it is rejected."""
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import build_builtin_tokenizer
+    from k8s_llm_scheduler_tpu_torch.learn import LearnLoop, backend_decide, save_learn_trace
+    from k8s_llm_scheduler_tpu_torch.models.configs import get_config
+    from k8s_llm_scheduler_tpu_torch.rollout import run_gate
+
+    if cfg.get("llm.backend") != "local":
+        print("learn run needs llm.backend: local (finetuning requires the "
+              "in-tree model)", file=sys.stderr)
+        return 2
+    if cfg.get("llm.tokenizer_path"):
+        print("learn run finetunes with a builtin tokenizer; unset "
+              "llm.tokenizer_path", file=sys.stderr)
+        return 2
+    check_switches(cfg)
+    registry = _rollout_registry(args, cfg)
+    learn_cfg = _learn_config(args, cfg)
+    tokenizer_name = cfg.get("llm.tokenizer", "byte")
+    # the widened serving config: the fingerprint the registry records
+    # must match what restore and hot swap check against
+    _tok, model_cfg = build_builtin_tokenizer(
+        tokenizer_name, get_config(cfg.get("llm.model", "tiny")))
+    _registry, _active, incumbent_ckpt = _learn_active_checkpoint(args, cfg)
+
+    def backend_factory(checkpoint_path):
+        return _rollout_backend_factory(cfg, checkpoint_path, args.device)
+
+    def decide_factory(checkpoint_path):
+        backend = backend_factory(checkpoint_path)()
+        return backend_decide(backend), backend.close
+
+    loop = LearnLoop(
+        registry, corpus, learn_cfg,
+        mine_arm_factory=lambda: _learn_candidate_arm(cfg, incumbent_ckpt, args.device),
+        incumbent_decide_factory=lambda: decide_factory(incumbent_ckpt),
+        candidate_decide_factory=decide_factory,
+        gate_runner=lambda version: run_gate(
+            backend_factory(incumbent_ckpt),
+            backend_factory(str(registry.get(version).checkpoint_path)),
+            learn_cfg.gate,
+        ),
+        model_cfg=model_cfg,
+        tokenizer_name=tokenizer_name,
+        answer_style=cfg.get("llm.answer_style", "direct"),
+        mesh_axes=cfg.get("llm.mesh"),
+        device=args.device,
+    )
+
+    metrics_server = None
+    if cfg.get("metrics.enabled"):
+        from k8s_llm_scheduler_tpu_torch.observability.metrics import MetricsServer
+
+        metrics_server = MetricsServer(lambda: {"learn": loop.stats()},
+                                       port=cfg.get("metrics.port"))
+        metrics_server.start()
+    try:
+        report = loop.run_cycle(args.work_dir, note=args.note)
+    finally:
+        if metrics_server is not None:
+            metrics_server.stop()
+    if args.trace:
+        save_learn_trace(report, args.trace)
+    print(json.dumps({
+        "metric": "learn_run",
+        "action": report["action"],
+        "candidate_version": report["candidate_version"],
+        "incumbent_version": report["incumbent_version"],
+        "corpus_version": report["corpus_version"],
+        "per_class": report["per_class"],
+        "weakness_incumbent": report["weakness"]["incumbent"]["score"],
+        "weakness_candidate": report["weakness"]["candidate"]["score"],
+        "gate_pass": report["gate"]["pass"],
+        "train_loss": report["train_loss"],
+    }))
+    return 0 if report["action"] == "promoted" else 1
+
+
+def cmd_fleet(args: argparse.Namespace, cfg: Config) -> int:
+    """Fleet-scale serving on one host (fleet/; JAX cli.py:2029-2417):
+
+        cli fleet demo    # an in-process sharded fleet over a fake cluster
+        cli fleet shard <namespace/name>   # a pod's watch-space shard
+        cli fleet top     # merged telemetry of live replica servers
+
+    `kvplane` waits for the KV plane (ROADMAP queue 1 item 9b) and
+    `autoscale` for the chaos harness's placement backend (item 10c)."""
+    from k8s_llm_scheduler_tpu_torch.fleet import shard_of
+
+    if args.fleet_cmd == "shard":
+        n_shards = (args.n_shards if args.n_shards is not None
+                    else int(cfg.get("fleet.n_shards")))
+        if "/" in args.pod:
+            namespace, name = args.pod.split("/", 1)
+        else:
+            namespace, name = "default", args.pod
+        print(shard_of(namespace, name, n_shards))
+        return 0
+
+    if args.fleet_cmd == "demo":
+        return _fleet_demo(args, cfg)
+
+    if args.fleet_cmd == "kvplane":
+        raise NotImplementedError(
+            "fleet kvplane: the shared prefix-KV plane (fleet/kvplane/) is not "
+            "ported yet (ROADMAP queue 1 item 9b)")
+
+    if args.fleet_cmd == "autoscale":
+        raise NotImplementedError(
+            "fleet autoscale: its demo places pods through the chaos harness's "
+            "HashPlacementBackend (chaos/harness.py), which is not ported yet "
+            "(ROADMAP queue 1 item 10c)")
+
+    if args.fleet_cmd == "top":
+        return _fleet_top(args, cfg)
+
+    raise SystemExit(f"unknown fleet command {args.fleet_cmd!r}")
+
+
+def _fleet_demo(args: argparse.Namespace, cfg: Config) -> int:
+    """An in-process sharded fleet of stub-backed replicas over a fake
+    cluster: shard ownership, decision mix and cache-tier hits."""
+    from k8s_llm_scheduler_tpu_torch.engine.backend import StubBackend
+    from k8s_llm_scheduler_tpu_torch.fleet import Fleet
+    from k8s_llm_scheduler_tpu_torch.testing import pod_burst, synthetic_cluster
+
+    if cfg.get("fleet.kvplane.enabled"):
+        raise NotImplementedError(
+            "fleet.kvplane.enabled: the shared prefix-KV plane (fleet/kvplane/) is "
+            "not ported yet (ROADMAP queue 1 item 9b)")
+    replicas = args.replicas if args.replicas is not None else int(cfg.get("fleet.replicas"))
+    scheduler_name = cfg.get("scheduler.name")
+
+    async def demo() -> dict:
+        cluster = synthetic_cluster(args.nodes)
+        for raw in pod_burst(args.pods, scheduler_name=scheduler_name,
+                             distinct_shapes=args.shapes):
+            cluster.add_pod(raw)
+        store = None
+        lease_path = cfg.get("durability.lease_store_path", None)
+        if lease_path:
+            # the durable lease backend: the same protocol, leases survive
+            # a demo restart
+            from k8s_llm_scheduler_tpu_torch.fleet import FileLeaseStore
+
+            store = FileLeaseStore(lease_path, n_shards=int(cfg.get("fleet.n_shards")),
+                                   ttl_s=float(cfg.get("fleet.lease_ttl_s")))
+        fleet = Fleet(
+            cluster, cluster, lambda i: StubBackend(),
+            n_replicas=replicas,
+            n_shards=int(cfg.get("fleet.n_shards")),
+            scheduler_name=scheduler_name,
+            lease_ttl_s=float(cfg.get("fleet.lease_ttl_s")),
+            renew_interval_s=float(cfg.get("fleet.renew_interval_s")),
+            l1_size=int(cfg.get("fleet.l1_size")),
+            l2_size=int(cfg.get("fleet.l2_size")),
+            list_pending=lambda: cluster.pending_pods(scheduler_name),
+            store=store,
+        )
+        t0 = time.perf_counter()
+        await fleet.start()
+        deadline = t0 + 60.0
+        while time.perf_counter() < deadline:
+            if fleet.get_stats()["total_scheduled"] >= args.pods:
+                break
+            await asyncio.sleep(0.02)
+        wall_s = time.perf_counter() - t0
+        stats = fleet.get_stats()
+        await fleet.stop()
+        stats["wall_s"] = round(wall_s, 3)
+        stats["decisions_per_s"] = (round(stats["total_scheduled"] / wall_s, 1)
+                                    if wall_s else 0.0)
+        stats["bind_count"] = cluster.bind_count
+        return stats
+
+    stats = asyncio.run(demo())
+    if args.json:
+        print(json.dumps(stats))
+        return 0
+    print(f"fleet demo: {replicas} replica(s), {stats['n_shards']} shards, "
+          f"{args.pods} pods over {args.nodes} nodes")
+    for r in stats["replicas"]:
+        print(f"  replica-{r['replica_id']}: shards {r['owned_shards']}  "
+              f"bound {r['total_scheduled']}  "
+              f"(llm {r['llm_decisions']}, cache {r['cache_decisions']})  "
+              f"fenced {r['fenced_binds']}")
+    l2 = stats["l2"]
+    print(f"  shared L2: {l2['hits']} hits / {l2['misses']} misses "
+          f"(generation {l2['generation']})")
+    print(f"  {stats['total_scheduled']} bound ({stats['decisions_per_s']}/s), "
+          f"{stats['failed_bindings']} failed, {stats['fenced_binds']} fenced; "
+          f"cluster bind_count={stats['bind_count']}")
+    return 0 if stats["total_scheduled"] >= args.pods else 1
+
+
+def _fleet_top(args: argparse.Namespace, cfg: Config) -> int:
+    """Pull every replica server's stats and trace slices over the wire
+    and render one fleet-wide view (observability/fleetview.py)."""
+    from k8s_llm_scheduler_tpu_torch.observability.fleetview import FleetAggregator, render_top
+
+    addrs = ([a for a in args.replicas.split(",") if a.strip()] if args.replicas
+             else list(cfg.get("distributed.replica_addrs") or []))
+    if not addrs:
+        print("fleet top needs replica addresses (--replicas host:port,... or "
+              "distributed.replica_addrs config)", file=sys.stderr)
+        return 2
+    clients = _replica_clients(cfg, addrs, "--replicas")
+    agg = FleetAggregator()
+    for client in clients:
+        agg.add_replica_client(client.addr, client)
+    try:
+        while True:
+            round_info = agg.pull_all()
+            if args.format == "prom":
+                print(agg.render_prometheus(), flush=True)
+            else:
+                print(render_top(agg), flush=True)
+            if args.once:
+                return 0 if round_info["ok"] else 2
+            print()
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        for client in clients:
+            client.close()
 
 
 def _debug_get(host: str, port: int, path: str, timeout: float = 5.0) -> str:
@@ -1723,6 +2319,100 @@ def build_parser() -> argparse.ArgumentParser:
     p_watch.add_argument("--fake-nodes", type=int, default=3)
     device_flag(p_watch)
     p_rollout.set_defaults(func=cmd_rollout)
+
+    p_learn = sub.add_parser(
+        "learn", help="closed policy-improvement loop (learn/): mine loss incidents, "
+                      "build finetune curricula, run the whole "
+                      "mine->finetune->gate->promote cycle")
+    lsub = p_learn.add_subparsers(dest="learn_cmd", required=True)
+
+    def with_corpus(p):
+        p.add_argument("--corpus", default=None,
+                       help="incident corpus dir (default: learn.corpus_dir / "
+                            "LEARN_CORPUS_DIR)")
+        return p
+
+    p_lmine = with_registry(with_corpus(lsub.add_parser(
+        "mine", help="run the serving policy vs the teacher over seeded arena "
+                     "scenarios and write a new incident-corpus version")))
+    p_lmine.add_argument("--seeds", default=None,
+                         help="comma-separated mining scenario seeds (default: "
+                              "learn.mine_seeds)")
+    p_lmine.add_argument("--note", default="")
+    device_flag(p_lmine)
+    p_lbuild = with_corpus(lsub.add_parser(
+        "build", help="reconstruct a corpus version into curriculum cases and print "
+                      "the batch mix (dry-run of the finetune input)"))
+    p_lbuild.add_argument("--version", type=int, default=None)
+    p_lbuild.add_argument("--replay-fraction", type=float, default=None)
+    p_lrun = with_registry(with_corpus(lsub.add_parser(
+        "run", help="one whole learn cycle: mine -> finetune -> publish -> two-sided "
+                    "gate -> promote (exit 1 when rejected)")))
+    p_lrun.add_argument("--seed", type=int, default=0)
+    p_lrun.add_argument("--seeds", default=None,
+                        help="mining scenario seeds (default learn.mine_seeds)")
+    p_lrun.add_argument("--steps", type=int, default=None)
+    p_lrun.add_argument("--replay-fraction", type=float, default=None)
+    p_lrun.add_argument("--work-dir", default="learn-work",
+                        help="cycle working dir (the candidate checkpoint lands here "
+                             "before publish)")
+    p_lrun.add_argument("--trace", default=None,
+                        help="record the cycle's byte-replayable learn trace here")
+    p_lrun.add_argument("--note", default="")
+    device_flag(p_lrun)
+    with_registry(with_corpus(lsub.add_parser(
+        "status", help="corpus versions, per-class counts, lineage")))
+    p_lreplay = lsub.add_parser(
+        "replay", help="verify a recorded learn trace replays byte-identically")
+    p_lreplay.add_argument("trace", help="trace file from `learn run --trace`")
+    p_learn.set_defaults(func=cmd_learn)
+
+    p_fleet = sub.add_parser(
+        "fleet", help="fleet-scale serving (fleet/): sharded-replica demo, shard "
+                      "mapping, merged replica telemetry")
+    fsub = p_fleet.add_subparsers(dest="fleet_cmd", required=True)
+    p_fdemo = fsub.add_parser(
+        "demo", help="run an in-process sharded fleet over a fake cluster and print "
+                     "shard ownership, decision mix, and tier hits")
+    p_fdemo.add_argument("--replicas", type=int, default=None,
+                         help="scheduler replicas (default: fleet.replicas config)")
+    p_fdemo.add_argument("--pods", type=int, default=200)
+    p_fdemo.add_argument("--nodes", type=int, default=12)
+    p_fdemo.add_argument("--shapes", type=int, default=16,
+                         help="distinct pod resource shapes (cache-coherence groups)")
+    p_fdemo.add_argument("--json", action="store_true")
+    p_fkv = fsub.add_parser(
+        "kvplane", help="shared prefix-KV plane demo (not ported yet: ROADMAP queue 1 "
+                        "item 9b)")
+    p_fkv.add_argument("--replicas", type=int, default=None)
+    p_fkv.add_argument("--snapshots", type=int, default=4)
+    p_fkv.add_argument("--pin-tokens", type=int, default=512)
+    p_fkv.add_argument("--swap-every", type=int, default=0)
+    p_fkv.add_argument("--json", action="store_true")
+    p_fshard = fsub.add_parser("shard", help="print a pod's watch-space shard id")
+    p_fshard.add_argument("pod", help="namespace/name (bare name = default namespace)")
+    p_fshard.add_argument("--n-shards", type=int, default=None,
+                          help="shard count (default: fleet.n_shards config)")
+    p_fauto = fsub.add_parser(
+        "autoscale", help="elastic-fleet demo (not ported yet: ROADMAP queue 1 item 10c)")
+    p_fauto.add_argument("--pods", type=int, default=240)
+    p_fauto.add_argument("--nodes", type=int, default=24)
+    p_fauto.add_argument("--waves", type=int, default=12)
+    p_fauto.add_argument("--seed", type=int, default=0)
+    p_fauto.add_argument("--json", action="store_true")
+    p_ftop = fsub.add_parser(
+        "top", help="live merged fleet telemetry: pull every replica's stats and trace "
+                    "slices over the wire and render one fleet-wide view")
+    p_ftop.add_argument("--replicas", default=None,
+                        help="comma-separated replica addrs host:port (default: "
+                             "distributed.replica_addrs config)")
+    p_ftop.add_argument("--interval", type=float, default=2.0,
+                        help="refresh period in seconds")
+    p_ftop.add_argument("--once", action="store_true",
+                        help="render one frame and exit (scripting/tests)")
+    p_ftop.add_argument("--format", choices=("text", "prom"), default="text",
+                        help="text frame or one merged Prometheus exposition")
+    p_fleet.set_defaults(func=cmd_fleet)
 
     trace = sub.add_parser(
         "trace", help="decision flight recorder: list/show/tail/export traces from "

@@ -1007,6 +1007,12 @@ class InferenceEngine:
             )
         return self._empty_prefix
 
+    def active_group(self) -> tuple:
+        """The active prefix KV and grammar, as objects: a backend compares
+        them by identity with what its own install left, to see whether
+        another caller has installed a group since."""
+        return self._prefix, self._dfa
+
     def set_prefix(self, prompt_ids: list[int] | None) -> None:
         """Install the burst-shared prompt prefix, prefilling it once if it
         is not cached on device. Prefixes longer than

@@ -56,8 +56,12 @@ A backend built by build_local_backend owns its engine: its close()
 releases the engine's device memory (engine.release), so a closed arena or
 gate arm returns its card memory at once.
 
-Not ported yet: the KV plane and the fleet pool role (`pool_role`,
-`_check_role`), ROADMAP queue 1 item 9.
+The fleet pool role (JAX local.py:204-212, 387-396): a "decode" worker of
+the disaggregated pools (fleet/pools.py) refuses admission (work="prefill")
+on every decision entry point, and its stats carry the role and its
+refusals.
+
+Not ported yet: the KV plane (`attach_kvplane`), ROADMAP queue 1 item 9b.
 """
 
 from __future__ import annotations
@@ -179,6 +183,7 @@ class LocalLLMBackend:
         prewarm_idle_delay_s: float = 0.5,
         answer_style: str = "direct",
         max_reason_tokens: int = 320,
+        pool_role: str = "mixed",
         packed_admission: bool = False,
         delta_prompts: bool = False,
         repin_fraction: float = 0.25,
@@ -212,6 +217,16 @@ class LocalLLMBackend:
             PinnedPrefixManager(engine, max_pins=max_pins)
             if hasattr(engine, "pin_prefix") else None  # engine test doubles
         )
+        # Disaggregated-pool role (fleet/pools.py): "decode" workers
+        # refuse admission (work="prefill") so a fleet routing bug fails
+        # loudly instead of letting admission bursts evict the decode
+        # pool's throughput; "prefill"/"mixed" accept everything.
+        if pool_role not in ("prefill", "decode", "mixed"):
+            raise ValueError(
+                f"pool_role {pool_role!r} not in ('prefill', 'decode', 'mixed')"
+            )
+        self.pool_role = pool_role
+        self.role_refusals = 0  # callers' threads, under _calls_lock
         self.tokenizer = tokenizer or engine.tokenizer
         self.prompt_engine = PromptEngine()
         self.max_new_tokens = max_new_tokens
@@ -236,6 +251,8 @@ class LocalLLMBackend:
         self._queue: queue.Queue = queue.Queue()
         self._dfa_cache: dict[tuple[str, ...], Any] = {}
         self._current_group: tuple | None = None
+        # the engine's active_group() as our last install left it
+        self._installed_group: tuple = ()
         # Controls parked until the wave barrier; while any is held,
         # _submit_waves admits nothing.
         self._held_controls: list[_ControlItem] = []
@@ -353,9 +370,23 @@ class LocalLLMBackend:
         item.pin_spec = pin_spec
         return item
 
+    def _check_role(self, work: str) -> None:
+        """Pool-role admission gate (fleet/pools.check_pool_role
+        semantics, inlined to keep engine imports fleet-free): a
+        decode-role worker refuses prefill (admission) work."""
+        if self.pool_role == "decode" and work == "prefill":
+            with self._calls_lock:
+                self.role_refusals += 1
+            raise BackendError(
+                "pool role 'decode' refuses admission (prefill) work — "
+                "route new-snapshot decisions to the prefill pool"
+            )
+
     def get_scheduling_decision(
-        self, pod: PodSpec, nodes: Sequence[NodeMetrics]
+        self, pod: PodSpec, nodes: Sequence[NodeMetrics],
+        work: str = "prefill",
     ) -> SchedulingDecision:
+        self._check_role(work)
         self._count("sync_calls")
         item = self._prepare_item(pod, nodes)
         self._queue.put(item)
@@ -368,13 +399,15 @@ class LocalLLMBackend:
         return self._parse(text)
 
     async def get_scheduling_decision_async(
-        self, pod: PodSpec, nodes: Sequence[NodeMetrics]
+        self, pod: PodSpec, nodes: Sequence[NodeMetrics],
+        work: str = "prefill",
     ) -> SchedulingDecision:
         """Natively async (JAX local.py:458-479): awaits the engine future
         without holding a thread. On the sync path every in-flight pod pins
         one asyncio.to_thread pool thread for a whole wave, and a burst with
         more distinct shapes than pool threads serializes into waves.
         DecisionClient prefers this method."""
+        self._check_role(work)
         self._count("async_calls")
         item = self._prepare_item(pod, nodes)
         self._queue.put(item)
@@ -389,13 +422,15 @@ class LocalLLMBackend:
         return self._parse(text)
 
     def get_scheduling_decisions_batch(
-        self, pods: Sequence[PodSpec], nodes: Sequence[NodeMetrics]
+        self, pods: Sequence[PodSpec], nodes: Sequence[NodeMetrics],
+        work: str = "prefill",
     ) -> list[SchedulingDecision | Exception]:
         """Enqueue the whole batch before waiting on any future, so the
         worker decodes it together: with packed admission, one packed
         admission of the batch (engine.admit_packed; JAX local.py:413-455),
         else one wave per max_slots pods. Per-pod outcomes are positional;
         one infeasible pod never fails the rest."""
+        self._check_role(work)
         out: list[SchedulingDecision | Exception] = [
             BackendError("batch slot unresolved")
         ] * len(pods)
@@ -484,6 +519,24 @@ class LocalLLMBackend:
         self._current_group = None
         self._install_group(item)
         self._current_group = item.group_key
+        self._installed_group = self._engine_group()
+
+    def _engine_group(self) -> tuple:
+        """engine.active_group(), or () for an engine without it."""
+        active = getattr(self.engine, "active_group", None)
+        return active() if active is not None else ()
+
+    def _drop_replaced_group(self) -> None:
+        """Another backend over this engine may have installed its own
+        group since ours: then ours is no longer current, and its next
+        item reinstalls it (the prefix a cache hit). With one backend an
+        engine, as build_local_backend makes, this never drops a group."""
+        if self._current_group is None:
+            return
+        held = self._engine_group()
+        if len(held) != len(self._installed_group) or any(
+                a is not b for a, b in zip(held, self._installed_group)):
+            self._current_group = None
 
     def _apply_prewarms(self, prewarms: list[_WorkItem], busy: bool) -> None:
         """Advisory installs (JAX local.py:620-644): only the latest
@@ -547,6 +600,7 @@ class LocalLLMBackend:
             # Quiesce in progress: hold every admission until the controls
             # run at the wave barrier (_worker_tick).
             return list(pending)
+        self._drop_replaced_group()
         if any(i.suffix_ids is None for i in pending):
             # Diverted here, the single consumer of `pending`: the
             # coalescing and straggler polls can hand over a prewarm at any
@@ -1045,6 +1099,8 @@ class LocalLLMBackend:
         self._stopped.set()
         self._queue.put(None)
         self._worker.join(timeout=30)
+        if not self._worker.is_alive():
+            self._installed_group = ()  # the prefix KV it holds is the engine's
         close_engine = getattr(self.engine, "close", None)  # engine test doubles
         if close_engine is not None and not self._worker.is_alive():
             close_engine()
@@ -1066,6 +1122,9 @@ class LocalLLMBackend:
         if self.swap_stats["quiesce_runs"]:
             out["swap"] = dict(self.swap_stats)
         with self._calls_lock:
+            if self.pool_role != "mixed":
+                out["pool_role"] = self.pool_role
+                out["role_refusals"] = self.role_refusals
             out["backend"] = dict(self.counters)
         if self._delta is not None:
             out["delta"] = self._delta.stats()

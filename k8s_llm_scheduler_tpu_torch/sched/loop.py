@@ -601,6 +601,10 @@ class Scheduler:
         """Wait for all in-flight scheduling tasks."""
         while self._tasks:
             await asyncio.gather(*list(self._tasks), return_exceptions=True)
+            # A gather whose tasks have all finished completes without
+            # yielding to the loop (Python 3.12), so the done callbacks that
+            # take them out of _tasks would never run: yield once.
+            await asyncio.sleep(0)
 
     def stop(self) -> None:
         """Request loop termination; safe to call before or during run()."""

@@ -451,10 +451,10 @@ def chaos_scenario(
 ):
     """(ScenarioSpec, FaultPlan) for one chaos regime in the JAX package
     (its sim/scenarios.py). Its fault side is chaos/faults.py, which the
-    port has not ported yet (ROADMAP queue 1 item 10), so this raises."""
+    port has not ported yet (ROADMAP queue 1 item 10c), so this raises."""
     raise NotImplementedError(
         f"chaos_scenario({regime!r}): the chaos plane (chaos/faults.py) is not "
-        f"ported yet (ROADMAP queue 1 item 10)"
+        f"ported yet (ROADMAP queue 1 item 10c)"
     )
 
 

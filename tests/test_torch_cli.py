@@ -122,6 +122,11 @@ def _jax_placements(cfg_path, cluster, bound):
             async with ttesting.async_deadline(WAIT_S):
                 while not bound():
                     await asyncio.sleep(0.05)
+                # in-flight scheduling tasks finish before stop(): one that finishes as
+                # run() returns leaves drain() spinning without yielding (Python 3.12's
+                # eager gather; ROADMAP queue 3 item 2), where no deadline can fire
+                while scheduler._tasks:
+                    await asyncio.sleep(0.01)
         finally:
             scheduler.stop()
             cluster.close()
@@ -251,10 +256,10 @@ def test_cli_run_refuses_an_unported_switch_before_a_model(monkeypatch, tmp_path
     from k8s_llm_scheduler_tpu_torch.engine import local as tlocal
 
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("ROUTER_ENABLED", "true")
-    with pytest.raises(NotImplementedError, match="router.enabled.*item 9"):
+    (tmp_path / "config.yaml").write_text("distributed:\n  enabled: true\n")
+    with pytest.raises(NotImplementedError, match="distributed.enabled.*item 9c"):
         cli.main(["run", "--fake-cluster", "--device", "cpu"])
-    monkeypatch.delenv("ROUTER_ENABLED")
+    (tmp_path / "config.yaml").unlink()
     monkeypatch.setenv("SPEC_ENABLED", "true")
     built = []
     real = tlocal.build_local_backend

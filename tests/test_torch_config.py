@@ -119,11 +119,9 @@ def _cfg(**dotted):
     return cfg
 
 
-UNPORTED = [(key, True if key != "distributed.replica_addrs" else ["h:9901"], item)
-            for key, _, item in cli.UNPORTED_SWITCHES] + [
-    ("llm.mesh", {"dp": 1, "tp": 2}, 9),
-    ("llm.mesh", {"dp": 2, "tp": 1}, 9),
-    ("fleet.enabled+addrs", None, 9),
+UNPORTED = [(key, True, item) for key, _, item in cli.UNPORTED_SWITCHES] + [
+    ("llm.mesh", {"dp": 1, "tp": 2}, "9c"),
+    ("llm.mesh", {"dp": 2, "tp": 1}, "9c"),
 ]
 
 
@@ -136,10 +134,7 @@ def test_each_unported_switch_raises_before_a_model_is_built(monkeypatch, key, v
         raise AssertionError("a model was built")
 
     monkeypatch.setattr(local, "build_local_backend", no_model)
-    if key == "fleet.enabled+addrs":
-        cfg, key = _cfg(**{"fleet.enabled": True, "fleet.prefill_addrs": ["h:1"]}), "fleet"
-    else:
-        cfg = _cfg(**{key: value})
+    cfg = _cfg(**{key: value})
     with pytest.raises(NotImplementedError, match=rf"{key}.*item {item}"):
         cli.check_switches(cfg)
     cluster = synthetic_cluster(2)

@@ -79,19 +79,49 @@ COPIES = [
     ("observability/slo.py", None),
     ("sched/journal.py", None),
     ("sched/recovery.py", None),
+    ("learn/__init__.py", None),
+    ("learn/miner.py", None),
+    ("learn/curriculum.py", None),
+    ("engine/sharded/geometry.py", None),
+    ("fleet/__init__.py", None),
+    ("fleet/lease.py", None),
+    ("fleet/cache.py", None),
+    ("fleet/pools.py", None),
+    ("fleet/frontend.py", None),
+    ("fleet/autoscale.py", None),
+    ("sched/replica.py", None),
+    ("sched/router.py", None),
+    ("observability/fleetview.py", None),
 ]
+
+
+# Lines a copy adds to repair a fault the reference has (path -> the added
+# text, which must be there): drain() spins without yielding when a task it
+# gathers has finished but is still tracked (Python 3.12 completes such a
+# gather eagerly; ROADMAP queue 3 item 2).
+REPAIRS = {
+    "sched/loop.py": (
+        "            # A gather whose tasks have all finished completes without\n"
+        "            # yielding to the loop (Python 3.12), so the done callbacks that\n"
+        "            # take them out of _tasks would never run: yield once.\n"
+        "            await asyncio.sleep(0)\n"
+    ),
+}
 
 
 class TestCopiedModules:
     @pytest.mark.parametrize("path,cut", COPIES, ids=[p for p, _ in COPIES])
     def test_copy_matches_the_reference_text(self, path, cut):
-        """A copy is the reference's text with the package name rewritten;
-        a module that ports its tail its own way (`cut`: trace.py's
-        device_trace over torch.profiler) is compared below its own
-        docstring, up to the cut in both."""
+        """A copy is the reference's text with the package name rewritten,
+        but for the lines of REPAIRS; a module that ports its tail its own
+        way (`cut`: trace.py's device_trace over torch.profiler) is
+        compared below its own docstring, up to the cut in both."""
         want = (REPO / "k8s_llm_scheduler_tpu" / path).read_text().replace(
             "k8s_llm_scheduler_tpu.", "k8s_llm_scheduler_tpu_torch.")
         got = (REPO / "k8s_llm_scheduler_tpu_torch" / path).read_text()
+        if path in REPAIRS:
+            assert got.count(REPAIRS[path]) == 1
+            got = got.replace(REPAIRS[path], "")
         if cut is not None:
             assert cut in want and cut in got
             want, got = want[:want.index(cut)], got[:got.index(cut)]
@@ -356,6 +386,21 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "k8s_llm_scheduler_tpu_torch.train.distill, "
         "k8s_llm_scheduler_tpu_torch.train.train_step, "
         "k8s_llm_scheduler_tpu_torch.train.hidden, "
+        "k8s_llm_scheduler_tpu_torch.learn, "
+        "k8s_llm_scheduler_tpu_torch.learn.miner, "
+        "k8s_llm_scheduler_tpu_torch.learn.curriculum, "
+        "k8s_llm_scheduler_tpu_torch.learn.loop, "
+        "k8s_llm_scheduler_tpu_torch.engine.sharded, "
+        "k8s_llm_scheduler_tpu_torch.engine.sharded.geometry, "
+        "k8s_llm_scheduler_tpu_torch.fleet, "
+        "k8s_llm_scheduler_tpu_torch.fleet.lease, "
+        "k8s_llm_scheduler_tpu_torch.fleet.cache, "
+        "k8s_llm_scheduler_tpu_torch.fleet.pools, "
+        "k8s_llm_scheduler_tpu_torch.fleet.frontend, "
+        "k8s_llm_scheduler_tpu_torch.fleet.autoscale, "
+        "k8s_llm_scheduler_tpu_torch.sched.replica, "
+        "k8s_llm_scheduler_tpu_torch.sched.router, "
+        "k8s_llm_scheduler_tpu_torch.observability.fleetview, "
         "k8s_llm_scheduler_tpu_torch.cli\n"
         "bad = sorted(m for m in sys.modules"
         " if m in ('jax', 'yaml', 'safetensors', 'transformers')"

@@ -331,6 +331,10 @@ def _e2e(pkg, tmp_path, monkeypatch):
                                  {"cpu": "500m", "memory": "512Mi"}]):
             srv.add_pod(f"ai-test-pod-{i + 1}", requests=req)
         await _until(lambda: len(srv.bindings) == 3, "three binds", srv)
+        # in-flight scheduling tasks finish before stop(): one that finishes as
+        # run() returns leaves drain() spinning without yielding (Python 3.12's
+        # eager gather; ROADMAP queue 3 item 2), where no deadline can fire
+        await _until(lambda: not scheduler._tasks, "tasks done", srv)
         scheduler.stop()
         cluster.close()
         async with async_deadline(WAIT_S):

@@ -74,6 +74,11 @@ async def _drive(scheduler, cluster, n_pods):
         async with ttesting.async_deadline(300):
             while cluster.bind_count < n_pods:
                 await asyncio.sleep(0.02)
+            # in-flight scheduling tasks finish before stop(): one that finishes as
+            # run() returns leaves drain() spinning without yielding (Python 3.12's
+            # eager gather; ROADMAP queue 3 item 2), where no deadline can fire
+            while scheduler._tasks:
+                await asyncio.sleep(0.01)
     finally:
         scheduler.stop()
         cluster.close()
@@ -249,3 +254,32 @@ def test_cli_demo_defaults_to_cuda_and_raises_without_it():
     assert cli.build_parser().parse_args(["demo"]).device == "cuda"
     assert cli.build_parser().parse_args(["demo"]).model is None  # llm.model decides
     assert DEFAULT_CONFIG.get("llm.model") == "llama-3.2-1b-instruct"
+
+
+def test_drain_returns_when_a_finished_task_is_still_tracked():
+    """A task that has finished but whose done callback (its discard from
+    the scheduler's task set) has not run yet: the reference's drain()
+    gathers it forever without yielding (Python 3.12 completes the gather
+    eagerly); the port's yields, the callback runs and drain returns."""
+    from k8s_llm_scheduler_tpu_torch.sched.loop import Scheduler
+
+    scheduler = Scheduler(ttesting.synthetic_cluster(1), None, None)
+    out = {}
+
+    async def main():
+        async def noop():
+            return None
+
+        task = asyncio.create_task(noop())
+        scheduler._tasks.add(task)
+        task.add_done_callback(scheduler._tasks.discard)
+        await asyncio.sleep(0)  # the task finishes; its callback is only queued
+        out["tracked_done"] = task.done() and task in scheduler._tasks
+        await scheduler.drain()
+        out["drained"] = not scheduler._tasks
+
+    runner = threading.Thread(target=lambda: asyncio.run(main()), daemon=True)
+    runner.start()
+    runner.join(30)
+    assert not runner.is_alive(), "drain() never returned"
+    assert out == {"tracked_done": True, "drained": True}
