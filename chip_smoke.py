@@ -76,11 +76,11 @@ Phases, each of which must pass:
    of 8, then one more single decision under torch.profiler, for a 32-node
    synthetic cluster (a 5,488-token prefix: the chunked prefix prefill).
    It does so twice on the same weights: with the engine's waves as CUDA
-   graphs (the default), then eagerly (graphs=False) without the singles
-   before the batch (host-bound, 15-26 s each). Every decision must
+   graphs (the default), then eagerly (graphs=False) with the batch alone
+   (an eager single is host-bound, 15-26 s). Every decision must
    parse, name a feasible node and carry a confidence in [0, 1]; the two
    modes must emit identical greedy tokens wave for wave and row for row
-   (the batch and the last single),
+   (the batch),
    launch each kernel as often per run of every step (prefix chunk, suffix
    prefill and block decode by row count R; a graph replay counts what its
    capture recorded), and in graph mode the batch must find its geometry
@@ -263,6 +263,37 @@ Phases, each of which must pass:
    --json` (64 pods, 3 stub replicas: every pod bound once), `cli fleet
    shard` and `cli fleet top --once --replicas` against the worker. The
    worker must exit 0 on SIGINT.
+6n. KV plane 8B (after 6m): the shared prefix-KV plane (fleet/kvplane/)
+   between the decision phase's 8B engine (the filler) and a twin engine
+   over the same params tree and geometry (the adopter). (a) Engine level:
+   the filler pins the 5,488-token snapshot prefix, decides the batch of 8
+   as one greedy wave, and exports the prefix's pages in both transports
+   (host: pinned host memory; d2d: the filler's tensors); the adopter
+   pins the same prefix locally and decides the batch (its baseline, which
+   captures its wave programs), then, its prefix cache emptied before
+   each, adopts each page set and decides the batch again. Each adopted
+   wave's tokens must equal the filler's, no prefix prefill and no capture
+   may follow an adoption, and K1 and K2 must launch in the adopted wave
+   (counts zeroed just before it). Prints export and adopt ms of each
+   transport, the bytes shipped and the adopter's local prefix prefill
+   ms. (b) Backend level: two LocalLLMBackends of the config's admission
+   plane (delta prompts, 4 pins; batches as waves), one over each engine,
+   attach_kvplane one KVPlaneStore as replica-0 and replica-1. A burst of
+   the 8 pods on the snapshot on replica 0 (it wins the fill election and
+   publishes) then replica 1 (it adopts: kv_source "shared", no prefix
+   prefill): the same nodes and tokens. Then the generation bump of a
+   swap: both engines swap together (their shared tree onto itself), the
+   store bumps, a lookup presenting generation 0 is refused. A burst on
+   KV_DRIFTED drifted nodes on replica 1 (it syncs, refills, publishes)
+   then replica 0 (it adopts and prefills only the delta tail over the
+   adopted pin): the same nodes and tokens; K1 and K2 launch in every
+   burst. (c) In children, all at once: `cli fleet kvplane --json
+   --replicas 4` (dedup above 1, every pin accounted), `cli fleet demo
+   --json` with FLEET_KVPLANE_ENABLED=1 (64 pods bound once, the plane's
+   gauges), `cli chaos list`, `cli chaos run --regime kv-plane-outage
+   --trace T` (clean) then `cli chaos replay T` (ok), `cli fleet autoscale
+   --json` (exit 0). Prints the phase's wall time, its peak memory, the
+   store's gauges and each client's stats.
 6a. Checkpoint: a TINY HF-layout safetensors checkpoint from a seed,
    written in the format's own few lines (no `safetensors` package), vocab
    widened for the builtin numeric tokenizer, loaded through
@@ -401,10 +432,12 @@ COLD_BYTES = 134_217_728
 DEVICE = "cuda"  # where the K3/K4 cases run
 NEG_INF = -1e30
 N_SINGLES = 4  # single decisions before the batch of 8, in graph mode
-# Eager mode's: none. An eager 8B single is host-bound (15-26 s on an H100
-# host), and with four in each eager drive the smoke ran 1,332.9 s, past
-# its 1,200 s limit. Eager mode still decides the batch and one single
-# (the census decision), each compared with graph mode's token for token.
+# Eager mode's: none, and no census single after the batch either. An
+# eager 8B single is host-bound (15-26 s on an H100 host, more under
+# torch.profiler): with four in each eager drive the smoke ran 1,332.9 s,
+# and with the census single alone 1,164.9 s on a slow host, against its
+# 1,200 s limit. Eager mode still decides the batch, compared with graph
+# mode's token for token.
 N_EAGER_SINGLES = 0
 BLOCK_F = 24  # the engine's wave block width
 PATH_B_NEW_TOKENS = 64
@@ -1586,12 +1619,12 @@ MODES = (("graphs", True), ("eager", False))  # InferenceEngine(graphs=...)
 NO_PREWARM_S = 3600.0  # an eager backend's idle grace: longer than the smoke
 
 
-def _serve(backend, nodes, pods, n_singles, prewarm: bool) -> dict:
+def _serve(backend, nodes, pods, n_singles, prewarm: bool, census: bool = True) -> dict:
     """The decision drive: n_singles single decisions; then (with
     `prewarm`, once the backend's idle worker has captured the sibling wave
     geometries: engine.prewarm_wave_siblings, polled through
-    wave_prewarm_backlog) the batch; then one more single decision under the profiler
-    (launch_census). Returns its times, the decisions [(pod, decision)],
+    wave_prewarm_backlog) the batch; then (with `census`) one more single
+    decision under the profiler (launch_census; else census is None). Returns its times, the decisions [(pod, decision)],
     each wave's tokens, row count and cold flag (from harvest_wave), and
     the valid tokens of each block call by row bucket R."""
     eng = backend.engine
@@ -1626,9 +1659,12 @@ def _serve(backend, nodes, pods, n_singles, prewarm: bool) -> dict:
         batch_ms = (time.perf_counter() - t) * 1000.0
         totals[eng.max_slots] = list(eng.block_tokens)
         batch_cold = [w["cold"] for w in waves[n_single_waves:]]
-        calls0 = eng.stats["wave_model_calls"]
-        census = launch_census(lambda: backend.get_scheduling_decision(pods[0], nodes))
-        census["model_calls"] = eng.stats["wave_model_calls"] - calls0
+        if census:
+            calls0 = eng.stats["wave_model_calls"]
+            census = launch_census(lambda: backend.get_scheduling_decision(pods[0], nodes))
+            census["model_calls"] = eng.stats["wave_model_calls"] - calls0
+        else:
+            census = None
     finally:
         del eng.harvest_wave
     for pod, d in zip(pods, batch):
@@ -1678,7 +1714,8 @@ def _drive_modes(make_backend, nodes, pods, profiled=False, after_graphs=None) -
                 _zero_launch_counts()
                 t0 = time.perf_counter()
                 served = _serve(backend, nodes, pods,
-                                N_SINGLES if graphs else N_EAGER_SINGLES, prewarm=graphs)
+                                N_SINGLES if graphs else N_EAGER_SINGLES, prewarm=graphs,
+                                census=graphs)
                 main_s = time.perf_counter() - t0
                 launches = _launch_counts()
             stats = backend.get_stats()
@@ -1789,8 +1826,10 @@ def _mode_summary(rec, decisions) -> dict:
         "kernel_launches_per_run": per_call(rec["steps"]),
         "steps": rec["steps"],
         "census_decision": census,
-        "host_launches_per_model_call": census["host_launches"] / max(census["model_calls"], 1),
-        "device_ops_per_model_call": census["device_ops"] / max(census["model_calls"], 1),
+        "host_launches_per_model_call": (
+            census["host_launches"] / max(census["model_calls"], 1) if census else None),
+        "device_ops_per_model_call": (
+            census["device_ops"] / max(census["model_calls"], 1) if census else None),
         "peak_gib": rec["peak_gib"], "peak_above_start_gib": rec["peak_above_start_gib"],
         "peak_reserved_gib": rec["peak_reserved_gib"],
     }
@@ -1798,14 +1837,17 @@ def _mode_summary(rec, decisions) -> dict:
 
 def _modes_agree(recs, what: str) -> bool:
     """Graph mode against eager: identical greedy tokens wave for wave and
-    row for row (graph mode's singles past eager's N_EAGER_SINGLES have no
-    eager counterpart), equal kernel launches per device run of every step,
+    row for row (graph mode's singles past eager's N_EAGER_SINGLES and its
+    census single have no eager counterpart), equal kernel launches per
+    device run of every step eager mode ran,
     the batch of 8 warm in graph mode, and no kernel launched outside a
     graph in graph mode's profiled decision."""
     g, e = recs["graphs"], recs["eager"]
-    g_waves = g["waves"][:N_EAGER_SINGLES] + g["waves"][N_SINGLES:]
+    g_waves = g["waves"][:N_EAGER_SINGLES] + g["waves"][N_SINGLES:-1]
     same = [w["tokens"] for w in g_waves] == [w["tokens"] for w in e["waves"]]
-    calls = per_call(g["steps"]) == per_call(e["steps"])
+    # eager mode runs only the batch's steps; each must match graph mode's
+    g_calls = per_call(g["steps"])
+    calls = all(g_calls.get(step) == c for step, c in per_call(e["steps"]).items())
     warm = g["batch_cold_compile"] == [False]
     # the profiler saw the runtime's calls (a graph launch a model call at
     # least) and no kernel launch among them
@@ -5381,6 +5423,348 @@ def fleet_phase(engine) -> tuple[bool, dict]:
     return ok, rec
 
 
+KV_NODES = 32  # the decision phase's cluster: the 5,488-token prefix
+KV_PODS = 8
+KV_DRIFTED = 2  # nodes drifted for the second burst: below the repin fraction
+KV_CLI_TIMEOUT_S = 300.0
+
+
+def _twin_engine(engine):
+    """A second engine over `engine`'s params tree (one copy of the
+    weights on the card) with its page, slot, bucket, chunk and sampling
+    geometry: a replica built alike. Engines that share a tree must swap
+    together (engine.swap_params)."""
+    from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
+
+    return InferenceEngine(
+        engine.params, engine.cfg, engine.tokenizer,
+        num_pages=engine.kv.num_pages, page_size=engine.kv.page_size,
+        max_slots=engine.max_slots, max_pages_per_seq=engine.kv.max_pages_per_seq,
+        prefill_buckets=engine.prefill_buckets, chunk_steps=engine.chunk_steps,
+        prefix_chunk=engine.prefix_chunk, paged_attn=engine.paged_attn,
+        temperature=engine.temperature, top_k=engine.top_k,
+        decode_matmul=engine.decode_matmul, graphs=engine._graphs.enabled,
+        admission_chunk_tokens=engine.admission_chunk_tokens,
+        fused_decode=engine.fused_decode,
+    )
+
+
+@contextlib.contextmanager
+def _wave_tokens(engine):
+    """The token streams of every wave the engine harvests, in order."""
+    waves: list[list[list[int]]] = []
+    harvest = engine.harvest_wave
+
+    def recorded(handle):
+        fins = harvest(handle)
+        waves.append([f.token_ids for f in fins])
+        return fins
+
+    engine.harvest_wave = recorded
+    try:
+        yield waves
+    finally:
+        del engine.harvest_wave
+
+
+def _sync_ms(fn):
+    """(fn(), wall ms ending in a device sync)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1000.0
+
+
+def _kv_engine_level(filler, adopter, nodes, pods) -> tuple[bool, dict]:
+    """The plane's unit at 8B between two engines over one params tree:
+    the filler pins the snapshot prefix and exports its pages in both
+    transports; the adopter decides the batch after a local prefill of the
+    same prefix (its baseline, capturing its wave programs), then after
+    adopting each page set in turn, its prefix cache emptied between."""
+    from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend
+    from k8s_llm_scheduler_tpu_torch.fleet.kvplane import adopt_pages, export_pages
+
+    rec: dict = {}
+    fb = LocalLLMBackend(filler, request_timeout_s=600.0, prewarm_idle_delay_s=NO_PREWARM_S)
+    ab = LocalLLMBackend(adopter, request_timeout_s=600.0, prewarm_idle_delay_s=NO_PREWARM_S)
+    try:
+        items = [fb._prepare_item(p, nodes) for p in pods]
+        suffixes = [it.suffix_ids for it in items]
+        prefix = list(items[0].prefix_ids)
+
+        def wave(backend):
+            backend._switch_group(items[0])
+            fins = backend.engine.decide_wave(suffixes, backend.max_new_tokens)
+            return [f.token_ids for f in fins]
+
+        # the filler starts from a cold prefix plane too: its pin is a fresh
+        # chunked prefill, as the adopter's local one (an LCP-seeded one may
+        # round differently)
+        for k in list(filler._pinned_prefix_keys):
+            filler.unpin_prefix(k)
+        filler._prefix_cache.clear()
+        key, _ = filler.pin_prefix(prefix)
+        filler_tokens = wave(fb)
+        pages = {}
+        for transport in ("host", "d2d"):
+            pages[transport], rec[f"export_{transport}_ms"] = _sync_ms(
+                lambda t=transport: export_pages(filler, key, generation=0,
+                                                 filler="filler", transport=t))
+        p = pages["host"]
+        rec["bytes"] = p.nbytes
+        rec["shape"] = list(p.k.shape)
+        rec["host_pinned"] = bool(p.k.is_pinned())
+        # the adopter's baseline: a local prefill of the same prefix
+        (akey, _), rec["local_prefix_prefill_ms"] = _sync_ms(lambda: adopter.pin_prefix(prefix))
+        local_tokens = wave(ab)
+        rec["local_matches_filler"] = local_tokens == filler_tokens
+        for transport in ("host", "d2d"):
+            adopter.unpin_prefix(akey)
+            adopter._prefix_cache.clear()
+            before = {k: adopter.stats[k] for k in ("prefix_prefills", "prefill_tokens")}
+            captures = _graph_books(adopter)["captures"]
+            (akey, _), rec[f"adopt_{transport}_ms"] = _sync_ms(
+                lambda t=transport: adopt_pages(adopter, pages[t]))
+            _zero_launch_counts()
+            tokens = wave(ab)
+            launches = _launch_counts()
+            books = _graph_books(adopter)
+            rec[transport] = {
+                "tokens_match_filler": tokens == filler_tokens,
+                "prefix_prefills_moved": adopter.stats["prefix_prefills"] - before["prefix_prefills"],
+                "prefill_tokens_moved": adopter.stats["prefill_tokens"] - before["prefill_tokens"],
+                "new_captures": books["captures"] - captures,
+                "K1": launches["K1"], "K2": launches["K2"],
+            }
+        rec["adopted_prefixes"] = adopter.stats.get("adopted_prefixes", 0)
+        rec["rows"] = len(filler_tokens)
+        rec["tokens"] = sum(len(t) for t in filler_tokens)
+        # leave both prefix planes cold for the backend level
+        for eng, k in ((filler, key), (adopter, akey)):
+            eng.unpin_prefix(k)
+            eng._prefix_cache.clear()
+        del pages, p
+    finally:
+        fb.close()
+        ab.close()
+    ok = rec["local_matches_filler"] and rec["adopted_prefixes"] == 2 and all(
+        r["tokens_match_filler"] and r["prefix_prefills_moved"] == 0
+        and r["new_captures"] == 0 and r["K1"] > 0 and r["K2"] > 0
+        for r in (rec["host"], rec["d2d"]))
+    return ok, rec
+
+
+def _kv_backend_level(filler, adopter, nodes, pods) -> tuple[bool, dict]:
+    """Two replicas of the config's delta-prompt admission plane (delta
+    prompts, 4 pins; batches ride waves: a packed 8B decision decodes
+    through step(), its grammar's dense table past the fused runtime's
+    cap), one over each engine, joined to one
+    KVPlaneStore. Burst 1 (the snapshot) on replica 0 then replica 1; the
+    generation bump of a swap (both engines swap together: a no-op swap of
+    their shared tree, then the store's bump); burst 2 (KV_DRIFTED nodes
+    drifted: a delta tail over the pin) on replica 1 then replica 0."""
+    from k8s_llm_scheduler_tpu_torch.fleet.kvplane import KVGeometry, KVPlaneStore, page_digest
+
+    from k8s_llm_scheduler_tpu_torch.cli import _backend_kwargs
+    from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend
+
+    cfg = _default_config()
+    kw = {k: v for k, v in _backend_kwargs(cfg).items() if k in ADMISSION_KEYS}
+    kw.pop("admission_chunk_tokens")
+    kw["packed_admission"] = False
+    # the plane as the config's fleet.kvplane.* keys set it (a filler's
+    # lease lives fill_ttl_s: its prefill and publish must fit in it)
+    plane = {k: cfg.get(f"fleet.kvplane.{k}") for k in (
+        "transport", "fill_ttl_s", "max_entries", "wait_checks")}
+    store = KVPlaneStore(fill_ttl_s=float(plane["fill_ttl_s"]),
+                         max_entries=int(plane["max_entries"]))
+    replicas = [LocalLLMBackend(eng, request_timeout_s=600.0,
+                                prewarm_idle_delay_s=NO_PREWARM_S, **kw)
+                for eng in (filler, adopter)]
+    rec: dict = {"plane": plane, "backend": kw}
+    drifted = [dataclasses.replace(n, cpu_usage_percent=min(99.0, n.cpu_usage_percent + 35.0))
+               if i < KV_DRIFTED else n for i, n in enumerate(nodes)]
+    try:
+        for i, b in enumerate(replicas):
+            b.attach_kvplane(store, replica=f"replica-{i}", transport=plane["transport"],
+                             wait_checks=int(plane["wait_checks"]))
+
+        def burst(i, snapshot):
+            b = replicas[i]
+            before = dict(b.engine.stats)
+            _zero_launch_counts()
+            with _wave_tokens(b.engine) as waves:
+                decisions = b.get_scheduling_decisions_batch(pods, snapshot)
+            launches = _launch_counts()
+            bad = [d for d in decisions if isinstance(d, Exception)]
+            if bad:
+                raise bad[0]
+            pin = next(iter(b._pin_manager.pins.values()))
+            return {
+                "decisions": decisions,
+                "nodes": [d.selected_node for d in decisions],
+                "tokens": [t for w in waves for t in w],
+                "source": pin.source,
+                "pin_ids": pin.cache_key,
+                "K1": launches["K1"], "K2": launches["K2"],
+                **{k: b.engine.stats.get(k, 0) - before.get(k, 0) for k in (
+                    "prefix_prefills", "prefill_tokens", "prefix_reused_tokens",
+                    "adopted_prefixes")},
+            }
+
+        first = [burst(0, nodes), burst(1, nodes)]
+        rec["burst_1"] = {"same": first[0]["nodes"] == first[1]["nodes"]
+                          and first[0]["tokens"] == first[1]["tokens"],
+                          "feasible": _feasible(nodes, list(zip(pods, first[0]["decisions"]))),
+                          **{f"replica_{i}": _kv_burst_summary(r) for i, r in enumerate(first)}}
+        stats_1 = [b.get_stats()["kvplane"] for b in replicas]
+        for b in replicas:
+            b.run_quiesced(lambda e=b.engine: e.swap_params(e.params), timeout_s=600.0)
+        rec["generation"] = store.bump_generation()
+        pin_ids = first[0]["pin_ids"]
+        stale = store.lookup(page_digest(pin_ids), KVGeometry.of_engine(adopter),
+                             generation=0, holder="replica-1")
+        rec["stale_lookup_refused"] = stale is None and store.gauges()["stale_rejections"] == 1
+        second = [burst(1, drifted), burst(0, drifted)]
+        rec["burst_2"] = {"same": second[0]["nodes"] == second[1]["nodes"]
+                          and second[0]["tokens"] == second[1]["tokens"],
+                          **{f"replica_{i}": _kv_burst_summary(r)
+                             for i, r in zip((1, 0), second)}}
+        rec["clients_after_burst_1"] = {f"replica-{i}": s for i, s in enumerate(stats_1)}
+        rec["clients"] = {f"replica-{i}": b.get_stats()["kvplane"]
+                          for i, b in enumerate(replicas)}
+        rec["store"] = store.gauges()
+    finally:
+        for b in replicas:
+            b.close()
+    c0, c1 = stats_1
+    r1, r0 = rec["clients"]["replica-1"], rec["clients"]["replica-0"]
+    checks = {
+        "replica_0_filled": c0["elections_won"] == 1 and c0["publishes"] == 1,
+        "replica_1_adopted": (c1["adoptions"] == 1 and first[1]["source"] == "shared"
+                              and first[1]["prefix_prefills"] == 0),
+        "burst_1_identical": rec["burst_1"]["same"] and rec["burst_1"]["feasible"],
+        "stale_refused": rec["stale_lookup_refused"] and rec["generation"] == 1,
+        "replica_1_refilled": (r1["generation_syncs"] == 1 and r1["elections_won"] == 1
+                               and r1["publishes"] == 1 and second[0]["source"] == "local"),
+        "replica_0_adopted_gen_1": r0["adoptions"] == 1 and second[1]["source"] == "shared",
+        # replica 0 prefilled only the delta tail over the pin it adopted
+        "burst_2_identical": rec["burst_2"]["same"] and (
+            second[1]["prefix_reused_tokens"] == len(pin_ids)
+            and 0 < second[1]["prefill_tokens"] < len(pin_ids)),
+        "launches": all(r["K1"] > 0 and r["K2"] > 0 for r in first + second),
+        "store": rec["store"]["fills"] == 2 and rec["store"]["adoptions"] == 2,
+    }
+    rec["checks"] = checks
+    return all(checks.values()), rec
+
+
+def _kv_burst_summary(burst_rec) -> dict:
+    return {k: v for k, v in burst_rec.items() if k not in ("decisions", "tokens", "pin_ids")}
+
+
+def _kv_cli(cwd: Path) -> tuple[bool, dict]:
+    """The plane's and the chaos plane's CLI in children of their own, all
+    at once (no model: StubPinEngines, stubs and HashPlacementBackend)."""
+    import concurrent.futures as cf
+
+    trace = cwd / "kv-plane-outage.trace"
+
+    def child(argv, **env):
+        cmd = [sys.executable, "-m", "k8s_llm_scheduler_tpu_torch.cli", *argv]
+        out = subprocess.run(cmd, cwd=cwd, env=_child_env(**env), capture_output=True,
+                             text=True, timeout=KV_CLI_TIMEOUT_S)
+        if out.returncode != 0:
+            print(out.stderr[-3000:], file=sys.stderr, flush=True)
+        return out.returncode, out.stdout
+
+    def last_json(text):
+        lines = [line for line in text.splitlines() if line.startswith("{")]
+        return json.loads(lines[-1]) if lines else {}
+
+    def chaos():
+        run = child(["chaos", "run", "--regime", "kv-plane-outage", "--seed", "3",
+                     "--waves", "4", "--pods", "24", "--trace", str(trace)])
+        return run, child(["chaos", "replay", str(trace)])
+
+    with cf.ThreadPoolExecutor(5) as pool:
+        kv = pool.submit(child, ["fleet", "kvplane", "--json", "--replicas", "4"])
+        demo = pool.submit(child, ["fleet", "demo", "--json", "--pods", "64", "--nodes",
+                                   "12", "--shapes", "16", "--replicas", "3"],
+                           FLEET_KVPLANE_ENABLED="1")
+        listed = pool.submit(child, ["chaos", "list"])
+        runs = pool.submit(chaos)
+        auto = pool.submit(child, ["fleet", "autoscale", "--json"])
+        (kv_rc, kv_out), (demo_rc, demo_out), (list_rc, list_out) = (
+            f.result() for f in (kv, demo, listed))
+        (run_rc, run_out), (replay_rc, replay_out) = runs.result()
+        auto_rc, auto_out = auto.result()
+    kvrec, demorec, runrec, replayrec, autorec = (
+        last_json(t) for t in (kv_out, demo_out, run_out, replay_out, auto_out))
+    clients = kvrec.get("clients", {})
+    rec = {
+        "kvplane": {"rc": kv_rc, "dedup_ratio": kvrec.get("dedup_ratio"),
+                    "store": kvrec.get("store"),
+                    "accounted": len(clients) == 4 and all(
+                        c["adoptions"] + c["elections_won"] + c["local_fallbacks"]
+                        == kvrec["snapshots"] for c in clients.values())},
+        "demo": {"rc": demo_rc, "total_scheduled": demorec.get("total_scheduled"),
+                 "bind_count": demorec.get("bind_count"), "kvplane": demorec.get("kvplane")},
+        "chaos_list": {"rc": list_rc, "regimes": len(list_out.splitlines())},
+        "chaos_run": {"rc": run_rc, **{k: runrec.get(k) for k in (
+            "clean", "plan_digest", "bound_frac", "injections")}},
+        "chaos_replay": {"rc": replay_rc, "ok": replayrec.get("ok"),
+                         "detail": replayrec.get("detail")},
+        "autoscale": {"rc": auto_rc, "bind_count": autorec.get("bind_count"),
+                      "scale_events": len(autorec.get("scale_events", []))},
+    }
+    ok = (kv_rc == 0 and (rec["kvplane"]["dedup_ratio"] or 0) > 1 and rec["kvplane"]["accounted"]
+          and demo_rc == 0 and demorec.get("total_scheduled") == 64
+          and demorec.get("bind_count") == 64 and isinstance(demorec.get("kvplane"), dict)
+          and list_rc == 0 and rec["chaos_list"]["regimes"] >= 18
+          and run_rc == 0 and runrec.get("clean") is True
+          and replay_rc == 0 and replayrec.get("ok") is True
+          and auto_rc == 0)
+    return ok, rec
+
+
+def kvplane_8b(engine) -> tuple[bool, dict]:
+    """The shared prefix-KV plane at 8B (module doc, phase 6n): the engine
+    level and the backend level over the decision phase's engine and a
+    twin over its params tree, then the CLI children."""
+    import torch
+
+    from k8s_llm_scheduler_tpu_torch.engine.graphs import DEVICE_WIDE
+    from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    nodes, pods = synthetic_nodes(KV_NODES), fixture_pods(KV_PODS)
+    adopter = _twin_engine(engine)
+    rec: dict = {}
+    try:
+        e_ok, rec["engine"] = _kv_engine_level(engine, adopter, nodes, pods)
+        b_ok, rec["backend"] = _kv_backend_level(engine, adopter, nodes, pods)
+    finally:
+        adopter.release()
+        del adopter
+        with DEVICE_WIDE:
+            gc.collect()
+            torch.cuda.empty_cache()
+    rec["memory"] = _memory(start)
+    with tempfile.TemporaryDirectory() as d:
+        c_ok, rec["cli"] = _kv_cli(Path(d))
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["checks"] = {"engine": e_ok, "backend": b_ok, "cli": c_ok}
+    ok = all(rec["checks"].values())
+    print(f"kvplane 8B: {json.dumps(rec)} | {_smi()} | ok={ok}", flush=True)
+    return ok, rec
+
+
 def _timed_phase(name, fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -5434,6 +5818,7 @@ def main() -> int:
                                    dec["batch_tokens"])
         l_ok, loop = _timed_phase("loop", loop_phase, backend.engine)
         fl_ok, fleet = _timed_phase("fleet", fleet_phase, backend.engine)
+        kv_ok, kvplane = _timed_phase("kvplane 8B", kvplane_8b, backend.engine)
         c_ok, demo = _timed_phase("cli demo", demo_phase)
         sim_ok, simrec = _timed_phase("sim", sim_phase, backend)
         rs_ok, resident = _timed_phase("resident", resident_phase, backend.engine, nodes)
@@ -5484,6 +5869,13 @@ def main() -> int:
             "shapes": recs,
         }
 
+    def kvplane_launches(kernel):
+        # the adopter's wave after each adoption, and each replica's burst
+        eng, back = kvplane["engine"], kvplane["backend"]
+        return {"adopt_host": eng["host"][kernel], "adopt_d2d": eng["d2d"][kernel],
+                **{f"{burst}_{r}": back[burst][r][kernel] for burst in ("burst_1", "burst_2")
+                   for r in ("replica_0", "replica_1")}}
+
     def widest_suffix_prefill(recs):
         # K1/K2 headline: the batch's suffix prefill, the widest wave call
         return max((r for r in recs if r["step"] == "suffix prefill"),
@@ -5520,6 +5912,7 @@ def main() -> int:
                                   "worker": fleet["fanout"]["worker_launches"]["K1"],
                                   "router_big": fleet["router"]["arm_launches"]["big"]["K1"],
                                   "router_fast": fleet["router"]["arm_launches"]["fast"]["K1"]},
+                  kvplane_launches=kvplane_launches("K1"),
                   spec_verify={r["shape"]: {k: r.get(k) for k in (
                       "ms", "ms_hot", "plain_ms", "bound_ms", "library_ms", "bound_share")}
                       for r in spec["k1_cases"]},
@@ -5541,7 +5934,8 @@ def main() -> int:
                   fleet_launches={"coordinator": fleet["fanout"]["coordinator_launches"]["K2"],
                                   "worker": fleet["fanout"]["worker_launches"]["K2"],
                                   "router_big": fleet["router"]["arm_launches"]["big"]["K2"],
-                                  "router_fast": fleet["router"]["arm_launches"]["fast"]["K2"]}),
+                                  "router_fast": fleet["router"]["arm_launches"]["fast"]["K2"]},
+                  kvplane_launches=kvplane_launches("K2")),
             entry("ragged_matmul", k3,
                   "k8s_llm_scheduler_tpu_torch/csrc/ragged_matmul.cu",
                   "k8s_llm_scheduler_tpu/ops/ragged_matmul.py:108",
@@ -5563,7 +5957,7 @@ def main() -> int:
               "decision": d_ok, "swap_8b": sw_ok, "admission": adm_ok, "loop": l_ok,
               "cli_demo": c_ok, "sim": sim_ok, "resident": rs_ok,
               "path_a": a_ok, "path_b": b_ok, "fused": f_ok, "persistent_8b": p8_ok,
-              "spec": sp_ok, "hidden_8b": h8_ok, "fleet": fl_ok,
+              "spec": sp_ok, "hidden_8b": h8_ok, "fleet": fl_ok, "kvplane_8b": kv_ok,
               "checkpoint": ck_ok, "sampled": s_ok, "persistent_tiny": pt_ok,
               "journal_restart": jr_ok, "rollout_tiny": ro_ok, "cli_complete": cc_ok,
               "train_1b": tr_ok, "learn_1b": ln_ok,
@@ -5573,7 +5967,8 @@ def main() -> int:
               "swap_8b": swap, "admission": adm, "loop": loop, "cli_demo": demo,
               "sim": simrec, "resident": resident, "rollout_tiny": rollout, "path_a": path_a,
               "path_b": path_b, "fused": fused, "persistent_8b": pers8, "spec": spec,
-              "hidden_8b": hidden, "train_1b": train, "fleet": fleet, "learn_1b": learn,
+              "hidden_8b": hidden, "train_1b": train, "fleet": fleet, "kvplane_8b": kvplane,
+              "learn_1b": learn,
               "checkpoint": ckpt, "sampled": sampled, "persistent_tiny": pers_tiny,
               "journal_restart": journal_restart, "cli_complete": complete,
               "phases_ok": phases}

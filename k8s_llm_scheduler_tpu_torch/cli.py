@@ -1,5 +1,5 @@
 """Command line of the port: run / verify / demo / complete / journal /
-eval / train / sim / rollout / learn / fleet / trace.
+eval / train / sim / chaos / rollout / learn / fleet / trace.
 
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] run
         [--fake-cluster] [--fake-nodes N] [--device cuda|cpu]
@@ -23,13 +23,15 @@ eval / train / sim / rollout / learn / fleet / trace.
         [--seed S] [--nodes N] [--pods N] [--arrival burst|poisson|waves]
         [--arms llm,stub,teacher,...] [--trace F] [--replay F]
         [--device cuda|cpu]
+    python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] chaos
+        list|run|replay [--regime NAME|all] [--seed S] [--trace F] ...
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] rollout
         publish|status|fsck|rollback|promote|watch [--registry DIR] ...
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] learn
         mine|build|status|run|replay [--corpus DIR] [--registry DIR] ...
         [--device cuda|cpu]
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] fleet
-        demo|shard POD|top [--replicas ...] ...
+        demo|shard POD|top|kvplane|autoscale [--replicas ...] ...
     python -m k8s_llm_scheduler_tpu_torch.cli [--config FILE] trace
         list|show ID|tail|export [--host H] [--port P]
 
@@ -72,7 +74,9 @@ circuit breaker, the decision client and the scheduler (JAX cli.py:106-187).
 - `eval` (JAX cli.py:884-908) prints the decision-quality report card
   (train/eval.py) as one JSON line; `sim` (JAX cli.py:969-1078) runs the
   seeded arena (sim/) across decision arms and records or replays its
-  trace.
+  trace; `chaos` (JAX cli.py:1080-1152) lists the chaos regimes (chaos/),
+  runs seeded fault schedules through the real stack under the invariant
+  monitor, and replays a recorded chaos trace byte for byte.
 - `rollout` (JAX cli.py:1241-1605) files checkpoints in the versioned
   registry, gates a candidate against the incumbent in the arena, moves
   the active pointer, and `watch` serves the active version while it
@@ -85,9 +89,12 @@ circuit breaker, the decision client and the scheduler (JAX cli.py:106-187).
   cycle (learn/loop.LearnLoop: mine, finetune on `--device`, publish, the
   weakness and arena gates, promote) and replays its trace.
 - `fleet` (JAX cli.py:2029-2417): `demo` runs a sharded fleet of stub
-  replicas with leases over a fake cluster, `shard` maps a pod to its
-  shard, `top` renders the merged telemetry of live replica servers.
-  `kvplane` waits for ROADMAP queue 1 item 9b, `autoscale` for 10c.
+  replicas with leases over a fake cluster (with `fleet.kvplane.enabled`,
+  beside one shared prefix-KV plane), `shard` maps a pod to its shard,
+  `top` renders the merged telemetry of live replica servers, `kvplane`
+  runs the shared prefix-KV plane's protocol over model-free replicas
+  (fleet/kvplane/), and `autoscale` the elastic fleet over a diurnal
+  curve.
 
 `build_stack` wraps the backend as the JAX `_build_stack` does
 (JAX cli.py:534-688): the fan-out over `distributed.replica_addrs`
@@ -106,6 +113,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import importlib
 import json
 import logging
@@ -1115,6 +1123,76 @@ def _gate_from_cfg(cfg: Config, seed: int | None = None):
     )
 
 
+def cmd_chaos(args: argparse.Namespace, cfg: Config) -> int:
+    """Deterministic chaos plane (chaos/; JAX cli.py:1080-1152): seeded
+    fault schedules over the real stack, invariant-monitored, replayable
+    byte for byte. No model runs: the decisions come from stubs and the
+    harness's HashPlacementBackend."""
+    from k8s_llm_scheduler_tpu_torch.chaos import (
+        REGIMES,
+        run_chaos,
+        save_chaos_trace,
+        verify_chaos_trace,
+    )
+
+    if args.chaos_cmd == "list":
+        for name in sorted(REGIMES):
+            info = REGIMES[name]
+            print(f"{name:18s} [{info['mode']:6s}] {info['describe']}")
+        return 0
+
+    if args.chaos_cmd == "replay":
+        ok, detail = verify_chaos_trace(args.trace)
+        print(json.dumps({"metric": "chaos_replay", "ok": ok, "trace": args.trace,
+                          "detail": detail}))
+        return 0 if ok else 1
+
+    regimes = sorted(REGIMES) if args.regime == "all" else [args.regime]
+    unknown = [r for r in regimes if r not in REGIMES]
+    if unknown:
+        raise SystemExit(f"unknown regime(s) {unknown}; `cli chaos list` shows all")
+    if args.trace and len(regimes) != 1:
+        raise SystemExit("--trace records exactly one regime's run")
+    deadline_ms = args.deadline_ms
+    if deadline_ms is not None and deadline_ms <= 0:
+        deadline_ms = None
+    exit_code = 0
+    for regime in regimes:
+        report = run_chaos(
+            regime, seed=args.seed, n_waves=args.waves, n_nodes=args.nodes,
+            n_pods=args.pods, wave_timeout_s=args.wave_timeout,
+            deadline_ms=deadline_ms,
+        )
+        if args.trace:
+            save_chaos_trace(report, args.trace)
+        if args.out:
+            mode = "w" if regime == regimes[0] else "a"  # JSONL, one run per line
+            with open(args.out, mode, encoding="utf-8") as fh:
+                json.dump(report, fh, sort_keys=True)
+                fh.write("\n")
+        clean = report["invariants"]["clean"]
+        if not clean:
+            exit_code = 1
+            for v in report["invariants"]["violations"]:
+                line = f"VIOLATION [{v['invariant']}] {v['subject']}: {v['detail']}"
+                if v.get("trace_id"):
+                    line += f" (cli trace show {v['trace_id']})"
+                print(line, flush=True)
+        print(json.dumps({
+            "metric": "chaos",
+            "regime": regime,
+            "seed": args.seed,
+            "mode": report["mode"],
+            "clean": clean,
+            "plan_digest": report["plan_digest"],
+            "bound_frac": report["scores"]["bound_frac"],
+            "degraded_fraction": report["degraded_fraction"],
+            "recovery_waves": report["recovery"]["recovery_waves"],
+            "injections": report["injections"],
+        }), flush=True)
+    return exit_code
+
+
 def cmd_rollout(args: argparse.Namespace, cfg: Config) -> int:
     """Live-rollout surface (rollout/, JAX cli.py:1241-1315): publish a
     trained checkpoint into the versioned registry, inspect or verify it,
@@ -1652,9 +1730,8 @@ def cmd_fleet(args: argparse.Namespace, cfg: Config) -> int:
         cli fleet demo    # an in-process sharded fleet over a fake cluster
         cli fleet shard <namespace/name>   # a pod's watch-space shard
         cli fleet top     # merged telemetry of live replica servers
-
-    `kvplane` waits for the KV plane (ROADMAP queue 1 item 9b) and
-    `autoscale` for the chaos harness's placement backend (item 10c)."""
+        cli fleet kvplane    # the shared prefix-KV plane's protocol demo
+        cli fleet autoscale  # the elastic fleet over a diurnal curve"""
     from k8s_llm_scheduler_tpu_torch.fleet import shard_of
 
     if args.fleet_cmd == "shard":
@@ -1671,15 +1748,10 @@ def cmd_fleet(args: argparse.Namespace, cfg: Config) -> int:
         return _fleet_demo(args, cfg)
 
     if args.fleet_cmd == "kvplane":
-        raise NotImplementedError(
-            "fleet kvplane: the shared prefix-KV plane (fleet/kvplane/) is not "
-            "ported yet (ROADMAP queue 1 item 9b)")
+        return _fleet_kvplane(args, cfg)
 
     if args.fleet_cmd == "autoscale":
-        raise NotImplementedError(
-            "fleet autoscale: its demo places pods through the chaos harness's "
-            "HashPlacementBackend (chaos/harness.py), which is not ported yet "
-            "(ROADMAP queue 1 item 10c)")
+        return _fleet_autoscale(args, cfg)
 
     if args.fleet_cmd == "top":
         return _fleet_top(args, cfg)
@@ -1694,10 +1766,6 @@ def _fleet_demo(args: argparse.Namespace, cfg: Config) -> int:
     from k8s_llm_scheduler_tpu_torch.fleet import Fleet
     from k8s_llm_scheduler_tpu_torch.testing import pod_burst, synthetic_cluster
 
-    if cfg.get("fleet.kvplane.enabled"):
-        raise NotImplementedError(
-            "fleet.kvplane.enabled: the shared prefix-KV plane (fleet/kvplane/) is "
-            "not ported yet (ROADMAP queue 1 item 9b)")
     replicas = args.replicas if args.replicas is not None else int(cfg.get("fleet.replicas"))
     scheduler_name = cfg.get("scheduler.name")
 
@@ -1715,6 +1783,19 @@ def _fleet_demo(args: argparse.Namespace, cfg: Config) -> int:
 
             store = FileLeaseStore(lease_path, n_shards=int(cfg.get("fleet.n_shards")),
                                    ttl_s=float(cfg.get("fleet.lease_ttl_s")))
+        kvplane = None
+        if cfg.get("fleet.kvplane.enabled"):
+            # the shared prefix-KV plane: backends that pin prefixes
+            # (LocalLLMBackend) join it through attach_kvplane; the demo's
+            # StubBackend pins nothing, so here the plane only shows its
+            # gauges — a fleet of real backends deduplicates snapshot
+            # prefill through it
+            from k8s_llm_scheduler_tpu_torch.fleet.kvplane import KVPlaneStore
+
+            kvplane = KVPlaneStore(
+                fill_ttl_s=float(cfg.get("fleet.kvplane.fill_ttl_s")),
+                max_entries=int(cfg.get("fleet.kvplane.max_entries")),
+            )
         fleet = Fleet(
             cluster, cluster, lambda i: StubBackend(),
             n_replicas=replicas,
@@ -1726,6 +1807,7 @@ def _fleet_demo(args: argparse.Namespace, cfg: Config) -> int:
             l2_size=int(cfg.get("fleet.l2_size")),
             list_pending=lambda: cluster.pending_pods(scheduler_name),
             store=store,
+            kvplane=kvplane,
         )
         t0 = time.perf_counter()
         await fleet.start()
@@ -1761,6 +1843,192 @@ def _fleet_demo(args: argparse.Namespace, cfg: Config) -> int:
           f"{stats['failed_bindings']} failed, {stats['fenced_binds']} fenced; "
           f"cluster bind_count={stats['bind_count']}")
     return 0 if stats["total_scheduled"] >= args.pods else 1
+
+
+def _fleet_kvplane(args: argparse.Namespace, cfg: Config) -> int:
+    """Protocol demo of the shared prefix-KV plane: N replicas (model-free
+    StubPinEngines, whose KV is a pure function of the token ids) pin a
+    sequence of snapshot prefixes through one KVPlaneStore. Shows the
+    election / adopt / publish flow, the generation bump, and the headline:
+    the fleet's prefill tokens against what N independent replicas pay."""
+    from k8s_llm_scheduler_tpu_torch.fleet.kvplane import (
+        KVPlaneClient,
+        KVPlaneStore,
+        StubPinEngine,
+    )
+
+    replicas = args.replicas if args.replicas is not None else int(cfg.get("fleet.replicas"))
+    kvstore = KVPlaneStore(
+        fill_ttl_s=float(cfg.get("fleet.kvplane.fill_ttl_s")),
+        max_entries=int(cfg.get("fleet.kvplane.max_entries")),
+    )
+    clients = [
+        KVPlaneClient(kvstore, StubPinEngine(), replica=f"replica-{i}",
+                      wait_checks=int(cfg.get("fleet.kvplane.wait_checks")))
+        for i in range(replicas)
+    ]
+    for s in range(args.snapshots):
+        ids = [7000 + s * 101 + j for j in range(args.pin_tokens)]
+        for kc in clients:
+            kc.pin(ids)
+        if args.swap_every and (s + 1) % args.swap_every == 0:
+            kvstore.bump_generation()
+    fleet_prefill = sum(kc.engine.stats["prefill_tokens"] for kc in clients)
+    solo_prefill = replicas * args.snapshots * args.pin_tokens
+    out = {
+        "replicas": replicas,
+        "snapshots": args.snapshots,
+        "pin_tokens": args.pin_tokens,
+        "store": kvstore.gauges(),
+        "clients": {kc.replica: kc.stats() for kc in clients},
+        "fleet_prefill_tokens": fleet_prefill,
+        "plane_off_prefill_tokens": solo_prefill,
+        "dedup_ratio": round(solo_prefill / fleet_prefill, 2) if fleet_prefill else None,
+    }
+    if args.json:
+        print(json.dumps(out))
+        return 0
+    g = out["store"]
+    print(f"kvplane demo: {replicas} replica(s), {args.snapshots} "
+          f"snapshot(s) x {args.pin_tokens} tokens")
+    print(f"  fills {g['fills']}  adoptions {g['adoptions']}  "
+          f"generation {g['generation']}  entries {g['entries']}")
+    for kc in clients:
+        st = kc.stats()
+        print(f"  {kc.replica}: won {st['elections_won']}  "
+              f"adopted {st['adoptions']}  "
+              f"fallbacks {st['local_fallbacks']}  "
+              f"shipped {st['bytes_shipped']}B")
+    print(f"  fleet prefill {fleet_prefill} tokens vs {solo_prefill} plane-off "
+          f"({out['dedup_ratio']}x dedup)")
+    return 0
+
+
+def _fleet_autoscale(args: argparse.Namespace, cfg: Config) -> int:
+    """The elastic fleet over a diurnal arrival curve on a virtual clock:
+    the autoscale controller's trajectory, its scale events and the bind
+    book. Pods are placed by the chaos harness's HashPlacementBackend, so
+    no model runs."""
+    from k8s_llm_scheduler_tpu_torch.chaos.harness import HashPlacementBackend, _VirtualClock
+    from k8s_llm_scheduler_tpu_torch.cluster.fake import FakeCluster, FakeNode
+    from k8s_llm_scheduler_tpu_torch.fleet import Fleet
+    from k8s_llm_scheduler_tpu_torch.fleet.autoscale import AutoscaleConfig, AutoscaleController
+    from k8s_llm_scheduler_tpu_torch.fleet.lease import shard_of
+    from k8s_llm_scheduler_tpu_torch.sim.scenarios import ScenarioSpec, generate_scenario
+
+    # from_dict keeps its unknown-key error for config.yaml typos; demo
+    # pacing then overrides the wall-clock cooldowns (the virtual tick is
+    # one wave, so the config's second-scale cooldowns would freeze the
+    # demo) while keeping their ratio (up fast, down deliberate)
+    acfg = dataclasses.replace(
+        AutoscaleConfig.from_dict(cfg.section("autoscale")),
+        up_cooldown_s=1.0, down_cooldown_s=3.0,
+        join_budget_ticks=4, join_backoff_ticks=1,
+        split_enabled=False,
+    )
+    scheduler_name = cfg.get("scheduler.name")
+    spec = ScenarioSpec(
+        name="autoscale-demo", seed=args.seed,
+        n_nodes=args.nodes, n_pods=args.pods, shapes=16,
+        arrival="diurnal", n_waves=args.waves,
+        hetero=True, constraint_mix=("uniform",),
+    )
+    scenario = generate_scenario(spec)
+
+    async def demo() -> dict:
+        cluster = FakeCluster()
+        for n in scenario.nodes:
+            cluster.add_node(FakeNode(
+                name=n.name, cpu_capacity_cores=n.cpu_cores,
+                memory_capacity_gb=n.memory_gb, max_pods=n.max_pods,
+                labels=dict(n.labels), taints=n.taints, ready=n.ready,
+            ))
+        clock = _VirtualClock()
+        fleet = Fleet(
+            cluster, cluster, lambda i: HashPlacementBackend(),
+            n_replicas=acfg.min_replicas,
+            n_shards=2 * acfg.max_replicas,
+            scheduler_name=scheduler_name,
+            lease_ttl_s=6.0, clock=clock, snapshot_ttl_s=1e9,
+            list_pending=lambda: cluster.pending_pods(scheduler_name),
+        )
+        wave_state = {"i": 0, "incoming": 0}
+        controller = AutoscaleController(
+            fleet, acfg,
+            queue_depth_fn=lambda: wave_state["incoming"],
+            clock=lambda: wave_state["i"] * 1.0,
+        )
+
+        def reoffer() -> list:
+            pending = cluster.pending_pods(scheduler_name)
+            coros = []
+            for replica in fleet.replicas:
+                todo = [p for p in pending
+                        if replica.manager.owns(shard_of(p.namespace, p.name, fleet.n_shards))]
+                coros.extend(replica.scheduler.schedule_pod(p) for p in todo)
+            return coros
+
+        trajectory = []
+        await fleet.start(lease_threads=False)
+        try:
+            for wave_idx, wave in enumerate(scenario.waves):
+                clock.advance(1.0)
+                fleet.tick_leases()
+                wave_state["i"] = wave_idx + 1
+                wave_state["incoming"] = len(wave)
+                record = await controller.tick()
+                for pod in wave:
+                    cluster.add_pod(pod.to_raw_pod())
+                # every demo pod is placeable (uniform constraints), so the
+                # wave drains exactly when nothing is pending
+                deadline = time.monotonic() + 30.0
+                stalls = 0
+                while cluster.pending_pods(scheduler_name):
+                    if time.monotonic() > deadline:
+                        break
+                    await asyncio.sleep(0.01)
+                    stalls += 1
+                    if stalls % 25 == 0:
+                        fleet.tick_leases()
+                        coros = reoffer()
+                        if coros:
+                            await asyncio.gather(*coros, return_exceptions=True)
+                trajectory.append({
+                    "wave": wave_idx,
+                    "pods": len(wave),
+                    "replicas": fleet.n_live,
+                    "pressure": record["pressure"],
+                    "action": record["action"],
+                })
+            stats = fleet.get_stats()
+            return {
+                "trajectory": trajectory,
+                "scale_events": controller.scale_events(),
+                "autoscale": controller.stats(),
+                # the cluster's bind book is the authority: roster stats
+                # lose a drained replica's counts with it
+                "bind_count": cluster.bind_count,
+                "lease": stats["lease"],
+            }
+        finally:
+            await fleet.stop()
+
+    out = asyncio.run(demo())
+    if args.json:
+        print(json.dumps(out))
+        return 0
+    print(f"autoscale demo: {args.pods} pods over a {args.waves}-wave "
+          f"diurnal curve, clamp [{acfg.min_replicas}, {acfg.max_replicas}]")
+    for t in out["trajectory"]:
+        bar = "#" * t["replicas"]
+        print(f"  wave {t['wave']:>2}  pods {t['pods']:>4}  "
+              f"pressure {t['pressure']:>6.2f}  replicas "
+              f"{t['replicas']} {bar:<8} {t['action']}")
+    a = out["autoscale"]
+    print(f"  {out['bind_count']}/{args.pods} bound exactly once; "
+          f"{a['scale_ups']} up(s), {a['scale_downs']} down(s), "
+          f"{a['join_failures']} failed join(s)")
+    return 0 if out["bind_count"] >= args.pods else 1
 
 
 def _fleet_top(args: argparse.Namespace, cfg: Config) -> int:
@@ -2273,6 +2541,33 @@ def build_parser() -> argparse.ArgumentParser:
     device_flag(p_sim)
     p_sim.set_defaults(func=cmd_sim)
 
+    p_chaos = sub.add_parser(
+        "chaos", help="deterministic chaos plane: seeded fault schedules through the "
+                      "real stack, invariant-monitored, replayable (chaos/)")
+    csub = p_chaos.add_subparsers(dest="chaos_cmd", required=True)
+    csub.add_parser("list", help="list regimes")
+    p_crun = csub.add_parser("run", help="run one regime (or all) and print the verdict")
+    p_crun.add_argument("--regime", default="all",
+                        help="regime name (`cli chaos list`) or 'all'")
+    p_crun.add_argument("--seed", type=int, default=0)
+    p_crun.add_argument("--waves", type=int, default=8)
+    p_crun.add_argument("--nodes", type=int, default=12)
+    p_crun.add_argument("--pods", type=int, default=None,
+                        help="default: 96 (single/wire regimes) or 64 (fleet regimes)")
+    p_crun.add_argument("--wave-timeout", type=float, default=30.0)
+    p_crun.add_argument(
+        "--deadline-ms", type=float, default=2000.0,
+        help="per-decision deadline budget riding every frame (<=0 disables; loose "
+             "by default — tight wall-clock deadlines would break run-to-run "
+             "placement determinism)")
+    p_crun.add_argument("--trace", default=None,
+                        help="record the (single) regime's replayable trace here")
+    p_crun.add_argument("--out", default=None, help="full JSON report path")
+    p_creplay = csub.add_parser(
+        "replay", help="verify a recorded chaos trace replays byte-identically")
+    p_creplay.add_argument("trace", help="trace file from `chaos run --trace`")
+    p_chaos.set_defaults(func=cmd_chaos)
+
     p_rollout = sub.add_parser(
         "rollout", help="live policy rollout: checkpoint registry, canary gate, "
                         "shadow scoring, hot weight swap (rollout/)")
@@ -2369,7 +2664,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     p_fleet = sub.add_parser(
         "fleet", help="fleet-scale serving (fleet/): sharded-replica demo, shard "
-                      "mapping, merged replica telemetry")
+                      "mapping, merged replica telemetry, the shared prefix-KV "
+                      "plane demo, the elastic-fleet demo")
     fsub = p_fleet.add_subparsers(dest="fleet_cmd", required=True)
     p_fdemo = fsub.add_parser(
         "demo", help="run an in-process sharded fleet over a fake cluster and print "
@@ -2382,22 +2678,31 @@ def build_parser() -> argparse.ArgumentParser:
                          help="distinct pod resource shapes (cache-coherence groups)")
     p_fdemo.add_argument("--json", action="store_true")
     p_fkv = fsub.add_parser(
-        "kvplane", help="shared prefix-KV plane demo (not ported yet: ROADMAP queue 1 "
-                        "item 9b)")
-    p_fkv.add_argument("--replicas", type=int, default=None)
-    p_fkv.add_argument("--snapshots", type=int, default=4)
-    p_fkv.add_argument("--pin-tokens", type=int, default=512)
-    p_fkv.add_argument("--swap-every", type=int, default=0)
+        "kvplane", help="shared prefix-KV plane demo (fleet/kvplane/): N replicas pin "
+                        "snapshot prefixes through one store — the fill-once / "
+                        "adopt-everywhere flow and the prefill dedup ratio")
+    p_fkv.add_argument("--replicas", type=int, default=None,
+                       help="plane clients (default: fleet.replicas config)")
+    p_fkv.add_argument("--snapshots", type=int, default=4,
+                       help="distinct snapshot prefixes pinned in sequence")
+    p_fkv.add_argument("--pin-tokens", type=int, default=512,
+                       help="tokens per snapshot prefix")
+    p_fkv.add_argument("--swap-every", type=int, default=0,
+                       help="bump the plane generation every N snapshots (0 = never) "
+                            "— the hot-swap invalidation path")
     p_fkv.add_argument("--json", action="store_true")
     p_fshard = fsub.add_parser("shard", help="print a pod's watch-space shard id")
     p_fshard.add_argument("pod", help="namespace/name (bare name = default namespace)")
     p_fshard.add_argument("--n-shards", type=int, default=None,
                           help="shard count (default: fleet.n_shards config)")
     p_fauto = fsub.add_parser(
-        "autoscale", help="elastic-fleet demo (not ported yet: ROADMAP queue 1 item 10c)")
+        "autoscale", help="elastic-fleet demo: a seeded diurnal arrival curve through "
+                          "the autoscale controller (fleet/autoscale.py) over a fake "
+                          "cluster; prints the replica trajectory and scale events")
     p_fauto.add_argument("--pods", type=int, default=240)
     p_fauto.add_argument("--nodes", type=int, default=24)
-    p_fauto.add_argument("--waves", type=int, default=12)
+    p_fauto.add_argument("--waves", type=int, default=12,
+                         help="diurnal curve length in waves (one controller tick each)")
     p_fauto.add_argument("--seed", type=int, default=0)
     p_fauto.add_argument("--json", action="store_true")
     p_ftop = fsub.add_parser(

@@ -321,8 +321,8 @@ DEFAULTS: dict[str, Any] = {
         "prepack_window_ms": 2.0,
         # shared prefix-KV plane (fleet/kvplane/): one replica's
         # snapshot prefill serves the fleet. transport "host" ships
-        # numpy pages (cross-process shape); "d2d" hands device arrays
-        # across replicas sharing one mesh. fill_ttl_s bounds how long
+        # host tensors (cross-process shape); "d2d" hands device tensors
+        # across replicas sharing one card. fill_ttl_s bounds how long
         # a dead filler's lease blocks peers (they degrade to local
         # prefill meanwhile, never wait); wait_checks is how many times
         # an election loser re-polls for the filler's publish before

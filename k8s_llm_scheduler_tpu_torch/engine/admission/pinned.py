@@ -1,6 +1,4 @@
-"""Pinned snapshot-prefix KV manager: pin / refresh / evict lifecycle (the
-port of the JAX package's engine/admission/pinned.py, without its shared
-prefix-KV plane client: every pin here is prefilled locally).
+"""Pinned snapshot-prefix KV manager: pin / refresh / evict lifecycle.
 
 The delta-encoding scheme (sched/delta.py) renders every decision prompt
 as (pinned cluster snapshot) + (diff of what changed since the pin). The
@@ -14,10 +12,9 @@ The manager tracks one pin handle per snapshot key over the engine's
 prefix cache (engine.pin_prefix / unpin_prefix / pin_alive), bounds the
 pin count (LRU), and enforces the GENERATION contract: every handle is
 stamped with the engine's prefix_epoch at pin time, and a rollout hot
-swap bumps the epoch and clears the engine's pin set — so a stale pin
-can never serve a post-swap decision; ensure() simply re-pins under the
-new weights. (The port has no hot swap yet; the epoch is kept so the
-contract is in place.)
+swap (InferenceEngine.swap_params) bumps the epoch and clears the
+engine's pin set — so a stale pin can never serve a post-swap decision;
+ensure() simply re-pins under the new weights.
 
 Thread model: ensure()/invalidate_stale() run on the ENGINE-OWNER thread
 only (they dispatch prefills), like every engine call. stats() is
@@ -40,13 +37,19 @@ class PinHandle:
     cache_key: tuple[int, ...]  # engine prefix-cache key (the token ids)
     epoch: int                  # engine.prefix_epoch at pin time
     length: int                 # pinned tokens
-    source: str = "local"       # where the KV came from: a local prefill
+    source: str = "local"       # "local" prefill | "shared" (kvplane adoption)
 
 
 class PinnedPrefixManager:
-    def __init__(self, engine, max_pins: int = 4) -> None:
+    def __init__(self, engine, max_pins: int = 4, kvplane=None) -> None:
         self.engine = engine
         self.max_pins = max(1, int(max_pins))
+        # Shared prefix-KV plane client (fleet/kvplane/KVPlaneClient).
+        # When attached, pin installs route through the fleet tier —
+        # adopt a peer's pages when published, else prefill locally and
+        # publish for the fleet. Assigned post-construction by
+        # LocalLLMBackend.attach_kvplane.
+        self.kvplane = kvplane
         self._pins: dict[str, PinHandle] = {}  # insertion order = LRU
         self.stats_counters = {
             "pins": 0,
@@ -77,9 +80,14 @@ class PinnedPrefixManager:
                 self.stats_counters["repins_stale"] += 1
             self.engine.unpin_prefix(h.cache_key)
             del self._pins[key]
-        cache_key, epoch = self.engine.pin_prefix(list(token_ids))
+        if self.kvplane is not None:
+            cache_key, epoch, source = self.kvplane.pin(list(token_ids))
+        else:
+            cache_key, epoch = self.engine.pin_prefix(list(token_ids))
+            source = "local"
         self._pins[key] = PinHandle(
             key=key, cache_key=cache_key, epoch=epoch, length=len(ids),
+            source=source,
         )
         self.stats_counters["pins"] += 1
         while len(self._pins) > self.max_pins:
@@ -110,8 +118,9 @@ class PinnedPrefixManager:
             self.engine.unpin_prefix(h.cache_key)
 
     def source_of(self, key: str) -> str | None:
-        """Provenance of `key`'s live pin ("local"), or None when nothing
-        is pinned under it — what decision traces stamp as `kv_source`."""
+        """Provenance of `key`'s live pin ("local" | "shared"), or None
+        when nothing is pinned under it — what decision traces stamp as
+        `kv_source`."""
         h = self._pins.get(key)
         return h.source if h is not None else None
 

@@ -94,6 +94,7 @@ import threading
 import time
 import weakref
 from collections import OrderedDict, deque
+from typing import Any
 
 import numpy as np
 import torch
@@ -1139,6 +1140,76 @@ class InferenceEngine:
             and key in self._pinned_prefix_keys
             and key in self._prefix_cache
         )
+
+    def export_prefix_kv(
+        self, key: tuple[int, ...]
+    ) -> tuple[torch.Tensor, torch.Tensor] | None:
+        """The cached KV stack of `key` (the shared prefix-KV plane exports
+        pinned snapshots through here, fleet/kvplane/), or None when the
+        entry is not resident. Ships the FULL capacity buffer, padding
+        included, so an adopting peer installs the bytes of this engine's
+        own entry, in a buffer of a length its static prefix buffers
+        already know (_bind_prefix): no new capture follows. The tensors
+        are this engine's own; a caller that keeps them copies them
+        (pages.export_pages' host arm, adopt_prefix_pages)."""
+        pfx = self._prefix_cache.get(tuple(key))
+        if pfx is None:
+            return None
+        return pfx.k, pfx.v
+
+    @torch.no_grad()
+    def adopt_prefix_pages(
+        self, prompt_ids: list[int], k: Any, v: Any
+    ) -> tuple[tuple[int, ...], int]:
+        """Install a peer replica's exported prefix KV as a PINNED cache
+        entry: pin_prefix's outcome without paying its prefill.
+
+        The buffers must carry this engine's KV geometry ([n_layers, cap >=
+        len(prompt_ids), n_kv_heads, head_dim]); anything else raises
+        before the engine is touched. They may be host tensors, numpy
+        arrays or another engine's device tensors, and are COPIED into a
+        buffer this engine owns (the JAX engine's arrays are immutable, so
+        its entries never alias either): a later write to the filler's
+        buffer, or its eviction, leaves the adopted entry as it was.
+
+        Returns (cache key, prefix_epoch), pin_prefix's contract, under
+        the same staleness rules (pin_alive / swap_params)."""
+        if not prompt_ids:
+            raise ValueError("cannot adopt an empty prefix")
+        key = tuple(prompt_ids)
+        n = len(key)
+        want = (self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.head_dim)
+        kshape, vshape = tuple(k.shape), tuple(v.shape)
+        if (
+            len(kshape) != 4
+            or kshape != vshape
+            or (kshape[0], kshape[2], kshape[3]) != want
+            or kshape[1] < n
+        ):
+            raise ValueError(
+                f"adopted prefix pages have shape k={kshape} v={vshape}; "
+                f"this engine needs [L={want[0]}, cap>={n}, "
+                f"n_kv={want[1]}, hd={want[2]}]"
+            )
+        self._await_dispatch()
+        # numpy pages (a wire's, or read-only ones) come in through a copy
+        # torch may write
+        k_d, v_d = (
+            torch.empty(kshape, dtype=self.cfg.dtype, device=self.device).copy_(
+                t if isinstance(t, torch.Tensor) else torch.from_numpy(np.array(t)))
+            for t in (k, v)
+        )
+        if self.device.type == "cuda":
+            with DEVICE_WIDE:
+                torch.cuda.synchronize(self.device)
+        self._prefix_cache[key] = _PrefixKV(k=k_d, v=v_d, length=n, token_ids=key)
+        self._prefix_cache.move_to_end(key)
+        if key not in self._pinned_prefix_keys:
+            self._pinned_prefix_keys.add(key)
+            self.stats["pinned_prefixes"] += 1
+        # created at the first adoption, as in the JAX engine's stats
+        self.stats["adopted_prefixes"] = self.stats.get("adopted_prefixes", 0) + 1
+        return key, self.prefix_epoch
 
     def _best_lcp_seed(self, key: tuple[int, ...]):
         """(k, v, reuse_len) of the cached prefix sharing the longest common
@@ -2352,7 +2423,17 @@ class InferenceEngine:
         the old weights never serves again), and the active prefix drops
         unless paged slots are in flight (they continue against it:
         token-identical only for identical params). The decision cache
-        above the engine bumps its own generation (rollout/hotswap.py)."""
+        above the engine bumps its own generation, and the fleet's shared
+        prefix-KV plane its store generation (rollout/hotswap.py).
+
+        Engines built over ONE params tree (an in-process fleet sharing
+        one copy of the weights on the card) share the serving tensors: a
+        swap through one of them changes the other's weights as well, but
+        bumps only this engine's prefix_epoch, so the other's prefix cache,
+        pins and adopted pages stay marked current under weights they were
+        not computed with. Swap such engines together. (The JAX engine
+        rebinds, and a production deployment builds one engine a process,
+        so neither meets this.)"""
         pairs: list[tuple[torch.Tensor, torch.Tensor]] = []
         _match_tree(self.params, params, "params", pairs)
         self._await_dispatch()

@@ -61,7 +61,20 @@ the disaggregated pools (fleet/pools.py) refuses admission (work="prefill")
 on every decision entry point, and its stats carry the role and its
 refusals.
 
-Not ported yet: the KV plane (`attach_kvplane`), ROADMAP queue 1 item 9b.
+The shared prefix-KV plane (JAX local.py:1285-1311): `attach_kvplane`
+routes the pin manager's snapshot pins through a fleet/kvplane
+KVPlaneClient — adopt a peer's published pages, else win the fill
+election, prefill once and publish — and `_install_group` stamps the pin's
+provenance ("local" | "shared") on the decision trace as `kv_source`.
+
+Weights shared across engines: an in-process fleet may build its engines
+over ONE params tree (one copy of an 8B model on the card). The port's
+swap_params copies into the serving tensors, so a swap through one engine
+changes the weights under the other too, while the other's prefix cache,
+pins and adopted pages stay marked current (its prefix_epoch did not
+move). Engines that share a tree are swapped together (the JAX engine
+rebinds, and a production deployment builds one engine a process, so
+neither meets this).
 """
 
 from __future__ import annotations
@@ -217,6 +230,10 @@ class LocalLLMBackend:
             PinnedPrefixManager(engine, max_pins=max_pins)
             if hasattr(engine, "pin_prefix") else None  # engine test doubles
         )
+        # Shared prefix-KV plane client (fleet/kvplane/KVPlaneClient), set
+        # when the backend joins the fleet (attach_kvplane) — None means
+        # pins are purely local.
+        self._kvplane = None
         # Disaggregated-pool role (fleet/pools.py): "decode" workers
         # refuse admission (work="prefill") so a fleet routing bug fails
         # loudly instead of letting admission bursts evict the decode
@@ -1117,6 +1134,34 @@ class LocalLLMBackend:
                 if self.engine.device.type == "cuda":
                     torch.cuda.empty_cache()
 
+    def attach_kvplane(
+        self,
+        store,
+        *,
+        replica: str = "r0",
+        transport: str = "host",
+        wait_checks: int = 2,
+    ) -> None:
+        """Join this backend to a fleet-shared prefix-KV plane
+        (fleet/kvplane/): snapshot pins route through a KVPlaneClient —
+        adopt a peer's published pages when available, else win the fill
+        election, prefill once, and publish for the fleet. Requires a
+        pinning engine (no-op otherwise, matching the pin manager's own
+        gating on test doubles)."""
+        if self._pin_manager is None:
+            return
+        from k8s_llm_scheduler_tpu_torch.fleet.kvplane import KVPlaneClient
+
+        client = KVPlaneClient(
+            store,
+            self.engine,
+            replica=replica,
+            transport=transport,
+            wait_checks=wait_checks,
+        )
+        self._kvplane = client
+        self._pin_manager.kvplane = client
+
     def get_stats(self) -> dict[str, Any]:
         out = self.engine.get_stats()
         if self.swap_stats["quiesce_runs"]:
@@ -1130,6 +1175,8 @@ class LocalLLMBackend:
             out["delta"] = self._delta.stats()
         if self._pin_manager is not None and self._pin_manager.stats_counters["pins"]:
             out["pins"] = self._pin_manager.stats()
+        if self._kvplane is not None:
+            out["kvplane"] = self._kvplane.stats()
         completed = out.get("completed", 0)
         if completed:
             # prefill tokens computed per finished decision (prefix prefills

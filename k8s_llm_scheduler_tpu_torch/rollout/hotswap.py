@@ -35,6 +35,9 @@ What a swap invalidates (everything computed under the old weights):
 - the decision cache ABOVE the engine via a generation bump
   (core/cache.py) — cached decisions are the old policy's outputs and
   must never be served after promotion;
+- the fleet's shared prefix-KV plane via its store generation
+  (fleet/kvplane/store.py, `kvplane=`): pages peers published under the
+  old weights are refused everywhere;
 - open speculative streams roll back their unverified tails
   (spec/decoder.on_swap, called by swap_params).
 """
@@ -99,6 +102,7 @@ class HotSwapper:
         cfg,                          # the serving LlamaConfig
         *,
         cache=None,                   # DecisionCache to generation-bump
+        kvplane=None,                 # fleet KVPlaneStore to generation-bump
         mode: str = "auto",           # auto | double | donate
         quantize: str | None = None,  # None | "int8" — match the serving tree
         verify_digests: bool = True,
@@ -111,6 +115,11 @@ class HotSwapper:
         self.registry = registry
         self.cfg = cfg
         self.cache = cache
+        # Shared prefix-KV plane store: its generation is the FLEET-wide
+        # twin of engine.prefix_epoch — peers' published prefix pages
+        # were prefilled under the outgoing weights, so the swap must
+        # invalidate them everywhere, not just on this replica.
+        self.kvplane = kvplane
         self.mode = mode
         self.quantize = quantize
         self.verify_digests = verify_digests
@@ -212,6 +221,8 @@ class HotSwapper:
 
         if self.cache is not None:
             self.cache.bump_generation()
+        if self.kvplane is not None:
+            self.kvplane.bump_generation()
         self._prior_version = prior
         self.active_version = version
         self.stats_counters["swaps"] += 1

@@ -449,13 +449,45 @@ def chaos_scenario(
     shapes: int = 8,
     n_waves: int = 8,
 ):
-    """(ScenarioSpec, FaultPlan) for one chaos regime in the JAX package
-    (its sim/scenarios.py). Its fault side is chaos/faults.py, which the
-    port has not ported yet (ROADMAP queue 1 item 10c), so this raises."""
-    raise NotImplementedError(
-        f"chaos_scenario({regime!r}): the chaos plane (chaos/faults.py) is not "
-        f"ported yet (ROADMAP queue 1 item 10c)"
+    """(ScenarioSpec, FaultPlan) for one chaos regime (chaos/faults.py
+    REGIMES): the workload side is a wave-quantized scenario from THIS
+    module's generator — same seed discipline, same churn machinery (the
+    node-failure and autoscaler regimes ride ChurnEvent exactly like
+    arena scenarios) — and the fault side is the regime's seeded
+    FaultPlan over the same virtual (wave) clock. One seed determines
+    both, which is what makes a chaos run a replayable artifact.
+
+    Constraints stay uniform on purpose: every pod must be placeable so
+    the invariant monitor's lost-pod accounting is exact (an
+    unschedulable-by-construction pod would be indistinguishable from a
+    dropped one without carrying the constraint solver into the chaos
+    verdict)."""
+    from k8s_llm_scheduler_tpu_torch.chaos.faults import REGIMES, FaultPlan
+
+    plan = FaultPlan.generate(regime, seed, n_waves, n_nodes=n_nodes)
+    churn = tuple(
+        ChurnEvent(wave=int(c["wave"]), kind=c["kind"], node=c["node"])
+        for c in plan.churn
     )
+    # scale regimes shape the workload side too: flap parks arrival
+    # pressure on the autoscaler's threshold, diurnal ramps it through
+    # the fault window (chaos/faults.REGIMES declares which)
+    arrival = REGIMES[regime].get("arrival", "waves")
+    spec = ScenarioSpec(
+        name=f"chaos-{regime}",
+        seed=seed,
+        n_nodes=n_nodes,
+        n_pods=n_pods,
+        shapes=shapes,
+        arrival=arrival,
+        n_waves=n_waves,
+        hetero=True,
+        zones=4,
+        taint_frac=0.0,
+        constraint_mix=("uniform",),
+        churn=churn,
+    )
+    return spec, plan
 
 
 # --------------------------------------------------------------- twin model

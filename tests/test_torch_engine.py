@@ -89,6 +89,15 @@ COPIES = [
     ("fleet/pools.py", None),
     ("fleet/frontend.py", None),
     ("fleet/autoscale.py", None),
+    ("fleet/kvplane/__init__.py", None),
+    ("fleet/kvplane/store.py", None),
+    ("fleet/kvplane/stub.py", None),
+    ("fleet/kvplane/client.py", None),
+    ("chaos/__init__.py", None),
+    ("chaos/faults.py", None),
+    ("chaos/invariants.py", None),
+    ("chaos/harness.py", None),
+    ("engine/admission/pinned.py", None),
     ("sched/replica.py", None),
     ("sched/router.py", None),
     ("observability/fleetview.py", None),
@@ -398,6 +407,12 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "k8s_llm_scheduler_tpu_torch.fleet.pools, "
         "k8s_llm_scheduler_tpu_torch.fleet.frontend, "
         "k8s_llm_scheduler_tpu_torch.fleet.autoscale, "
+        "k8s_llm_scheduler_tpu_torch.fleet.kvplane, "
+        "k8s_llm_scheduler_tpu_torch.fleet.kvplane.pages, "
+        "k8s_llm_scheduler_tpu_torch.chaos, "
+        "k8s_llm_scheduler_tpu_torch.chaos.faults, "
+        "k8s_llm_scheduler_tpu_torch.chaos.invariants, "
+        "k8s_llm_scheduler_tpu_torch.chaos.harness, "
         "k8s_llm_scheduler_tpu_torch.sched.replica, "
         "k8s_llm_scheduler_tpu_torch.sched.router, "
         "k8s_llm_scheduler_tpu_torch.observability.fleetview, "

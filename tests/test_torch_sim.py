@@ -1,9 +1,9 @@
 """The port's arena (sim/) and report card (train/eval.py) held against the
 JAX package's on the CPU.
 
-- The copied modules are the JAX package's text (sim/scenarios.py up to
-  `chaos_scenario`, which waits for the chaos plane; train/distill.py's
-  `random_cases` only).
+- The copied modules are the JAX package's text (train/distill.py's
+  `random_cases` only); `chaos_scenario` gives the JAX package's spec and
+  fault plan.
 - `generate_scenario` gives the JAX package's scenarios for every arrival
   process, with constraints and churn; the report card's agreement and
   placement numbers are the JAX package's for the teacher and random
@@ -55,7 +55,7 @@ COPIES = [
     ("sim/arena.py", None),
     ("sim/teacher.py", None),
     ("sim/trace.py", None),
-    ("sim/scenarios.py", "# ---------------------------------------------------------- chaos"),
+    ("sim/scenarios.py", None),
 ]
 
 
@@ -80,8 +80,16 @@ def test_random_cases_is_the_reference_function():
 
 
 def test_chaos_scenario_waits_for_the_chaos_plane():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tscenarios.chaos_scenario("node-fail")
+    """The chaos plane is ported: chaos_scenario gives the JAX spec and
+    plan, and refuses an unknown regime as the JAX one does (every regime:
+    tests/test_torch_chaos.py)."""
+    tspec, tplan = tscenarios.chaos_scenario("node-failure", seed=1)
+    jspec, jplan = jscenarios.chaos_scenario("node-failure", seed=1)
+    assert dataclasses.asdict(tspec) == dataclasses.asdict(jspec)
+    assert tplan.to_dict() == jplan.to_dict()
+    for pkg in (tscenarios, jscenarios):
+        with pytest.raises(Exception, match="node-fail"):
+            pkg.chaos_scenario("node-fail")
 
 
 # ------------------------------------------------------------- scenarios
