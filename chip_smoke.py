@@ -11,7 +11,7 @@ Phases, each of which must pass:
 1. Build: compiles the four hand-written CUDA kernels from
    k8s_llm_scheduler_tpu_torch/csrc (one nvcc per source, in parallel).
 1a. cli verify: `python -m k8s_llm_scheduler_tpu_torch.cli verify` in a
-   process of its own: every check `[ok]` (torch, numpy, the card's name
+   process of its own, beside 1b's child: every check `[ok]` (torch, numpy, the card's name
    and power limit, the four kernels built with nvcc, the config, a TINY
    forward launching K1 and K2, cluster access, the tokenizer), exit 0.
 1b. cli run, the production entry point at full width: the port's
@@ -153,8 +153,8 @@ Phases, each of which must pass:
    installs, prefix prewarms, each pod's pending -> bound time, the drifted
    nodes, and the delta prefix prefill's tokens and ms.
 4c. cli demo: `python -m k8s_llm_scheduler_tpu_torch.cli demo --model tiny
-   --fake-nodes 4` in a process of its own (sampled at the config's 0.3):
-   exit 0, 3 binds, no fallback.
+   --fake-nodes 4` in a process of its own beside path A (sampled at the
+   config's 0.3): exit 0, 3 binds, no fallback.
 4e. Sim: the arena (sim/) twice with one seed, 12 nodes, 16 pods in 2
    waves over the WireFakeK8s and the whole stack, the `llm` arm served
    greedily by phase 4's engine in graph mode (one LocalLLMBackend passed
@@ -224,7 +224,8 @@ Phases, each of which must pass:
    plain generate, unconstrained and under the decision grammar; the
    self-draft accepts K every round; sampled at 0.3, four streams of one
    prompt legal and not all equal (replays draw afresh). (f) `cli complete
-   --spec` at TINY in a child, greedy through LLM_TEMPERATURE=0: exit 0
+   --spec` at TINY in a child started beside path A, greedy through
+   LLM_TEMPERATURE=0: exit 0
    and the stdout of the same command without --spec. (g) K1 at the verify
    shapes q[1,5] and q[1,1] against the 8B prefix buffer (prefix_len
    5,488) and the empty one (64 slots, prefix_len 0), held and timed as
@@ -330,7 +331,7 @@ Phases, each of which must pass:
    0 with v2 active, the watch exits 0, every pod is bound once to a ready
    node, one promotion and one swap, the shadow mirrored decisions.
 6f. cli complete: `python -m k8s_llm_scheduler_tpu_torch.cli complete` at
-   8B in a child process started after phase 6d (the TINY phases run
+   8B in a child process started after phase 6d (tp 8B, then the TINY phases run
    beside it), greedy, 64 new tokens, on an 11,349-token prompt (past the
    largest prefill bucket, 8,192, by more than a prefix chunk): exit 0,
    text printed, the prompt's head through set_prefix's chunked path, K1
@@ -367,6 +368,22 @@ Phases, each of which must pass:
    K2 launch in `mine`, the cycle's mining, the weakness gate and the
    arena gate. Prints each stage's seconds, the finetune's ms a step, the
    incidents mined, both weakness scores and the gate's verdict.
+6m. tp 8B (after the 8B backend is closed, beside cli complete's child,
+   before the TINY phases): Llama-3.1-8B at full width and depth served tensor parallel
+   over TP = 2 ranks, this process (the driver) and one it spawns, both on
+   the one card over gloo (NCCL refuses two ranks on one GPU), eager
+   (gloo's host collectives cannot be captured into a CUDA graph),
+   paged_attn "pallas"; each rank's shard (16 q / 4 kv heads, d_ff 7,168,
+   a vocab half) drawn from seed 0 in the full tree's order. Before the 8B
+   backend closes, the tp=1 engine computes the first call, the gathered
+   logits of a TP_REF_TOKENS-token whole-prompt prefill: rank 0's must be
+   within TP_LOGIT_TOL of max |logit| of it and equal rank 1's bit for
+   bit. Then one decision and a burst of TP_PODS over synthetic_nodes(8),
+   each naming a feasible node; K1 launches per model call of each step
+   equal tp 1's (one a layer); one generate of TP_GEN_TOKENS tokens through
+   the fused decode (K4). Each rank's K1/K2/K4 launch counts must be equal
+   and non-zero (K3 zero: refused at tp > 1); prints the backend, wall
+   time and each rank's peak memory.
 7. K3, untimed, at `K3_EDGE_CASES` (TINY's widths, N and K not whole
    tiles, M = 96 and 384, totals 0 / 1 / 64 / 65 / M), then at the seven 8B
    weight shapes, int8 pairs and bf16, x [R*24, K] for R = 4 and 8, and
@@ -393,6 +410,13 @@ Phases, each of which must pass:
    after the CUDA-graph replays every split-merge counter must be 0.
    Library yardstick: SDPA on KV gathered beforehand (the gather is not
    timed), cold and hot.
+9. tp kernels: K1, K2 and K4 (partials) at one tensor-parallel rank's
+   shapes: Llama-3.3-70B at tp 8 (8 q heads over 1 kv head, hd 128) at
+   the 8B decision path's geometry (`TP_K1_CASES`, `TP_K2_CASES`,
+   `TP_K4_CASES`), held and timed as above; Llama-3.1-8B at tp 2 (16 over
+   4), the tp 8B phase's shapes, held (`TP_HELD_*`). Each kernel's entry of
+   the result line gains `tp_launches` (each rank's, from the tp 8B phase)
+   and `tp_shapes` (these records).
 
 The last lines are a JSON object with per-kernel numbers, the card's name
 and power limit, and {"ok": true, "device": {...}}.
@@ -1887,6 +1911,7 @@ def decision_phase(backend, build_s, nodes, pods) -> tuple[bool, dict]:
     # of the run falls in one of them
     rec["launches"] = g["launches"]
     rec["k1_launches_by_step"] = {step: r["K1"] for step, r in g["steps"].items()}
+    rec["k1_per_call_by_step"] = _tp_per_call(g["steps"])
     # the batch of 8's wave, row by row (the admission phase packs it)
     rec["batch_tokens"] = g["waves"][N_SINGLES]["tokens"]
     ok = (ok and g["launches"]["K1"] > 0 and g["launches"]["K2"] > 0
@@ -2484,17 +2509,33 @@ def _child_env(**extra) -> dict:
     return env
 
 
-def demo_phase(device="cuda"):
-    """`python -m k8s_llm_scheduler_tpu_torch.cli demo --model tiny
+def start_demo(device="cuda"):
+    """Start `python -m k8s_llm_scheduler_tpu_torch.cli demo --model tiny
     --fake-nodes 4` in a process of its own on the card, in a temporary
-    directory (the config's defaults: temperature 0.3): it must exit 0
-    with its three fixture pods bound and no fallback decision."""
-    cmd = [sys.executable, "-m", "k8s_llm_scheduler_tpu_torch.cli", "demo",
-           "--model", "tiny", "--fake-nodes", "4", "--device", device]
+    directory (the config's defaults: temperature 0.3); finish_demo()
+    collects it. Its model is TINY: it runs beside path A."""
+    cwd = tempfile.TemporaryDirectory()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as cwd:
-        out = subprocess.run(cmd, cwd=cwd, env=_child_env(), capture_output=True, text=True,
-                             timeout=600)
+    child = subprocess.Popen(
+        [sys.executable, "-m", "k8s_llm_scheduler_tpu_torch.cli", "demo",
+         "--model", "tiny", "--fake-nodes", "4", "--device", device],
+        cwd=cwd.name, env=_child_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return child, cwd, t0
+
+
+def finish_demo(started):
+    """The cli demo child: it must exit 0 with its three fixture pods bound
+    and no fallback decision."""
+    child, cwd, t0 = started
+    try:
+        stdout, stderr = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+        cwd.cleanup()
+    out = subprocess.CompletedProcess(child.args, child.returncode, stdout, stderr)
     wall_s = time.perf_counter() - t0
     try:
         stats = json.loads(out.stdout)
@@ -3423,20 +3464,30 @@ def _spec_tiny() -> tuple[bool, dict]:
     return ok, rec
 
 
-def _spec_complete() -> tuple[bool, dict]:
-    """(f) `cli complete --spec` at TINY in a child process (greedy through
-    LLM_TEMPERATURE=0), beside the same command without --spec: both exit
-    0 and print the same text."""
-    outs = {}
+def start_spec_complete():
+    """Start (f)'s two children: `cli complete --spec` at TINY (greedy
+    through LLM_TEMPERATURE=0) and the same command without --spec, in a
+    temporary directory; _spec_complete() collects them. They run beside
+    path A."""
+    cwd = tempfile.TemporaryDirectory()
     procs = {}
-    with tempfile.TemporaryDirectory() as cwd:
-        for name, extra in (("spec", ["--spec"]), ("plain", [])):
-            cmd = [sys.executable, "-m", "k8s_llm_scheduler_tpu_torch.cli", "complete",
-                   "--prompt", SPEC_COMPLETE_PROMPT, "--model", "tiny",
-                   "--max-new-tokens", "32", "--device", "cuda", *extra]
-            procs[name] = subprocess.Popen(cmd, cwd=cwd, env=_child_env(LLM_TEMPERATURE="0"),
-                                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                           text=True)
+    for name, extra in (("spec", ["--spec"]), ("plain", [])):
+        cmd = [sys.executable, "-m", "k8s_llm_scheduler_tpu_torch.cli", "complete",
+               "--prompt", SPEC_COMPLETE_PROMPT, "--model", "tiny",
+               "--max-new-tokens", "32", "--device", "cuda", *extra]
+        procs[name] = subprocess.Popen(cmd, cwd=cwd.name, env=_child_env(LLM_TEMPERATURE="0"),
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True)
+    return procs, cwd
+
+
+def _spec_complete(started) -> tuple[bool, dict]:
+    """(f) `cli complete --spec` at TINY in a child process, beside the same
+    command without --spec (start_spec_complete): both exit 0 and print
+    the same text."""
+    procs, cwd = started
+    outs = {}
+    try:
         for name, proc in procs.items():
             try:
                 out, err = proc.communicate(timeout=300)
@@ -3445,6 +3496,8 @@ def _spec_complete() -> tuple[bool, dict]:
                     proc.kill()
                     proc.communicate()
             outs[name] = (proc.returncode, out, err)
+    finally:
+        cwd.cleanup()
     rec = {name: {"rc": rc, "stdout_chars": len(out)} for name, (rc, out, _) in outs.items()}
     rec["stdout_equal"] = outs["spec"][1] == outs["plain"][1]
     ok = all(rc == 0 for rc, _, _ in outs.values()) and rec["stdout_equal"]
@@ -3454,14 +3507,15 @@ def _spec_complete() -> tuple[bool, dict]:
     return ok, rec
 
 
-def spec_phase(backend, nodes, pods) -> tuple[bool, dict]:
+def spec_phase(backend, nodes, pods, complete_started) -> tuple[bool, dict]:
     """Speculative decoding (spec/) on the resident 8B backend's weights and
-    at TINY; K1 at the verify shapes. See the module doc, phase 6g."""
+    at TINY; K1 at the verify shapes. See the module doc, phase 6g.
+    `complete_started` is start_spec_complete()'s."""
     import torch
 
     ok8, rec = _spec_8b(backend, nodes, pods)
     okt, rec["tiny"] = _spec_tiny()
-    okc, rec["cli_complete_spec"] = _spec_complete()
+    okc, rec["cli_complete_spec"] = _spec_complete(complete_started)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
     n = len(backend._prepare_item(pods[0], nodes).prefix_ids)
@@ -3834,23 +3888,38 @@ def finish_complete(started) -> tuple[bool, dict]:
 
 
 # ------------------------------------------------------- cli verify, cli run
-def verify_phase() -> tuple[bool, dict]:
-    """`python -m k8s_llm_scheduler_tpu_torch.cli verify` in a process of
-    its own, in a temporary directory (no config file: this machine may
-    have no PyYAML): every check must pass, exit 0."""
-    cmd = [sys.executable, "-m", "k8s_llm_scheduler_tpu_torch.cli", "verify"]
+def start_verify():
+    """Start `python -m k8s_llm_scheduler_tpu_torch.cli verify` in a process
+    of its own, in a temporary directory (no config file: this machine may
+    have no PyYAML); finish_verify() collects it. It runs beside the run
+    phase's child: its model is TINY."""
+    cwd = tempfile.TemporaryDirectory()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as cwd:
-        out = subprocess.run(cmd, cwd=cwd, env=_child_env(), capture_output=True, text=True,
-                             timeout=600)
-    lines = [ln.strip() for ln in out.stdout.splitlines() if ln.strip().startswith("[")]
-    rec = {"rc": out.returncode, "wall_s": time.perf_counter() - t0, "checks": lines}
-    ok = out.returncode == 0 and lines and not any(ln.startswith("[FAIL]") for ln in lines)
+    child = subprocess.Popen(
+        [sys.executable, "-m", "k8s_llm_scheduler_tpu_torch.cli", "verify"],
+        cwd=cwd.name, env=_child_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return child, cwd, t0
+
+
+def finish_verify(started) -> tuple[bool, dict]:
+    """The cli verify child: every check must pass, exit 0."""
+    child, cwd, t0 = started
+    try:
+        out, err = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+        cwd.cleanup()
+    lines = [ln.strip() for ln in out.splitlines() if ln.strip().startswith("[")]
+    rec = {"rc": child.returncode, "wall_s": time.perf_counter() - t0, "checks": lines}
+    ok = child.returncode == 0 and lines and not any(ln.startswith("[FAIL]") for ln in lines)
     for ln in lines:
         print(f"cli verify: {ln}", flush=True)
-    print(f"cli verify: rc={out.returncode} in {rec['wall_s']:.1f} s ok={ok}", flush=True)
+    print(f"cli verify: rc={child.returncode} in {rec['wall_s']:.1f} s ok={ok}", flush=True)
     if not ok:
-        print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr, flush=True)
+        print(out[-4000:], err[-4000:], file=sys.stderr, flush=True)
     return bool(ok), rec
 
 
@@ -5765,6 +5834,199 @@ def kvplane_8b(engine) -> tuple[bool, dict]:
     return ok, rec
 
 
+# ------------------------------------------------------ tensor parallel
+TP_MODEL = "llama-3.1-8b-instruct"
+TP = 2  # ranks sharing the one card over gloo
+TP_NODES = 8
+TP_PODS = 4  # the burst
+TP_REF_TOKENS = 64  # the first call: a whole-prompt prefill of these tokens
+TP_LOGIT_TOL = 5e-2  # max |tp 2 - tp 1| over max |tp 1 logit|: bf16, one rounding moved
+TP_GEN_TOKENS = 16
+TP_REASON_TOKENS = 24  # the decisions' reasoning cap (320 by default): fewer model calls
+# K1/K2/K4 at one rank's shapes: Llama-3.3-70B at tp 8 (8 q heads over 1 kv
+# head, group 8, hd 128) at the 8B decision path's geometry, timed; and
+# Llama-3.1-8B at tp 2 (16 over 4), the tp 8B phase's, held. K1: (step, B,
+# S, Sp, prefix_len, H, n_kv, hd); K2: (step, B, S, lens, H, n_kv, hd); K4:
+# (step, q shape, pages shape, lens).
+TP_K1_CASES = [
+    ("70B tp8 suffix prefill", 8, 256, 6144, 5488, 8, 1, 128),
+    ("70B tp8 block decode", 8, 24, 6144, 5488, 8, 1, 128),
+    ("70B tp8 prefix chunk", 1, 2048, 6144, 2048, 8, 1, 128),
+]
+TP_K2_CASES = [
+    ("70B tp8 suffix prefill", 8, 256, (229, 228, 230, 226, 231, 227, 229, 228), 8, 1, 128),
+    ("70B tp8 prefix chunk", 1, 2048, (2048,), 8, 1, 128),
+]
+TP_K4_CASES = [
+    ("70B tp8 decode step", (9, 8, 128), (512, 64, 1, 128),
+     (242, 243, 244, 241, 246, 242, 244, 243, -5488)),
+]
+TP_HELD_K1 = [("8B tp2 suffix prefill", 4, 256, 2048, 1600, 16, 4, 128),
+              ("8B tp2 block decode", 4, 24, 2048, 1600, 16, 4, 128)]
+TP_HELD_K2 = [("8B tp2 suffix prefill", 4, 256, (229, 228, 230, 226), 16, 4, 128)]
+TP_HELD_K4 = [("8B tp2 decode step", (5, 16, 128), (512, 64, 4, 128), (242, 243, 244, 241, -64))]
+
+
+def _tp_k4_args(step, q_shape, pages_shape, lens):
+    """A K4 case's (step, q shape, pages shape, tables, lens): each live
+    sequence on distinct pages, the trash row on page 0."""
+    import torch
+
+    ps, P = pages_shape[1], 64
+    gen = torch.Generator().manual_seed(19)
+    live = sum(1 for n in lens if n > 0)
+    ids = (1 + torch.randperm(pages_shape[0] - 1, generator=gen))[:live * 8].reshape(live, 8)
+    tables = torch.zeros((len(lens), P), dtype=torch.int32)
+    tables[:live, :8] = ids.to(torch.int32)
+    return step, q_shape, pages_shape, tables, torch.tensor(lens, dtype=torch.int32)
+
+
+def tp_kernel_phase() -> tuple[bool, dict]:
+    """K1, K2 and K4 at one tp rank's shapes against their plain versions:
+    70B tp 8 timed (beside the plain version, the bound and the library
+    call), 8B tp 2 held."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    out = {"K1": [], "K2": [], "K4": []}
+    runs = ([("K1", _prefix_case, c) for c in TP_K1_CASES]
+            + [("K1", _prefix_check, c) for c in TP_HELD_K1]
+            + [("K2", _causal_case, c) for c in TP_K2_CASES]
+            + [("K2", _causal_check, c) for c in TP_HELD_K2])
+    for name, run, case in runs:
+        ok, rec = run(gen, *case)[:2]
+        rec["ok"] = ok
+        out[name].append(rec)
+        _print_attention_case(name, rec)
+        torch.cuda.empty_cache()
+    for case, timed in [(c, True) for c in TP_K4_CASES] + [(c, False) for c in TP_HELD_K4]:
+        args = _tp_k4_args(*case)
+        if timed:
+            _, rec = _k4_case(gen, *args, False)
+        else:
+            _, rec, _ = _k4_check(gen, *args, False)
+        out["K4"].append(rec)
+        _print_k4(rec)
+        torch.cuda.empty_cache()
+    return all(r["ok"] for recs in out.values() for r in recs), out
+
+
+def tp_reference(engine, nodes, pods) -> dict:
+    """The tp 8B phase's first call on the tp=1 8B engine (seed 0's full
+    tree): the gathered-logits prefill of the first TP_REF_TOKENS tokens of
+    the tp phase's first decision prompt, kept on the host."""
+    from k8s_llm_scheduler_tpu_torch.engine.local import LocalLLMBackend
+    from k8s_llm_scheduler_tpu_torch.parallel import launch
+
+    backend = LocalLLMBackend(engine, prewarm_idle_delay_s=NO_PREWARM_S)
+    try:
+        ids = backend._prepare_item(pods[0], nodes).prefix_ids[:TP_REF_TOKENS]
+    finally:
+        backend.close()
+    return {"ids": ids, "logits": launch.prefill_logits(engine, ids)}
+
+
+def _tp_per_call(steps) -> dict:
+    return {step: rec["K1"] for step, rec in per_call(steps).items()}
+
+
+def tp_8b_phase(ref, tp1_per_call) -> tuple[bool, dict]:
+    """Llama-3.1-8B at full width and depth served tensor parallel: TP
+    ranks, this process and one it spawns, sharing the card over gloo,
+    eager (gloo's host collectives cannot be captured), each rank's shard
+    drawn from seed 0 in the full tree's order. Rank 0's first-call logits
+    against the tp=1 engine's (`ref`), one decision and a burst of
+    TP_PODS that name feasible nodes, one path-B generate through K4, each
+    rank's K1/K2/K4 launches and K1 launches per model call against tp
+    1's (`tp1_per_call`), wall time and each rank's peak memory."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
+    from k8s_llm_scheduler_tpu_torch.parallel import launch
+    from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
+
+    nodes, pods = synthetic_nodes(TP_NODES), fixture_pods(TP_PODS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    backend = build_local_backend(
+        TP_MODEL, device="cuda", seed=0, mesh_axes={"tp": TP}, graphs=False,
+        temperature=0.0, packed_admission=False, max_pages_per_seq=64, paged_attn="pallas",
+        max_reason_tokens=TP_REASON_TOKENS, request_timeout_s=600.0,
+        prewarm_idle_delay_s=NO_PREWARM_S)
+    rec = {"model": TP_MODEL, "tp": TP, "build_s": time.perf_counter() - t0}
+    try:
+        eng, group = backend.engine, backend.engine.rank_group
+        rec["backend"] = eng.plane.backend
+        rec["ranks"] = eng.mesh.axis_ranks("tp")
+        rec["rank_geometry"] = {"n_heads": eng.cfg.n_heads, "n_kv_heads": eng.cfg.n_kv_heads,
+                                "head_dim": eng.cfg.head_dim, "d_ff": eng.cfg.d_ff}
+        print(f"tp 8B: {TP} ranks {rec['ranks']} over {rec['backend']}, built in "
+              f"{rec['build_s']:.1f} s, rank geometry {rec['rank_geometry']}", flush=True)
+        first = group.on_ranks(launch.prefill_logits, ref["ids"])
+        want = ref["logits"]
+        err = (first[0] - want).abs().max().item()
+        scale = want.abs().max().item()
+        rec["first_call"] = {"tokens": len(ref["ids"]), "max_abs_err": err,
+                             "max_abs_ref": scale, "rel_err": err / scale, "tol": TP_LOGIT_TOL,
+                             "ranks_equal": bool(torch.equal(first[0], first[1])),
+                             "finite": bool(torch.isfinite(first[0]).all())}
+        logits_ok = (rec["first_call"]["rel_err"] <= TP_LOGIT_TOL
+                     and rec["first_call"]["ranks_equal"] and rec["first_call"]["finite"])
+        group.on_ranks(launch.reset_launch_counts)
+        t1 = time.perf_counter()
+        with launches_by_step(eng) as steps:
+            single = backend.get_scheduling_decision(pods[0], nodes)
+            rec["single_s"] = time.perf_counter() - t1
+            t2 = time.perf_counter()
+            burst = backend.get_scheduling_decisions_batch(pods, nodes)
+            rec["burst_s"] = time.perf_counter() - t2
+        decisions = [(pods[0], single)] + list(zip(pods, burst))
+        bad = [d for _, d in decisions if isinstance(d, Exception)]
+        decide_ok = not bad and _feasible(nodes, decisions)
+        rec["decisions"] = [None if isinstance(d, Exception) else d.selected_node
+                            for _, d in decisions]
+        rec["decision_errors"] = [repr(d) for d in bad]
+        rec["decision_launches"] = group.on_ranks(launch.launch_counts)
+        rec["model_calls"] = {k: eng.stats[k] for k in ("wave_model_calls", "wave_block_calls",
+                                                         "waves", "prefix_prefills")}
+        rec["k1_per_call_by_step"] = _tp_per_call(steps)
+        # K1 launches per model call of each step, against tp 1's: one a
+        # layer (every rank runs K1 on its own heads in one launch)
+        same = {step: k1 == tp1_per_call[step] for step, k1 in rec["k1_per_call_by_step"].items()
+                if step in tp1_per_call}
+        rec["k1_per_call_as_tp1"] = same
+        calls_ok = bool(same) and all(same.values()) and all(
+            k1 == eng.cfg.n_layers for step, k1 in rec["k1_per_call_by_step"].items()
+            if step.startswith(("suffix prefill", "block decode")))
+        item = backend._prepare_item(pods[0], nodes)
+        eng.set_prefix(item.prefix_ids)
+        eng.set_grammar(None)
+        t3 = time.perf_counter()
+        gen = eng.generate(item.suffix_ids, max_new_tokens=TP_GEN_TOKENS)
+        rec["generate"] = {"tokens": len(gen.token_ids), "s": time.perf_counter() - t3,
+                           "paged_attn": eng.paged_attn}
+        rec["launches"] = group.on_ranks(launch.launch_counts)
+        rec["peak_memory"] = group.on_ranks(launch.peak_memory)
+        rec["wall_s"] = time.perf_counter() - t0
+        counts = rec["launches"]
+        launch_ok = (counts[0] == counts[1] and all(counts[0][k] > 0 for k in ("K1", "K2", "K4"))
+                     and counts[0]["K3"] == 0)
+        gen_ok = len(gen.token_ids) == TP_GEN_TOKENS
+    finally:
+        backend.close()
+    ok = logits_ok and decide_ok and calls_ok and launch_ok and gen_ok
+    rec["checks"] = {"logits": logits_ok, "decisions": decide_ok, "k1_per_call": calls_ok,
+                     "launches": launch_ok, "generate": gen_ok}
+    print(f"tp 8B: first call rel err {rec['first_call']['rel_err']:.4g} (tol {TP_LOGIT_TOL}), "
+          f"single {rec['single_s']:.1f} s, burst of {TP_PODS} {rec['burst_s']:.1f} s, "
+          f"generate {rec['generate']['tokens']} tokens {rec['generate']['s']:.1f} s, "
+          f"model calls {rec['model_calls']}, "
+          f"launches {counts}, K1/call {rec['k1_per_call_by_step']} (tp 1: {same}), "
+          f"peak {rec['peak_memory']}, wall {rec['wall_s']:.1f} s | {_smi()} | "
+          f"checks {rec['checks']} ok={ok}", flush=True)
+    return ok, rec
+
+
 def _timed_phase(name, fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -5802,9 +6064,11 @@ def main() -> int:
 
     from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
 
-    v_ok, verify = _timed_phase("cli verify", verify_phase)
-    # no other 8B model is resident on the card while cli run's child holds one
+    # cli verify's child (TINY) runs beside cli run's; no other 8B model is
+    # resident on the card while cli run's child holds one
+    verify_child = start_verify()
     run_ok, run = _timed_phase("cli run", run_phase)
+    v_ok, verify = _timed_phase("cli verify", finish_verify, verify_child)
     nodes = synthetic_nodes(32)
     pods = fixture_pods(8)
     backend, backend_s = build_backend()
@@ -5819,26 +6083,32 @@ def main() -> int:
         l_ok, loop = _timed_phase("loop", loop_phase, backend.engine)
         fl_ok, fleet = _timed_phase("fleet", fleet_phase, backend.engine)
         kv_ok, kvplane = _timed_phase("kvplane 8B", kvplane_8b, backend.engine)
-        c_ok, demo = _timed_phase("cli demo", demo_phase)
         sim_ok, simrec = _timed_phase("sim", sim_phase, backend)
         rs_ok, resident = _timed_phase("resident", resident_phase, backend.engine, nodes)
+        # the TINY children of cli demo and spec's (f) run beside path A
+        demo_child, spec_children = start_demo(), start_spec_complete()
         a_ok, path_a, totals = _timed_phase("path A", path_a_phase, backend, nodes, pods)
+        c_ok, demo = _timed_phase("cli demo", finish_demo, demo_child)
         torch.cuda.empty_cache()
         b_ok, path_b, k4_cases = _timed_phase("path B", path_b_phase, backend, nodes, pods)
         f_ok, fused = _timed_phase("fused", fused_phase, backend, nodes, pods, path_b)
         p8_ok, pers8 = _timed_phase("persistent 8B", persistent_8b, backend, nodes, pods)
-        sp_ok, spec = _timed_phase("spec", spec_phase, backend, nodes, pods)
+        sp_ok, spec = _timed_phase("spec", spec_phase, backend, nodes, pods, spec_children)
         h8_ok, hidden = _timed_phase("hidden 8B", hidden_8b, backend, nodes, pods)
         k1 += spec["k1_cases"]
         cfg = backend.engine.cfg
+        tp_ref = tp_reference(backend.engine, synthetic_nodes(TP_NODES), fixture_pods(TP_PODS))
     finally:
         backend.close()
     del backend
     gc.collect()
     torch.cuda.empty_cache()
-    # cli complete's child builds its own 8B model; the TINY phases run
-    # beside it, the timed kernel phases after it
+    # cli complete's child builds its own 8B model; tp 8B's two ranks and
+    # then the TINY phases run beside it, the timed kernel phases after it
     complete_child = start_complete()
+    tp_ok, tp8 = _timed_phase("tp 8B", tp_8b_phase, tp_ref, dec["k1_per_call_by_step"])
+    gc.collect()
+    torch.cuda.empty_cache()
     ck_ok, ckpt = _timed_phase("checkpoint", checkpoint_phase)
     s_ok, sampled = _timed_phase("sampled", sampled_phase)
     pt_ok, pers_tiny = _timed_phase("persistent TINY", persistent_tiny)
@@ -5850,6 +6120,15 @@ def main() -> int:
         ln_ok, learn = _timed_phase("learn 1B", learn_1b, train["checkpoint"])
     k3_ok, k3 = _timed_phase("K3", k3_phase, cfg, totals)
     k4_ok, k4 = _timed_phase("K4", k4_phase, k4_cases, long_cases=[k4_long_case()])
+    tpk_ok, tpk = _timed_phase("tp kernels", tp_kernel_phase)
+
+    def tp_fields(kernel):
+        # each rank's launches in the tp 8B phase's run, and the kernel at
+        # one rank's shapes (70B tp 8 timed, 8B tp 2 held)
+        return {"tp_launches": {f"rank{r}": c[kernel] for r, c in enumerate(tp8["launches"])},
+                "tp_shapes": [{k: rec.get(k) for k in (
+                    "step", "shape", "ok", "max_abs_err", "ms", "ms_hot", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms")} for rec in tpk.get(kernel, [])]}
 
     def entry(name, recs, source, replaces, launches, main, **extra):
         return {
@@ -5919,7 +6198,7 @@ def main() -> int:
                   pack_chunk={k: v for k, v in next(
                       r for r in k1 if r["step"] == "pack chunk").items() if k in (
                       "shape", "ms", "ms_hot", "plain_ms", "bound_ms", "library_ms")},
-                  pack_chunk_launches=adm["packed_batch"]["pack_chunk_k1"]),
+                  pack_chunk_launches=adm["packed_batch"]["pack_chunk_k1"], **tp_fields("K1")),
             entry("flash_causal_attention_parts", k2,
                   "k8s_llm_scheduler_tpu_torch/csrc/causal_attention.cu",
                   "k8s_llm_scheduler_tpu/ops/pallas_prefix_attention.py:285",
@@ -5935,12 +6214,13 @@ def main() -> int:
                                   "worker": fleet["fanout"]["worker_launches"]["K2"],
                                   "router_big": fleet["router"]["arm_launches"]["big"]["K2"],
                                   "router_fast": fleet["router"]["arm_launches"]["fast"]["K2"]},
-                  kvplane_launches=kvplane_launches("K2")),
+                  kvplane_launches=kvplane_launches("K2"), **tp_fields("K2")),
             entry("ragged_matmul", k3,
                   "k8s_llm_scheduler_tpu_torch/csrc/ragged_matmul.cu",
                   "k8s_llm_scheduler_tpu/ops/ragged_matmul.py:108",
                   path_a["launches"]["K3"], k3_main, ms_hot=k3_main["ms_hot"],
-                  library_ms_hot=k3_main["library_ms_hot"], cold_l2=True),
+                  library_ms_hot=k3_main["library_ms_hot"], cold_l2=True,
+                  **tp_fields("K3"), tp_note="refused at tp > 1, as in the JAX engine"),
             entry("paged_decode_attention", k4,
                   "k8s_llm_scheduler_tpu_torch/csrc/paged_attention.cu",
                   "k8s_llm_scheduler_tpu/ops/pallas_paged_attention.py:276",
@@ -5949,7 +6229,8 @@ def main() -> int:
                   ms_hot=k4_main["ms_hot"], library_ms_hot=k4_main["library_ms_hot"],
                   cold_l2=True, splits=k4_main.get("splits"),
                   long={k: k4_long[k] for k in ("shape", "ms", "bound_ms", "library_ms",
-                                                "splits") if k in k4_long}),
+                                                "splits") if k in k4_long},
+                  **tp_fields("K4")),
         ],
         "not_ported": [],
     }
@@ -5960,15 +6241,15 @@ def main() -> int:
               "spec": sp_ok, "hidden_8b": h8_ok, "fleet": fl_ok, "kvplane_8b": kv_ok,
               "checkpoint": ck_ok, "sampled": s_ok, "persistent_tiny": pt_ok,
               "journal_restart": jr_ok, "rollout_tiny": ro_ok, "cli_complete": cc_ok,
-              "train_1b": tr_ok, "learn_1b": ln_ok,
-              "k3": k3_ok, "k4": k4_ok}
+              "train_1b": tr_ok, "learn_1b": ln_ok, "tp_8b": tp_ok,
+              "k3": k3_ok, "k4": k4_ok, "tp_kernels": tpk_ok}
     record = {"device": kind, "smi": smi, "build_s": build_s, "kernels": line,
               "cli_verify": verify, "cli_run": run, "reference": ref, "decision": dec,
               "swap_8b": swap, "admission": adm, "loop": loop, "cli_demo": demo,
               "sim": simrec, "resident": resident, "rollout_tiny": rollout, "path_a": path_a,
               "path_b": path_b, "fused": fused, "persistent_8b": pers8, "spec": spec,
               "hidden_8b": hidden, "train_1b": train, "fleet": fleet, "kvplane_8b": kvplane,
-              "learn_1b": learn,
+              "learn_1b": learn, "tp_8b": tp8, "tp_kernels": tpk,
               "checkpoint": ckpt, "sampled": sampled, "persistent_tiny": pers_tiny,
               "journal_restart": journal_restart, "cli_complete": complete,
               "phases_ok": phases}

@@ -70,7 +70,8 @@ circuit breaker, the decision client and the scheduler (JAX cli.py:106-187).
   and saves a native checkpoint that `llm.checkpoint_path` serves; with
   `--eval` it then prints the checkpoint's report card. It honours
   `llm.tokenizer` and `llm.answer_style`; an `llm.mesh` wider than one
-  device or `distributed.enabled` raises (`check_switches`).
+  device (train/train_step.refuse_mesh) or `distributed.enabled` raises
+  (training parallelism: ROADMAP queue 1 item 9c).
 - `eval` (JAX cli.py:884-908) prints the decision-quality report card
   (train/eval.py) as one JSON line; `sim` (JAX cli.py:969-1078) runs the
   seeded arena (sim/) across decision arms and records or replays its
@@ -104,9 +105,13 @@ circuit breaker, the decision client and the scheduler (JAX cli.py:106-187).
 `_run_worker_replica` serves a backend to such a coordinator.
 
 `--device` is the port's own flag: the model runs on "cuda" (the default;
-it raises without a GPU) unless "cpu" is asked for. The switches of paths
-the port has not ported yet raise NotImplementedError before any model is
-built (`UNPORTED_SWITCHES`).
+it raises without a GPU) unless "cpu" is asked for. `llm.mesh {tp: N}`
+serves the model tensor parallel over N ranks, one process each, spawned
+by the backend (engine/local.build_local_backend, parallel/launch.py);
+with `distributed.enabled`, `cmd_run` joins the multi-host world
+(`distributed.coordinator/num_processes/process_id`, N ranks a host) and
+runs the control plane on host 0 only, every other host serving its own
+replica through `_run_worker_replica`.
 """
 
 from __future__ import annotations
@@ -134,28 +139,6 @@ BANNER = r"""
 
 DEMO_DEADLINE_S = 600.0  # the demo gives up (exit 1) if pods are unbound by then
 
-# Config switches whose paths are not ported yet, with the ROADMAP queue 1
-# item each waits for. Setting one raises before any model is built.
-UNPORTED_SWITCHES = (
-    ("distributed.enabled", "multi-host serving", "9c"),
-)
-
-
-def check_switches(cfg: Config) -> None:
-    """Raise NotImplementedError for a switch of an unported path, naming
-    it and the ROADMAP item it waits for."""
-    for key, what, item in UNPORTED_SWITCHES:
-        if cfg.get(key, None):
-            raise NotImplementedError(
-                f"{key}: {what} is not ported yet (ROADMAP queue 1 item {item})"
-            )
-    mesh = cfg.get("llm.mesh", None) or {}
-    wide = {ax: n for ax, n in mesh.items() if int(n) > 1}
-    if wide:
-        raise NotImplementedError(
-            f"llm.mesh {wide}: the port serves on one device, tp 1 "
-            f"(tensor parallel: ROADMAP queue 1 item 9c)"
-        )
 
 
 def _backend_kwargs(cfg: Config, **overrides) -> dict:
@@ -163,6 +146,7 @@ def _backend_kwargs(cfg: Config, **overrides) -> dict:
     for the keys the port honours. `overrides` win (the CLI's flags)."""
     kwargs = dict(
         model=cfg.get("llm.model", "tiny"),
+        mesh_axes=cfg.get("llm.mesh", None),
         temperature=cfg.get("llm.temperature"),
         top_k=int(cfg.get("llm.top_k", 0)),
         max_slots=cfg.get("llm.max_batch"),
@@ -216,14 +200,13 @@ def build_stack(cfg: Config, cluster, *, backend=None, device: str = "cuda",
     the circuit breaker where enabled, the client with its deadline ladder,
     and the scheduler. `wrap=False` leaves the fleet and router switches
     unread, as the JAX rollout watch does: its client serves `backend`
-    itself. Unported switches raise first (check_switches). The client is
+    itself. The client is
     `scheduler.client`; the backend returned is the outermost wrapper."""
     from k8s_llm_scheduler_tpu_torch.core.breaker import CircuitBreaker
     from k8s_llm_scheduler_tpu_torch.core.cache import DecisionCache
     from k8s_llm_scheduler_tpu_torch.sched.client import DecisionClient
     from k8s_llm_scheduler_tpu_torch.sched.loop import Scheduler
 
-    check_switches(cfg)
     if backend is None:
         if cfg.get("llm.backend") == "stub":
             from k8s_llm_scheduler_tpu_torch.engine.backend import StubBackend
@@ -296,9 +279,9 @@ def _run_worker_replica(cfg: Config, stop_event=None, ready=None, *,
     answer decision RPCs over sched/replica.ReplicaServer until the
     process is terminated (SIGINT) or `stop_event` is set. `ready`, when
     given, gets the bound port as `ready.port` and is set once the server
-    listens. The JAX `cmd_run` reaches this under `distributed.enabled`,
-    which the port still refuses (ROADMAP queue 1 item 9c): on one host a
-    worker is started by calling this function."""
+    listens. `cmd_run` reaches this on every host but the coordinator
+    under `distributed.enabled`; on one host a worker is started by
+    calling this function."""
     import threading
 
     from k8s_llm_scheduler_tpu_torch.sched.replica import ReplicaServer
@@ -696,7 +679,34 @@ def _run_scheduler(cfg: Config, cluster, *, device: str, journal=None) -> int:
     return 0
 
 
+def _maybe_init_distributed(cfg: Config) -> bool:
+    """Join the multi-host world when `distributed.enabled` (JAX cli.py:
+    425-441): a world of num_processes hosts x `llm.mesh` tp ranks
+    (parallel/distributed.py). True when this process runs the
+    cluster-facing control plane: always single-process, host 0 otherwise."""
+    if not cfg.get("distributed.enabled"):
+        return True
+    from k8s_llm_scheduler_tpu_torch.parallel.distributed import (
+        init_distributed,
+        is_coordinator,
+    )
+
+    tp = int((cfg.get("llm.mesh", None) or {}).get("tp", 1))
+    init_distributed(
+        cfg.get("distributed.coordinator"),
+        cfg.get("distributed.num_processes"),
+        cfg.get("distributed.process_id"),
+        ranks_per_process=tp,
+    )
+    return is_coordinator()
+
+
 def cmd_run(args: argparse.Namespace, cfg: Config) -> int:
+    if not _maybe_init_distributed(cfg):
+        # a worker host: no control plane (watch/bind belong to the
+        # coordinator alone); it serves its own replica over the decision
+        # RPC until terminated (JAX cli.py:443-450)
+        return _run_worker_replica(cfg, device=args.device)
     journal = _maybe_journal(cfg)
     if args.fake_cluster:
         from k8s_llm_scheduler_tpu_torch.testing import synthetic_cluster
@@ -873,7 +883,6 @@ def cmd_eval(args: argparse.Namespace, cfg: Config) -> int:
     also drops multi-host mesh axes, which the port does not have.)"""
     from k8s_llm_scheduler_tpu_torch.train.eval import evaluate_checkpoint
 
-    check_switches(cfg)
     report = evaluate_checkpoint(
         args.model or cfg.get("llm.model", "tiny"),
         args.checkpoint,
@@ -902,7 +911,6 @@ def cmd_train(args: argparse.Namespace, cfg: Config) -> int:
     from k8s_llm_scheduler_tpu_torch.models.configs import get_config
     from k8s_llm_scheduler_tpu_torch.train.distill import train_and_save
 
-    check_switches(cfg)
     answer_style = cfg.get("llm.answer_style", "direct")
     if answer_style != "cot" and (args.micro_frac or args.cot_weight != 1.0):
         # these knobs only shape CoT batches; ignoring them silently would
@@ -910,8 +918,12 @@ def cmd_train(args: argparse.Namespace, cfg: Config) -> int:
         print("--micro-frac/--cot-weight require llm.answer_style: cot "
               "(set it in the config or LLM_ANSWER_STYLE)", file=sys.stderr)
         return 2
+    if cfg.get("distributed.enabled"):
+        raise NotImplementedError("distributed.enabled: multi-host training is not "
+                                  "ported yet (ROADMAP queue 1 item 9c)")
     loss = train_and_save(
         get_config(args.model),
+        mesh_axes=cfg.get("llm.mesh", None),
         out_dir=args.out,
         steps=args.steps,
         batch_size=args.batch_size,
@@ -964,8 +976,6 @@ def _sim_arms(args: argparse.Namespace, cfg: Config) -> list:
             if cfg.get("llm.backend") == "stub":
                 specs.append(ArmSpec(name="llm", kind="stack", make=StubBackend))
             else:
-                check_switches(cfg)
-
                 def make_llm():
                     from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
 
@@ -1297,7 +1307,6 @@ def _rollout_promote(args: argparse.Namespace, cfg: Config, registry) -> int:
         print(json.dumps({"metric": "rollout_promote", "version": args.version,
                           "gate": "skipped"}))
         return 0
-    check_switches(cfg)
     active = registry.active()
     incumbent_ckpt = (
         str(registry.get(active).checkpoint_path)
@@ -1386,7 +1395,6 @@ def _rollout_watch(args: argparse.Namespace, cfg: Config, registry) -> int:
     if cfg.get("llm.backend") == "stub":
         print("rollout watch needs llm.backend: local", file=sys.stderr)
         return 2
-    check_switches(cfg)
     active = registry.active()
     active_ckpt = str(registry.get(active).checkpoint_path) if active is not None else None
     backend = build_local_backend(**_backend_kwargs(
@@ -1597,7 +1605,6 @@ def cmd_learn(args: argparse.Namespace, cfg: Config) -> int:
         return 0
 
     if args.learn_cmd == "mine":
-        check_switches(cfg)
         learn_cfg = _learn_config(args, cfg)
         _registry, active_version, ckpt = _learn_active_checkpoint(args, cfg)
         sources = [
@@ -1661,7 +1668,6 @@ def _learn_run(args: argparse.Namespace, cfg: Config, corpus) -> int:
         print("learn run finetunes with a builtin tokenizer; unset "
               "llm.tokenizer_path", file=sys.stderr)
         return 2
-    check_switches(cfg)
     registry = _rollout_registry(args, cfg)
     learn_cfg = _learn_config(args, cfg)
     tokenizer_name = cfg.get("llm.tokenizer", "byte")

@@ -14,10 +14,8 @@ defaults under both (scheduler.py:55-60). The reference's env names
 keep working.
 
 The keys are the JAX package's, all of them, so one config file serves
-both packages. The port's `cli run` honours the keys of the paths it has
-and refuses the switches of paths it has not ported yet (cli.py,
-`UNPORTED_SWITCHES`); `llm.compile_cache_dir` names JAX's compile cache
-and has no counterpart here.
+both packages. The port's `cli run` honours every key; `llm.compile_cache_dir`
+names JAX's compile cache and has no counterpart here.
 """
 
 from __future__ import annotations

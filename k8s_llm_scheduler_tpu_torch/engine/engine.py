@@ -83,6 +83,15 @@ engine/engine.py).
   CUDA events; none synchronizes. The wave dispatcher only stamps the end
   of a wave's dispatch on its handle (`dispatch_end`), and harvest_wave
   books it. Without a profiler each of them pays one None check.
+- **Tensor parallel** (engine/sharded/plane.py, parallel/): `mesh=` with a
+  tp axis wider than 1 makes the engine ONE RANK of a tp group: `params`
+  is the rank's shard, `cfg` the rank's geometry (plane.local_config), and
+  every forward joins the ranks through the plane's all-reduces. A driver
+  rank mirrors its public calls to the follower ranks
+  (parallel/launch.RankGroup). `decode_matmul="ragged"` is refused as in
+  the JAX engine, CUDA graphs over a gloo group too, and the persistent
+  loop, hot swap, the prefix-KV plane and speculative decoding raise
+  NotImplementedError (ROADMAP queue 1 item 9d).
 """
 
 from __future__ import annotations
@@ -120,6 +129,7 @@ from k8s_llm_scheduler_tpu_torch.engine.graphs import (
 )
 from k8s_llm_scheduler_tpu_torch.engine.kv_cache import PagedKVCache
 from k8s_llm_scheduler_tpu_torch.engine.persistent.ring import OP_ADMIT
+from k8s_llm_scheduler_tpu_torch.engine.sharded.plane import build_plane
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer, Tokenizer
 from k8s_llm_scheduler_tpu_torch.models.configs import LlamaConfig
 from k8s_llm_scheduler_tpu_torch.models.llama import (
@@ -145,6 +155,9 @@ logger = logging.getLogger(__name__)
 # Length of the all-zero prefix buffer used when no prefix is installed
 # (the JAX engine's page size).
 EMPTY_PREFIX_SLOTS = 64
+# The ROADMAP queue 1 item that ports the paths tp > 1 refuses (the
+# persistent loop, hot swap, the prefix-KV plane, speculative decoding).
+TP_PENDING_ITEM = "9d"
 
 
 def _pick(masked, gen, temperature):
@@ -663,6 +676,31 @@ def _match_tree(serving, new, path: str, pairs: list) -> None:
     pairs.append((serving, new))
 
 
+def _tp_not_ported(what: str, tp: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} at tp={tp} is not ported yet (ROADMAP queue 1 item {TP_PENDING_ITEM}): "
+        f"serve it at tp 1")
+
+
+def check_tp_serving(tp: int, backend: str, device_type: str, graphs: bool,
+                     decode_matmul: str, persistent_loop: bool) -> None:
+    """Raise for an engine setting a tp > 1 rank does not serve: ragged
+    decode matmuls (refused as the JAX engine refuses them), CUDA graphs
+    over a gloo group on CUDA, and the persistent loop."""
+    if decode_matmul == "ragged":
+        raise ValueError(
+            f"decode_matmul='ragged' is single-device-only (K3 runs over one "
+            f"device's whole weight, not a rank's shard) but the serving mesh "
+            f"has tp={tp}; use decode_matmul='dense' for tensor-parallel serving")
+    if persistent_loop:
+        raise _tp_not_ported("the persistent loop", tp)
+    if graphs and device_type == "cuda" and backend == "gloo":
+        raise ValueError(
+            f"graphs=True over a gloo tp group on CUDA (tp={tp} ranks sharing a "
+            f"device): gloo runs its collectives through the host, which a CUDA "
+            f"graph cannot capture; build the engine with graphs=False")
+
+
 def _dispatch_loop(jobs: "queue.SimpleQueue") -> None:
     """The wave dispatcher thread: run the queued jobs in FIFO order until
     a None arrives. It holds no reference to the engine between jobs, so
@@ -716,10 +754,23 @@ class InferenceEngine:
         persistent_telemetry: bool = True,
         persistent_stats_every: int = 8,
         persistent_blackbox_depth: int = 64,
+        mesh=None,
     ) -> None:
-        self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
+        # The tp serving plane (engine/sharded/plane.py): over a mesh whose
+        # tp axis is wider than 1 this process is one rank, `params` its
+        # shard (parallel/sharding.py) and `cfg` becomes the rank's
+        # geometry, so every buffer below holds the rank's kv heads and
+        # every forward joins the ranks through the plane. None off-mesh.
+        self.mesh = mesh
+        self.plane = build_plane(mesh)
+        # the driver's parallel/launch.RankGroup, set when it mirrors this
+        # engine's calls to its followers
+        self.rank_group = None
+        if self.plane is not None:
+            cfg = self._rank_config(cfg, graphs, decode_matmul, persistent_loop)
+        self.cfg = cfg
         self.tokenizer = tokenizer or ByteTokenizer()
         if self.tokenizer.vocab_size > cfg.vocab_size:
             raise ValueError(
@@ -927,6 +978,17 @@ class InferenceEngine:
             "prefix_prefill_ms": 0.0,
             "wave_ms": 0.0,
         }
+
+    def _rank_config(self, cfg, graphs, decode_matmul, persistent_loop):
+        """The rank's geometry, after refusing what tp > 1 does not serve."""
+        check_tp_serving(self.plane.tp, self.plane.backend, self.device.type, graphs,
+                         decode_matmul, persistent_loop)
+        return self.plane.local_config(cfg)
+
+    def _refuse_tp(self, what: str) -> None:
+        """Raise for a path not ported to tensor-parallel serving."""
+        if self.plane is not None:
+            raise _tp_not_ported(what, self.plane.tp)
 
     # ------------------------------------------------------------- grammar
     def set_grammar(self, dfa: DecisionDFA | None) -> None:
@@ -1152,6 +1214,7 @@ class InferenceEngine:
         already know (_bind_prefix): no new capture follows. The tensors
         are this engine's own; a caller that keeps them copies them
         (pages.export_pages' host arm, adopt_prefix_pages)."""
+        self._refuse_tp("the prefix-KV plane's export")
         pfx = self._prefix_cache.get(tuple(key))
         if pfx is None:
             return None
@@ -1174,6 +1237,7 @@ class InferenceEngine:
 
         Returns (cache key, prefix_epoch), pin_prefix's contract, under
         the same staleness rules (pin_alive / swap_params)."""
+        self._refuse_tp("the prefix-KV plane's adoption")
         if not prompt_ids:
             raise ValueError("cannot adopt an empty prefix")
         key = tuple(prompt_ids)
@@ -2434,6 +2498,7 @@ class InferenceEngine:
         not computed with. Swap such engines together. (The JAX engine
         rebinds, and a production deployment builds one engine a process,
         so neither meets this.)"""
+        self._refuse_tp("a hot swap of the weights")
         pairs: list[tuple[torch.Tensor, torch.Tensor]] = []
         _match_tree(self.params, params, "params", pairs)
         self._await_dispatch()
@@ -2467,6 +2532,7 @@ class InferenceEngine:
         (_Request.external). A resident loop drains first: spec rounds are
         dispatches of their own, which cannot run beside it
         (persistent_supported is False while a decoder is attached)."""
+        self._refuse_tp("speculative decoding")
         if decoder is not None and self.persistent_active:
             self.exit_persistent()
         self.spec = decoder
@@ -2550,6 +2616,7 @@ class InferenceEngine:
         engine's slots. Every admission, decode step and emission until
         exit_persistent is ring traffic on this thread. Returns False when
         unsupported (the caller stays on the dispatch path)."""
+        self._refuse_tp("the persistent loop")
         if self.persistent_active:
             return True
         if not self.persistent_supported():

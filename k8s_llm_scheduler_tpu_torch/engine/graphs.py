@@ -43,8 +43,10 @@ eagerly every time: the same static-buffer code, the counterpart of
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import gc
 import threading
 import time
 from typing import Callable
@@ -60,6 +62,33 @@ import torch
 # gate's arms and a shadow arm in `cli rollout watch`) capture and free
 # their memory without breaking each other's captures.
 DEVICE_WIDE = threading.RLock()
+
+# Cyclic garbage collection is off while any capture runs: a collection on
+# the capturing thread could free another program's graph (an engine left
+# in a reference cycle), and destroying a graph is not permitted there. A
+# count under a lock turns it off at the first hold and back on (if it was
+# on) at the last release, whichever threads hold it.
+_GC_LOCK = threading.Lock()
+_gc_holds = 0
+_gc_was_enabled = False
+
+
+@contextlib.contextmanager
+def no_collection():
+    """Cyclic garbage collection off for the body, on every thread."""
+    global _gc_holds, _gc_was_enabled
+    with _GC_LOCK:
+        if _gc_holds == 0:
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_holds += 1
+    try:
+        yield
+    finally:
+        with _GC_LOCK:
+            _gc_holds -= 1
+            if _gc_holds == 0 and _gc_was_enabled:
+                gc.enable()
 
 
 def launch_counted() -> tuple:
@@ -220,8 +249,11 @@ class GraphRunner:
             # buffers); under the default "global" mode any of them would
             # invalidate the capture.
             self._capturing = prog
-            with torch.cuda.graph(graph, pool=self.pool, stream=side,
-                                  capture_error_mode="thread_local"):
+            # (torch.cuda.graph's own gc.collect() runs before the capture
+            # begins; a graph another thread frees by reference count is
+            # destroyed on that thread, which "thread_local" permits)
+            with no_collection(), torch.cuda.graph(graph, pool=self.pool, stream=side,
+                                                   capture_error_mode="thread_local"):
                 prog.fn()
         finally:
             self._capturing = None

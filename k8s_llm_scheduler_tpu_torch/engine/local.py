@@ -104,10 +104,10 @@ from k8s_llm_scheduler_tpu_torch.engine.backend import (
 )
 from k8s_llm_scheduler_tpu_torch.engine.admission.pinned import PinnedPrefixManager
 from k8s_llm_scheduler_tpu_torch.engine.constrained import build_decision_dfa
-from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
+from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine, check_tp_serving
 from k8s_llm_scheduler_tpu_torch.engine.graphs import DEVICE_WIDE
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import Tokenizer
-from k8s_llm_scheduler_tpu_torch.models.configs import get_config
+from k8s_llm_scheduler_tpu_torch.models.configs import LlamaConfig, get_config
 from k8s_llm_scheduler_tpu_torch.models.llama import init_params
 from k8s_llm_scheduler_tpu_torch.models.quant import init_params_int8_host, quantize_params
 from k8s_llm_scheduler_tpu_torch.observability import spans
@@ -1295,6 +1295,7 @@ def build_local_backend(
     spec_draft_checkpoint: str | None = None,
     spec_k: int = 4,
     spec_disable_threshold: float = 0.3,
+    mesh_axes: dict | None = None,
 ) -> LocalLLMBackend:
     """The local stack on `device` with the JAX package's settings and
     defaults (JAX local.py:1431-1480): params, tokenizer, engine and a
@@ -1318,69 +1319,68 @@ def build_local_backend(
     CUDA graphs. The admission plane's settings are the config's
     `admission.*` keys. `spec_enabled` attaches a speculative decoder
     (spec/; `spec_*` are its settings, the config's `llm.spec_*`), which
-    serves the engine's generate(); decisions never speculate."""
-    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import (
-        HFTokenizerAdapter,
-        build_builtin_tokenizer,
-    )
+    serves the engine's generate(); decisions never speculate.
+
+    `mesh_axes` is the config's `llm.mesh` (JAX local.py:1513-1563): a tp
+    axis wider than 1 serves the model tensor parallel over that many
+    ranks, one process each (parallel/launch.py). This process is the
+    driver, rank 0 on cuda:0 (or host h's first rank under
+    distributed.enabled, parallel/distributed.py); it spawns the other
+    ranks, each building its own shard the same way (rank r on
+    cuda:(r % device_count)), and mirrors its engine's calls to them.
+    Other axes wider than 1 raise, as in the JAX package, and so does a
+    model the tp width does not divide. `spec_enabled` then warns and
+    serves plain decode, as the JAX package does."""
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import HFTokenizerAdapter
 
     dev = resolve_device(device)
     if quantize is not None and quantize != "int8":
         raise ValueError(f"unknown quantization {quantize!r} (only 'int8')")
-    cfg = get_config(model)
-    builtin_tokenizer = None
-    if tokenizer_path is None and not (
-        checkpoint_path
-        and tokenizer_name == "byte"
-        and (Path(checkpoint_path) / "tokenizer.json").exists()
-    ):
-        # before the params are built: the builtin may widen the vocab
-        builtin_tokenizer, cfg = build_builtin_tokenizer(tokenizer_name, cfg)
-    if checkpoint_path:
-        from k8s_llm_scheduler_tpu_torch.models.loader import (
-            load_hf_checkpoint,
-            restore_checkpoint,
-        )
-
-        ckpt = Path(checkpoint_path)
-        if list(ckpt.glob("*.safetensors")):
-            params = load_hf_checkpoint(ckpt, cfg, device=dev, quantize=quantize)
-        else:
-            params = restore_checkpoint(ckpt, cfg, device=dev)
-            if quantize is not None:
-                params = quantize_params(params)
-    elif quantize == "int8":
-        params = init_params_int8_host(seed, cfg, device=dev)
-    else:
-        params = init_params(cfg, seed=seed, device=dev)
+    base_cfg = get_config(model)
+    cfg, builtin_tokenizer = _model_config(base_cfg, checkpoint_path, tokenizer_path,
+                                           tokenizer_name)
+    mesh = serving_mesh(mesh_axes, cfg)
     tokenizer = builtin_tokenizer or HFTokenizerAdapter(tokenizer_path or checkpoint_path)
     if max_pages_per_seq is None:
         # own pages hold a pod's suffix and its generated tokens (the
         # shared prefix lives in the dense prefix buffer): the largest
         # suffix expected (1024 tokens) plus the decode budget
         max_pages_per_seq = -(-(1024 + max_new_tokens + chunk_steps) // page_size)
-    engine = InferenceEngine(
-        params, cfg, tokenizer,
-        num_pages=num_pages, page_size=page_size, max_slots=max_slots,
-        max_pages_per_seq=max_pages_per_seq, prefill_buckets=prefill_buckets,
-        chunk_steps=chunk_steps, prefix_chunk=prefix_chunk, paged_attn=paged_attn,
-        temperature=temperature, top_k=top_k, rng_seed=seed,
-        decode_matmul=decode_matmul, graphs=graphs,
-        admission_chunk_tokens=admission_chunk_tokens,
-        fused_decode=fused_decode,
-        persistent_loop=persistent_loop,
-        persistent_suffix_bucket=persistent_suffix_bucket,
-        persistent_wedge_timeout_s=persistent_wedge_timeout_s,
-        persistent_telemetry=persistent_telemetry,
-        persistent_stats_every=persistent_stats_every,
-        persistent_blackbox_depth=persistent_blackbox_depth,
+    rank_spec = dict(
+        config=base_cfg, device=dev.type, seed=seed, quantize=quantize,
+        checkpoint_path=checkpoint_path, tokenizer_path=tokenizer_path,
+        tokenizer_name=tokenizer_name,
+        engine=dict(
+            num_pages=num_pages, page_size=page_size, max_slots=max_slots,
+            max_pages_per_seq=max_pages_per_seq, prefill_buckets=prefill_buckets,
+            chunk_steps=chunk_steps, prefix_chunk=prefix_chunk, paged_attn=paged_attn,
+            temperature=temperature, top_k=top_k, rng_seed=seed,
+            decode_matmul=decode_matmul, graphs=graphs,
+            admission_chunk_tokens=admission_chunk_tokens,
+            fused_decode=fused_decode,
+            persistent_loop=persistent_loop,
+            persistent_suffix_bucket=persistent_suffix_bucket,
+            persistent_wedge_timeout_s=persistent_wedge_timeout_s,
+            persistent_telemetry=persistent_telemetry,
+            persistent_stats_every=persistent_stats_every,
+            persistent_blackbox_depth=persistent_blackbox_depth,
+        ),
     )
-    if spec_enabled:
-        _attach_spec(
-            engine, arm=spec_arm, draft_model=spec_draft_model,
-            draft_checkpoint=spec_draft_checkpoint, k=spec_k,
-            disable_threshold=spec_disable_threshold, rng_seed=seed,
-        )
+    if mesh is None:
+        params = _full_params(rank_spec, cfg, dev)
+        engine = InferenceEngine(params, cfg, tokenizer, **rank_spec["engine"])
+        if spec_enabled:
+            _attach_spec(
+                engine, arm=spec_arm, draft_model=spec_draft_model,
+                draft_checkpoint=spec_draft_checkpoint, k=spec_k,
+                disable_threshold=spec_disable_threshold, rng_seed=seed,
+            )
+    else:
+        if spec_enabled:
+            # the speculative programs run one device's whole model; a tp
+            # engine serves plain decode, as the JAX package's does
+            logger.warning("spec_enabled is single-device; tp mesh keeps plain decode")
+        engine = _start_tp_group(rank_spec, mesh, dev)
     return LocalLLMBackend(
         engine, tokenizer, max_new_tokens=max_new_tokens, constrained=constrained,
         request_timeout_s=request_timeout_s,
@@ -1396,3 +1396,164 @@ def build_local_backend(
         persistent_loop=persistent_loop,
         owns_engine=True,
     )
+
+
+def _model_config(cfg: LlamaConfig, checkpoint_path, tokenizer_path, tokenizer_name):
+    """(model config, builtin tokenizer or None): a builtin tokenizer is
+    built before the params, since it may widen the model's vocab."""
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import build_builtin_tokenizer
+
+    if tokenizer_path is None and not (
+        checkpoint_path
+        and tokenizer_name == "byte"
+        and (Path(checkpoint_path) / "tokenizer.json").exists()
+    ):
+        builtin_tokenizer, cfg = build_builtin_tokenizer(tokenizer_name, cfg)
+        return cfg, builtin_tokenizer
+    return cfg, None
+
+
+def _on_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _on_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _full_params(spec: dict, cfg, dev) -> dict:
+    """The whole model's params on `dev`: from the checkpoint, else random
+    from the seed (int8 ones drawn and quantized on the host, so only int8
+    weights reach the device)."""
+    quantize, checkpoint_path, seed = spec["quantize"], spec["checkpoint_path"], spec["seed"]
+    if checkpoint_path:
+        from k8s_llm_scheduler_tpu_torch.models.loader import (
+            load_hf_checkpoint,
+            restore_checkpoint,
+        )
+
+        ckpt = Path(checkpoint_path)
+        if list(ckpt.glob("*.safetensors")):
+            return load_hf_checkpoint(ckpt, cfg, device=dev, quantize=quantize)
+        params = restore_checkpoint(ckpt, cfg, device=dev)
+        return quantize_params(params) if quantize is not None else params
+    if quantize == "int8":
+        return init_params_int8_host(seed, cfg, device=dev)
+    return init_params(cfg, seed=seed, device=dev)
+
+
+def serving_mesh(mesh_axes: dict | None, cfg):
+    """The tp serving mesh of `llm.mesh` (parallel/mesh.RankMesh), or None
+    when it has no axis wider than 1. Serving shards over tp only: another
+    axis wider than 1 raises with the JAX package's message, and so does a
+    model the tp width does not divide."""
+    from k8s_llm_scheduler_tpu_torch.parallel.distributed import multihost_mesh, world
+    from k8s_llm_scheduler_tpu_torch.parallel.mesh import mesh_from_config
+    from k8s_llm_scheduler_tpu_torch.parallel.sharding import validate_specs_divisibility
+
+    mesh = mesh_from_config(mesh_axes)
+    bad_axes = {ax: n for ax, n in mesh.shape.items() if ax != "tp" and n > 1}
+    if bad_axes:
+        raise ValueError(
+            f"serving mesh supports only a tp axis; got {bad_axes} — "
+            f"use llm.mesh {{tp: N}} (dp batch sharding is a training-path "
+            f"concept; the engine's continuous batching already fills the "
+            f"chip with one replica)"
+        )
+    tp = mesh.shape.get("tp", 1)
+    if tp <= 1:
+        return None
+    validate_specs_divisibility(cfg, mesh)
+    w = world()
+    if w is not None:
+        # this host's ranks in the multi-host world: host h's row
+        if w.ranks_per_process != tp:
+            raise ValueError(f"llm.mesh tp={tp} but the world runs "
+                             f"{w.ranks_per_process} ranks a host")
+        mesh = multihost_mesh({"dp": w.num_processes}, {"tp": tp})
+    return mesh
+
+
+def build_rank_engine(spec: dict, mesh) -> InferenceEngine:
+    """One tp rank's engine over `mesh` (bound to the rank): its shard of
+    the params, from the checkpoint (a safetensors checkpoint read a block
+    at a time) or the seed (drawn in the full tree's order, keeping the
+    rank's blocks). `spec["config"]` is the driver's model config, so a
+    rank serves the model the driver resolved."""
+    from k8s_llm_scheduler_tpu_torch.engine.sharded import ServingPlane
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import HFTokenizerAdapter
+    from k8s_llm_scheduler_tpu_torch.parallel.sharding import rank_ranges
+
+    cfg, builtin_tokenizer = _model_config(spec["config"], spec["checkpoint_path"],
+                                           spec["tokenizer_path"], spec["tokenizer_name"])
+    tokenizer = builtin_tokenizer or HFTokenizerAdapter(
+        spec["tokenizer_path"] or spec["checkpoint_path"])
+    index = mesh.local_device_index()
+    dev = torch.device("cpu") if index is None else torch.device("cuda", index)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    plane = ServingPlane(mesh)
+    quantize, ckpt = spec["quantize"], spec["checkpoint_path"]
+    if ckpt and list(Path(ckpt).glob("*.safetensors")):
+        from k8s_llm_scheduler_tpu_torch.models.loader import load_hf_checkpoint
+
+        params = load_hf_checkpoint(Path(ckpt), cfg, device=dev, quantize=quantize,
+                                    shard=rank_ranges(cfg, mesh))
+    elif ckpt or quantize == "int8":
+        # a native checkpoint, or int8 weights quantized over whole input
+        # dims: the full tree on the host, then the rank's blocks
+        full = _full_params(spec, cfg, torch.device("cpu"))
+        params = _on_device(plane.place_params(full, cfg, quantized=quantize == "int8"), dev)
+        del full
+    else:
+        params = init_params(cfg, seed=spec["seed"], device=dev, shard=rank_ranges(cfg, mesh))
+    return InferenceEngine(params, cfg, tokenizer, mesh=mesh, **spec["engine"])
+
+
+def _start_tp_group(spec: dict, mesh, dev) -> InferenceEngine:
+    """Spawn this host's follower ranks, build the driver's own engine and
+    return it with its calls mirrored to them (parallel/launch.py)."""
+    import os
+    import tempfile
+
+    from k8s_llm_scheduler_tpu_torch.parallel import launch
+    from k8s_llm_scheduler_tpu_torch.parallel.distributed import world
+
+    timeout_s = launch.GROUP_TIMEOUT_S
+    tp = mesh.shape["tp"]
+    device_count = torch.cuda.device_count() if dev.type == "cuda" else 0
+    # the engine's own refusals, before a process is spawned
+    devices = [None if not device_count else i % device_count for i in range(tp)]
+    check_tp_serving(tp, launch.choose_backend(devices), dev.type, spec["engine"]["graphs"],
+                     spec["engine"]["decode_matmul"], spec["engine"]["persistent_loop"])
+    tmp = tempfile.TemporaryDirectory(prefix="tp-group-")
+    w = world()
+    if w is None:
+        rendezvous = {"kind": "file", "path": os.path.join(tmp.name, "store")}
+        host_rank0 = 0
+        store = launch.open_store(rendezvous, tp)
+    else:
+        rendezvous = {"kind": "tcp", "address": w.coordinator}
+        host_rank0, store = w.host_rank0, w.store
+    mesh.bind(store, host_rank0, timeout_s=timeout_s, device_count=device_count,
+              host_rank0=host_rank0)
+    follower_spec = {
+        "grid": mesh.grid.tolist(), "axes": mesh.axis_names, "rendezvous": rendezvous,
+        "group_size": tp, "timeout_s": timeout_s, "device_count": device_count,
+        "host_rank0": host_rank0, "engine": spec, "torch_threads": torch.get_num_threads(),
+        "log_level": logging.getLogger().level,
+    }
+    procs = launch.start_followers(follower_spec, [host_rank0 + i for i in range(1, tp)],
+                                   tmp.name)
+    try:
+        engine = build_rank_engine(spec, mesh)
+        hstore = launch.host_store(store, host_rank0)
+        launch.wait_ready(hstore, procs, list(range(1, tp)), launch.START_TIMEOUT_S)
+        group = launch.RankGroup(mesh, procs, hstore, timeout_s)
+        group.scratch = tmp  # the rendezvous file lives as long as the group
+        group.mirror(engine)
+    except BaseException:
+        launch.stop_followers(procs, 5.0)
+        tmp.cleanup()
+        raise
+    logger.info("tp=%d serving: ranks %s over %s", tp, mesh.axis_ranks("tp"),
+                engine.plane.backend)
+    return engine

@@ -1,20 +1,29 @@
-"""engine/sharded — fleet-level slice geometry.
+"""engine/sharded — the tensor-parallel serving plane.
 
-geometry.py (a copy of the JAX package's): the device-group sizes that
-drive the disaggregated pool split (fleet/pools.py). A port engine serves
-on one device and has no mesh, so every member resolves to tp 1.
-
-The JAX package's tensor-parallel serving plane (plane.py: KV, prefix and
-logits shardings, the constraint bundle, quantization-aware param specs)
-is not ported: it waits for ROADMAP queue 1 item 9c.
+plane.py: a rank's share of the model and of the engine's state (the
+local geometry, the row-parallel all-reduce, the vocab-sharded embedding
+and logits, quantization-aware param specs). geometry.py (a copy of the
+JAX package's): fleet-level slice geometry, the device-group sizes that
+drive the disaggregated pool split (fleet/pools.py); an engine built over
+a tp mesh reports its tp through `engine.mesh`.
 """
 
 from k8s_llm_scheduler_tpu_torch.engine.sharded.geometry import (
     FleetGeometry,
     member_tp,
 )
+from k8s_llm_scheduler_tpu_torch.engine.sharded.plane import (
+    RankConfig,
+    ServingPlane,
+    build_plane,
+    serving_param_specs,
+)
 
 __all__ = [
     "FleetGeometry",
+    "RankConfig",
+    "ServingPlane",
+    "build_plane",
     "member_tp",
+    "serving_param_specs",
 ]

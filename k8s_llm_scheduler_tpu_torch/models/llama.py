@@ -107,49 +107,66 @@ def apply_rope(
 
 # --------------------------------------------------------------------- init
 def init_params(
-    cfg: LlamaConfig, seed: int = 0, device: str | torch.device = "cuda"
+    cfg: LlamaConfig, seed: int = 0, device: str | torch.device = "cuda",
+    shard: dict | None = None,
 ) -> Params:
     """Random weights from a seeded torch.Generator, allocated on `device`
     (the JAX package's init_params scheme: N(0, 0.02) embeddings, N(0,
     1/fan_in) projections, unit norms). Each stacked layer weight is filled
-    one layer at a time, so the f32 transient is one layer's matrix."""
+    one layer at a time, so the f32 transient is one layer's matrix.
+
+    `shard` ({param name: (dim, lo, hi)}, parallel/sharding.rank_ranges)
+    keeps only those blocks of the named params, for one tensor-parallel
+    rank: the generator draws every number of the full tree in the same
+    order, so the rank's params equal the slices of the full tree, which
+    never exists."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     L, D, Fd, hd = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.head_dim
+    shard = shard or {}
 
-    def normal(shape, std):
-        w = torch.empty(shape, dtype=cfg.dtype, device=dev)
+    def normal(name, shape, std):
+        dim, lo, hi = shard.get(name, (None, 0, 0))
+        kept = tuple(hi - lo if d == dim else n for d, n in enumerate(shape))
+        w = torch.empty(kept, dtype=cfg.dtype, device=dev)
         for i in range(shape[0]):
-            w[i] = (
+            row = (
                 torch.randn(shape[1:], generator=gen, dtype=torch.float32,
                             device=dev) * std
             ).to(cfg.dtype)
+            if dim is None:
+                w[i] = row
+            elif dim == 0:
+                if lo <= i < hi:
+                    w[i - lo] = row
+            else:
+                w[i] = row.narrow(dim - 1, lo, hi - lo)
         return w
 
-    def dense(shape, in_dim):
-        return normal(shape, in_dim**-0.5)
+    def dense(name, shape, in_dim):
+        return normal(name, shape, in_dim**-0.5)
 
     def ones(shape):
         return torch.ones(shape, dtype=cfg.dtype, device=dev)
 
     params: Params = {
-        "embed": normal((cfg.vocab_size, D), 0.02),
+        "embed": normal("embed", (cfg.vocab_size, D), 0.02),
         "final_norm": ones((D,)),
         "layers": {
             "attn_norm": ones((L, D)),
-            "wq": dense((L, D, cfg.n_heads * hd), D),
-            "wk": dense((L, D, cfg.n_kv_heads * hd), D),
-            "wv": dense((L, D, cfg.n_kv_heads * hd), D),
-            "wo": dense((L, cfg.n_heads * hd, D), cfg.n_heads * hd),
+            "wq": dense("layers.wq", (L, D, cfg.n_heads * hd), D),
+            "wk": dense("layers.wk", (L, D, cfg.n_kv_heads * hd), D),
+            "wv": dense("layers.wv", (L, D, cfg.n_kv_heads * hd), D),
+            "wo": dense("layers.wo", (L, cfg.n_heads * hd, D), cfg.n_heads * hd),
             "mlp_norm": ones((L, D)),
-            "w_gate": dense((L, D, Fd), D),
-            "w_up": dense((L, D, Fd), D),
-            "w_down": dense((L, Fd, D), Fd),
+            "w_gate": dense("layers.w_gate", (L, D, Fd), D),
+            "w_up": dense("layers.w_up", (L, D, Fd), D),
+            "w_down": dense("layers.w_down", (L, Fd, D), Fd),
         },
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((D, cfg.vocab_size), D)
+        params["lm_head"] = dense("lm_head", (D, cfg.vocab_size), D)
     return params
 
 
@@ -199,11 +216,23 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _logits(params: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
-    """LM head (tied or untied), f32 logits."""
+    """LM head (tied or untied), f32 logits; on a tp rank's config
+    (engine/sharded/plane.RankConfig) the rank's vocab block, gathered."""
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    if cfg.tie_embeddings:
-        return _matmul_f32(x, params["embed"].t())
-    return _matmul_f32(x, params["lm_head"])
+    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    plane = getattr(cfg, "plane", None)
+    if plane is None:
+        return _matmul_f32(x, head)
+    return plane.gather_logits(_matmul_f32(x, head))
+
+
+def _embed(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding rows of `tokens`; on a tp rank's config, the plane's
+    vocab-sharded lookup."""
+    plane = getattr(cfg, "plane", None)
+    if plane is None:
+        return params["embed"][tokens]
+    return plane.embed_lookup(params["embed"], tokens)
 
 
 def _dense(x: torch.Tensor, w) -> torch.Tensor:
@@ -217,12 +246,21 @@ def _dense(x: torch.Tensor, w) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
+def _row_dense(cfg: LlamaConfig, x: torch.Tensor, w) -> torch.Tensor:
+    """A row-parallel projection (wo, w_down): _dense, or on a tp rank's
+    config the plane's product summed over the ranks."""
+    plane = getattr(cfg, "plane", None)
+    if plane is None:
+        return _dense(x, w)
+    return plane.row_dense(x, w)
+
+
 def _mlp(lp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
     gate = _dense(h, lp["w_gate"])
     up = _dense(h, lp["w_up"])
     fused = F.silu(gate.float()).to(x.dtype) * up
-    return _dense(fused, lp["w_down"])
+    return _row_dense(cfg, fused, lp["w_down"])
 
 
 def _qkv(lp, cfg, x, positions, inv_freq):
@@ -263,7 +301,7 @@ def _prefill_layer(lp, cfg, x, positions, seq_lens, inv_freq):
     B, S = x.shape[:2]
     q, k, v = _qkv(lp, cfg, x, positions, inv_freq)
     attn = causal_prefill_attention(q, k, v, seq_lens)
-    x = x + _dense(attn.reshape(B, S, -1), lp["wo"])
+    x = x + _row_dense(cfg, attn.reshape(B, S, -1), lp["wo"])
     return x + _mlp(lp, cfg, x), k, v
 
 
@@ -292,7 +330,7 @@ def forward_prefill(
     dev = tokens.device
     inv_freq = rope_inv_freq(cfg, dev)
     positions = torch.arange(S, device=dev).expand(B, S)
-    x = params["embed"][tokens]
+    x = _embed(params, cfg, tokens)
     k_all, v_all = _kv_stacks(cfg, B, S, x.dtype, dev)
     for i, lp in enumerate(_unbound_layers(params["layers"], cfg.n_layers)):
         if remat:
@@ -316,7 +354,7 @@ def _suffix_layer(
     B, S = x.shape[:2]
     q, k, v = _qkv(lp, cfg, x, positions, inv_freq)
     attn = chunk_attention_with_prefix(q, k, v, suffix_lens, pk, pv, prefix_len)
-    x = x + _dense(attn.reshape(B, S, -1), lp["wo"])
+    x = x + _row_dense(cfg, attn.reshape(B, S, -1), lp["wo"])
     x = x + _mlp(lp, cfg, x)
     return x, k, v
 
@@ -348,7 +386,7 @@ def forward_prefill_suffix_dense(
     dev = tokens.device
     inv_freq = rope_inv_freq(cfg, dev)
     positions = prefix_len + torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
-    x = params["embed"][tokens]
+    x = _embed(params, cfg, tokens)
     k_sfx, v_sfx = kv_out if kv_out is not None else _kv_stacks(cfg, B, S, x.dtype, dev)
     for i in range(cfg.n_layers):
         x, k_sfx[i], v_sfx[i] = _suffix_layer(
@@ -383,7 +421,7 @@ def forward_prefill_suffix(
     inv_freq = rope_inv_freq(cfg, dev)
     positions = prefix_len + torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
     pages = page_ids.long()
-    x = params["embed"][tokens]
+    x = _embed(params, cfg, tokens)
     for i in range(cfg.n_layers):
         x, k, v = _suffix_layer(
             _layer(params["layers"], i), cfg, x, positions, suffix_lens,
@@ -437,7 +475,7 @@ def forward_prefill_packed(
     hd = cfg.head_dim
     dev = tokens.device
     inv_freq = rope_inv_freq(cfg, dev)
-    x = params["embed"][tokens][None]  # [1, C, D]
+    x = _embed(params, cfg, tokens)[None]  # [1, C, D]
     pos_b = positions[None, :]
     eq = "bqkgh,bskh->bkgqs"
     # masks are layer-independent
@@ -461,7 +499,7 @@ def forward_prefill_packed(
         ]
         attn = merge_attention_parts(parts)  # [1, n_kv, g, C, hd]
         attn = torch.movedim(attn, 3, 1).reshape(1, C, cfg.n_heads * hd)
-        x = x + _dense(attn.to(x.dtype), lp["wo"])
+        x = x + _row_dense(cfg, attn.to(x.dtype), lp["wo"])
         x = x + _mlp(lp, cfg, x)
         k_cache[i][pages, offsets] = k[0].to(k_cache.dtype)
         v_cache[i][pages, offsets] = v[0].to(v_cache.dtype)
@@ -535,7 +573,7 @@ def forward_block_decode(
     cap1 = gen_k.shape[2]
     Ss = k_sfx.shape[2]
     inv_freq = rope_inv_freq(cfg, dev)
-    x = params["embed"][blk_tok]
+    x = _embed(params, cfg, blk_tok)
 
     sfx_mask = (torch.arange(Ss, device=dev)[None, :] < suffix_lens[:, None])[
         :, None, None, None, :
@@ -586,7 +624,7 @@ def forward_block_decode(
         lp = _layer(params["layers"], i)
         q, k, v = _qkv(lp, cfg, x, positions, inv_freq)
         attn = _block_attention(cfg, q, k, v, i, masks, *attn_args)
-        x = x + _dense(attn.to(x.dtype), lp["wo"])
+        x = x + _row_dense(cfg, attn.to(x.dtype), lp["wo"])
         x = x + _mlp(lp, cfg, x)
         gen_k[i][row, dest] = k.to(gen_k.dtype)
         gen_v[i][row, dest] = v.to(gen_v.dtype)
@@ -637,7 +675,7 @@ def forward_decode_buffered(
     hd = cfg.head_dim
     n_steps = chunk_k.shape[2]
     inv_freq = rope_inv_freq(cfg, dev)
-    x = params["embed"][tokens]
+    x = _embed(params, cfg, tokens)
     row = torch.arange(B, device=dev)
     tail = tail_len.long()
 
@@ -671,7 +709,7 @@ def forward_decode_buffered(
             attend_part(qg, chunk_k[i], chunk_v[i], tail_mask, "bkgh,blkh->bkgl"),
         ]
         attn = merge_attention_parts(parts).reshape(B, cfg.n_heads * hd).to(x.dtype)
-        x = x + _dense(attn, lp["wo"])
+        x = x + _row_dense(cfg, attn, lp["wo"])
         x = x + _mlp(lp, cfg, x)
     return _logits(params, cfg, x), chunk_k, chunk_v
 
@@ -722,14 +760,14 @@ def forward_decode(
     page_ids = torch.where(active, page_ids, 0)
     offsets = torch.where(active, positions.long() % ps, 0)
     seq_lens = (positions + 1).to(torch.int32)
-    x = params["embed"][tokens]
+    x = _embed(params, cfg, tokens)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         q, k, v = _decode_qkv(lp, cfg, x, positions, inv_freq)
         k_cache[i][page_ids, offsets] = k.to(k_cache.dtype)
         v_cache[i][page_ids, offsets] = v.to(v_cache.dtype)
         attn = attn_fn(q, k_cache[i], v_cache[i], page_tables, seq_lens)
-        x = x + _dense(attn.reshape(B, cfg.n_heads * cfg.head_dim), lp["wo"])
+        x = x + _row_dense(cfg, attn.reshape(B, cfg.n_heads * cfg.head_dim), lp["wo"])
         x = x + _mlp(lp, cfg, x)
     return _logits(params, cfg, x), k_cache, v_cache
 

@@ -169,7 +169,21 @@ class SafetensorsFile:
 
     def get_tensor(self, name: str) -> torch.Tensor:
         """The tensor `name` as a CPU tensor of its stored dtype."""
+        return self.get_slice(name, 0, 0, None)
+
+    def get_slice(self, name: str, dim: int, lo: int, hi: int | None) -> torch.Tensor:
+        """Entries [lo, hi) of `name` along `dim` (hi None: to the end). A
+        slice of dim 0 reads only its own bytes; another dim reads the
+        tensor and narrows it."""
         dtype, shape, begin, end = self._entries[name]
+        if dim != 0:
+            full = self.get_slice(name, 0, 0, None)
+            return full.narrow(dim, lo, (shape[dim] if hi is None else hi) - lo).contiguous()
+        if shape:
+            hi = shape[0] if hi is None else hi
+            row = (end - begin) // shape[0] if shape[0] else 0
+            begin, end = begin + lo * row, begin + hi * row
+            shape = (hi - lo, *shape[1:])
         with open(self.path, "rb") as f:
             f.seek(self._data_start + begin)
             data = bytearray(f.read(end - begin))
@@ -204,25 +218,57 @@ def load_hf_checkpoint(
     device: str | torch.device = "cuda",
     dtype: torch.dtype | None = None,
     quantize: str | None = None,
+    shard: dict | None = None,
 ) -> Params:
     """Stream an HF Llama safetensors checkpoint into the port's params on
-    `device`, one tensor at a time (JAX loader.py:136-268)."""
+    `device`, one tensor at a time (JAX loader.py:136-268).
+
+    `shard` ({param name: (dim, lo, hi)} in the port's stacked layout,
+    parallel/sharding.rank_ranges) keeps one tensor-parallel rank's block
+    of those params: a block of an HF tensor's rows (column-parallel
+    weights, the embedding, the LM head) is read alone, so a rank never
+    holds another rank's weights; a row-parallel weight is read a layer at
+    a time and narrowed, after its int8 scales were taken over the whole
+    input dim (one rank's scales equal the unsharded model's)."""
     if quantize not in (None, "int8"):
         raise ValueError(f"unknown quantization {quantize!r} (only 'int8')")
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     shapes = _expected_shapes(cfg)
+    full_shapes = dict(shapes)
+    shard = shard or {}
+    for name, (dim, lo, hi) in shard.items():
+        shapes[name] = tuple(hi - lo if d == dim else n for d, n in enumerate(shapes[name]))
     filled: dict[str, int] = {}
     out: dict[str, object] = {}
 
-    def oriented(f: SafetensorsFile, hf_name: str, transpose: bool, want) -> torch.Tensor:
-        tensor = f.get_tensor(hf_name)
+    def oriented(f: SafetensorsFile, hf_name: str, transpose: bool, want,
+                 rng=None) -> torch.Tensor:
+        if rng is None:
+            tensor = f.get_tensor(hf_name)
+        else:
+            dim, lo, hi = rng  # in the oriented tensor's dims
+            tensor = f.get_slice(hf_name, (1 - dim) if transpose else dim, lo, hi)
         if transpose:
             tensor = tensor.T.contiguous()
         if tuple(tensor.shape) != tuple(want):
             raise ValueError(
                 f"{hf_name}: shape {tuple(tensor.shape)} != expected {tuple(want)}")
         return tensor.to(dtype)
+
+    def layer_block(f, hf_name, key, transpose, name):
+        """One layer of a stacked param: a rank's block of it under `shard`,
+        an int8 pair where a row-parallel weight is quantized."""
+        rng = shard.get(name)
+        if rng is None:
+            return oriented(f, hf_name, transpose, shapes[name][1:])
+        dim, lo, hi = rng[0] - 1, rng[1], rng[2]
+        if quantize == "int8" and key in QUANT_KEYS and dim == 0:
+            # row parallel: the per-output scales span the whole input dim
+            whole = oriented(f, hf_name, transpose, full_shapes[name][1:])
+            pair = quantize_weight(whole, reciprocal=True)
+            return {"q": pair["q"][lo:hi].contiguous(), "scale": pair["scale"]}
+        return oriented(f, hf_name, transpose, shapes[name][1:], (dim, lo, hi))
 
     for file in checkpoint_files(path):
         f = SafetensorsFile(file)
@@ -237,7 +283,16 @@ def load_hf_checkpoint(
                 name = f"layers.{key}"
                 if layer >= cfg.n_layers:
                     raise ValueError(f"{hf_name}: layer {layer} >= n_layers={cfg.n_layers}")
-                host = oriented(f, hf_name, transpose, shapes[name][1:])
+                host = layer_block(f, hf_name, key, transpose, name)
+                if isinstance(host, dict):  # quantized already, a layer at a time
+                    if name not in out:
+                        out[name] = {k: torch.zeros((cfg.n_layers, *v.shape), dtype=v.dtype,
+                                                    device=dev) for k, v in host.items()}
+                        filled[name] = 0
+                    for k, v in host.items():
+                        out[name][k][layer].copy_(v)
+                    filled[name] += 1
+                    continue
                 if name not in out:
                     out[name] = torch.zeros(shapes[name], dtype=dtype, device=dev)
                     filled[name] = 0
@@ -251,7 +306,8 @@ def load_hf_checkpoint(
                 if name == "lm_head" and cfg.tie_embeddings:
                     logger.info("ignoring lm_head (tied embeddings)")
                     continue
-                out[name] = oriented(f, hf_name, transpose, shapes[name]).to(dev)
+                out[name] = oriented(f, hf_name, transpose, shapes[name],
+                                     shard.get(name)).to(dev)
             else:
                 logger.warning("skipping unknown tensor %s", hf_name)
 

@@ -249,17 +249,17 @@ def test_cli_run_without_a_cluster_exits_2(monkeypatch, tmp_path, capsys):
 
 
 def test_cli_run_refuses_an_unported_switch_before_a_model(monkeypatch, tmp_path, capsys):
-    """An unported switch raises before any model is built. llm.spec_enabled
-    is ported: `cli run` builds its backend with a speculative decoder
+    """No switch is unported any more: `distributed.enabled` (a world of one
+    process here, so this process is the coordinator) and llm.spec_enabled
+    are served. `cli run` builds its backend with a speculative decoder
     attached (it serves generate(); decisions never speculate) and exits 0
     on SIGINT with its stats."""
     from k8s_llm_scheduler_tpu_torch.engine import local as tlocal
+    from k8s_llm_scheduler_tpu_torch.parallel import distributed
 
     monkeypatch.chdir(tmp_path)
-    (tmp_path / "config.yaml").write_text("distributed:\n  enabled: true\n")
-    with pytest.raises(NotImplementedError, match="distributed.enabled.*item 9c"):
-        cli.main(["run", "--fake-cluster", "--device", "cpu"])
-    (tmp_path / "config.yaml").unlink()
+    (tmp_path / "config.yaml").write_text(
+        "distributed:\n  enabled: true\n  num_processes: 1\n")
     monkeypatch.setenv("SPEC_ENABLED", "true")
     built = []
     real = tlocal.build_local_backend
@@ -273,6 +273,7 @@ def test_cli_run_refuses_an_unported_switch_before_a_model(monkeypatch, tmp_path
                           ["run", "--fake-cluster", "--fake-nodes", "2", "--device", "cpu"],
                           lambda: bool(built))
     assert rc == 0 and stats["total_scheduled"] == 0
+    assert distributed.world() is None and distributed.is_coordinator()
     spec = built[0].engine.spec
     assert spec is not None and spec.arm == "draft" and spec.k == 4
     assert not built[0].engine.persistent_supported()

@@ -89,9 +89,9 @@ def test_backend_kwargs_agree_on_every_key_the_port_honours(tmp_path, yaml_name,
     got = cli._backend_kwargs(tconfig.load_config(yaml_path=path, env=ENVS[env]))
     assert set(got) <= set(want)
     assert got == {k: want[k] for k in got}
-    # the keys the JAX mapping has beyond the port's belong to JAX alone
-    # (its mesh and compile cache)
-    assert set(want) - set(got) == {"mesh_axes", "compile_cache_dir"}
+    # the key the JAX mapping has beyond the port's belongs to JAX alone
+    # (its compile cache); the mesh is shared since tp serving was ported
+    assert set(want) - set(got) == {"compile_cache_dir"}
 
 
 def test_backend_kwargs_name_build_local_backend_parameters():
@@ -119,7 +119,11 @@ def _cfg(**dotted):
     return cfg
 
 
-UNPORTED = [(key, True, item) for key, _, item in cli.UNPORTED_SWITCHES] + [
+# The switches item 9c refused until the tp serving slice: the tp mesh and
+# distributed.enabled are served now; a dp serving mesh still raises, in
+# the JAX package's words, before a model is built.
+UNPORTED = [
+    ("distributed.enabled", True, "9c"),
     ("llm.mesh", {"dp": 1, "tp": 2}, "9c"),
     ("llm.mesh", {"dp": 2, "tp": 1}, "9c"),
 ]
@@ -130,37 +134,43 @@ UNPORTED = [(key, True, item) for key, _, item in cli.UNPORTED_SWITCHES] + [
 def test_each_unported_switch_raises_before_a_model_is_built(monkeypatch, key, value, item):
     from k8s_llm_scheduler_tpu_torch.engine import local
 
-    def no_model(**kwargs):
-        raise AssertionError("a model was built")
-
-    monkeypatch.setattr(local, "build_local_backend", no_model)
     cfg = _cfg(**{key: value})
-    with pytest.raises(NotImplementedError, match=rf"{key}.*item {item}"):
-        cli.check_switches(cfg)
+    kwargs = cli._backend_kwargs(cfg)  # no switch of item 9c is refused any more
+    assert kwargs["mesh_axes"] == cfg.get("llm.mesh")
+    if key != "llm.mesh" or value.get("dp", 1) == 1:
+        return
+    built = []
+    monkeypatch.setattr(local, "init_params", lambda *a, **k: built.append(1))
+    with pytest.raises(ValueError, match="serving mesh supports only a tp axis"):
+        local.build_local_backend(**{**kwargs, "device": "cpu"})
     cluster = synthetic_cluster(2)
-    with pytest.raises(NotImplementedError, match=key):
+    with pytest.raises(ValueError, match="serving mesh supports only a tp axis"):
         cli.build_stack(cfg, cluster, device="cpu")
     cluster.close()
+    assert not built
 
 
 def test_defaults_pass_and_warn_for_the_two_switches_on_by_default(caplog):
-    """Every switch on by default is ported now, the profiler last: the
-    defaults pass without a warning, and so do the operating plane's
-    switches (journal, metrics, SLO)."""
-    cfg = _cfg()
-    with caplog.at_level(logging.WARNING, logger="k8s_llm_scheduler_tpu_torch.cli"):
-        cli.check_switches(cfg)
-        cli.check_switches(_cfg(**{"durability.enabled": True, "metrics.enabled": True,
-                                   "slo.enabled": True}))
-    assert caplog.text == ""
-    assert not hasattr(cli, "WARNED_SWITCHES")
-    assert {key for key, _, _ in cli.UNPORTED_SWITCHES}.isdisjoint(
-        {"durability.enabled", "metrics.enabled", "slo.enabled", "observability.profiler"})
-    cli.check_switches(_cfg(**{"llm.persistent_loop": True}))
-    caplog.clear()
-    with caplog.at_level(logging.WARNING, logger="k8s_llm_scheduler_tpu_torch.cli"):
-        cli.check_switches(_cfg(**{"observability.profiler": False, "llm.fused_decode": False}))
-    assert caplog.text == ""
+    """Every switch is ported now, the profiler last: the stack of the
+    defaults builds without a warning, and so do those of the operating
+    plane's switches (journal, metrics, SLO), the persistent loop and the
+    profiler and fused decode turned off."""
+    from k8s_llm_scheduler_tpu_torch.engine.backend import StubBackend
+
+    assert not hasattr(cli, "WARNED_SWITCHES") and not hasattr(cli, "UNPORTED_SWITCHES")
+    for dotted in ({}, {"durability.enabled": True, "metrics.enabled": True,
+                        "slo.enabled": True},
+                   {"llm.persistent_loop": True},
+                   {"observability.profiler": False, "llm.fused_decode": False}):
+        cfg, cluster = _cfg(**dotted), synthetic_cluster(2)
+        caplog.clear()
+        with caplog.at_level(logging.WARNING, logger="k8s_llm_scheduler_tpu_torch.cli"):
+            kwargs = cli._backend_kwargs(cfg)
+            scheduler, _ = cli.build_stack(cfg, cluster, backend=StubBackend(), device="cpu")
+        cluster.close()
+        assert caplog.text == "", dotted
+        assert scheduler.client is not None
+        assert kwargs["persistent_loop"] == bool(dotted.get("llm.persistent_loop"))
 
 
 def test_a_config_file_without_pyyaml_raises_naming_the_file(tmp_path, monkeypatch):

@@ -313,8 +313,8 @@ def test_build_stack_wraps_in_the_jax_order(monkeypatch):
 @pytest.mark.parametrize("switch", ["distributed.replica_addrs", "router.enabled",
                                     "fleet.enabled+addrs"])
 def test_each_fleet_switch_builds_its_wrapper(switch):
-    """The switches refused before this slice build their wrappers now;
-    `distributed.enabled` and a wide `llm.mesh` still raise (item 9c)."""
+    """The switches refused before this slice build their wrappers now; a
+    tp `llm.mesh` (tensor-parallel serving) reaches build_local_backend."""
     server = treplica.ReplicaServer(tbackend.StubBackend(), host="127.0.0.1", port=0)
     addr = f"127.0.0.1:{server.port}"
     dotted, want = {
@@ -325,13 +325,11 @@ def test_each_fleet_switch_builds_its_wrapper(switch):
     }[switch]
     backend = None
     try:
-        cli.check_switches(_cfg(**dotted))
         _, backend = cli.build_stack(_cfg(**dotted), ttesting.synthetic_cluster(2),
                                      backend=tbackend.StubBackend(), device="cpu")
         assert type(backend).__name__ == want
-        for key, value in (("distributed.enabled", True), ("llm.mesh", {"tp": 2})):
-            with pytest.raises(NotImplementedError, match=rf"{key}.*item 9c"):
-                cli.check_switches(_cfg(**{**dotted, key: value}))
+        assert cli._backend_kwargs(_cfg(**{**dotted, "llm.mesh": {"tp": 2}}))[
+            "mesh_axes"] == {"tp": 2}
     finally:
         if backend is not None:
             backend.close()
@@ -605,7 +603,6 @@ def test_cli_fleet_kvplane_and_autoscale_name_their_roadmap_items(argv, item, tm
     """The ROADMAP items these commands waited for are ported: no switch
     cites them, and each prints the JAX CLI's record (autoscale's lease
     book aside: the demo's real-time drain loop paces its fence checks)."""
-    assert item not in {i for _, _, i in cli.UNPORTED_SWITCHES}
     monkeypatch.chdir(tmp_path)
     records = []
     for side in SIDES:

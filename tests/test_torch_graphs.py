@@ -352,3 +352,39 @@ def test_idle_backend_captures_the_sibling_geometry(tiny_params):
     assert not any(isinstance(d, Exception) for d in batch)
     assert engine.stats["wave_prewarms"] == 1
     assert cold == [True, False]
+
+
+def test_no_collection_holds_across_threads():
+    """Two overlapping holds (captures of two engines on two threads) keep
+    the collector off until the last one ends, which restores it; a
+    collector that was off stays off."""
+    import gc
+    import threading
+
+    from k8s_llm_scheduler_tpu_torch.engine.graphs import no_collection
+
+    assert gc.isenabled()
+    held, release, seen = threading.Event(), threading.Event(), []
+
+    def other():
+        with no_collection():
+            held.set()
+            release.wait(10)
+            seen.append(gc.isenabled())
+
+    thread = threading.Thread(target=other)
+    thread.start()
+    assert held.wait(10)
+    with no_collection():
+        assert not gc.isenabled()
+    assert not gc.isenabled()  # the other thread's hold outlives this one
+    release.set()
+    thread.join(10)
+    assert seen == [False] and gc.isenabled()
+    gc.disable()
+    try:
+        with no_collection():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
