@@ -347,7 +347,9 @@ Phases, each of which must pass:
    from a no-grad forward without recomputation on the same batch and
    params, or a restored tree not equal to the trained one. Prints ms a
    step, the host's ms to build a batch, tokens/s, MFU (8N a token, the
-   forward recomputed, against 989 TFLOP/s) and peak GiB. Then one greedy
+   forward recomputed, against 989 TFLOP/s) and peak GiB (phase 6n's
+   child shares the card meanwhile, so these rates are read beside it).
+   Then one greedy
    decision served from the checkpoint through build_local_backend: it
    parses, names a feasible node and launches K1 and K2 (head dim 64).
 6l. Learn 1B: the learn loop at Llama-3.2-1B through cli.main in this
@@ -384,6 +386,30 @@ Phases, each of which must pass:
    the fused decode (K4). Each rank's K1/K2/K4 launch counts must be equal
    and non-zero (K3 zero: refused at tp > 1); prints the backend, wall
    time and each rank's peak memory.
+6n. Train parallel 1B (a child process started once the 8B backend is
+   closed, beside tp 8B, the TINY phases, cli complete's child, train 1B
+   and learn 1B; joined before the timed kernel phases): the
+   training mesh of train/train_step.py and train/pipeline.py, one
+   process a rank (parallel/launch.run_spmd: the child is rank 0 and
+   spawns rank 1), both ranks on the one card over gloo staged through
+   pinned host buffers (NCCL's branch, one card a rank, is written but
+   not run: one GPU). `llama-3.2-1b-instruct` at full width (d_model
+   2048, 32/8 heads, d_ff 8192, vocab 128,256 from the byte tokenizer),
+   bf16, depth cut to TRAIN_PAR_LAYERS of 16 to fit beside the other
+   phases; random from seed 0; make_batches' first 4 x 2048 batch (seed
+   0, loss_start and loss_weights). The reference is one AdamW step on one
+   device from the same seed (for pp, the batch's tokens and lengths
+   only, as the pipeline trains), and its gradients in f32 from the same
+   bf16-valued weights. Layouts, each its own spawned group reading seed
+   0's tree from a file: {dp 2}, {fsdp 2}, {tp 2}, {sp 2} (ring
+   attention) and {pp 2, n_micro 2}. Each layout's step-1 loss must be
+   within TRAIN_PAR_LOSS_TOL of the reference's (relative); each leaf's
+   gathered gradient no further from the f32 gradient (|g - g32| / |g32|)
+   than one bf16 device's is, plus TRAIN_PAR_GRAD_TOL (its error against
+   one bf16 device is printed beside it); the leaves ranks replicate
+   bit-equal across them after the step; and no rank may import JAX.
+   Then TRAIN_PAR_TIMED more steps are timed: ms a step, the collectives
+   a step and their bytes on each group, each rank's peak memory.
 7. K3, untimed, at `K3_EDGE_CASES` (TINY's widths, N and K not whole
    tiles, M = 96 and 384, totals 0 / 1 / 64 / 65 / M), then at the seven 8B
    weight shapes, int8 pairs and bf16, x [R*24, K] for R = 4 and 8, and
@@ -3702,6 +3728,183 @@ def train_1b(out_root: Path) -> tuple[bool, dict]:
     return ok, rec
 
 
+# ------------------------------------------------------- train parallel 1B
+TRAIN_PAR_LAYERS = 4  # of Llama-3.2-1B's 16: five groups fit beside the TINY phases
+TRAIN_PAR_LAYOUTS = (("dp2", {"dp": 2}, False), ("fsdp2", {"fsdp": 2}, False),
+                     ("tp2", {"tp": 2}, False), ("sp2-ring", {"sp": 2}, False),
+                     ("pp2", {"pp": 2}, True))
+TRAIN_PAR_TIMED = 1  # steps timed after the checked one
+TRAIN_PAR_LOSS_TOL = 5e-3  # |loss - one device's| / one device's (bf16 roundings)
+# A leaf's gradient is held against one device's in f32 from the same bf16
+# weights: |g - g32| / |g32| may exceed one bf16 device's own error by at
+# most this. (The bf16 embedding gradient of one device is itself ~9% off
+# at 1B: its frequent byte rows accumulate in bf16.)
+TRAIN_PAR_GRAD_TOL = 1e-2
+
+
+def _one_device_reference(cfg, batch, params_path) -> dict:
+    """One AdamW step on one device from the tree at `params_path`: the
+    loss, every gradient (kept on the card) and ms a step over
+    TRAIN_PAR_TIMED more; then the same step's gradients in f32 from the
+    same (bf16-valued) weights."""
+    import torch
+
+    from k8s_llm_scheduler_tpu_torch.parallel.dryrun import _grad_tree, _pairs
+    from k8s_llm_scheduler_tpu_torch.train.train_step import adamw, make_train_step
+
+    def step_grads(cfg_, make_opt, params):
+        init_fn, step_fn = make_train_step(cfg_, "cuda", make_opt)
+        state = init_fn(params)
+        placed = step_fn.place_batch(*batch)
+        state, loss = step_fn(state, *placed)
+        grads = _grad_tree(state.params)
+        grads = {k: ({kk: vv.clone() for kk, vv in v.items()} if isinstance(v, dict)
+                     else v.clone()) for k, v in grads.items()}
+        return state, step_fn, placed, loss, grads
+
+    torch.cuda.reset_peak_memory_stats()
+    state, step_fn, placed, loss, grads = step_grads(
+        cfg, adamw(TRAIN_LR), torch.load(params_path, map_location="cuda"))
+    rec = {"loss": float(loss)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_PAR_TIMED):
+        state, loss = step_fn(state, *placed)
+    float(loss)
+    rec["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / TRAIN_PAR_TIMED
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    f32 = torch.load(params_path, map_location="cuda")
+    f32 = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
+           for k, v in f32.items()}
+    state, _, _, loss32, grads32 = step_grads(
+        dataclasses.replace(cfg, dtype=torch.float32),
+        lambda leaves: torch.optim.SGD(leaves, lr=0.0), f32)
+    rec["loss_f32"] = float(loss32)
+    del state, f32
+    torch.cuda.empty_cache()
+    rec["grad_rel_err_f32"] = {
+        name: float((g.float() - r).norm() / r.norm().clamp(min=1e-30))
+        for name, g, r in _pairs(grads, grads32)}
+    return {**rec, "grads": grads, "grads_f32": grads32}
+
+
+def train_parallel_phase() -> tuple[bool, dict]:
+    """Phase 6n, in the process that runs it (a child of the smoke): each
+    layout's group against the one-device step. See the module doc."""
+    import torch
+
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import build_builtin_tokenizer
+    from k8s_llm_scheduler_tpu_torch.models.configs import get_config
+    from k8s_llm_scheduler_tpu_torch.models.llama import init_params
+    from k8s_llm_scheduler_tpu_torch.parallel import launch
+    from k8s_llm_scheduler_tpu_torch.parallel.dryrun import probe_step
+    from k8s_llm_scheduler_tpu_torch.parallel.mesh import make_mesh
+    from k8s_llm_scheduler_tpu_torch.train.distill import make_batches
+
+    t_phase = time.perf_counter()
+    tokenizer, cfg = build_builtin_tokenizer("byte", get_config(TRAIN_MODEL))
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_PAR_LAYERS)
+    batch = next(make_batches(tokenizer, TRAIN_BATCH, TRAIN_SEQ, seed=0))
+    # seed 0's tree, drawn once: every rank reads it and keeps its slice
+    params_path = str(Path.cwd() / "params_seed0.pt")
+    full = init_params(cfg, seed=0, device="cuda")
+    torch.save({k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+                for k, v in full.items()}, params_path)
+    del full
+    refs = {"step": _one_device_reference(cfg, batch, params_path),
+            "pp": _one_device_reference(cfg, batch[:2], params_path)}
+    keep = ("loss", "loss_f32", "ms_per_step", "peak_bytes", "grad_rel_err_f32")
+    rec = {"model": TRAIN_MODEL, "layers": TRAIN_PAR_LAYERS, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "batch": [TRAIN_BATCH, TRAIN_SEQ], "lr": TRAIN_LR,
+           "backend": "gloo (staged through pinned host buffers; ranks share one card)",
+           "reference": {k: {kk: v[kk] for kk in keep} for k, v in refs.items()},
+           "layouts": {}, "setup_s": time.perf_counter() - t_phase}
+    print(f"train parallel 1B: one device, {TRAIN_PAR_LAYERS} of 16 layers, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: {json.dumps(rec['reference'])}", flush=True)
+    ok = True
+    for name, axes, pipeline in TRAIN_PAR_LAYOUTS:
+        ref = refs["pp" if pipeline else "step"]
+        t0 = time.perf_counter()
+        out = launch.run_spmd(
+            make_mesh(axes), probe_step,
+            dict(cfg=cfg, batch=batch[:2] if pipeline else batch, params=params_path,
+                 lr=TRAIN_LR, device="cuda", pipeline=pipeline,
+                 n_micro=2 if pipeline else None, timed_steps=TRAIN_PAR_TIMED, gather=False,
+                 compare=True),
+            device="cuda",
+            driver_kwargs={"reference": {"bf16": ref["grads"], "f32": ref["grads_f32"]}})
+        lay = {k: out[k] for k in ("loss", "last_loss", "ms_per_step", "collectives_per_step",
+                                   "peak_bytes", "replicated_equal", "ranks_importing_jax")}
+        lay["wall_s"] = time.perf_counter() - t0
+        lay["loss_rel_err"] = abs(out["loss"] - ref["loss"]) / abs(ref["loss"])
+        err, err32 = out["grad_rel_err"]["bf16"], out["grad_rel_err"]["f32"]
+        # how far past one bf16 device's own distance from f32 each leaf is
+        excess = {k: err32[k] - ref["grad_rel_err_f32"][k] for k in err32}
+        worst = max(excess, key=excess.get)
+        lay.update(grad_rel_err=err, grad_rel_err_f32=err32,
+                   worst={"leaf": worst, "excess": excess[worst], "vs_f32": err32[worst],
+                          "one_device_vs_f32": ref["grad_rel_err_f32"][worst],
+                          "vs_one_device": err[worst]})
+        checks = {"finite": all(math.isfinite(x) for x in [out["loss"], out["last_loss"]]
+                                + list(err.values()) + list(err32.values())),
+                  "loss": lay["loss_rel_err"] <= TRAIN_PAR_LOSS_TOL,
+                  "grads": excess[worst] <= TRAIN_PAR_GRAD_TOL,
+                  "replicated_equal": out["replicated_equal"],
+                  "no_jax": out["ranks_importing_jax"] == []}
+        lay["checks"] = checks
+        rec["layouts"][name] = lay
+        ok = ok and all(checks.values())
+        print(f"train parallel 1B {name} {axes}: loss {out['loss']:.5f} (one device "
+              f"{ref['loss']:.5f}, rel {lay['loss_rel_err']:.2e}); gradients against one "
+              f"device in f32 {json.dumps({k: round(v, 5) for k, v in err32.items()})} (one "
+              f"bf16 device: worst leaf {worst} {ref['grad_rel_err_f32'][worst]:.2e}, this "
+              f"layout {err32[worst]:.2e}, against one bf16 device {err[worst]:.2e}); "
+              f"{out['ms_per_step']:.1f} ms a step (one device {ref['ms_per_step']:.1f}); "
+              f"collectives a step {json.dumps(out['collectives_per_step'])}; peak GiB "
+              f"{ {r: round(b / 2**30, 2) for r, b in out['peak_bytes'].items()} }; "
+              f"{lay['wall_s']:.1f} s; checks {checks}", flush=True)
+        torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["ok"] = ok
+    print(f"train parallel 1B: {rec['phase_s']:.1f} s | {_smi()} | ok={ok}", flush=True)
+    return ok, rec
+
+
+def start_train_parallel():
+    """Start phase 6n in a child (this script with --train-parallel-child)
+    in a temporary directory; finish_train_parallel() collects it."""
+    cwd = tempfile.TemporaryDirectory()
+    out, log = Path(cwd.name) / "train_parallel.json", Path(cwd.name) / "log.txt"
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        child = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--train-parallel-child", str(out)],
+            cwd=cwd.name, env=_child_env(), stdout=f, stderr=subprocess.STDOUT)
+    return child, cwd, out, log, t0
+
+
+def finish_train_parallel(started) -> tuple[bool, dict]:
+    child, cwd, out, log, t0 = started
+    try:
+        child.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait()
+    try:
+        text = log.read_text()
+        rec = json.loads(out.read_text()) if out.exists() else {}
+    finally:
+        cwd.cleanup()
+    rec["rc"], rec["process_wall_s"] = child.returncode, time.perf_counter() - t0
+    ok = child.returncode == 0 and bool(rec.get("ok"))
+    print(text[-12000:], end="", flush=True)
+    print(f"train parallel 1B child: rc {child.returncode}, "
+          f"{rec['process_wall_s']:.1f} s | ok={ok}", flush=True)
+    return ok, rec
+
+
 def hidden_8b(backend, nodes, pods) -> tuple[bool, dict]:
     """A K=4 hidden-transfer head trained on the resident 8B bf16 target
     (train_hidden_transfer, 10 steps at 4 x 512 on the distill stream),
@@ -5074,7 +5277,7 @@ def learn_1b(incumbent_ckpt: str) -> tuple[bool, dict]:
             step_ms.append(1000.0 * (time.perf_counter() - t0))
             return out
 
-        timed_step.place_batch = step_fn.place_batch
+        timed_step.__dict__.update(step_fn.__dict__)  # place_batch, gather_params, specs
         return init_fn, timed_step
 
     with tempfile.TemporaryDirectory() as d:
@@ -6037,6 +6240,8 @@ def _timed_phase(name, fn, *args, **kwargs):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the full record to this JSON file")
+    parser.add_argument("--train-parallel-child", metavar="FILE",
+                        help="run phase 6n alone (the smoke's child) and write its record")
     args = parser.parse_args()
 
     import torch
@@ -6049,6 +6254,10 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
         return 2
+    if args.train_parallel_child:
+        ok, rec = train_parallel_phase()
+        Path(args.train_parallel_child).write_text(json.dumps(rec, indent=1))
+        return 0 if ok else 1
 
     smi = _smi()
     kind = torch.cuda.get_device_name(0)
@@ -6103,9 +6312,11 @@ def main() -> int:
     del backend
     gc.collect()
     torch.cuda.empty_cache()
-    # cli complete's child builds its own 8B model; tp 8B's two ranks and
-    # then the TINY phases run beside it, the timed kernel phases after it
+    # cli complete's child builds its own 8B model and train parallel 1B's
+    # child trains its layouts; tp 8B's two ranks, the TINY phases, train 1B
+    # and learn 1B run beside them, the timed kernel phases after them
     complete_child = start_complete()
+    train_par_child = start_train_parallel()  # beside tp 8B and the TINY phases
     tp_ok, tp8 = _timed_phase("tp 8B", tp_8b_phase, tp_ref, dec["k1_per_call_by_step"])
     gc.collect()
     torch.cuda.empty_cache()
@@ -6118,6 +6329,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as train_dir:
         tr_ok, train = _timed_phase("train 1B", train_1b, Path(train_dir))
         ln_ok, learn = _timed_phase("learn 1B", learn_1b, train["checkpoint"])
+    # the timed kernel phases want the card to themselves
+    tpar_ok, train_par = _timed_phase("train parallel 1B", finish_train_parallel,
+                                      train_par_child)
     k3_ok, k3 = _timed_phase("K3", k3_phase, cfg, totals)
     k4_ok, k4 = _timed_phase("K4", k4_phase, k4_cases, long_cases=[k4_long_case()])
     tpk_ok, tpk = _timed_phase("tp kernels", tp_kernel_phase)
@@ -6242,6 +6456,7 @@ def main() -> int:
               "checkpoint": ck_ok, "sampled": s_ok, "persistent_tiny": pt_ok,
               "journal_restart": jr_ok, "rollout_tiny": ro_ok, "cli_complete": cc_ok,
               "train_1b": tr_ok, "learn_1b": ln_ok, "tp_8b": tp_ok,
+              "train_parallel_1b": tpar_ok,
               "k3": k3_ok, "k4": k4_ok, "tp_kernels": tpk_ok}
     record = {"device": kind, "smi": smi, "build_s": build_s, "kernels": line,
               "cli_verify": verify, "cli_run": run, "reference": ref, "decision": dec,
@@ -6250,6 +6465,7 @@ def main() -> int:
               "path_b": path_b, "fused": fused, "persistent_8b": pers8, "spec": spec,
               "hidden_8b": hidden, "train_1b": train, "fleet": fleet, "kvplane_8b": kvplane,
               "learn_1b": learn, "tp_8b": tp8, "tp_kernels": tpk,
+              "train_parallel_1b": train_par,
               "checkpoint": ckpt, "sampled": sampled, "persistent_tiny": pers_tiny,
               "journal_restart": journal_restart, "cli_complete": complete,
               "phases_ok": phases}

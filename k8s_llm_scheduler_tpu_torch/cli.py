@@ -66,12 +66,12 @@ circuit breaker, the decision client and the scheduler (JAX cli.py:106-187).
   journal; `trace` (JAX cli.py:1861-2026) reads a running scheduler's
   flight recorder over its metrics port.
 - `train` (JAX cli.py:792-862) fine-tunes the decision model on the
-  heuristic teacher's pairs on one device (train/distill.train_and_save)
-  and saves a native checkpoint that `llm.checkpoint_path` serves; with
-  `--eval` it then prints the checkpoint's report card. It honours
-  `llm.tokenizer` and `llm.answer_style`; an `llm.mesh` wider than one
-  device (train/train_step.refuse_mesh) or `distributed.enabled` raises
-  (training parallelism: ROADMAP queue 1 item 9c).
+  heuristic teacher's pairs (train/distill.train_and_save) and saves a
+  native checkpoint that `llm.checkpoint_path` serves; with `--eval` it
+  then prints the checkpoint's report card. It honours `llm.tokenizer`,
+  `llm.answer_style` and `llm.mesh` (dp/fsdp/tp/sp: one process a rank,
+  spawned by this one); with `distributed.enabled` every host runs it and
+  spawns its own ranks, and the coordinator saves and reports.
 - `eval` (JAX cli.py:884-908) prints the decision-quality report card
   (train/eval.py) as one JSON line; `sim` (JAX cli.py:969-1078) runs the
   seeded arena (sim/) across decision arms and records or replays its
@@ -122,6 +122,7 @@ import dataclasses
 import importlib
 import json
 import logging
+import math
 import os
 import sys
 import time
@@ -679,11 +680,12 @@ def _run_scheduler(cfg: Config, cluster, *, device: str, journal=None) -> int:
     return 0
 
 
-def _maybe_init_distributed(cfg: Config) -> bool:
+def _maybe_init_distributed(cfg: Config, ranks_per_process: int | None = None) -> bool:
     """Join the multi-host world when `distributed.enabled` (JAX cli.py:
-    425-441): a world of num_processes hosts x `llm.mesh` tp ranks
-    (parallel/distributed.py). True when this process runs the
-    cluster-facing control plane: always single-process, host 0 otherwise."""
+    425-441): a world of num_processes hosts x `ranks_per_process` ranks
+    (parallel/distributed.py; serving's default: `llm.mesh` tp). True when
+    this process runs the cluster-facing control plane: always
+    single-process, host 0 otherwise."""
     if not cfg.get("distributed.enabled"):
         return True
     from k8s_llm_scheduler_tpu_torch.parallel.distributed import (
@@ -691,12 +693,13 @@ def _maybe_init_distributed(cfg: Config) -> bool:
         is_coordinator,
     )
 
-    tp = int((cfg.get("llm.mesh", None) or {}).get("tp", 1))
+    if ranks_per_process is None:
+        ranks_per_process = int((cfg.get("llm.mesh", None) or {}).get("tp", 1))
     init_distributed(
         cfg.get("distributed.coordinator"),
         cfg.get("distributed.num_processes"),
         cfg.get("distributed.process_id"),
-        ranks_per_process=tp,
+        ranks_per_process=ranks_per_process,
     )
     return is_coordinator()
 
@@ -880,7 +883,8 @@ def cmd_eval(args: argparse.Namespace, cfg: Config) -> int:
     backend is the config's (`_backend_kwargs`) at `--temperature`, an
     eval parameter that defaults to greedy so the report is reproducible;
     serving keeps llm.temperature. (The JAX package's _eval_backend_kwargs
-    also drops multi-host mesh axes, which the port does not have.)"""
+    also drops multi-host mesh axes: `cli eval` never joins a multi-host
+    world, and `cli train --eval` drops them itself.)"""
     from k8s_llm_scheduler_tpu_torch.train.eval import evaluate_checkpoint
 
     report = evaluate_checkpoint(
@@ -918,9 +922,11 @@ def cmd_train(args: argparse.Namespace, cfg: Config) -> int:
         print("--micro-frac/--cot-weight require llm.answer_style: cot "
               "(set it in the config or LLM_ANSWER_STYLE)", file=sys.stderr)
         return 2
-    if cfg.get("distributed.enabled"):
-        raise NotImplementedError("distributed.enabled: multi-host training is not "
-                                  "ported yet (ROADMAP queue 1 item 9c)")
+    # training is SPMD: every host runs this, each spawning its own ranks
+    # (dp/fsdp span the hosts, tp/sp stay within one)
+    mesh_axes = cfg.get("llm.mesh", None) or {}
+    coordinator = _maybe_init_distributed(
+        cfg, ranks_per_process=math.prod(int(mesh_axes.get(a, 1)) for a in ("tp", "sp")))
     loss = train_and_save(
         get_config(args.model),
         mesh_axes=cfg.get("llm.mesh", None),
@@ -948,13 +954,14 @@ def cmd_train(args: argparse.Namespace, cfg: Config) -> int:
         device=args.device,
     )
     print(f"final loss {loss:.4f}; checkpoint at {args.out}")
-    if args.eval:
+    if args.eval and coordinator:
         from k8s_llm_scheduler_tpu_torch.train.eval import evaluate_checkpoint
 
-        report = evaluate_checkpoint(
-            args.model, args.out, n_cases=args.eval_cases,
-            backend_kwargs=_backend_kwargs(cfg, temperature=0.0, device=args.device),
-        )
+        kwargs = _backend_kwargs(cfg, temperature=0.0, device=args.device)
+        if cfg.get("distributed.enabled"):
+            kwargs["mesh_axes"] = None  # the report card is this host's alone
+        report = evaluate_checkpoint(args.model, args.out, n_cases=args.eval_cases,
+                                     backend_kwargs=kwargs)
         print(json.dumps(report))
     return 0
 

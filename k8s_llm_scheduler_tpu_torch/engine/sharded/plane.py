@@ -155,6 +155,17 @@ class ServingPlane:
         full[..., lo:hi] = local
         return self.group.all_reduce(full)
 
+    # The training plane's hooks (train/plane.py), which serving leaves as
+    # they are: no gradient flows here, and serving never splits over fsdp.
+    def column_input(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def layer_weights(self, lp: Params) -> Params:
+        return lp
+
+    def head_weight(self, w):
+        return w
+
     # ------------------------------------------------------------- params
     def kv_spec(self) -> tuple:
         """Paged KV `[L, pages, page, n_kv, hd]` (parallel/sharding.py)."""

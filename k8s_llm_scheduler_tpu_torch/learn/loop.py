@@ -247,9 +247,26 @@ def finetune_on_corpus(
     final loss. `cases` forwards pre-reconstructed incident cases to the
     curriculum (the loop reconstructs once per cycle).
 
-    The port trains on one `device` (train/train_step.make_train_step with
-    AdamW at `lr`); `mesh_axes` wider than one device raise through
-    train_step.refuse_mesh (ROADMAP queue 1 item 9c)."""
+    The port trains with train/train_step.make_train_step and AdamW at
+    `lr` on one `device`, or with `mesh_axes` wider than one device on a
+    rank mesh (parallel/launch.run_spmd, as train/distill.train_and_save
+    does): every rank steps on its slice of the incumbent, and rank 0
+    saves the whole tree, gathered from the ranks."""
+    kwargs = {k: v for k, v in locals().items() if k != "mesh_axes"}
+    from k8s_llm_scheduler_tpu_torch.parallel import launch
+
+    mesh = launch.training_mesh(mesh_axes)
+    if mesh.size == 1:
+        return _finetune_rank(None, **kwargs)
+    return launch.run_spmd(mesh, _finetune_rank, kwargs, device=device)
+
+
+def _finetune_rank(
+    mesh, model_cfg, tokenizer_name, record, out_dir, *, base_checkpoint, steps,
+    batch_size, seq_len, lr, replay_fraction, seed, answer_style, log_every, cases,
+    device,
+) -> float:
+    """finetune_on_corpus on one rank of `mesh` (None: one device)."""
     from k8s_llm_scheduler_tpu_torch.engine.tokenizer import build_builtin_tokenizer
     from k8s_llm_scheduler_tpu_torch.models.loader import (
         restore_checkpoint,
@@ -258,11 +275,10 @@ def finetune_on_corpus(
     from k8s_llm_scheduler_tpu_torch.train.train_step import adamw, make_train_step
 
     tokenizer, cfg = build_builtin_tokenizer(tokenizer_name, model_cfg)
-    init_fn, step_fn = make_train_step(
-        cfg, device, optimizer=adamw(lr), mesh_axes=mesh_axes
-    )
+    init_fn, step_fn = make_train_step(cfg, device, optimizer=adamw(lr), mesh=mesh)
     if base_checkpoint is not None:
-        state = init_fn(restore_checkpoint(base_checkpoint, cfg, device=device))
+        state = init_fn(restore_checkpoint(base_checkpoint, cfg,
+                                           device=device if mesh is None else "cpu"))
     else:
         state = init_fn(seed)
     batches = curriculum_batches(
@@ -283,7 +299,9 @@ def finetune_on_corpus(
             logger.info(
                 "learn finetune step %d/%d loss %.4f", step, steps, loss
             )
-    save_checkpoint(out_dir, state.params)
+    full = step_fn.gather_params(state.params)
+    if mesh is None or mesh.rank == 0:
+        save_checkpoint(out_dir, full)
     return loss
 
 

@@ -215,15 +215,23 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
-def _logits(params: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
-    """LM head (tied or untied), f32 logits; on a tp rank's config
-    (engine/sharded/plane.RankConfig) the rank's vocab block, gathered."""
+def _local_logits(params: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    """LM head (tied or untied) on the final residual, f32 logits: on a
+    rank's config (engine/sharded/plane.RankConfig) the rank's vocab block."""
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     plane = getattr(cfg, "plane", None)
     if plane is None:
+        head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
         return _matmul_f32(x, head)
-    return plane.gather_logits(_matmul_f32(x, head))
+    head = params["embed"].t() if cfg.tie_embeddings else plane.head_weight(params["lm_head"])
+    return _matmul_f32(plane.column_input(x), head)
+
+
+def _logits(params: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    """LM head, f32 logits over the whole vocab (a rank's block gathered)."""
+    local = _local_logits(params, cfg, x)
+    plane = getattr(cfg, "plane", None)
+    return local if plane is None else plane.gather_logits(local)
 
 
 def _embed(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -255,8 +263,15 @@ def _row_dense(cfg: LlamaConfig, x: torch.Tensor, w) -> torch.Tensor:
     return plane.row_dense(x, w)
 
 
+def _column_input(cfg: LlamaConfig, h: torch.Tensor) -> torch.Tensor:
+    """The input of column-parallel projections: h, or on a training
+    rank's config the plane's (its gradient summed over the tp ranks)."""
+    plane = getattr(cfg, "plane", None)
+    return h if plane is None else plane.column_input(h)
+
+
 def _mlp(lp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+    h = _column_input(cfg, rms_norm(x, lp["mlp_norm"], cfg.rms_eps))
     gate = _dense(h, lp["w_gate"])
     up = _dense(h, lp["w_up"])
     fused = F.silu(gate.float()).to(x.dtype) * up
@@ -266,7 +281,7 @@ def _mlp(lp: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
 def _qkv(lp, cfg, x, positions, inv_freq):
     B, S = x.shape[:2]
     hd = cfg.head_dim
-    h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+    h = _column_input(cfg, rms_norm(x, lp["attn_norm"], cfg.rms_eps))
     q = _dense(h, lp["wq"]).reshape(B, S, cfg.n_heads, hd)
     k = _dense(h, lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
     v = _dense(h, lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
@@ -296,11 +311,16 @@ def _unbound_layers(layers: Params, n_layers: int) -> list[Params]:
 
 
 # ------------------------------------------------------------------ prefill
-def _prefill_layer(lp, cfg, x, positions, seq_lens, inv_freq):
-    """One layer of full-prompt prefill: (x_out, k, v)."""
+def _prefill_layer(lp, cfg, x, positions, seq_lens, inv_freq, attn_impl=None):
+    """One layer of full-prompt prefill: (x_out, k, v). On a training
+    rank's config the layer's fsdp-split weights are gathered here, inside
+    the recomputed layer, so they live one layer at a time."""
     B, S = x.shape[:2]
+    plane = getattr(cfg, "plane", None)
+    if plane is not None:
+        lp = plane.layer_weights(lp)
     q, k, v = _qkv(lp, cfg, x, positions, inv_freq)
-    attn = causal_prefill_attention(q, k, v, seq_lens)
+    attn = (attn_impl or causal_prefill_attention)(q, k, v, seq_lens)
     x = x + _row_dense(cfg, attn.reshape(B, S, -1), lp["wo"])
     return x + _mlp(lp, cfg, x), k, v
 
@@ -313,6 +333,8 @@ def forward_prefill(
     return_logits: bool = True,  # False skips the LM head (KV-only)
     remat: bool = False,  # recompute each layer in the backward (training)
     return_hidden: bool = False,  # also return the final-layer residual
+    attn_impl=None,  # attn(q, k, v, seq_lens); None: causal_prefill_attention
+    position_offset: int = 0,  # the absolute position of tokens[:, 0]
 ):
     """Full-prompt forward pass: (logits [B, S, V] f32 or None,
     k_all [L, B, S, n_kv, hd], v_all), and with `return_hidden` the
@@ -324,20 +346,23 @@ def forward_prefill(
     backward recomputes a layer's activations instead of keeping all L
     layers' live (the JAX package's jax.checkpoint of the scanned layer).
     The KV stacks hold detached copies: they are outputs for the engine,
-    never part of a gradient. The default arguments compute what serving
-    has always computed."""
+    never part of a gradient. `attn_impl` replaces the attention (the JAX
+    forward's argument: parallel/ring_attention's ring over an sp axis),
+    and `position_offset` places this chunk of the sequence (an sp rank's
+    RoPE positions are global, as JAX's arange(S) is under GSPMD). The
+    default arguments compute what serving has always computed."""
     B, S = tokens.shape
     dev = tokens.device
     inv_freq = rope_inv_freq(cfg, dev)
-    positions = torch.arange(S, device=dev).expand(B, S)
+    positions = (position_offset + torch.arange(S, device=dev)).expand(B, S)
     x = _embed(params, cfg, tokens)
     k_all, v_all = _kv_stacks(cfg, B, S, x.dtype, dev)
     for i, lp in enumerate(_unbound_layers(params["layers"], cfg.n_layers)):
         if remat:
             x, k, v = checkpoint(_prefill_layer, lp, cfg, x, positions, seq_lens,
-                                 inv_freq, use_reentrant=False)
+                                 inv_freq, attn_impl, use_reentrant=False)
         else:
-            x, k, v = _prefill_layer(lp, cfg, x, positions, seq_lens, inv_freq)
+            x, k, v = _prefill_layer(lp, cfg, x, positions, seq_lens, inv_freq, attn_impl)
         k_all[i], v_all[i] = k.detach(), v.detach()
     logits = _logits(params, cfg, x) if return_logits else None
     if return_hidden:

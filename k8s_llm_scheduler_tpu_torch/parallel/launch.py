@@ -17,11 +17,17 @@ this module makes the process model explicit:
   gathered logits and samples the same tokens from a generator seeded the
   same way. A grammar's tables cross once, with the set_grammar call that
   installs them.
-- Collectives. A tp group issues only all_reduce (sum) and broadcast
-  (`AxisGroup`), which gloo runs on CPU and CUDA tensors alike and NCCL on
-  CUDA ones. The backend is chosen by a fixed rule (`choose_backend`):
-  NCCL when every rank of the group has a CUDA device of its own, gloo on
-  the CPU and when ranks share a device.
+- Collectives. A serving tp group issues only all_reduce (sum) and
+  broadcast; a training mesh also all-gathers, reduce-scatters and
+  permutes around a ring (`AxisGroup`; the differentiable forms are in
+  parallel/collectives.py). Over gloo a CUDA tensor goes through pinned
+  host buffers, so no gloo op is handed a device tensor. The backend is
+  chosen by a fixed rule (`choose_backend`): NCCL when every rank of the
+  group has a CUDA device of its own, gloo on the CPU and when ranks share
+  a device.
+- Training (`run_spmd`): every rank of the mesh runs the same function,
+  the driver as rank 0 of its host and one spawned interpreter for each
+  other local rank; there is no engine and no mirror.
 - Ordering. The driver holds one lock across each mirrored call, so the
   followers see the calls in the order the driver makes them, and within
   an engine the dispatcher thread and `_await_dispatch` order the model
@@ -99,54 +105,132 @@ def new_process_group(store, rank: int, size: int, backend: str, timeout_s: floa
 
 
 class AxisGroup:
-    """One rank's process group along one mesh axis. Counts the collectives
-    it issued (`ops`): a follower tells a call that failed before touching
-    the group from one that failed halfway."""
+    """One rank's process group along one mesh axis (or several: the ranks
+    that share every other coordinate). Counts the collectives it issued
+    (`ops`; a follower tells a call that failed before touching the group
+    from one that failed halfway), each kind's count (`counts`) and the
+    bytes this rank handed to them (`sent`)."""
 
     def __init__(self, pg, rank: int, size: int, backend: str, ranks: list[int]) -> None:
         self.pg, self.rank, self.size = pg, rank, size
         self.backend, self.ranks = backend, ranks
         self.ops = 0
-        # gloo on CUDA tensors: pinned host buffers by (shape, dtype)
+        self.counts: dict[str, int] = {}
+        self.sent = 0
+        # gloo on CUDA tensors: pinned host buffers by (role, shape, dtype)
         self._staging: dict[tuple, torch.Tensor] = {}
 
     @classmethod
-    def for_mesh(cls, mesh, axis: str) -> "AxisGroup":
+    def for_mesh(cls, mesh, axis) -> "AxisGroup":
         from torch.distributed import PrefixStore
 
         ranks = mesh.axis_ranks(axis)
         backend = choose_backend([mesh.local_device_index(r) for r in ranks])
-        store = PrefixStore(f"group/{axis}/{'-'.join(map(str, ranks))}", mesh.store)
+        name = axis if isinstance(axis, str) else "+".join(axis)
+        store = PrefixStore(f"{mesh.prefix}group/{name}/{'-'.join(map(str, ranks))}",
+                            mesh.store)
         pg = new_process_group(store, ranks.index(mesh.rank), len(ranks), backend,
                                mesh.timeout_s)
-        logger.info("rank %d: %s group %s over %s", mesh.rank, axis, ranks, backend)
+        logger.info("rank %d: %s group %s over %s", mesh.rank, name, ranks, backend)
         return cls(pg, ranks.index(mesh.rank), len(ranks), backend, ranks)
+
+    def _book(self, kind: str, t: torch.Tensor) -> None:
+        self.ops += 1
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+        self.sent += t.numel() * t.element_size()
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        return t.is_cuda and self.backend == "gloo"
+
+    def _host(self, role: str, shape, dtype) -> torch.Tensor:
+        key = (role, tuple(shape), dtype)
+        host = self._staging.get(key)
+        if host is None:
+            host = self._staging[key] = torch.empty(shape, dtype=dtype, pin_memory=True)
+        return host
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum `t` over the group, in place. Over gloo a CUDA tensor goes
         through a pinned host buffer of its shape: one copy each way around
         gloo's CPU all-reduce."""
-        self.ops += 1
-        if not (t.is_cuda and self.backend == "gloo"):
+        self._book("all_reduce", t)
+        return self._reduce(t)
+
+    def _reduce(self, t: torch.Tensor) -> torch.Tensor:
+        if not self._staged(t):
             self.pg.allreduce([t]).wait()
             return t
-        key = (tuple(t.shape), t.dtype)
-        host = self._staging.get(key)
-        if host is None:
-            host = self._staging[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host = self._host("reduce", t.shape, t.dtype)
         # the copy out waits for the stream, so it also waits for the last
         # copy back from this buffer (queued before it on the same stream)
         host.copy_(t)
         self.pg.allreduce([host]).wait()
         return t.copy_(host, non_blocking=True)
 
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The group's tensors concatenated along `dim`, in rank order (a
+        new tensor)."""
+        self._book("all_gather", t)
+        t = t.contiguous()
+        if not self._staged(t):
+            parts = [torch.empty_like(t) for _ in range(self.size)]
+            self.pg.allgather([parts], [t]).wait()
+            return torch.cat(parts, dim)
+        host = self._host("gather_in", t.shape, t.dtype)
+        host.copy_(t)
+        parts = [self._host(f"gather_out{i}", t.shape, t.dtype) for i in range(self.size)]
+        self.pg.allgather([parts], [host]).wait()
+        return torch.cat([p.to(t.device, non_blocking=True) for p in parts], dim)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's block along `dim` of `t` summed over the group (a new
+        tensor). Gloo has no reduce-scatter of its own on every build, so
+        there it is an all-reduce of a copy, narrowed; NCCL runs its own."""
+        n = t.shape[dim]
+        if n % self.size:
+            raise ValueError(f"dim of {n} does not split over {self.size} ranks")
+        block = n // self.size
+        self._book("reduce_scatter", t)
+        if self.backend == "gloo":
+            total = self._reduce(t.contiguous().clone())
+            return total.narrow(dim, self.rank * block, block).contiguous()
+        parts = [p.contiguous() for p in t.split(block, dim)]
+        out = torch.empty_like(parts[0])
+        self.pg.reduce_scatter([out], [parts]).wait()
+        return out
+
+    def permute(self, t: torch.Tensor, shift: int = 1) -> torch.Tensor:
+        """JAX's ppermute around the group's ring: send `t` to rank + shift,
+        return what rank - shift sent (a new tensor). Over NCCL even ranks
+        send first and odd ranks receive first (a ring of even size)."""
+        self._book("permute", t)
+        t = t.contiguous()
+        if self.size == 1 or shift % self.size == 0:
+            return t.clone()
+        dst, src = (self.rank + shift) % self.size, (self.rank - shift) % self.size
+        staged = self._staged(t)
+        out = self._host("recv", t.shape, t.dtype) if staged else torch.empty_like(t)
+        if staged:
+            send = self._host("send", t.shape, t.dtype)
+            send.copy_(t)
+        else:
+            send = t
+        if self.backend == "nccl" and self.rank % 2:
+            self.pg.recv([out], src, 0).wait()
+            self.pg.send([send], dst, 0).wait()
+        else:
+            sent = self.pg.send([send], dst, 0)
+            self.pg.recv([out], src, 0).wait()
+            sent.wait()
+        return out.to(t.device, copy=True) if staged else out
+
     def broadcast(self, t: torch.Tensor, root: int = 0) -> torch.Tensor:
-        """`root`'s `t` on every rank, in place."""
+        """`root`'s `t` on every rank, in place (a CPU tensor)."""
         from torch.distributed import BroadcastOptions
 
         opts = BroadcastOptions()
         opts.rootRank, opts.rootTensor = root, 0
-        self.ops += 1
+        self._book("broadcast", t)
         self.pg.broadcast([t], opts).wait()
         return t
 
@@ -502,18 +586,33 @@ def wait_ready(store, procs: list, ranks: list[int], timeout_s: float) -> None:
 def follower_main(spec: dict, rank: int) -> None:
     """A follower rank: build the engine over this rank's shard, then make
     every call the driver mirrors until it says exit. Exits non-zero when a
-    call fails after it issued a collective, or the channel breaks."""
+    call fails after it issued a collective, or the channel breaks. A
+    training follower (`spec["spmd"]`) runs the driver's function instead
+    and exits."""
     threads = spec.get("torch_threads")
     if threads:
         torch.set_num_threads(int(threads))
     logging.basicConfig(level=spec.get("log_level", logging.WARNING))
-    from k8s_llm_scheduler_tpu_torch.engine.local import build_rank_engine
     from k8s_llm_scheduler_tpu_torch.parallel.mesh import RankMesh
 
     mesh = RankMesh(spec["grid"], spec["axes"])
+    mesh.prefix = spec.get("prefix", "")
     world_store = open_store(spec["rendezvous"], spec["group_size"])
     mesh.bind(world_store, rank, timeout_s=spec["timeout_s"],
               device_count=spec["device_count"], host_rank0=spec["host_rank0"])
+    if "spmd" in spec:
+        fn, kwargs = spec["spmd"]
+        try:
+            fn(mesh, **kwargs)
+            code = 0
+        except BaseException:
+            traceback.print_exc()
+            code = 1
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
+    from k8s_llm_scheduler_tpu_torch.engine.local import build_rank_engine
+
     store = host_store(world_store, spec["host_rank0"])
     local_rank = rank - spec["host_rank0"]
     try:
@@ -577,6 +676,93 @@ def _serve(engine, control: Control, store, local_rank: int) -> int:
             store.set(f"result/{seq}/{local_rank}", pickle.dumps(out))
         elif _is_handle(out):
             refs[seq] = out
+
+
+# ------------------------------------------------------ SPMD training
+SPMD_TIMEOUT_S = 600.0  # a training mesh's collective timeout
+_spmd_runs = 0  # run_spmd calls in this process: each host counts alike
+
+
+def training_mesh(mesh_axes: dict | None):
+    """The rank mesh of a training run's `llm.mesh`: one host's ranks, or
+    across the rendezvoused hosts (parallel/distributed.py) dp and fsdp
+    between hosts and tp and sp within each (the JAX package's rule,
+    train/distill.py)."""
+    from k8s_llm_scheduler_tpu_torch.parallel.distributed import multihost_mesh, world
+    from k8s_llm_scheduler_tpu_torch.parallel.mesh import mesh_from_config
+
+    if world() is None:
+        return mesh_from_config(mesh_axes)
+    axes = {k: int(v) for k, v in (mesh_axes or {}).items()}
+    return multihost_mesh({k: v for k, v in axes.items() if k in ("dp", "fsdp")},
+                          {k: v for k, v in axes.items() if k in ("tp", "sp")}
+                          or {"tp": 1})
+
+
+def run_spmd(mesh, fn: Callable, kwargs: dict, *, device, driver_kwargs: dict | None = None):
+    """Run `fn(mesh, **kwargs)` on every rank of this host's share of
+    `mesh` (an unbound RankMesh): this process is the host's first rank and
+    spawns one fresh interpreter for each other (`fn` a module-level
+    function of this package, `kwargs` picklable). The driver's own call
+    also gets `driver_kwargs` (callbacks that stay in this process).
+    Returns the driver's result once every follower has exited 0; raises
+    when the driver's call does, or a follower exits non-zero (the others
+    are stopped: they would wait in a collective)."""
+    import tempfile
+
+    from k8s_llm_scheduler_tpu_torch.parallel.distributed import world
+
+    global _spmd_runs
+    _spmd_runs += 1
+    dev = torch.device(device)
+    device_count = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if dev.type == "cuda" and not device_count:
+        raise RuntimeError("a CUDA training mesh needs a GPU (pass device='cpu' for the CPU)")
+    w = world()
+    tmp = tempfile.TemporaryDirectory(prefix="spmd-")
+    if w is None:
+        host_rank0, local = 0, mesh.size
+        rendezvous = {"kind": "file", "path": os.path.join(tmp.name, "store")}
+        store = open_store(rendezvous, local)
+        prefix = ""
+    else:
+        host_rank0 = w.host_rank0
+        local = sum(host_rank0 <= r < host_rank0 + w.ranks_per_process for r in mesh.ranks)
+        rendezvous = {"kind": "tcp", "address": w.coordinator}
+        store = w.store
+        prefix = f"spmd/{_spmd_runs}/"
+    mesh.prefix = prefix
+    mesh.bind(store, host_rank0, timeout_s=SPMD_TIMEOUT_S, device_count=device_count,
+              host_rank0=host_rank0)
+    spec = {
+        "grid": mesh.grid.tolist(), "axes": mesh.axis_names, "rendezvous": rendezvous,
+        "group_size": local, "timeout_s": SPMD_TIMEOUT_S, "device_count": device_count,
+        "host_rank0": host_rank0, "prefix": prefix, "spmd": (fn, kwargs),
+        "torch_threads": torch.get_num_threads(),
+        "log_level": logging.getLogger().level,
+    }
+    procs = start_followers(spec, [host_rank0 + i for i in range(1, local)], tmp.name)
+    try:
+        out = fn(mesh, **kwargs, **(driver_kwargs or {}))
+        deadline = time.monotonic() + SPMD_TIMEOUT_S
+        for i, p in enumerate(procs, start=1):
+            p.join(max(0.0, deadline - time.monotonic()))
+            if p.exitcode != 0:
+                raise RuntimeError(f"training rank {host_rank0 + i} exited with code "
+                                   f"{p.exitcode}")
+        return out
+    finally:
+        stop_followers(procs, 5.0)
+        mesh.close()
+        tmp.cleanup()
+
+
+def collective_book(mesh) -> dict:
+    """{group name: {"counts": {kind: n}, "bytes": b}} of the collectives
+    this rank issued on each of `mesh`'s groups."""
+    return {(a if isinstance(a, str) else "+".join(a)): {"counts": dict(g.counts),
+                                                         "bytes": g.sent}
+            for a, g in mesh._groups.items()}
 
 
 # ------------------------------------------------- functions for on_ranks

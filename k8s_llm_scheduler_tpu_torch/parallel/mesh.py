@@ -46,7 +46,8 @@ class RankMesh:
         self.timeout_s: float | None = None
         self.device_count = 0
         self.host_rank0 = 0
-        self._groups: dict[str, object] = {}
+        self.prefix = ""  # the store prefix of this mesh's groups (parallel/launch.run_spmd)
+        self._groups: dict = {}
 
     def __repr__(self) -> str:
         return f"RankMesh({self.shape}, rank={self.rank})"
@@ -80,17 +81,17 @@ class RankMesh:
             return 0
         return self.coords(rank)[self.axis_names.index(axis)]
 
-    def axis_ranks(self, axis: str, rank: int | None = None) -> list[int]:
-        """The global ranks of `rank`'s group along `axis`, in axis order."""
-        if axis not in self.shape:
+    def axis_ranks(self, axis, rank: int | None = None) -> list[int]:
+        """The global ranks of `rank`'s group along `axis` (a name, or a
+        tuple of names: the ranks that share every other coordinate), in
+        grid order."""
+        axes = [a for a in ((axis,) if isinstance(axis, str) else axis) if a in self.shape]
+        if not axes:
             return [self.rank if rank is None else rank]
         at = list(self.coords(rank))
-        i = self.axis_names.index(axis)
-        out = []
-        for c in range(self.shape[axis]):
-            at[i] = c
-            out.append(int(self.grid[tuple(at)]))
-        return out
+        index = tuple(slice(None) if name in axes else at[i]
+                      for i, name in enumerate(self.axis_names))
+        return [int(r) for r in self.grid[index].reshape(-1)]
 
     def local_device_index(self, rank: int | None = None) -> int | None:
         """The CUDA device index `rank` runs on, None on the CPU."""
@@ -99,11 +100,14 @@ class RankMesh:
         rank = self.rank if rank is None else rank
         return (rank - self.host_rank0) % self.device_count
 
-    def group(self, axis: str):
-        """This rank's process group along `axis` (parallel/launch.AxisGroup),
-        created at the first call; every member must call it too."""
+    def group(self, axis):
+        """This rank's process group along `axis` (a name or a tuple of
+        names; parallel/launch.AxisGroup), created at the first call; every
+        member must call it too."""
         if self.rank is None:
             raise RuntimeError("the mesh is not bound to a rank (RankMesh.bind)")
+        if not isinstance(axis, str):
+            axis = axis[0] if len(axis) == 1 else tuple(axis)
         if axis not in self._groups:
             from k8s_llm_scheduler_tpu_torch.parallel.launch import AxisGroup
 

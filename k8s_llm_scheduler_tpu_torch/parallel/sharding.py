@@ -1,5 +1,6 @@
 """Megatron partition specs for the Llama param tree and the KV cache
-(after the JAX package's parallel/sharding.py), and each rank's slice.
+(after the JAX package's parallel/sharding.py), each rank's slice, and
+the whole tree gathered back from the slices.
 
 A spec is a tuple with one entry per tensor dim: an axis name where that
 dim is split over the axis, None where it is whole (the JAX package's
@@ -11,6 +12,8 @@ PartitionSpec, as a plain tuple):
 - w_down shards d_ff (input) over tp            -> row parallel, all-reduce after
 - the embedding and an untied lm_head shard the vocab dim
 - norms are replicated
+- with an fsdp axis (training), each projection also splits its other
+  weight dim over fsdp (ZeRO-3), so a leaf may split two dims
 
 The stacked-layer leading axis (L) is never sharded. KV caches shard the
 kv-head dim. Rank r of a tp group holds the contiguous r-th block of each
@@ -57,27 +60,28 @@ def kv_cache_spec(tp: str | None = "tp") -> Spec:
     return (None, None, None, tp, None)
 
 
-def shard_dim(spec: Spec) -> int | None:
-    """The one split dim of `spec` (None for a replicated leaf)."""
-    dims = [i for i, ax in enumerate(spec) if ax is not None]
-    if len(dims) > 1:
-        raise ValueError(f"spec {spec} splits more than one dim")
-    return dims[0] if dims else None
+def shard_dims(spec: Spec) -> list[int]:
+    """The split dims of `spec` (none for a replicated leaf; fsdp + tp
+    leaves split two)."""
+    return [i for i, ax in enumerate(spec) if ax is not None]
 
 
-def shard_range(size: int, spec: Spec, mesh, rank: int | None = None):
-    """(dim, lo, hi): `rank`'s block of the split dim of a leaf whose split
-    dim has `size` entries; None for a replicated leaf."""
-    dim = shard_dim(spec)
-    if dim is None:
-        return None
-    n = mesh.shape.get(spec[dim], 1)
-    if n == 1:
-        return None
-    if size % n:
-        raise ValueError(f"dim of {size} does not split over {spec[dim]}={n}")
-    i = mesh.axis_index(spec[dim], rank)
-    return dim, i * (size // n), (i + 1) * (size // n)
+def shard_ranges(shape: tuple[int, ...], spec: Spec, mesh,
+                 rank: int | None = None) -> list[tuple[int, int, int]]:
+    """[(dim, lo, hi)]: `rank`'s block of each split dim of a leaf of
+    global `shape` whose axis is wider than 1 (the mesh's bound rank by
+    default)."""
+    out = []
+    for dim in shard_dims(spec):
+        n = mesh.shape.get(spec[dim], 1)
+        if n == 1:
+            continue
+        size = shape[dim]
+        if size % n:
+            raise ValueError(f"dim of {size} does not split over {spec[dim]}={n}")
+        i = mesh.axis_index(spec[dim], rank)
+        out.append((dim, i * (size // n), (i + 1) * (size // n)))
+    return out
 
 
 def shard_shape(shape: tuple[int, ...], spec: Spec, mesh) -> tuple[int, ...]:
@@ -99,21 +103,35 @@ def _walk(params, specs, fn, path=""):
 def shard_params(params: Params, mesh, rank: int | None = None, specs: Params | None = None,
                  cfg: LlamaConfig | None = None) -> Params:
     """`rank`'s contiguous slice of a full param tree (the mesh's bound rank
-    by default): each split leaf narrowed and copied, replicated leaves
-    shared with the full tree."""
+    by default): each split leaf narrowed on every split dim and copied,
+    replicated leaves shared with the full tree."""
     if specs is None:
         assert cfg is not None, "need cfg to derive specs"
         specs = param_specs(cfg)
 
     def take(t: torch.Tensor, spec: Spec, path: str) -> torch.Tensor:
-        dim = shard_dim(spec)
-        rng = None if dim is None else shard_range(t.shape[dim], spec, mesh, rank)
-        if rng is None:
-            return t
-        dim, lo, hi = rng
-        return t.narrow(dim, lo, hi - lo).contiguous()
+        ranges = shard_ranges(tuple(t.shape), spec, mesh, rank)
+        for dim, lo, hi in ranges:
+            t = t.narrow(dim, lo, hi - lo)
+        return t.contiguous() if ranges else t
 
     return _walk(params, specs, take)
+
+
+@torch.no_grad()
+def unshard_params(params: Params, mesh, specs: Params) -> Params:
+    """The whole tree from every rank's slice (shard_params's inverse):
+    each split leaf all-gathered along each of its split dims over that
+    axis's group. A collective: every rank of the mesh calls it, in the
+    same order, and each gets the whole tree."""
+
+    def gather(t: torch.Tensor, spec: Spec, path: str) -> torch.Tensor:
+        for dim in shard_dims(spec):
+            if mesh.shape.get(spec[dim], 1) > 1:
+                t = mesh.group(spec[dim]).all_gather(t.detach(), dim)
+        return t
+
+    return _walk(params, specs, gather)
 
 
 def rank_ranges(cfg: LlamaConfig, mesh, rank: int | None = None, tp: str = "tp") -> dict:
@@ -128,10 +146,9 @@ def rank_ranges(cfg: LlamaConfig, mesh, rank: int | None = None, tp: str = "tp")
         spec = specs
         for part in name.split("."):
             spec = spec[part]
-        dim = shard_dim(spec)
-        rng = None if dim is None else shard_range(shape[dim], spec, mesh, rank)
-        if rng is not None:
-            out[name] = rng
+        ranges = shard_ranges(shape, spec, mesh, rank)
+        if ranges:
+            (out[name],) = ranges
     return out
 
 

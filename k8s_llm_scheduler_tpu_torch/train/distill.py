@@ -3,8 +3,8 @@
 The port of the JAX package's train/distill.py. It generates (cluster-state
 prompt -> decision JSON) pairs from the heuristic fallback scorer as a
 bootstrap teacher (in production: logged prompts and accepted placements)
-and trains the decision model on them with the single-device train step
-(train/train_step.py), saving a native checkpoint that
+and trains the decision model on them with the train step
+(train/train_step.py), on one device or a rank mesh, saving a native checkpoint that
 `build_local_backend(checkpoint_path=...)` serves directly.
 
 The corpus (the CoT scratchpad code, the teacher pairs, the case
@@ -1083,28 +1083,69 @@ def train_and_save(
     widened serving config's fingerprint and the train-side scores.
     `on_step(step, loss, state)`, when given, is called after each update
     (step from 1; `loss` the step's 0-dim device tensor), e.g. to read the
-    gradients, which the state's params still hold. `mesh_axes` wider than
-    one device raises (ROADMAP queue 1 item 9c)."""
-    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import build_builtin_tokenizer
-    from k8s_llm_scheduler_tpu_torch.models.loader import restore_checkpoint, save_checkpoint
-    from k8s_llm_scheduler_tpu_torch.train.train_step import adamw, make_train_step
+    gradients, which the state's params still hold (this rank's shards, on
+    a mesh).
 
+    `mesh_axes` (`llm.mesh`) wider than one device trains on a rank mesh
+    (parallel/launch.run_spmd): this process is rank 0 and spawns the
+    others, one process a rank, and every rank steps on its share. Across
+    the hosts of a rendezvoused world (parallel/distributed.py) each host
+    spawns its own ranks, dp and fsdp spanning hosts and tp and sp within
+    each. `numeric_init` runs on the whole tree before it is split, and is
+    skipped across hosts, as the JAX package skips it; `resume` reads the
+    checkpoint and keeps each rank's slice. The coordinator (global rank
+    0) alone saves the whole tree, gathered from the ranks, and publishes
+    it. `on_step` is called on this process's rank only."""
+    kwargs = {k: v for k, v in locals().items() if k not in ("mesh_axes", "on_step")}
+    from k8s_llm_scheduler_tpu_torch.parallel import launch
+
+    mesh = launch.training_mesh(mesh_axes)
+    if mesh.size == 1:
+        return _train_rank(None, on_step=on_step, **kwargs)
+    return launch.run_spmd(mesh, _train_rank, kwargs, device=device,
+                           driver_kwargs={"on_step": on_step})
+
+
+def _train_rank(
+    mesh, cfg, out_dir, steps, batch_size, seq_len, log_every, seed, lr, tokenizer_name,
+    name_weight, probe_every, lr_schedule, easy_frac, numeric_init, save_every, resume,
+    answer_style, cot_weight, micro_frac, prompt_lm_frac, placement_frac, diverse_frac,
+    registry_dir, publish_note, device, on_step=None,
+) -> float:
+    """train_and_save on one rank of `mesh` (None: one device)."""
+    from k8s_llm_scheduler_tpu_torch.engine.tokenizer import build_builtin_tokenizer
+    from k8s_llm_scheduler_tpu_torch.models.llama import init_params
+    from k8s_llm_scheduler_tpu_torch.models.loader import restore_checkpoint, save_checkpoint
+    from k8s_llm_scheduler_tpu_torch.parallel.distributed import world
+    from k8s_llm_scheduler_tpu_torch.train.train_step import (
+        adamw,
+        make_train_step,
+        mesh_device,
+    )
+
+    coordinator = mesh is None or mesh.rank == 0
     # the shared vocab rule: serving widens the same way, so checkpoints
     # restore shape for shape
     tokenizer, cfg = build_builtin_tokenizer(tokenizer_name, cfg)
     schedule = warmup_cosine_schedule(lr, steps) if lr_schedule == "cosine" else None
     init_fn, step_fn = make_train_step(cfg, device, optimizer=adamw(lr),
-                                       lr_schedule=schedule, mesh_axes=mesh_axes)
+                                       lr_schedule=schedule, mesh=mesh)
     restore_dir = _restore_dir(out_dir) if resume else None
     if restore_dir is not None:
         # params only: with warmup in the schedule the fresh moments cost a
-        # brief re-adaptation, not the banked steps
-        state = init_fn(restore_checkpoint(restore_dir, cfg, device=device))
+        # brief re-adaptation, not the banked steps. On a mesh the whole
+        # tree is read on the host and each rank keeps its slice
+        state = init_fn(restore_checkpoint(restore_dir, cfg,
+                                           device=device if mesh is None else "cpu"))
         logger.info("resumed params from %s", restore_dir)
+    elif numeric_init and world() is None:
+        dev = device if mesh is None else mesh_device(mesh, device)
+        full = init_params(cfg, seed=seed, device=dev)
+        numeric_embedding_init(full, tokenizer)
+        state = init_fn(full)
+        del full
     else:
         state = init_fn(seed)
-        if numeric_init:
-            numeric_embedding_init(state.params, tokenizer)
     batches = make_batches(
         tokenizer, batch_size, seq_len, seed=seed, name_weight=name_weight,
         easy_frac=easy_frac, answer_style=answer_style,
@@ -1112,15 +1153,17 @@ def train_and_save(
         prompt_lm_frac=prompt_lm_frac, placement_frac=placement_frac,
         diverse_frac=diverse_frac,
     )
+    # on a mesh every rank gathers the tree at a probe step; the
+    # coordinator alone probes it
     probe = (
         make_agreement_probe(cfg, tokenizer, seq_len=seq_len,
                              answer_style=answer_style, device=device)
-        if probe_every
+        if probe_every and coordinator
         else None
     )
     diag = (
         make_cot_diagnostics(cfg, tokenizer, seq_len=seq_len, device=device)
-        if probe_every and answer_style == "cot"
+        if probe is not None and answer_style == "cot"
         else None
     )
     loss = float("nan")
@@ -1132,17 +1175,20 @@ def train_and_save(
             on_step(step, loss_t, state)
         if step % log_every == 0 or step == steps:
             loss = float(loss_t)
-            logger.info("step %d/%d loss %.4f", step, steps, loss)
-        if probe is not None and (step % probe_every == 0 or step == steps):
-            last_probe = probe(state.params)
-            logger.info(
-                "step %d/%d held-out greedy agreement%s %.1f%%",
-                step, steps,
-                " (teacher-forced CoT)" if answer_style == "cot" else "",
-                100.0 * last_probe,
-            )
+            if coordinator:
+                logger.info("step %d/%d loss %.4f", step, steps, loss)
+        if probe_every and (step % probe_every == 0 or step == steps):
+            full = step_fn.gather_params(state.params)
+            if probe is not None:
+                last_probe = probe(full)
+                logger.info(
+                    "step %d/%d held-out greedy agreement%s %.1f%%",
+                    step, steps,
+                    " (teacher-forced CoT)" if answer_style == "cot" else "",
+                    100.0 * last_probe,
+                )
             if diag is not None:
-                d = diag(state.params)
+                d = diag(full)
                 logger.info(
                     "step %d/%d cot circuits (teacher-forced): echo %.1f%% "
                     "score %.1f%%%s cmp %.1f%% copy %.1f%%",
@@ -1150,12 +1196,20 @@ def train_and_save(
                     f" (mae {d['score_mae']:.1f})" if "score_mae" in d else "",
                     100.0 * d["cmp"], 100.0 * d["copy"],
                 )
+            del full
         if save_every and step % save_every == 0 and step != steps:
             # periodic snapshot: a long run must not lose everything to one
             # crash
-            save_checkpoint(out_dir, state.params)
-            logger.info("step %d/%d checkpoint snapshot -> %s", step, steps, out_dir)
-    save_checkpoint(out_dir, state.params)
+            full = step_fn.gather_params(state.params)
+            if coordinator:
+                save_checkpoint(out_dir, full)
+                logger.info("step %d/%d checkpoint snapshot -> %s", step, steps, out_dir)
+            del full
+    full = step_fn.gather_params(state.params)
+    if not coordinator:
+        return loss
+    save_checkpoint(out_dir, full)
+    del full
     logger.info("checkpoint saved to %s", out_dir)
     if registry_dir:
         # every trained checkpoint that flows on to promotion enters the

@@ -235,11 +235,24 @@ def test_finetune_on_corpus_matches_the_jax_trainer(mined, tmp_path, monkeypatch
     assert (tmp_path / "torch_out" / "params.pt").is_file()
 
 
-def test_finetune_refuses_a_mesh_wider_than_one_device(mined, tmp_path):
+def test_finetune_on_a_dp2_mesh_matches_one_device(mined, tmp_path):
+    """finetune_on_corpus(mesh_axes={"dp": 2}): two ranks from the same
+    incumbent, each on its rows of the curriculum's batches: the one-device
+    loss (within LOSS_RTOL / LOSS_ATOL) and one whole checkpoint."""
+    from k8s_llm_scheduler_tpu_torch.models.loader import restore_checkpoint
+
     _, trec = mined["torch"]
-    with pytest.raises(NotImplementedError, match="9c"):
-        tloop.finetune_on_corpus(TTINY2, "byte", trec, str(tmp_path / "out"), steps=1,
-                                 mesh_axes={"dp": 1, "tp": 2}, device="cpu")
+    np_params = jax.tree_util.tree_map(np.asarray, jinit_params(jax.random.PRNGKey(0), JTINY2))
+    base = tmp_path / "base"
+    save_checkpoint(base, params_from_jax(np_params, device="cpu"))
+    common = dict(base_checkpoint=str(base), steps=STEPS, batch_size=BATCH, seq_len=SEQ,
+                  lr=LR, seed=0, device="cpu")
+    want = tloop.finetune_on_corpus(TTINY2, "byte", trec, str(tmp_path / "one"), **common)
+    got = tloop.finetune_on_corpus(TTINY2, "byte", trec, str(tmp_path / "mesh"),
+                                   mesh_axes={"dp": 2}, **common)
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL, atol=LOSS_ATOL)
+    whole = restore_checkpoint(tmp_path / "mesh", TTINY2, device="cpu")
+    assert whole["embed"].shape == (TTINY2.vocab_size, TTINY2.d_model)
 
 
 # ------------------------------------------------------------------ cycle

@@ -166,6 +166,33 @@ def test_rank_slices_equal_the_jax_addressable_shards(micro_params):
 
 
 @pytest.mark.parametrize("tie", [True, False], ids=["tied", "untied"])
+def test_fsdp2_tp2_rank_slices_equal_the_jax_addressable_shards(micro_params, tie):
+    """The training layout fsdp2 x tp2 splits each projection on two dims:
+    every rank's slice equals the JAX package's addressable shard of that
+    rank's device, and has parallel/sharding.shard_shape's shape."""
+    jp, t_params = micro_params
+    jcfg = dataclasses.replace(JMICRO, tie_embeddings=tie)
+    tcfg = dataclasses.replace(TMICRO, tie_embeddings=tie)
+    if not tie:
+        jp = {**jp, "lm_head": jnp.asarray(
+            np.random.default_rng(0).standard_normal((64, 512)).astype(np.float32))}
+        t_params = {**t_params, "lm_head": torch.from_numpy(np.array(jp["lm_head"]))}
+    jm = jmesh.make_mesh({"fsdp": 2, "tp": 2})
+    placed = jsharding.shard_params(jp, jm, jsharding.param_specs(jcfg, tp="tp",
+                                                                   fsdp="fsdp"))
+    specs = sharding.param_specs(tcfg, tp="tp", fsdp="fsdp")
+    tm = mesh.make_mesh({"fsdp": 2, "tp": 2})
+    devices = jm.devices.reshape(-1)
+    for rank in range(4):
+        got = dict(_leaves(sharding.shard_params(t_params, tm, rank, specs)))
+        for name, leaf in _leaves(placed):
+            shard = next(s for s in leaf.addressable_shards if s.device == devices[rank])
+            assert torch.equal(got[name], torch.from_numpy(np.array(shard.data))), name
+            assert got[name].shape == sharding.shard_shape(tuple(leaf.shape),
+                                                           dict(_leaves(specs))[name], tm)
+
+
+@pytest.mark.parametrize("tie", [True, False], ids=["tied", "untied"])
 def test_sharded_init_equals_the_slices_of_the_full_init(tie):
     cfg = dataclasses.replace(tconfigs.TINY, tie_embeddings=tie)
     full = init_params(cfg, seed=5, device="cpu")

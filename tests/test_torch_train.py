@@ -19,7 +19,11 @@
   diagnostics give JAX's numbers on the same weights.
 - `train_and_save` at TINY: 3 steps, save, resume from `.saving` and from
   `.old`, registry publish, restore. `cli train --model tiny --steps 2`
-  writes a checkpoint that `restore_checkpoint` reads. The mesh axes raise.
+  writes a checkpoint that `restore_checkpoint` reads.
+- On a two-rank mesh ({dp2}, {tp2}) `train_and_save` gives the one-device
+  losses (within 1e-4) and saves the whole tree; `cli train` with
+  `llm.mesh: {dp: 2}` writes a checkpoint a tp=1 backend serves. The
+  layouts against the JAX step are tests/test_torch_train_parallel.py's.
 """
 
 import dataclasses
@@ -283,12 +287,20 @@ def test_return_hidden_is_the_pre_norm_residual():
     np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=1e-4, atol=1e-4)
 
 
-def test_mesh_axes_and_ring_attention_raise():
-    with pytest.raises(NotImplementedError, match="9c"):
-        make_train_step(TTINY, "cpu", mesh_axes={"dp": 1, "tp": 2})
-    with pytest.raises(NotImplementedError, match="9c"):
+def test_a_one_rank_mesh_trains_as_one_device():
+    """mesh_from_config(None) (one rank) gives the one-device step, with
+    the same loss; ring attention needs a mesh with an sp axis."""
+    from k8s_llm_scheduler_tpu_torch.parallel.mesh import mesh_from_config
+
+    batch = _batch()
+    losses = []
+    for mesh in (None, mesh_from_config(None)):
+        init_fn, step_fn = make_train_step(TTINY, "cpu", optimizer=adamw(LR), mesh=mesh)
+        state = init_fn(params_from_jax(_jax_params(), device="cpu"))
+        losses.append(float(step_fn(state, *step_fn.place_batch(*batch))[1]))
+    assert losses[0] == losses[1]
+    with pytest.raises(ValueError, match="ring attention needs"):
         make_train_step(TTINY, "cpu", use_ring_attention=True)
-    make_train_step(TTINY, "cpu", mesh_axes={"dp": 1})  # one device: fine
 
 
 # ------------------------------------------------- probes and numeric init
@@ -388,10 +400,32 @@ def test_train_and_save_resume_publish_restore(tmp_path):
     assert first["loss"] != fresh["loss"]
 
 
-def test_train_and_save_refuses_a_wide_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="9c"):
-        distill.train_and_save(TTINY, str(tmp_path / "c"), mesh_axes={"fsdp": 2},
-                               **TRAIN_KW)
+@pytest.mark.parametrize("axes", [{"dp": 2}, {"tp": 2}], ids=["dp2", "tp2"])
+def test_train_and_save_on_a_mesh_saves_the_whole_tree(tmp_path, axes):
+    """Two ranks (this process and one spawned) step on the same batches as
+    one device does: the same losses (within 1e-4: tp sums its partial
+    products in f32), and the coordinator saves the whole tree, which
+    restores at tp 1 and whose slice is this rank's params."""
+    from k8s_llm_scheduler_tpu_torch.parallel import sharding
+    from k8s_llm_scheduler_tpu_torch.parallel.mesh import make_mesh
+
+    seen, kept, single = [], {}, []
+    distill.train_and_save(TTINY, str(tmp_path / "one"),
+                           on_step=lambda s, l, st: single.append(float(l)), **TRAIN_KW)
+
+    def on_step(step, loss, state):
+        seen.append(float(loss))
+        kept["params"] = state.params
+
+    loss = distill.train_and_save(TTINY, str(tmp_path / "mesh"), mesh_axes=axes,
+                                  on_step=on_step, **TRAIN_KW)
+    assert loss == seen[-1]
+    np.testing.assert_allclose(seen, single, rtol=1e-4, atol=1e-4)
+    whole = restore_checkpoint(tmp_path / "mesh", TTINY, device="cpu")
+    rank0 = sharding.shard_params(whole, make_mesh(axes), 0,
+                                  sharding.param_specs(TTINY, tp="tp" if "tp" in axes else None))
+    assert _leaves_equal(kept["params"], rank0)
+    assert whole["embed"].shape == (TTINY.vocab_size, TTINY.d_model)
 
 
 def test_cli_train_writes_a_restorable_checkpoint(tmp_path):
@@ -407,6 +441,35 @@ def test_cli_train_writes_a_restorable_checkpoint(tmp_path):
     assert f"checkpoint at {out}" in proc.stdout
     params = restore_checkpoint(out, tconfigs.TINY, device="cpu")
     assert params["embed"].shape == (tconfigs.TINY.vocab_size, tconfigs.TINY.d_model)
+
+
+def test_cli_train_on_a_dp2_mesh_writes_a_checkpoint_that_serves_at_tp1(tmp_path):
+    """`cli train` with `llm.mesh: {dp: 2}` in the config spawns its second
+    rank; the checkpoint serves a decision from a tp=1 backend."""
+    from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
+    from k8s_llm_scheduler_tpu_torch.testing import fixture_pods, synthetic_nodes
+
+    out = tmp_path / "mesh_ckpt"
+    (tmp_path / "config.yaml").write_text('{"llm": {"mesh": {"dp": 2}}}')
+    env = {**os.environ, "PYTHONPATH": str(REPO), "JAX_PLATFORMS": "cpu",
+           "OMP_NUM_THREADS": str(ttesting.TEST_TORCH_THREADS)}
+    env.pop("LLM_MODEL", None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "k8s_llm_scheduler_tpu_torch.cli", "train", "--out",
+         str(out), "--model", "tiny", "--steps", "2", "--batch-size", "2",
+         "--seq-len", "512", "--no-publish", "--device", "cpu"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert f"checkpoint at {out}" in proc.stdout
+    assert "dp group [0, 1]" in proc.stderr
+    backend = build_local_backend("tiny", device="cpu", checkpoint_path=str(out),
+                                  temperature=0.0)
+    try:
+        nodes = synthetic_nodes(3)
+        decision = backend.get_scheduling_decision(fixture_pods(1)[0], nodes)
+        assert decision.selected_node in {n.name for n in nodes}
+    finally:
+        backend.close()
 
 
 def test_cli_train_refuses_cot_knobs_without_cot(tmp_path, monkeypatch, capsys):
