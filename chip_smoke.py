@@ -165,10 +165,13 @@ Phases, each of which must pass:
    decides on the 32-node cluster, the second on 12 nodes (a group of its
    own), then the first again: it reinstalls its group (one more group
    install), names a feasible node and repeats its first decision.
-5. Path A: the same 8B weights quantized to int8 on the card, in an engine
-   with decode_matmul="ragged", the same drive in both modes, held the
-   same way; all feasible, K3 and K1 launched, K3 7 times a layer (224)
-   per block-decode run in both modes. The valid tokens of every
+5. Path A: seed 0's 8B weights at full width and the depth of
+   PATH_A_LAYERS (8 of 32 layers: the smoke's time limit, since the tp
+   8B phase took on the hot swap, the prefix-KV plane and the resident
+   loop), drawn on the card and quantized to int8 there, in an engine with
+   decode_matmul="ragged", the same drive in both modes, held the same
+   way; all feasible, K3 and K1 launched, K3 7 times a layer (56) per
+   block-decode run in both modes. The valid tokens of every
    block-decode call are recorded for phase 7. Between the modes, phase
    4s's swap on the graph-mode int8 engine (staging trees quantized from
    init_params seeds 1 and 0): K3 reads the swapped weights through the
@@ -206,7 +209,7 @@ Phases, each of which must pass:
    the reference's tokens again.
 6g. Spec: speculative decoding (spec/) on the 8B bf16 weights of the
    resident backend, K = 4, two of the path B prompts behind the cluster
-   prefix, 64 new tokens each: (a) the draft arm (a random TINY draft)
+   prefix, SPEC_NEW_TOKENS (16) new tokens each: (a) the draft arm (a random TINY draft)
    and (b) the hidden arm (a random [4, 4096, 4096] head), greedy, with
    disable_threshold 0 so that every round speculates, in graph mode (two
    prompts) and eagerly (one); each prompt also through
@@ -236,7 +239,7 @@ Phases, each of which must pass:
    temporary dir, restored (equal to the trained head) and served by
    build_local_backend(spec_arm="hidden", spec_draft_checkpoint=<dir>,
    disable threshold 0) over the same seed-0 target: speculative generate
-   on two path B prompts behind the prefix, greedy, 64 new tokens, held as
+   on two path B prompts behind the prefix, greedy, SPEC_NEW_TOKENS new tokens, held as
    phase 6g holds its arms (every token within 5e-2 of the largest |logit|
    of the teacher-forced argmax, one sync a verify round, K1 launched 32
    times at admission and 32 times a verify round). Fails on a non-finite
@@ -385,7 +388,25 @@ Phases, each of which must pass:
    equal tp 1's (one a layer); one generate of TP_GEN_TOKENS tokens through
    the fused decode (K4). Each rank's K1/K2/K4 launch counts must be equal
    and non-zero (K3 zero: refused at tp > 1); prints the backend, wall
-   time and each rank's peak memory.
+   time and each rank's peak memory. Then, in the same group (PR 21):
+   the hot swap to seed TP_SWAP_SEED's tree and back, every rank
+   restoring its own block (`double`, or `donate` when the card's free
+   memory, printed first, cannot hold both ranks' staged blocks beside the
+   children, after waiting for cli complete's child), each install at the
+   backend's wave barrier: every data_ptr kept, the wave after the swap
+   different, the wave after the swap back equal to the first byte for
+   byte, every rank's prefix_epoch bumped twice, the pause and each rank's
+   install ms against 2 x a rank's block bytes / 3.35 TB/s; the prefix-KV
+   plane over the 5,488-token prefix of synthetic_nodes(32) (export over
+   the host transport gathers the ranks' kv-head blocks into the driver's
+   pinned memory, 1 GiB; every rank's cache cleared; adoption hands each
+   rank its 512 MiB block): the wave after the adoption equal to the local
+   prefill's, no prefix prefill on either rank, export and adopt ms
+   against the local prefill's; the resident loop (the driver's resident
+   thread deciding each iteration): the TP_PODS suffixes through the
+   command ring equal to decode_fused's streams, every rank's counter
+   block equal, K1 and K2 launched in the admissions and equal across the
+   ranks.
 6n. Train parallel 1B (a child process started once the 8B backend is
    closed, beside tp 8B, the TINY phases, cli complete's child, train 1B
    and learn 1B; joined before the timed kernel phases): the
@@ -2592,8 +2613,11 @@ def _feasible(nodes, decisions) -> bool:
     return ok
 
 
+PATH_A_LAYERS = 8  # path A's depth, of 32 (module doc, phase 5)
+
+
 def path_a_phase(backend, nodes, pods):
-    """int8 weights (quantized on the card from the bf16 8B params) and
+    """int8 weights (seed 0's at PATH_A_LAYERS, quantized on the card) and
     ragged block-decode matmuls (K3) on the decision path, in both modes;
     K3 launches 7 a layer of every block-decode run in both."""
     import torch
@@ -2602,11 +2626,20 @@ def path_a_phase(backend, nodes, pods):
     from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
     from k8s_llm_scheduler_tpu_torch.models.quant import param_bytes, quantize_params
 
-    cfg = backend.engine.cfg
+    from k8s_llm_scheduler_tpu_torch.models.llama import init_params
+
+    # seed 0's tree at PATH_A_LAYERS, drawn on the card: its own leaves (a
+    # quantized tree shares its unquantized ones with the tree it came
+    # from, and the swap below writes into them), and the tree the swap
+    # back restores (a cut of the 32-layer draw is not: init_params draws
+    # each stacked weight for every layer in turn)
+    cfg = dataclasses.replace(backend.engine.cfg, n_layers=PATH_A_LAYERS)
+    bf16 = init_params(cfg, seed=0, device="cuda")
     t0 = time.perf_counter()
-    params = quantize_params(backend.engine.params)
+    params = quantize_params(bf16)
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
+    del bf16
 
     def make(graphs):
         engine = InferenceEngine(params, cfg, ByteTokenizer(), temperature=0.0,
@@ -2619,6 +2652,7 @@ def path_a_phase(backend, nodes, pods):
     swap_ok, swap = recs.pop("after")
     ok = _modes_agree(recs, "path A") and swap_ok
     rec = {"model": "llama-3.1-8b-instruct int8 weight-only, decode_matmul=ragged",
+           "layers": PATH_A_LAYERS,
            "quantize_s": quant_s, "int8_param_gib": param_bytes(params) / 2**30,
            "swap": swap}
     k3_per_block = 7 * cfg.n_layers
@@ -3158,7 +3192,7 @@ def persistent_tiny() -> tuple[bool, dict]:
 
 # ------------------------------------------------------------------ spec phase
 SPEC_K = 4  # the config's llm.spec_k
-SPEC_NEW_TOKENS = 64
+SPEC_NEW_TOKENS = 16  # 64 until PR 21: the smoke's time limit
 SPEC_PROMPTS = 2
 SPEC_TEMPERATURE = 0.3  # the config's llm.temperature
 # Greedy at 8B bf16 is held token by token to the target's own argmax: each
@@ -4060,7 +4094,8 @@ def finish_complete(started) -> tuple[bool, dict]:
     wall time and the child's peak memory."""
     child, cwd, t0 = started
     try:
-        out, err = child.communicate(timeout=900)
+        # tp 8B's swap may have waited for the child already
+        out, err = getattr(child, "smoke_output", None) or child.communicate(timeout=900)
     finally:
         if child.poll() is None:
             child.kill()
@@ -6045,7 +6080,14 @@ TP_PODS = 4  # the burst
 TP_REF_TOKENS = 64  # the first call: a whole-prompt prefill of these tokens
 TP_LOGIT_TOL = 5e-2  # max |tp 2 - tp 1| over max |tp 1 logit|: bf16, one rounding moved
 TP_GEN_TOKENS = 16
-TP_REASON_TOKENS = 24  # the decisions' reasoning cap (320 by default): fewer model calls
+TP_REASON_TOKENS = 16  # the decisions' reasoning cap (320 by default): fewer model calls
+# The tp group's hot swap, prefix-KV plane and resident loop (PR 21):
+TP_SWAP_SEED = 1  # the second tree: seed 1's, each rank drawing its block
+TP_SWAP_TOKENS = 4  # the unconstrained wave compared before, between and after the swaps
+TP_SWAP_MARGIN = 2 << 30  # free memory kept beside the staged blocks
+TP_PLANE_NODES = 32  # the plane's prefix: the decision phase's 5,488 tokens
+TP_LOOP_TOKENS = 8  # each resident stream
+TP_LOOP_BUCKET = 256  # the loop's admission bucket: the decision suffixes fit
 # K1/K2/K4 at one rank's shapes: Llama-3.3-70B at tp 8 (8 q heads over 1 kv
 # head, group 8, hd 128) at the 8B decision path's geometry, timed; and
 # Llama-3.1-8B at tp 2 (16 over 4), the tp 8B phase's, held. K1: (step, B,
@@ -6134,7 +6176,182 @@ def _tp_per_call(steps) -> dict:
     return {step: rec["K1"] for step, rec in per_call(steps).items()}
 
 
-def tp_8b_phase(ref, tp1_per_call) -> tuple[bool, dict]:
+def _tp_wave(eng, prefix_ids, suffixes, n) -> list:
+    """An unconstrained greedy wave of `suffixes` against `prefix_ids`."""
+    eng.set_prefix(prefix_ids)
+    eng.set_grammar(None)
+    return [f.token_ids for f in eng.decide_wave(suffixes, n)]
+
+
+def _wait_complete_child(started) -> float:
+    """Wait for cli complete's child (its output kept for finish_complete);
+    the seconds waited."""
+    child = started[0]
+    t0 = time.perf_counter()
+    if not hasattr(child, "smoke_output"):
+        child.smoke_output = child.communicate(timeout=900)
+    return time.perf_counter() - t0
+
+
+def tp_swap_check(backend, items, complete_started) -> tuple[bool, dict]:
+    """The tp group's hot swap to seed TP_SWAP_SEED's tree and back to seed
+    0's, every rank restoring its own block (parallel/launch.stage_swap /
+    install_swap in `double` mode, donate_swap when the card lacks room for
+    both ranks' staged blocks beside the children), installed at the
+    backend's wave barrier. Prints the card's free memory before the
+    staging (waiting for cli complete's child first when it is short), the
+    pause and each rank's install ms against 2 x a rank's block bytes /
+    3.35 TB/s. Fails unless every data_ptr stays, the wave after the swap
+    differs from the first, the wave after the swap back equals the first
+    byte for byte, and every rank's prefix_epoch bumped twice."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.parallel import launch
+
+    eng, group = backend.engine, backend.engine.rank_group
+    prefix, suffixes = items[0].prefix_ids, [it.suffix_ids for it in items]
+    block = launch._tree_bytes(eng.params)
+    need = block * TP + TP_SWAP_MARGIN  # every rank's block stages on this card
+    free = torch.cuda.mem_get_info()[0]
+    rec = {"rank_block_bytes": block, "free_before": free, "need": need, "waited_s": 0.0}
+    if free < need and complete_started is not None:
+        rec["waited_s"] = _wait_complete_child(complete_started)
+        rec["free_after_wait"] = free = torch.cuda.mem_get_info()[0]
+    mode = rec["mode"] = "double" if free >= need else "donate"
+    print(f"tp 8B swap: free {free / 2**30:.2f} GiB, {TP} blocks of {block / 2**30:.2f} GiB "
+          f"+ margin need {need / 2**30:.2f} GiB: {mode}", flush=True)
+    source = {seed: {"checkpoint_path": None, "quantize": None, "seed": seed}
+              for seed in (0, TP_SWAP_SEED)}
+    first = _tp_wave(eng, prefix, suffixes, TP_SWAP_TOKENS)
+    ptrs = group.on_ranks(launch.param_ptrs)
+    epochs = [s["prefix_epoch"] for s in group.on_ranks(launch.engine_state)]
+
+    def swap(seed, prior):
+        t0 = time.perf_counter()
+        if mode == "double":
+            group.on_ranks(launch.stage_swap, source[seed], eng.model_config)
+            launch.wait_staged(eng)
+            load_s = time.perf_counter() - t0
+            out, pause_s = backend.run_quiesced(lambda: group.on_ranks(launch.install_swap))
+        else:
+            load_s = 0.0
+            out, pause_s = backend.run_quiesced(lambda: group.on_ranks(
+                launch.donate_swap, source[seed], eng.model_config, source[prior]))
+        return {"seed": seed, "driver_load_s": load_s, "pause_ms": pause_s * 1000.0,
+                "install_ms": [r["install_ms"] for r in out],
+                "load_ms": [r.get("load_ms") for r in out]}
+
+    rec["to"] = swap(TP_SWAP_SEED, 0)
+    second = _tp_wave(eng, prefix, suffixes, TP_SWAP_TOKENS)
+    rec["back"] = swap(0, TP_SWAP_SEED)
+    back = _tp_wave(eng, prefix, suffixes, TP_SWAP_TOKENS)
+    rec["bound_ms"] = 2 * block / PEAK_BYTES_PER_S * 1000.0
+    rec["epochs"] = [s["prefix_epoch"] for s in group.on_ranks(launch.engine_state)]
+    rec["checks"] = {"ptrs_kept": group.on_ranks(launch.param_ptrs) == ptrs,
+                     "swapped_tokens_differ": second != first,
+                     "back_equals_first": back == first,
+                     "epochs_bumped": rec["epochs"] == [e + 2 for e in epochs]}
+    ok = all(rec["checks"].values())
+    print(f"tp 8B swap ({mode}): pause {rec['to']['pause_ms']:.1f} / "
+          f"{rec['back']['pause_ms']:.1f} ms, install ms a rank {rec['to']['install_ms']} / "
+          f"{rec['back']['install_ms']} against a bound of {rec['bound_ms']:.2f}; checks "
+          f"{rec['checks']} ok={ok}", flush=True)
+    return ok, rec
+
+
+def tp_plane_check(backend, prefix, suffixes) -> tuple[bool, dict]:
+    """The prefix-KV plane over the tp group: the 5,488-token prefix
+    prefilled and pinned (its local prefill timed), a wave against it;
+    its pages exported (host transport: the ranks' kv-head blocks gathered
+    into the driver's pinned memory, 1 GiB); every rank's cache cleared;
+    the pages adopted (each rank its own block, 512 MiB); the wave again.
+    Fails unless the pages hold the whole model's heads at tp 2's
+    geometry, the waves are equal and no rank prefilled a prefix after the
+    adoption. Prints export and adopt ms against the local prefill's."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.fleet.kvplane import adopt_pages, export_pages
+    from k8s_llm_scheduler_tpu_torch.parallel import launch
+    from k8s_llm_scheduler_tpu_torch.testing import clear_prefix_cache
+
+    eng, group = backend.engine, backend.engine.rank_group
+    group.on_ranks(clear_prefix_cache)
+    t0 = time.perf_counter()
+    key, _ = eng.pin_prefix(prefix)
+    local_ms = (time.perf_counter() - t0) * 1000.0
+    local = _tp_wave(eng, prefix, suffixes, TP_SWAP_TOKENS)
+    t0 = time.perf_counter()
+    pages = export_pages(eng, key, generation=0, filler="tp8b")
+    export_ms = (time.perf_counter() - t0) * 1000.0
+    group.on_ranks(clear_prefix_cache)
+    before = group.on_ranks(launch.engine_state)
+    t0 = time.perf_counter()
+    adopt_pages(eng, pages)
+    torch.cuda.synchronize()
+    adopt_ms = (time.perf_counter() - t0) * 1000.0
+    adopted = _tp_wave(eng, prefix, suffixes, TP_SWAP_TOKENS)
+    after = group.on_ranks(launch.engine_state)
+    cfg = eng.model_config
+    rec = {"prefix_tokens": len(prefix), "pages_shape": list(pages.k.shape),
+           "geometry": pages.geometry.describe(), "bytes": pages.nbytes,
+           "bytes_a_rank": pages.nbytes // TP, "pinned_host": bool(pages.k.is_pinned()),
+           "local_prefill_ms": local_ms, "export_ms": export_ms, "adopt_ms": adopt_ms,
+           "prefix_prefills_after_adopt": [a["prefix_prefills"] - b["prefix_prefills"]
+                                           for a, b in zip(after, before)]}
+    rec["checks"] = {"whole_model_heads": (pages.k.shape[0] == cfg.n_layers
+                                           and pages.k.shape[2] == cfg.n_kv_heads),
+                     "geometry_tp": pages.geometry.tp == TP,
+                     "tokens_equal": adopted == local,
+                     "no_prefix_prefill": rec["prefix_prefills_after_adopt"] == [0] * TP}
+    ok = all(rec["checks"].values())
+    print(f"tp 8B plane: {rec['geometry']} pages {rec['pages_shape']} "
+          f"({pages.nbytes / 2**30:.2f} GiB), local prefill {local_ms:.1f} ms, export "
+          f"{export_ms:.1f} ms, adopt {adopt_ms:.1f} ms; checks {rec['checks']} ok={ok}",
+          flush=True)
+    return ok, rec
+
+
+def tp_loop_check(eng, prefix, suffixes) -> tuple[bool, dict]:
+    """The resident loop over the tp group (the driver's resident thread
+    deciding each iteration, the follower's running what it sends): the
+    suffixes admitted one call on the dispatch path and drained by
+    decode_fused, then through the command ring and step_persistent. Fails
+    unless the streams are equal, every rank's counter block agrees, and
+    K1 and K2 launched in the loop's admissions, equal across the ranks."""
+    from k8s_llm_scheduler_tpu_torch.parallel import launch
+
+    group = eng.rank_group
+    eng.set_prefix(prefix)
+    eng.set_grammar(None)
+    ids = eng.add_requests(suffixes, max_new_tokens=TP_LOOP_TOKENS)
+    done = {}
+    while len(done) < len(ids):
+        done.update({f.req_id: f.token_ids for f in eng.decode_fused()})
+    want = [done[i] for i in ids]
+    group.on_ranks(launch.reset_launch_counts)
+    t0 = time.perf_counter()
+    entered = eng.enter_persistent()
+    ids = eng.add_requests(suffixes, max_new_tokens=TP_LOOP_TOKENS)
+    out = _drain_resident(eng, len(ids))
+    eng.exit_persistent()
+    wall = time.perf_counter() - t0
+    states = group.on_ranks(launch.engine_state)
+    counts = group.on_ranks(launch.launch_counts)
+    counters = [s["counters"] for s in states]
+    rec = {"suffix_tokens": [len(x) for x in suffixes], "tokens": TP_LOOP_TOKENS,
+           "wall_s": wall, "counters": counters, "launches": counts,
+           "admissions": [s["persistent_admissions"] for s in states]}
+    rec["checks"] = {"entered": entered,
+                     "tokens_equal": [out.get(i) for i in ids] == want,
+                     "counters_agree": counters[0] == counters[1] and bool(counters[0]),
+                     "k1_k2_in_admissions": (counts[0] == counts[1] and counts[0]["K1"] > 0
+                                             and counts[0]["K2"] > 0)}
+    ok = all(rec["checks"].values())
+    print(f"tp 8B resident: {len(suffixes)} streams of {TP_LOOP_TOKENS} in {wall:.1f} s, "
+          f"counters a rank {counters[0]}, launches {counts}; checks {rec['checks']} ok={ok}",
+          flush=True)
+    return ok, rec
+
+
+def tp_8b_phase(ref, tp1_per_call, complete_started=None) -> tuple[bool, dict]:
     """Llama-3.1-8B at full width and depth served tensor parallel: TP
     ranks, this process and one it spawns, sharing the card over gloo,
     eager (gloo's host collectives cannot be captured), each rank's shard
@@ -6142,7 +6359,9 @@ def tp_8b_phase(ref, tp1_per_call) -> tuple[bool, dict]:
     against the tp=1 engine's (`ref`), one decision and a burst of
     TP_PODS that name feasible nodes, one path-B generate through K4, each
     rank's K1/K2/K4 launches and K1 launches per model call against tp
-    1's (`tp1_per_call`), wall time and each rank's peak memory."""
+    1's (`tp1_per_call`), wall time and each rank's peak memory. Then, in
+    the same group: the hot swap (tp_swap_check), the prefix-KV plane
+    (tp_plane_check) and the resident loop (tp_loop_check)."""
     import torch
     from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
     from k8s_llm_scheduler_tpu_torch.parallel import launch
@@ -6155,7 +6374,11 @@ def tp_8b_phase(ref, tp1_per_call) -> tuple[bool, dict]:
         TP_MODEL, device="cuda", seed=0, mesh_axes={"tp": TP}, graphs=False,
         temperature=0.0, packed_admission=False, max_pages_per_seq=64, paged_attn="pallas",
         max_reason_tokens=TP_REASON_TOKENS, request_timeout_s=600.0,
-        prewarm_idle_delay_s=NO_PREWARM_S)
+        prewarm_idle_delay_s=NO_PREWARM_S, persistent_loop=True,
+        persistent_suffix_bucket=TP_LOOP_BUCKET)
+    # the decisions stay on the wave path (their K1-per-call checks); the
+    # resident loop is driven through the engine by tp_loop_check
+    backend._persistent_loop = False
     rec = {"model": TP_MODEL, "tp": TP, "build_s": time.perf_counter() - t0}
     try:
         eng, group = backend.engine, backend.engine.rank_group
@@ -6215,11 +6438,27 @@ def tp_8b_phase(ref, tp1_per_call) -> tuple[bool, dict]:
         launch_ok = (counts[0] == counts[1] and all(counts[0][k] > 0 for k in ("K1", "K2", "K4"))
                      and counts[0]["K3"] == 0)
         gen_ok = len(gen.token_ids) == TP_GEN_TOKENS
+        items = [backend._prepare_item(p, nodes) for p in pods]
+        t4 = time.perf_counter()
+        swap_ok, rec["swap"] = tp_swap_check(backend, items, complete_started)
+        rec["swap"]["s"] = time.perf_counter() - t4
+        plane_items = [backend._prepare_item(p, synthetic_nodes(TP_PLANE_NODES)) for p in pods]
+        t4 = time.perf_counter()
+        plane_ok, rec["plane"] = tp_plane_check(backend, plane_items[0].prefix_ids,
+                                                [it.suffix_ids for it in plane_items])
+        rec["plane"]["s"] = time.perf_counter() - t4
+        t4 = time.perf_counter()
+        loop_ok, rec["persistent"] = tp_loop_check(eng, items[0].prefix_ids,
+                                                   [it.suffix_ids for it in items])
+        rec["persistent"]["s"] = time.perf_counter() - t4
+        rec["wall_s"] = time.perf_counter() - t0
     finally:
         backend.close()
-    ok = logits_ok and decide_ok and calls_ok and launch_ok and gen_ok
+    ok = (logits_ok and decide_ok and calls_ok and launch_ok and gen_ok and swap_ok
+          and plane_ok and loop_ok)
     rec["checks"] = {"logits": logits_ok, "decisions": decide_ok, "k1_per_call": calls_ok,
-                     "launches": launch_ok, "generate": gen_ok}
+                     "launches": launch_ok, "generate": gen_ok, "swap": swap_ok,
+                     "plane": plane_ok, "persistent": loop_ok}
     print(f"tp 8B: first call rel err {rec['first_call']['rel_err']:.4g} (tol {TP_LOGIT_TOL}), "
           f"single {rec['single_s']:.1f} s, burst of {TP_PODS} {rec['burst_s']:.1f} s, "
           f"generate {rec['generate']['tokens']} tokens {rec['generate']['s']:.1f} s, "
@@ -6317,7 +6556,8 @@ def main() -> int:
     # and learn 1B run beside them, the timed kernel phases after them
     complete_child = start_complete()
     train_par_child = start_train_parallel()  # beside tp 8B and the TINY phases
-    tp_ok, tp8 = _timed_phase("tp 8B", tp_8b_phase, tp_ref, dec["k1_per_call_by_step"])
+    tp_ok, tp8 = _timed_phase("tp 8B", tp_8b_phase, tp_ref, dec["k1_per_call_by_step"],
+                              complete_child)
     gc.collect()
     torch.cuda.empty_cache()
     ck_ok, ckpt = _timed_phase("checkpoint", checkpoint_phase)

@@ -1438,8 +1438,11 @@ def _rollout_watch(args: argparse.Namespace, cfg: Config, registry) -> int:
                 else cfg.get("llm.checkpoint_path"))
         return factory(ckpt)()
 
+    # the model's whole config (a tp rank's `cfg` is its own share) and
+    # the serving mesh, as the JAX watch passes them: each rank restores
+    # its own block
     swapper = HotSwapper(
-        backend, registry, backend.engine.cfg,
+        backend, registry, backend.engine.model_config, mesh=backend.engine.mesh,
         quantize=cfg.get("llm.quantization"),
         cache=client.cache, mode=cfg.get("rollout.swap_mode", "auto"),
     )
@@ -2252,6 +2255,77 @@ def _tiny_forward(device: str) -> str:
     return f"logits {tuple(logits.shape)}, K1 launches {k1}, K2 launches {k2}"
 
 
+def port_lint_files(root: Path) -> list[Path]:
+    """The port's own Python files: its package, its tests
+    (tests/test_torch_*.py), its tools (tools/torch_*.py) and the chip
+    smoke. tools/graftlint scans the JAX package's tree alone, so the port
+    hands it these by path."""
+    package = Path(__file__).resolve().parent
+    files = [p for p in sorted(package.rglob("*.py")) if "_build" not in p.parts]
+    files += sorted((root / "tests").glob("test_torch_*.py"))
+    files += sorted((root / "tools").glob("torch_*.py"))
+    smoke = root / "chip_smoke.py"
+    return files + ([smoke] if smoke.is_file() else [])
+
+
+def _changed_port_files(root: Path, ref: str) -> list[Path]:
+    """The port's files that differ from `ref`, plus untracked ones."""
+    import subprocess
+
+    names: set[str] = set()
+    for cmd in (["git", "diff", "--name-only", ref, "--"],
+                ["git", "ls-files", "--others", "--exclude-standard"]):
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise ValueError(f"--changed: `{' '.join(cmd)}` failed: "
+                             f"{proc.stderr.strip() or proc.stdout.strip()}")
+        names.update(line.strip() for line in proc.stdout.splitlines() if line.strip())
+    return [p for p in port_lint_files(root) if str(p.relative_to(root)) in names]
+
+
+def cmd_lint(args: argparse.Namespace, cfg: Config) -> int:
+    """graftlint (tools/graftlint) over the port's own files, with the JAX
+    `cli lint`'s flags and exit contract (0 clean / 1 findings / 2 usage
+    error). With no paths it lints port_lint_files(); `--changed [REF]`
+    lints those of them that differ from REF (default HEAD) plus untracked
+    ones; `--rules` filters by rule id or family; `--list-rules` prints the
+    catalog; `--format jsonl` emits one JSON object a finding. A finding is
+    repaired, or justified in place with the framework's pragma
+    (`# graftlint: ok[rule-id] reason`)."""
+    root = Path(__file__).resolve().parent.parent
+    if str(root) not in sys.path:
+        # `tools` is a package at the repo's root, outside the port's
+        sys.path.insert(0, str(root))
+    from tools.graftlint.__main__ import main as graftlint_main
+
+    argv: list[str] = []
+    if args.list_rules:
+        argv.append("--list-rules")
+    if args.rules:
+        argv.extend(["--rules", args.rules])
+    if args.no_cache:
+        argv.append("--no-cache")
+    argv.extend(["--format", args.lint_format])
+    paths = list(args.paths)
+    if args.changed is not None:
+        if paths:
+            print("lint: --changed and explicit paths are mutually exclusive",
+                  file=sys.stderr)
+            return 2
+        try:
+            changed = _changed_port_files(root, args.changed)
+        except ValueError as exc:
+            print(f"lint: {exc}", file=sys.stderr)
+            return 2
+        if not changed:
+            print(f"graftlint: OK (no file of the port differs from {args.changed})")
+            return 0
+        paths = [str(p) for p in changed]
+    elif not paths:
+        paths = [str(p) for p in port_lint_files(root)]
+    return graftlint_main(argv + paths)
+
+
 def cmd_verify(args: argparse.Namespace, cfg: Config) -> int:
     """Preflight (reference verify_setup.py:28-114), torch/CUDA edition."""
     failures = []
@@ -2731,6 +2805,30 @@ def build_parser() -> argparse.ArgumentParser:
     p_ftop.add_argument("--format", choices=("text", "prom"), default="text",
                         help="text frame or one merged Prometheus exposition")
     p_fleet.set_defaults(func=cmd_fleet)
+
+    p_lint = sub.add_parser(
+        "lint",
+        help="graftlint: the AST concurrency, determinism, durability, protocol "
+             "and resilience rules and the py310 checks over the port's own files "
+             "(tools/graftlint)")
+    p_lint.add_argument(
+        "--rules", default=None,
+        help="comma-separated rule ids or families (see --list-rules); default: all")
+    p_lint.add_argument("--format", choices=("human", "jsonl"), default="human",
+                        dest="lint_format")
+    p_lint.add_argument("--list-rules", action="store_true",
+                        help="print the rule catalog grouped by family")
+    p_lint.add_argument(
+        "--changed", nargs="?", const="HEAD", default=None, metavar="REF",
+        help="lint only the port's files differing from REF (default HEAD) plus "
+             "untracked ones: the pre-commit mode")
+    p_lint.add_argument("--no-cache", action="store_true",
+                        help="ignore and do not write the on-disk analysis cache")
+    p_lint.add_argument(
+        "paths", nargs="*",
+        help="files to lint (default: the port's package, tests/test_torch_*.py, "
+             "tools/torch_*.py and chip_smoke.py)")
+    p_lint.set_defaults(func=cmd_lint)
 
     trace = sub.add_parser(
         "trace", help="decision flight recorder: list/show/tail/export traces from "

@@ -85,13 +85,26 @@ engine/engine.py).
   books it. Without a profiler each of them pays one None check.
 - **Tensor parallel** (engine/sharded/plane.py, parallel/): `mesh=` with a
   tp axis wider than 1 makes the engine ONE RANK of a tp group: `params`
-  is the rank's shard, `cfg` the rank's geometry (plane.local_config), and
-  every forward joins the ranks through the plane's all-reduces. A driver
-  rank mirrors its public calls to the follower ranks
-  (parallel/launch.RankGroup). `decode_matmul="ragged"` is refused as in
-  the JAX engine, CUDA graphs over a gloo group too, and the persistent
-  loop, hot swap, the prefix-KV plane and speculative decoding raise
-  NotImplementedError (ROADMAP queue 1 item 9d).
+  is the rank's shard, `cfg` the rank's geometry (plane.local_config),
+  `model_config` the whole model's, and every forward joins the ranks
+  through the plane's all-reduces. A driver rank mirrors its public calls
+  to the follower ranks (parallel/launch.RankGroup). At tp > 1:
+  - the hot swap copies each rank's own block, restored by that rank from
+    the checkpoint (parallel/launch.stage_swap / install_swap /
+    donate_swap, run on every rank through RankGroup.on_ranks;
+    rollout/hotswap.HotSwapper(mesh=)); `swap_params` itself takes a
+    rank's block, and the driver refuses a call made of it alone;
+  - the prefix-KV plane ships the whole model's kv heads: an export
+    gathers the ranks' head blocks into the driver's host memory, an
+    adoption hands each rank its own block over the tp group
+    (`_adopt_head_blocks`);
+  - the persistent loop runs a resident thread on every rank, the
+    driver's deciding every iteration (engine/persistent/server.py);
+  - `decode_matmul="ragged"` is refused as in the JAX engine, CUDA graphs
+    over a gloo group too, and speculative decoding (`attach_spec`) raises
+    NotImplementedError naming ROADMAP queue 1 item 9d, as the JAX entry
+    point keeps plain decode on a tp mesh; the plane's `d2d` transport
+    raises naming item 9e (fleet/kvplane/pages.py).
 """
 
 from __future__ import annotations
@@ -155,8 +168,8 @@ logger = logging.getLogger(__name__)
 # Length of the all-zero prefix buffer used when no prefix is installed
 # (the JAX engine's page size).
 EMPTY_PREFIX_SLOTS = 64
-# The ROADMAP queue 1 item that ports the paths tp > 1 refuses (the
-# persistent loop, hot swap, the prefix-KV plane, speculative decoding).
+# The ROADMAP queue 1 item that ports the path tp > 1 still refuses
+# (speculative decoding).
 TP_PENDING_ITEM = "9d"
 
 
@@ -655,6 +668,12 @@ class WaveHandle:
         return self.error is not None or self.done.query()
 
 
+def _as_tensor(t) -> torch.Tensor:
+    """A tensor of adopted pages: numpy ones (a wire's, or read-only ones)
+    through a copy torch may write."""
+    return t if isinstance(t, torch.Tensor) else torch.from_numpy(np.array(t))
+
+
 def _match_tree(serving, new, path: str, pairs: list) -> None:
     """Append (serving leaf, new leaf) for every leaf of `serving` to
     `pairs`; raise ValueError at the first path where `new` differs in
@@ -683,17 +702,16 @@ def _tp_not_ported(what: str, tp: int) -> NotImplementedError:
 
 
 def check_tp_serving(tp: int, backend: str, device_type: str, graphs: bool,
-                     decode_matmul: str, persistent_loop: bool) -> None:
+                     decode_matmul: str) -> None:
     """Raise for an engine setting a tp > 1 rank does not serve: ragged
-    decode matmuls (refused as the JAX engine refuses them), CUDA graphs
-    over a gloo group on CUDA, and the persistent loop."""
+    decode matmuls (refused as the JAX engine refuses them) and CUDA graphs
+    over a gloo group on CUDA (so at tp 2 on one card every program, the
+    resident loop's too, runs eagerly)."""
     if decode_matmul == "ragged":
         raise ValueError(
             f"decode_matmul='ragged' is single-device-only (K3 runs over one "
             f"device's whole weight, not a rank's shard) but the serving mesh "
             f"has tp={tp}; use decode_matmul='dense' for tensor-parallel serving")
-    if persistent_loop:
-        raise _tp_not_ported("the persistent loop", tp)
     if graphs and device_type == "cuda" and backend == "gloo":
         raise ValueError(
             f"graphs=True over a gloo tp group on CUDA (tp={tp} ranks sharing a "
@@ -768,8 +786,11 @@ class InferenceEngine:
         # the driver's parallel/launch.RankGroup, set when it mirrors this
         # engine's calls to its followers
         self.rank_group = None
+        # the whole model's config (the checkpoint's shapes, the prefix-KV
+        # plane's geometry); `cfg` below is the rank's at tp > 1
+        self.model_config = cfg
         if self.plane is not None:
-            cfg = self._rank_config(cfg, graphs, decode_matmul, persistent_loop)
+            cfg = self._rank_config(cfg, graphs, decode_matmul)
         self.cfg = cfg
         self.tokenizer = tokenizer or ByteTokenizer()
         if self.tokenizer.vocab_size > cfg.vocab_size:
@@ -841,6 +862,13 @@ class InferenceEngine:
         self.persistent_blackbox_depth = int(persistent_blackbox_depth)
         self._persistent = None  # PersistentServer | None
         self._persistent_wedged = False
+        # token batches harvested off the resident loop's ring, over every
+        # residency: a tp follower harvests to the driver's count before
+        # each mirrored call (follow_persistent)
+        self._pers_harvested = 0
+        # a tp rank's block of the next weights, staged by the double
+        # mode's load (parallel/launch.stage_swap)
+        self._swap_staging = None
         # Speculative decoder (spec/decoder.py), attached by attach_spec:
         # generate() routes through it.
         self.spec = None
@@ -979,10 +1007,10 @@ class InferenceEngine:
             "wave_ms": 0.0,
         }
 
-    def _rank_config(self, cfg, graphs, decode_matmul, persistent_loop):
+    def _rank_config(self, cfg, graphs, decode_matmul):
         """The rank's geometry, after refusing what tp > 1 does not serve."""
         check_tp_serving(self.plane.tp, self.plane.backend, self.device.type, graphs,
-                         decode_matmul, persistent_loop)
+                         decode_matmul)
         return self.plane.local_config(cfg)
 
     def _refuse_tp(self, what: str) -> None:
@@ -1174,6 +1202,7 @@ class InferenceEngine:
         if not prompt_ids:
             raise ValueError("cannot pin an empty prefix")
         self._await_dispatch()
+        self.drain_for_collectives()
         key = tuple(prompt_ids)
         t0 = time.perf_counter()
         self._set_prefix_inner(prompt_ids, activate=False)
@@ -1213,12 +1242,23 @@ class InferenceEngine:
         own entry, in a buffer of a length its static prefix buffers
         already know (_bind_prefix): no new capture follows. The tensors
         are this engine's own; a caller that keeps them copies them
-        (pages.export_pages' host arm, adopt_prefix_pages)."""
-        self._refuse_tp("the prefix-KV plane's export")
+        (pages.export_pages' host arm, adopt_prefix_pages).
+
+        At tp > 1 this is a mirrored call: the ranks' blocks of kv heads are
+        gathered over the tp group into the driver's host memory (pinned
+        when the ranks serve on a card), so the driver returns the whole
+        model's [L, cap, n_kv, hd] host buffers, as the JAX engine's export
+        of a head-sharded entry holds every head, and a follower None."""
         pfx = self._prefix_cache.get(tuple(key))
         if pfx is None:
             return None
-        return pfx.k, pfx.v
+        if self.plane is None:
+            return pfx.k, pfx.v
+        self._await_dispatch()
+        self.drain_for_collectives()
+        k = self.plane.group.gather_to_root(pfx.k, dim=2)
+        v = self.plane.group.gather_to_root(pfx.v, dim=2)
+        return None if k is None else (k, v)
 
     @torch.no_grad()
     def adopt_prefix_pages(
@@ -1236,13 +1276,20 @@ class InferenceEngine:
         buffer, or its eviction, leaves the adopted entry as it was.
 
         Returns (cache key, prefix_epoch), pin_prefix's contract, under
-        the same staleness rules (pin_alive / swap_params)."""
-        self._refuse_tp("the prefix-KV plane's adoption")
+        the same staleness rules (pin_alive / swap_params).
+
+        At tp > 1 the pages hold the whole model's kv heads (export_prefix_kv's
+        at tp > 1, or a JAX replica's at the same tp). The driver checks
+        them, then every rank takes its contiguous block of heads over the
+        tp group, 1/tp of the bytes each (parallel/launch.adopt_head_blocks
+        through RankGroup.on_ranks: the buffers never cross the control
+        channel), so the adopted entry lands as a local prefill's does."""
         if not prompt_ids:
             raise ValueError("cannot adopt an empty prefix")
         key = tuple(prompt_ids)
         n = len(key)
-        want = (self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.head_dim)
+        cfg = self.model_config
+        want = (cfg.n_layers, cfg.n_kv_heads, cfg.head_dim)
         kshape, vshape = tuple(k.shape), tuple(v.shape)
         if (
             len(kshape) != 4
@@ -1255,14 +1302,50 @@ class InferenceEngine:
                 f"this engine needs [L={want[0]}, cap>={n}, "
                 f"n_kv={want[1]}, hd={want[2]}]"
             )
+        if self.plane is not None:
+            if self.rank_group is None:
+                raise RuntimeError(
+                    "a tp rank adopts prefix pages through its driver's call")
+            from k8s_llm_scheduler_tpu_torch.parallel.launch import adopt_head_blocks
+
+            return self.rank_group.on_ranks(adopt_head_blocks, list(prompt_ids), kshape,
+                                            driver_kwargs={"k": k, "v": v})[0]
         self._await_dispatch()
         # numpy pages (a wire's, or read-only ones) come in through a copy
         # torch may write
         k_d, v_d = (
-            torch.empty(kshape, dtype=self.cfg.dtype, device=self.device).copy_(
-                t if isinstance(t, torch.Tensor) else torch.from_numpy(np.array(t)))
+            torch.empty(kshape, dtype=self.cfg.dtype, device=self.device).copy_(_as_tensor(t))
             for t in (k, v)
         )
+        return self._install_adopted(key, k_d, v_d)
+
+    @torch.no_grad()
+    def _adopt_head_blocks(self, prompt_ids: list[int], shape: tuple, k=None, v=None):
+        """One tp rank's part of adopt_prefix_pages: the driver (holding the
+        whole model's `k`, `v`) hands each rank its block of kv heads over
+        the tp group, and each rank copies its block into a buffer of its
+        own."""
+        self._await_dispatch()
+        self.drain_for_collectives()
+        L, cap, n_kv, hd = shape
+        tp, local = self.plane.tp, self.cfg.n_kv_heads
+        group = self.plane.group
+        blocks = {}
+        for name, t in (("k", k), ("v", v)):
+            parts = None
+            if t is not None:
+                t = _as_tensor(t).to(self.cfg.dtype)
+                parts = [t.narrow(2, r * local, local) for r in range(tp)]
+            blocks[name] = torch.empty((L, cap, local, hd), dtype=self.cfg.dtype,
+                                       device=self.device).copy_(
+                group.scatter_from_root(parts, (L, cap, local, hd), self.cfg.dtype,
+                                        self.device))
+        return self._install_adopted(tuple(prompt_ids), blocks["k"], blocks["v"])
+
+    def _install_adopted(self, key: tuple[int, ...], k_d: torch.Tensor,
+                         v_d: torch.Tensor) -> tuple[tuple[int, ...], int]:
+        """Cache adopted buffers (this engine's own) as a pinned entry."""
+        n = len(key)
         if self.device.type == "cuda":
             with DEVICE_WIDE:
                 torch.cuda.synchronize(self.device)
@@ -1274,6 +1357,20 @@ class InferenceEngine:
         # created at the first adoption, as in the JAX engine's stats
         self.stats["adopted_prefixes"] = self.stats.get("adopted_prefixes", 0) + 1
         return key, self.prefix_epoch
+
+    def drain_for_collectives(self) -> None:
+        """At tp > 1, drain the resident loop before this thread issues a
+        tp collective. The loop's iterations and this thread's model calls
+        each hold the rank's `_device_lock` while they wait for their peers'
+        collectives, and each rank's threads meet the lock in their own
+        order: a rank whose wave holds it would wait for a peer whose
+        micro-chunk holds that peer's, each for the other. So every call
+        that runs collectives here exits the loop first, on every rank (a
+        mirrored call does it on each), and the loop relaunches at the next
+        admission. At tp 1 a wave may run beside the loop, as in the JAX
+        engine."""
+        if self.plane is not None and self.persistent_active:
+            self.exit_persistent()
 
     def _best_lcp_seed(self, key: tuple[int, ...]):
         """(k, v, reuse_len) of the cached prefix sharing the longest common
@@ -1435,6 +1532,7 @@ class InferenceEngine:
         real wave of it captures it again, or raises). Returns the number
         captured."""
         self._await_dispatch()
+        self.drain_for_collectives()
         done = 0
         for n_prompts, bucket, max_new in self._missing_wave_siblings():
             if limit is not None and done >= limit:
@@ -1597,7 +1695,12 @@ class InferenceEngine:
             return
         self.close()
         if self.persistent_active:
-            self.exit_persistent()
+            try:
+                self.exit_persistent()
+            except Exception:
+                # a loop that died (at tp > 1 with a lost peer) raised its
+                # error where it was harvested; the release goes on
+                logger.exception("the resident loop did not drain at release")
         self._released_kv_stats = {"pages_free": self.kv.pages_free,
                                    "slots_free": self.free_slots}
         self._persistent = None
@@ -1642,6 +1745,7 @@ class InferenceEngine:
             )
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        self.drain_for_collectives()
         # the dispatch fence opens before prompt packing, as the JAX
         # engine's does; the dispatcher closes it (WaveHandle.dispatch_end)
         prof = self.profiler
@@ -2072,8 +2176,12 @@ class InferenceEngine:
     def abort_all(self) -> None:
         """Free every in-flight slot and its KV pages, deactivate every
         slot on the device and drop parked emissions: the recovery path
-        after a failed step, so the engine never leaks capacity."""
+        after a failed step, so the engine never leaks capacity. At tp > 1
+        the loop drains first on every rank (an ABORT through the ring and
+        the parked batches it drops could not be matched across ranks)."""
         self._await_dispatch()
+        if self.plane is not None and self.persistent_active:
+            self.exit_persistent()
         if self._persistent is not None:
             if self.persistent_active:
                 # deactivate every resident slot through the ring (slot=-1:
@@ -2497,8 +2605,18 @@ class InferenceEngine:
         pins and adopted pages stay marked current under weights they were
         not computed with. Swap such engines together. (The JAX engine
         rebinds, and a production deployment builds one engine a process,
-        so neither meets this.)"""
-        self._refuse_tp("a hot swap of the weights")
+        so neither meets this.)
+
+        At tp > 1 `params` is this rank's block, and every rank swaps at the
+        same barrier: parallel/launch.stage_swap / install_swap /
+        donate_swap run it on each rank through RankGroup.on_ranks, each
+        rank restoring its own block (rollout/hotswap.HotSwapper(mesh=)).
+        The driver refuses a call made of it alone, which would leave the
+        followers on the old weights."""
+        if self.rank_group is not None and not self.rank_group.inside():
+            raise RuntimeError(
+                "swap_params on a tp driver swaps one rank: swap every rank "
+                "through rollout.HotSwapper(mesh=) (parallel/launch.stage_swap)")
         pairs: list[tuple[torch.Tensor, torch.Tensor]] = []
         _match_tree(self.params, params, "params", pairs)
         self._await_dispatch()
@@ -2560,7 +2678,11 @@ class InferenceEngine:
                 prompt_ids, max_new_tokens):
             return self.spec.generate(prompt_ids, max_new_tokens)
         req_id = self.add_request(prompt_ids, max_new_tokens)
-        if self.persistent_active:
+        if self.persistent_active and self._persistent.follower:
+            fin = self._follow_request(req_id)
+            if fin is not None:
+                return fin
+        elif self.persistent_active:
             while True:
                 fins = self.step_persistent(timeout_s=1.0)
                 mine = [f for f in fins if f.req_id == req_id]
@@ -2615,8 +2737,9 @@ class InferenceEngine:
         """Launch the resident serving loop (engine/persistent/) over this
         engine's slots. Every admission, decode step and emission until
         exit_persistent is ring traffic on this thread. Returns False when
-        unsupported (the caller stays on the dispatch path)."""
-        self._refuse_tp("the persistent loop")
+        unsupported (the caller stays on the dispatch path). At tp > 1 a
+        mirrored call: every rank launches its own loop, the driver's
+        deciding each iteration (engine/persistent/server.py)."""
         if self.persistent_active:
             return True
         if not self.persistent_supported():
@@ -2626,6 +2749,19 @@ class InferenceEngine:
                 PersistentServer,
             )
 
+            tp_groups = {}
+            if self.plane is not None:
+                # every rank creates them here, in the same mirrored call
+                from k8s_llm_scheduler_tpu_torch.parallel.launch import (
+                    CONTROL_TIMEOUT_S,
+                    AxisGroup,
+                )
+
+                axis = self.plane.tp_axis
+                tp_groups = dict(
+                    channel=AxisGroup.for_mesh(self.mesh, axis, tag="resident-commands",
+                                               backend="gloo", timeout_s=CONTROL_TIMEOUT_S),
+                    loop_group=AxisGroup.for_mesh(self.mesh, axis, tag="resident"))
             self._persistent = PersistentServer(
                 self,
                 suffix_bucket=self.persistent_suffix_bucket,
@@ -2633,6 +2769,7 @@ class InferenceEngine:
                 telemetry=self.persistent_telemetry,
                 stats_every=self.persistent_stats_every,
                 blackbox_depth=self.persistent_blackbox_depth,
+                **tp_groups,
             )
         self._persistent.launch()
         # A fresh residency restarts the device counter block at zero, so
@@ -2698,6 +2835,10 @@ class InferenceEngine:
         if not self.persistent_active:
             return out
         srv = self._persistent
+        if srv.failed():
+            # the resident thread died (at tp > 1, say, a peer rank lost):
+            # its exit raises the loop's error, or the group's
+            self.exit_persistent()
         if srv.wedged():
             logger.warning(
                 "persistent loop wedged (no heartbeat for %.0fs) — "
@@ -2811,12 +2952,67 @@ class InferenceEngine:
             return None
         return self._persistent.blackbox_dump()
 
+    def persistent_sync(self) -> dict | None:
+        """The driver's resident loop state that a tp follower matches
+        before each mirrored call (parallel/launch.RankGroup sends it with
+        the call): batches harvested, resident or not, the wedge latch and
+        count. None before the first residency."""
+        if self._persistent is None:
+            return None
+        return {"harvested": self._pers_harvested, "active": self.persistent_active,
+                "wedged": self._persistent_wedged,
+                "wedges": self.stats["persistent_wedges"]}
+
+    def follow_persistent(self, state: dict | None) -> None:
+        """A tp follower, before each mirrored call: harvest its token ring
+        up to the driver's count (the driver returned those completions:
+        they are dropped here), exit a loop the driver's owner thread has
+        drained on its own (a wedge, or a generate that met one), and take
+        the driver's wedge latch. Raises when the books cannot match."""
+        if state is None or self._persistent is None:
+            return
+        srv = self._persistent
+        if srv.running:
+            while self._pers_harvested < state["harvested"]:
+                batch = srv.take_one(self.mesh.timeout_s)
+                if batch is None:
+                    break  # the loop ended: the exit below harvests the rest
+                self._persistent_harvest([batch])
+            if not state["active"] or srv.failed():
+                self.exit_persistent()
+        self._persistent_wedged = state["wedged"]
+        self.stats["persistent_wedges"] = state["wedges"]
+        if self._pers_harvested != state["harvested"]:
+            raise RuntimeError(
+                f"tp follower harvested {self._pers_harvested} resident batches, the "
+                f"driver {state['harvested']}: the ranks are out of step")
+
+    def _follow_request(self, req_id: int) -> Finished | None:
+        """A tp follower's generate() through the resident loop: harvest one
+        batch at a time until `req_id` finishes (so it never harvests past
+        the driver, whose harvest drains at least that far); None when the
+        driver's loop ended first (the follower's exits with it)."""
+        srv = self._persistent
+        while True:
+            batch = srv.take_one(self.mesh.timeout_s)
+            if batch is None:
+                if not srv.running or srv._done.is_set():
+                    self.exit_persistent()
+                    return None
+                raise RuntimeError("tp follower: no resident batch from the driver's loop")
+            fins = self._persistent_harvest([batch])
+            mine = [f for f in fins if f.req_id == req_id]
+            self._pending_finished.extend(f for f in fins if f.req_id != req_id)
+            if mine:
+                return mine[0]
+
     def _persistent_harvest(self, batches) -> list[Finished]:
         """Book ring batches (in push order) into request streams: the
         persistent twin of _finish_harvest, one batch at a time because a
         slot can finish AND be reused by a later in-window admission."""
         finished: list[Finished] = []
         pad = self.tokenizer.pad_id
+        self._pers_harvested += len(batches)
         for b in batches:
             if b.admit_slot >= 0:
                 req = self._by_slot.get(b.admit_slot)

@@ -1478,9 +1478,7 @@ def build_rank_engine(spec: dict, mesh) -> InferenceEngine:
     at a time) or the seed (drawn in the full tree's order, keeping the
     rank's blocks). `spec["config"]` is the driver's model config, so a
     rank serves the model the driver resolved."""
-    from k8s_llm_scheduler_tpu_torch.engine.sharded import ServingPlane
     from k8s_llm_scheduler_tpu_torch.engine.tokenizer import HFTokenizerAdapter
-    from k8s_llm_scheduler_tpu_torch.parallel.sharding import rank_ranges
 
     cfg, builtin_tokenizer = _model_config(spec["config"], spec["checkpoint_path"],
                                            spec["tokenizer_path"], spec["tokenizer_name"])
@@ -1490,22 +1488,33 @@ def build_rank_engine(spec: dict, mesh) -> InferenceEngine:
     dev = torch.device("cpu") if index is None else torch.device("cuda", index)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    plane = ServingPlane(mesh)
-    quantize, ckpt = spec["quantize"], spec["checkpoint_path"]
+    params = rank_params(spec, cfg, mesh, dev)
+    return InferenceEngine(params, cfg, tokenizer, mesh=mesh, **spec["engine"])
+
+
+def rank_params(source: dict, cfg, mesh, dev) -> dict:
+    """The bound rank's block of a whole model's params on `dev`, from
+    `source` ({"checkpoint_path", "quantize", "seed"}): a safetensors
+    checkpoint read a block at a time, a native checkpoint (or int8
+    weights, quantized over whole input dims) through the full tree on the
+    host, else the seed's draw in the full tree's order. `cfg` is the
+    model's whole config. A rank's engine build and its hot swap
+    (parallel/launch.stage_swap) read through here."""
+    from k8s_llm_scheduler_tpu_torch.engine.sharded import ServingPlane
+    from k8s_llm_scheduler_tpu_torch.parallel.sharding import rank_ranges
+
+    quantize, ckpt = source["quantize"], source["checkpoint_path"]
     if ckpt and list(Path(ckpt).glob("*.safetensors")):
         from k8s_llm_scheduler_tpu_torch.models.loader import load_hf_checkpoint
 
-        params = load_hf_checkpoint(Path(ckpt), cfg, device=dev, quantize=quantize,
-                                    shard=rank_ranges(cfg, mesh))
-    elif ckpt or quantize == "int8":
-        # a native checkpoint, or int8 weights quantized over whole input
-        # dims: the full tree on the host, then the rank's blocks
-        full = _full_params(spec, cfg, torch.device("cpu"))
-        params = _on_device(plane.place_params(full, cfg, quantized=quantize == "int8"), dev)
+        return load_hf_checkpoint(Path(ckpt), cfg, device=dev, quantize=quantize,
+                                  shard=rank_ranges(cfg, mesh))
+    if ckpt or quantize == "int8":
+        full = _full_params(source, cfg, torch.device("cpu"))
+        placed = ServingPlane(mesh).place_params(full, cfg, quantized=quantize == "int8")
         del full
-    else:
-        params = init_params(cfg, seed=spec["seed"], device=dev, shard=rank_ranges(cfg, mesh))
-    return InferenceEngine(params, cfg, tokenizer, mesh=mesh, **spec["engine"])
+        return _on_device(placed, dev)
+    return init_params(cfg, seed=source["seed"], device=dev, shard=rank_ranges(cfg, mesh))
 
 
 def _start_tp_group(spec: dict, mesh, dev) -> InferenceEngine:
@@ -1523,7 +1532,7 @@ def _start_tp_group(spec: dict, mesh, dev) -> InferenceEngine:
     # the engine's own refusals, before a process is spawned
     devices = [None if not device_count else i % device_count for i in range(tp)]
     check_tp_serving(tp, launch.choose_backend(devices), dev.type, spec["engine"]["graphs"],
-                     spec["engine"]["decode_matmul"], spec["engine"]["persistent_loop"])
+                     spec["engine"]["decode_matmul"])
     tmp = tempfile.TemporaryDirectory(prefix="tp-group-")
     w = world()
     if w is None:

@@ -23,18 +23,60 @@ dispatch-path entry points drain it first (`exit_persistent`), and its
 chunk dispatches refuse to run, so nothing else writes those buffers.
 `quiesce` stops the loop after one last (stepless) iteration and returns
 the final counter block.
+
+Tensor parallel (tp > 1, engine/sharded/plane.py). Every rank runs a
+resident thread over its own slots, and every iteration's model calls issue
+the tp collectives, so every rank must run the same iterations with the
+same command in each. The design:
+
+- Only the DRIVER's resident thread decides. Its `_poll` reads its command
+  ring and the clock as at tp 1 (`poll_idle_s`, the idle park, a
+  `force_stop`), then broadcasts the iteration's Command, tokens and page
+  rows included, on a gloo group of its own (`channel`: not the control
+  channel, which the owner thread uses), before it runs the iteration. A
+  follower's resident thread runs exactly the commands it receives
+  (`_follow`), QUIESCE included; when the driver's loop ends any other way
+  (a stop vote from a forced drain, an error) it sends STOP, and the
+  followers' loops end without running an iteration. So a forced drain
+  (the watchdog's `force_stop`) reaches every rank the same way, and the
+  heartbeat and `wedged()` are read on the driver only.
+- The loop's collectives go over a tp group of its own (`loop_group`, the
+  thread's route through ServingPlane.use_group), so the control
+  channel's settle counts only the owner thread's collectives, whatever
+  iteration each rank's loop has reached.
+- The engine's calls that issue collectives on the owner thread drain the
+  loop first, on every rank (InferenceEngine.drain_for_collectives: a
+  wave, a prefill, an export or adoption, a swap). Else one rank's wave
+  and another rank's micro-chunk, each holding its rank's `_device_lock`
+  while it waits for its peer, would wait for each other.
+- Admissions stay mirrored host work: each rank's add_requests allocates
+  the same slot and pages and puts the same ADMIT on its own ring. A
+  follower's loop takes its own ADMIT when the driver's arrives and checks
+  the two are equal, so an undrained ADMIT is left on every rank's ring
+  alike (exit_persistent finishes them).
+- Emissions reach the driver's token ring, which its owner thread harvests
+  as at tp 1 (step_persistent, no message to the followers). A
+  follower's token ring is unbounded, so its loop never blocks on it; the
+  follower harvests it one batch at a time up to the driver's count
+  before each mirrored call (InferenceEngine.follow_persistent, from the
+  count the call's message carries), so every rank's host books hold the
+  same requests, slots and pages at every call.
+- Over gloo no CUDA graph is captured (engine.check_tp_serving), so at
+  tp 2 on one card the loop's programs run eagerly.
 """
 
 from __future__ import annotations
 
 import atexit
 import logging
+import sys
 import threading
 import time
 import weakref
 from typing import TYPE_CHECKING, Any
 
 import numpy as np
+import torch
 
 from k8s_llm_scheduler_tpu_torch.engine.graphs import Fence
 from k8s_llm_scheduler_tpu_torch.engine.persistent.loop import (
@@ -98,8 +140,15 @@ class PersistentServer:
         telemetry: bool = True,
         stats_every: int = 8,
         blackbox_depth: int = 64,
+        channel=None,
+        loop_group=None,
     ) -> None:
         self.engine = engine
+        # tp > 1 (module doc): the command channel (a gloo AxisGroup, the
+        # driver its rank 0) and the loop's own tp group; None at tp 1
+        self.channel = channel
+        self.loop_group = loop_group
+        self.follower = channel is not None and channel.rank != 0
         self.suffix_bucket = int(
             suffix_bucket if suffix_bucket is not None else engine.prefill_buckets[0]
         )
@@ -115,7 +164,8 @@ class PersistentServer:
         self.telemetry = bool(telemetry)
         self.stats_every = max(1, int(stats_every))
         self.commands = CommandRing(self.cmd_capacity)
-        self.tokens = TokenRing(self.token_capacity)
+        # a follower's ring is unbounded: its loop must never block on it
+        self.tokens = TokenRing(sys.maxsize if self.follower else self.token_capacity)
         # Telemetry plane (observability/resident.py): the StatsRing is
         # published from the push via put_latest (drop-oldest, counted), so
         # an undrained telemetry consumer never stalls the loop; the
@@ -140,6 +190,7 @@ class PersistentServer:
         self._held: list[HarvestBatch] = []
         self._programs: dict[tuple, tuple] = {}  # key -> (noop, admit) programs
         self._key: tuple | None = None
+        self._sent_quiesce = False  # the driver's last broadcast was a QUIESCE
 
     # ------------------------------------------------------------ launch
     @property
@@ -184,6 +235,7 @@ class PersistentServer:
         self._error = None
         self._done.clear()
         self._force_stop = False
+        self._sent_quiesce = False
         # Fresh residency, fresh forensics: the black-box ring describes
         # THIS residency only (_last_blackbox keeps the previous dump until
         # a new one supersedes it).
@@ -202,14 +254,121 @@ class PersistentServer:
         self._thread.start()
 
     def _run_resident(self) -> None:
-        """The resident thread: serves until a QUIESCE or a stop vote."""
+        """The resident thread: serves until a QUIESCE or a stop vote (at
+        tp > 1 a follower's until the driver's QUIESCE or STOP)."""
         try:
-            persistent_serve_impl(poll=self._poll, push=self._push, run=self._run_iteration)
+            if self.loop_group is not None:
+                self.engine.plane.use_group(self.loop_group)
+            if self.follower:
+                self._follow()
+            else:
+                poll = self._poll if self.channel is None else self._poll_and_send
+                persistent_serve_impl(poll=poll, push=self._push, run=self._run_iteration)
         except BaseException as exc:  # noqa: BLE001 - published, not dropped
             logger.exception("persistent loop died")
             self._error = exc
         finally:
+            if self.channel is not None and not self.follower and not self._sent_quiesce:
+                try:
+                    self._send(None)  # STOP: the followers' loops end with this one
+                except Exception:
+                    logger.exception("persistent loop: the STOP did not reach the followers")
             self._done.set()
+
+    # ------------------------------------------------- tp > 1: the channel
+    def _wire_len(self) -> int:
+        kv = self.engine.kv
+        return 4 + self.suffix_bucket + self.suffix_bucket // kv.page_size + kv.max_pages_per_seq
+
+    def _send(self, cmd: Command | None) -> None:
+        """Broadcast one iteration's command (None: STOP) to the followers."""
+        msg = torch.zeros(self._wire_len(), dtype=torch.int64)
+        if cmd is None:
+            msg[0] = -1
+        else:
+            msg[:4] = torch.tensor([cmd.op, cmd.suffix_len, cmd.slot, cmd.budget])
+            if cmd.op == OP_ADMIT:
+                Sb, nb = self.suffix_bucket, self.suffix_bucket // self.engine.kv.page_size
+                msg[4:4 + Sb] = torch.from_numpy(cmd.tokens.reshape(-1).astype(np.int64))
+                msg[4 + Sb:4 + Sb + nb] = torch.from_numpy(
+                    cmd.prefill_pages.reshape(-1).astype(np.int64))
+                msg[4 + Sb + nb:] = torch.from_numpy(cmd.page_row.astype(np.int64))
+        self.channel.broadcast(msg)
+        self._sent_quiesce = cmd is not None and cmd.op == OP_QUIESCE
+
+    def _recv(self) -> Command | None:
+        msg = self.channel.broadcast(torch.zeros(self._wire_len(), dtype=torch.int64)).numpy()
+        op = int(msg[0])
+        if op < 0:
+            return None
+        head = dict(op=op, suffix_len=int(msg[1]), slot=int(msg[2]), budget=int(msg[3]))
+        if op != OP_ADMIT:
+            return Command(**head)
+        Sb, nb = self.suffix_bucket, self.suffix_bucket // self.engine.kv.page_size
+        return Command(**head, tokens=msg[4:4 + Sb].astype(np.int32).reshape(1, Sb),
+                       prefill_pages=msg[4 + Sb:4 + Sb + nb].astype(np.int32).reshape(1, nb),
+                       page_row=msg[4 + Sb + nb:].astype(np.int32))
+
+    def _poll_and_send(self) -> Command:
+        cmd = self._poll()
+        self._send(cmd)
+        return cmd
+
+    def _follow(self) -> None:
+        """A follower's resident thread: each iteration the driver's loop
+        sends, until its QUIESCE (run, as the driver runs it) or STOP."""
+        while True:
+            cmd = self._recv()
+            if cmd is None:
+                return
+            if cmd.op == OP_ADMIT:
+                self._match_admit(cmd)
+            batch, counters = self._run_iteration(cmd)
+            self._push(batch, counters)
+            if cmd.op == OP_QUIESCE:
+                return
+
+    def _match_admit(self, cmd: Command) -> None:
+        """Take this rank's own ADMIT (its mirrored add_requests put it on
+        its ring) and check that it is the driver's: a difference means the
+        ranks' host books parted."""
+        deadline = time.monotonic() + self.engine.mesh.timeout_s
+        own = self.commands.take()
+        while own is None:
+            if time.monotonic() > deadline:
+                raise RuntimeError("tp follower: the driver's ADMIT has no match on this rank")
+            self.commands.wait_nonempty(0.05)
+            own = self.commands.take()
+        same = (own.op == cmd.op and own.slot == cmd.slot and own.budget == cmd.budget
+                and own.suffix_len == cmd.suffix_len
+                and np.array_equal(own.tokens, cmd.tokens)
+                and np.array_equal(own.prefill_pages, cmd.prefill_pages)
+                and np.array_equal(own.page_row, cmd.page_row))
+        if not same:
+            raise RuntimeError(
+                f"tp follower: the driver admitted slot {cmd.slot}, this rank's ring "
+                f"holds slot {own.slot}: the ranks are out of step")
+
+    def take_one(self, timeout_s: float) -> HarvestBatch | None:
+        """The next emission batch, held ones first (a tp follower harvests
+        one batch at a time, to the driver's count); None when the loop has
+        ended with nothing left, or after `timeout_s`."""
+        if self._held:
+            return self._held.pop(0)
+        deadline = time.monotonic() + timeout_s
+        while True:
+            ended = self._done.is_set()
+            got = self.tokens.drain(0.0 if ended else 0.05)
+            if got:
+                self._held = got[1:]
+                return got[0]
+            if ended or time.monotonic() > deadline:
+                return None
+
+    def failed(self) -> bool:
+        """True when the resident thread ended on an error while the loop
+        is still marked running (quiesce raises it)."""
+        return self._running and self._done.is_set() and self._error is not None
 
     # ----------------------------------------------------- the resident thread
     def _poll(self) -> Command:
@@ -359,8 +518,14 @@ class PersistentServer:
         drain timeout (a truly wedged loop)."""
         if not self._running:
             raise RuntimeError("persistent loop not resident")
+        if self.follower:
+            # the driver's loop sends the QUIESCE (or STOP) that ends this
+            # one: a mirrored exit quiesces it in the same call
+            if not self._done.wait(timeout_s):
+                raise RuntimeError("tp follower: the driver's loop did not end this one")
         try:
-            self.commands.put(Command(op=OP_QUIESCE), timeout_s=timeout_s)
+            if not self.follower:
+                self.commands.put(Command(op=OP_QUIESCE), timeout_s=timeout_s)
         except Exception:
             self.force_stop()
         deadline = time.monotonic() + timeout_s

@@ -32,6 +32,7 @@ forwards issue no collective.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any
 
 import torch
@@ -82,6 +83,7 @@ class ServingPlane:
     def __init__(self, mesh, tp_axis: str = "tp") -> None:
         self.mesh = mesh
         self.tp_axis = tp_axis
+        self._local = threading.local()  # a thread's own tp group (use_group)
 
     def __repr__(self) -> str:
         return f"ServingPlane(tp={self.tp}, rank={self.rank})"
@@ -97,8 +99,16 @@ class ServingPlane:
 
     @property
     def group(self):
-        """The tp group (parallel/launch.AxisGroup), created at first use."""
-        return self.mesh.group(self.tp_axis)
+        """The tp group (parallel/launch.AxisGroup), created at first use;
+        the calling thread's own when it chose one (use_group)."""
+        own = getattr(self._local, "group", None)
+        return own if own is not None else self.mesh.group(self.tp_axis)
+
+    def use_group(self, group) -> None:
+        """Route the calling thread's collectives over `group`, another tp
+        group over the same ranks (the resident loop's thread:
+        engine/persistent/server.py)."""
+        self._local.group = group
 
     @property
     def backend(self) -> str:

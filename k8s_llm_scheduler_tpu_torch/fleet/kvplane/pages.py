@@ -25,7 +25,11 @@ without recomputing or resharding:
   are torch tensors and not numpy arrays because numpy holds no bfloat16.
   `d2d` page sets carry the filler's device tensors by reference
   (in-process fleets on one card: adoption is a device-to-device copy
-  with no host round-trip). Either way the adopter copies the pages into
+  with no host round-trip). A tp > 1 filler exports the whole model's
+  heads gathered from its ranks into the driver's host memory, so it
+  ships `host` pages only: its `d2d` export raises (ROADMAP queue 1 item
+  9e: a peer's rank-r block would have to cross into another process's
+  rank r). Either way the adopter copies the pages into
   a buffer it owns (engine.adopt_prefix_pages), so a later write to the
   filler's buffer never reaches an adopted entry.
 - the **store generation** they were published under (store.py): the
@@ -40,6 +44,9 @@ import hashlib
 from typing import Any, Sequence
 
 import torch
+
+# The ROADMAP queue 1 item that ports the d2d transport to tp > 1 fillers.
+D2D_TP_ITEM = "9e"
 
 
 class KVGeometryError(RuntimeError):
@@ -68,13 +75,15 @@ class KVGeometry:
         `kv_geometry` attribute (stub/remote engines advertise without
         shipping a config), else the engine's (cfg, plane) pair — tp
         comes from the serving plane when one exists (tp>1 mesh), 1
-        otherwise."""
+        otherwise. The kv heads are the WHOLE model's (a tp rank's `cfg`
+        holds its own block of them, `model_config` the model's), so one
+        model at one tp has one geometry in both packages."""
         adv = getattr(engine, "kv_geometry", None)
         if isinstance(adv, KVGeometry):
             return adv
         if callable(adv):
             return adv()
-        cfg = engine.cfg
+        cfg = getattr(engine, "model_config", None) or engine.cfg
         plane = getattr(engine, "plane", None)
         tp = int(plane.tp) if plane is not None else 1
         return cls(
@@ -155,17 +164,25 @@ def export_pages(
     `[:length]` slice: the adopter installs a buffer bit-identical to
     the filler's local one, so adopted-vs-local token identity holds by
     construction and no new pad-shape ever reaches the jitted programs.
+    A tp > 1 filler's `d2d` export raises before any rank is touched.
     """
+    geometry = KVGeometry.of_engine(engine)
+    if transport == "d2d" and geometry.tp > 1:
+        raise NotImplementedError(
+            f"the d2d kvplane transport at tp={geometry.tp} is not ported yet (ROADMAP "
+            f"queue 1 item {D2D_TP_ITEM}): a peer's rank-r block of kv heads would cross "
+            f"into another process; ship transport='host'")
     kv = engine.export_prefix_kv(cache_key)
     if kv is None:
         return None
     k, v = kv
-    if transport == "host":
+    if transport == "host" and geometry.tp == 1:
+        # (a tp > 1 export is already a fresh gather into host memory)
         k, v = _to_host(k), _to_host(v)
     return PrefixPageSet(
         digest=page_digest(cache_key),
         token_ids=tuple(cache_key),
-        geometry=KVGeometry.of_engine(engine),
+        geometry=geometry,
         k=k,
         v=v,
         transport=transport,

@@ -67,6 +67,7 @@ GROUP_TIMEOUT_S = 120.0  # a tp group's collective timeout
 # channel's connections, which ends the wait at once.
 CONTROL_TIMEOUT_S = 365 * 24 * 3600.0
 START_TIMEOUT_S = 900.0  # followers' engine builds (an 8B shard from a seed)
+EXIT_GRACE_S = 2.0  # a failed settle's wait for a dying follower's exit code
 
 # The engine calls a driver mirrors to its followers: every public call
 # that changes engine state or runs the model. Reads (get_stats,
@@ -76,6 +77,7 @@ MIRRORED_CALLS = (
     "submit_wave", "harvest_wave", "decide_wave", "prewarm_wave_siblings",
     "add_request", "add_requests", "admit_packed",
     "step", "step_fused", "decode_fused", "generate",
+    "enter_persistent", "exit_persistent", "export_prefix_kv",
     "release_slot", "abort_all", "close", "release",
 )
 
@@ -121,16 +123,21 @@ class AxisGroup:
         self._staging: dict[tuple, torch.Tensor] = {}
 
     @classmethod
-    def for_mesh(cls, mesh, axis) -> "AxisGroup":
+    def for_mesh(cls, mesh, axis, *, tag: str = "", backend: str | None = None,
+                 timeout_s: float | None = None) -> "AxisGroup":
+        """This rank's group along `axis`. A `tag` makes another group over
+        the same ranks, every member creating it at the same point: the
+        resident loop's own tp group, and its command channel (gloo, with
+        the control channel's timeout)."""
         from torch.distributed import PrefixStore
 
         ranks = mesh.axis_ranks(axis)
-        backend = choose_backend([mesh.local_device_index(r) for r in ranks])
-        name = axis if isinstance(axis, str) else "+".join(axis)
+        backend = backend or choose_backend([mesh.local_device_index(r) for r in ranks])
+        name = (axis if isinstance(axis, str) else "+".join(axis)) + (f"#{tag}" if tag else "")
         store = PrefixStore(f"{mesh.prefix}group/{name}/{'-'.join(map(str, ranks))}",
                             mesh.store)
         pg = new_process_group(store, ranks.index(mesh.rank), len(ranks), backend,
-                               mesh.timeout_s)
+                               mesh.timeout_s if timeout_s is None else timeout_s)
         logger.info("rank %d: %s group %s over %s", mesh.rank, name, ranks, backend)
         return cls(pg, ranks.index(mesh.rank), len(ranks), backend, ranks)
 
@@ -223,6 +230,52 @@ class AxisGroup:
             self.pg.recv([out], src, 0).wait()
             sent.wait()
         return out.to(t.device, copy=True) if staged else out
+
+    def gather_to_root(self, t: torch.Tensor, dim: int, root: int = 0) -> torch.Tensor | None:
+        """The group's tensors concatenated along `dim` in rank order, on
+        `root` alone, in host memory (pinned when `t` lies on a card); None
+        on the other ranks. Over gloo a card's tensor crosses through a
+        pinned host copy; NCCL gathers on the device, then the root copies
+        out."""
+        from torch.distributed import GatherOptions
+
+        self._book("gather", t)
+        t = t.contiguous()
+        send, like = t, {"dtype": t.dtype, "device": t.device}
+        if self._staged(t):
+            like = {"dtype": t.dtype, "pin_memory": True}
+            send = torch.empty(t.shape, **like).copy_(t)
+        parts = ([torch.empty(t.shape, **like) for _ in range(self.size)]
+                 if self.rank == root else [])
+        opts = GatherOptions()
+        opts.rootRank = root
+        self.pg.gather([parts] if parts else [], [send], opts).wait()
+        if not parts:
+            return None
+        shape = list(t.shape)
+        shape[dim] *= self.size
+        out = torch.empty(shape, dtype=t.dtype, pin_memory=t.is_cuda)
+        return out.copy_(torch.cat(parts, dim))
+
+    def scatter_from_root(self, blocks: list[torch.Tensor] | None, shape, dtype,
+                          device: torch.device, root: int = 0) -> torch.Tensor:
+        """Rank r's `blocks[r]` (host tensors of `shape`, given on `root`
+        only) on every rank r: a new host tensor over gloo, a tensor on
+        `device` over NCCL."""
+        from torch.distributed import ScatterOptions
+
+        opts = ScatterOptions()
+        opts.rootRank = root
+        if self.backend == "gloo":
+            out = torch.empty(shape, dtype=dtype)
+            inputs = [[b.cpu().contiguous() for b in blocks]] if self.rank == root else []
+        else:
+            out = torch.empty(shape, dtype=dtype, device=device)
+            inputs = ([[b.to(device).contiguous() for b in blocks]]
+                      if self.rank == root else [])
+        self._book("scatter", out)
+        self.pg.scatter([out], inputs, opts).wait()
+        return out
 
     def broadcast(self, t: torch.Tensor, root: int = 0) -> torch.Tensor:
         """`root`'s `t` on every rank, in place (a CPU tensor)."""
@@ -327,6 +380,10 @@ class RankGroup:
         self.scratch = None  # a TemporaryDirectory the group's files live in
         self.engine = None  # the driver's engine, once mirrored
 
+    def inside(self) -> bool:
+        """Whether this thread is inside a call the group mirrors."""
+        return getattr(self._local, "inside", False)
+
     # ---------------------------------------------------------- liveness
     def check_followers(self) -> None:
         """Raise if a follower has exited."""
@@ -346,7 +403,7 @@ class RankGroup:
 
     def _mirrored(self, name: str, fn: Callable) -> Callable:
         def call(*args, **kwargs):
-            if getattr(self._local, "inside", False):
+            if self.inside():
                 return fn(*args, **kwargs)
             return self._run(name, fn, args, kwargs)
 
@@ -368,7 +425,7 @@ class RankGroup:
                 # the driver's own engine still work
                 return self._local_call(fn, args, kwargs)
             seq = self._open(name)
-            self.control.send((seq, name, self._wire(args), self._wire(kwargs)))
+            self.control.send((seq, name, self._wire(args), self._wire(kwargs), self._sync()))
             out = self._settled(name, lambda: self._local_call(fn, args, kwargs))
             if _is_handle(out):
                 self._refs[id(out)] = seq
@@ -407,7 +464,7 @@ class RankGroup:
             in_step = self.control.settle(self.engine, error is not None)
         except Exception as exc:
             reason = f"{name}: a follower did not settle ({type(exc).__name__}: {exc})"
-            lost = [i for i, p in enumerate(self.procs, start=1) if p.exitcode is not None]
+            lost = self._exited(EXIT_GRACE_S)
             if lost:
                 reason = f"{name}: tp follower rank {lost[0]} exited"
             self._break(reason)
@@ -419,6 +476,17 @@ class RankGroup:
         if error is not None:
             raise error
         return out
+
+    def _exited(self, grace_s: float) -> list[int]:
+        """The follower ranks that have exited, waiting up to `grace_s` for
+        one to show: a settle that failed on a closed connection most often
+        means a peer is dying, and its exit code comes a moment later."""
+        deadline = time.monotonic() + grace_s
+        while True:
+            lost = [i for i, p in enumerate(self.procs, start=1) if p.exitcode is not None]
+            if lost or time.monotonic() >= deadline:
+                return lost
+            time.sleep(0.01)
 
     def _local_call(self, fn, args, kwargs):
         """`fn` on the driver's engine; the calls it makes of the engine's
@@ -438,16 +506,23 @@ class RankGroup:
             return {k: self._wire(v) for k, v in value.items()}
         return value
 
-    def on_ranks(self, fn: Callable, *args) -> list:
+    def _sync(self):
+        """What a follower matches before each call: the driver's resident
+        loop state (InferenceEngine.persistent_sync)."""
+        return self.engine.persistent_sync() if self.engine is not None else None
+
+    def on_ranks(self, fn: Callable, *args, driver_kwargs: dict | None = None) -> list:
         """Run `fn(engine, *args)` on every rank of the group at once (`fn`
         a module-level function of this package: the followers import it)
         and return each rank's result, rank 0's first. Settled as a
-        mirrored call is."""
+        mirrored call is. `driver_kwargs` go to the driver's call alone
+        (buffers that must not cross the control channel whole: the
+        function hands each rank its share over the tp group)."""
         with self._lock:
             seq = self._open(fn.__name__)
-            self.control.send((seq, _FN, (fn, args), {}))
-            out = [self._settled(fn.__name__,
-                                 lambda: self._local_call(fn, (self.engine, *args), {}))]
+            self.control.send((seq, _FN, (fn, args), {}, self._sync()))
+            out = [self._settled(fn.__name__, lambda: self._local_call(
+                fn, (self.engine, *args), driver_kwargs or {}))]
             for rank in range(1, len(self.procs) + 1):
                 key = f"result/{seq}/{rank}"
                 self._wait_key(key)
@@ -470,7 +545,7 @@ class RankGroup:
             self.closed = True
             if self.broken is None and all(p.exitcode is None for p in self.procs):
                 try:
-                    self.control.send((self._seq, _EXIT, (), {}))
+                    self.control.send((self._seq, _EXIT, (), {}, None))
                 except Exception:  # a peer died meanwhile: reaped below
                     logger.exception("tp group: the exit message did not go out")
         self._reap(timeout_s)
@@ -480,7 +555,7 @@ class RankGroup:
         their own, a straggler is killed."""
         logger.error("tp group is down: %s", reason)
         self.broken = reason
-        self.closed = True
+        self.closed = True  # graftlint: ok[unguarded-attr-write] — every caller (_open, _settled) holds self._lock
         self._reap(10.0)
 
     def _reap(self, timeout_s: float) -> None:
@@ -644,7 +719,7 @@ def _serve(engine, control: Control, store, local_rank: int) -> int:
 
     while True:
         try:
-            seq, name, args, kwargs = control.recv()
+            seq, name, args, kwargs, sync = control.recv()
         except Exception:
             traceback.print_exc()
             return 3  # the driver is gone
@@ -652,6 +727,9 @@ def _serve(engine, control: Control, store, local_rank: int) -> int:
             return 0
         out, error = None, None
         try:
+            # the driver's resident loop state first: its harvests and its
+            # own drains (engine/persistent/server.py's tp design)
+            engine.follow_persistent(sync)
             if name == _FN:
                 fn, fargs = args
                 out = fn(engine, *fargs)
@@ -802,6 +880,7 @@ def prefill_logits(engine, prompt_ids: list[int]) -> torch.Tensor:
     from k8s_llm_scheduler_tpu_torch.models.llama import forward_prefill
 
     engine._await_dispatch()
+    engine.drain_for_collectives()
     tokens = torch.tensor([prompt_ids], dtype=torch.int32, device=engine.device)
     lens = torch.tensor([len(prompt_ids)], dtype=torch.int32, device=engine.device)
     with torch.no_grad():
@@ -826,6 +905,151 @@ def peak_memory(engine) -> dict:
 def loaded_packages(engine) -> list[str]:
     """The top-level packages this rank's process has imported."""
     return sorted({name.split(".")[0] for name in list(sys.modules)})
+
+
+def engine_state(engine) -> dict:
+    """This rank's weight generation and resident loop state: its
+    prefix_epoch, swap and persistent books, whether the loop is resident
+    or latched off after a wedge, and the token batches it harvested."""
+    keys = ("weight_swaps", "persistent_launches", "persistent_admissions",
+            "persistent_steps", "persistent_chunks", "persistent_wedges",
+            "prefix_prefills", "adopted_prefixes", "pinned_prefixes")
+    return {"prefix_epoch": engine.prefix_epoch,
+            "persistent_active": engine.persistent_active,
+            "persistent_wedged": engine._persistent_wedged,
+            "harvested": engine._pers_harvested,
+            "counters": engine.persistent_counter_totals(),
+            **{k: engine.stats.get(k, 0) for k in keys}}
+
+
+def param_ptrs(engine) -> list[int]:
+    """The data_ptr of every leaf of this rank's serving tree, in walk
+    order (a swap copies into them: they never move)."""
+    out = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key])
+        else:
+            out.append(node.data_ptr())
+
+    walk(engine.params)
+    return out
+
+
+# ------------------------------------------- the hot swap, a rank at a time
+def _any_rank(engine, failed: bool) -> bool:
+    """Whether any rank of the tp group failed (one all-reduce: every rank
+    calls it at the same point, so a failure on one rank alone is known to
+    all and they raise alike)."""
+    flag = torch.tensor([float(failed)], device=engine.device)
+    return bool(engine.plane.group.all_reduce(flag).item() > 0)
+
+
+def _rank_tree(engine, source: dict, model_config, device) -> dict:
+    """This rank's block of the tree `source` names ({"checkpoint_path",
+    "quantize", "seed"}: a safetensors checkpoint read a block at a time, a
+    native one placed, or the seed's draw), shaped for the model's whole
+    config, on `device`."""
+    from k8s_llm_scheduler_tpu_torch.engine.local import rank_params
+
+    return rank_params(source, model_config, engine.mesh, torch.device(device))
+
+
+def stage_swap(engine, source: dict, model_config) -> None:
+    """The `double` mode's load, outside the pause: a thread of this rank
+    restores its block of `source` onto its own device while the rank goes
+    on serving (the load issues no collective); install_swap joins it."""
+    holder = {"tree": None, "error": None, "ms": 0.0}
+
+    def load():
+        t0 = time.perf_counter()
+        try:
+            holder["tree"] = _rank_tree(engine, source, model_config, engine.device)
+            _sync_device(engine)
+        except Exception as exc:  # raised on every rank by install_swap
+            holder["error"] = exc
+        holder["ms"] = (time.perf_counter() - t0) * 1000.0
+
+    thread = threading.Thread(target=load, name="swap-stage", daemon=True)
+    holder["thread"] = thread
+    engine._swap_staging = holder
+    thread.start()
+
+
+def wait_staged(engine, timeout_s: float | None = None) -> bool:
+    """Whether this rank's staging thread has finished (waiting up to
+    `timeout_s`)."""
+    holder = engine._swap_staging
+    if holder is None:
+        return False
+    holder["thread"].join(timeout_s)
+    return not holder["thread"].is_alive()
+
+
+def install_swap(engine) -> dict:
+    """The `double` mode's install, inside the pause: once every rank's
+    block is staged, each copied into its rank's serving tensors
+    (engine.swap_params). When any rank's load failed, every rank drops
+    its staged block and raises, its serving weights untouched."""
+    holder, engine._swap_staging = engine._swap_staging, None
+    if holder is None:
+        raise RuntimeError("install_swap without a staged tree (stage_swap first)")
+    engine._await_dispatch()
+    holder["thread"].join()
+    error = holder["error"]
+    if _any_rank(engine, error is not None):
+        raise error or RuntimeError("the swap's restore failed on another tp rank")
+    t0 = time.perf_counter()
+    engine.swap_params(holder["tree"])
+    _sync_device(engine)
+    return {"load_ms": holder["ms"], "install_ms": (time.perf_counter() - t0) * 1000.0,
+            "bytes": _tree_bytes(holder["tree"])}
+
+
+def donate_swap(engine, source: dict, model_config, prior: dict | None) -> dict:
+    """The `donate` mode, inside the pause: this rank's block of `source`
+    restored to host memory and copied straight into the serving tensors.
+    When any rank failed (a read error, or a copy torn part way), every
+    rank re-restores `prior` into the same tensors and raises: no rank is
+    left on mixed weights or on weights the others do not serve."""
+    engine._await_dispatch()
+    t0 = time.perf_counter()
+    error = None
+    try:
+        engine.swap_params(_rank_tree(engine, source, model_config, "cpu"))
+        _sync_device(engine)
+    except Exception as exc:
+        error = exc
+    if _any_rank(engine, error is not None):
+        if prior is not None:
+            engine.swap_params(_rank_tree(engine, prior, model_config, "cpu"))
+        raise error or RuntimeError("the donate swap failed on another tp rank")
+    return {"install_ms": (time.perf_counter() - t0) * 1000.0}
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return int(tree.numel() * tree.element_size())
+
+
+def _sync_device(engine) -> None:
+    if engine.device.type == "cuda":
+        from k8s_llm_scheduler_tpu_torch.engine.graphs import DEVICE_WIDE
+
+        with DEVICE_WIDE:
+            torch.cuda.synchronize(engine.device)
+
+
+# ------------------------------------------- the prefix-KV plane's adoption
+def adopt_head_blocks(engine, prompt_ids: list[int], shape: tuple, k=None, v=None):
+    """Adopt a whole-model page set on every rank: the driver holds `k`
+    and `v` ([L, cap, n_kv, hd], the model's kv heads) and hands each rank
+    its contiguous block of heads over the tp group; each rank copies its
+    block into a buffer of its own (InferenceEngine.adopt_prefix_pages)."""
+    return engine._adopt_head_blocks(prompt_ids, shape, k, v)
 
 
 if __name__ == "__main__":

@@ -30,6 +30,20 @@ fit:
   the registry into the same storages before propagating (disk is the
   rollback buffer, not device memory).
 
+On a tensor-parallel serving mesh (`mesh=`, tp > 1) the swap restores a
+version directly to the serving shards, as the JAX swapper does: every
+rank reads its own block of the checkpoint (engine/local.rank_params:
+a safetensors checkpoint a block at a time, a native one placed) and
+copies it into its own serving tensors at the same barrier
+(parallel/launch.stage_swap / install_swap / donate_swap, run on every
+rank through the group's on_ranks). Only the checkpoint path and the
+quantization cross to the followers, never the tensors. `double` stages
+each rank's block on its device (with ranks sharing a card, every
+sharer's block on it); `donate` restores it to host memory inside the
+pause, and a failure on any rank re-restores the prior version on every
+rank before the swap raises. The fingerprint and the restore use the
+model's whole config, not a rank's.
+
 What a swap invalidates (everything computed under the old weights):
 - on-device prefix-KV cache + active prefix, pins (engine.swap_params);
 - the decision cache ABOVE the engine via a generation bump
@@ -99,8 +113,9 @@ class HotSwapper:
         self,
         backend,                      # LocalLLMBackend (has .engine, .run_quiesced)
         registry: CheckpointRegistry,
-        cfg,                          # the serving LlamaConfig
+        cfg,                          # the serving model's whole LlamaConfig
         *,
+        mesh=None,                    # the SERVING mesh (None = single device)
         cache=None,                   # DecisionCache to generation-bump
         kvplane=None,                 # fleet KVPlaneStore to generation-bump
         mode: str = "auto",           # auto | double | donate
@@ -114,6 +129,12 @@ class HotSwapper:
         self.backend = backend
         self.registry = registry
         self.cfg = cfg
+        self.mesh = mesh
+        plane = getattr(backend.engine, "plane", None)
+        if plane is not None and not self._sharded():
+            raise ValueError(
+                f"the engine serves tp={plane.tp}: pass mesh=engine.mesh, so each rank "
+                f"restores its own block")
         self.cache = cache
         # Shared prefix-KV plane store: its generation is the FLEET-wide
         # twin of engine.prefix_epoch — peers' published prefix pages
@@ -133,11 +154,19 @@ class HotSwapper:
             "last_mode": "",
         }
 
+    def _sharded(self) -> bool:
+        return self.mesh is not None and int(self.mesh.shape.get("tp", 1)) > 1
+
     # ----------------------------------------------------------- residency
     def _choose_mode(self) -> str:
         if self.mode != "auto":
             return self.mode
         params_bytes = _tree_bytes(self.backend.engine.params)
+        if self._sharded():
+            # the driver's block, times the ranks that stage on its card
+            mine = self.mesh.local_device_index()
+            params_bytes *= sum(self.mesh.local_device_index(r) == mine
+                                for r in self.mesh.axis_ranks("tp"))
         headroom = _device_headroom_bytes()
         if headroom is not None and headroom < params_bytes:
             logger.info(
@@ -189,7 +218,10 @@ class HotSwapper:
         engine = self.backend.engine
         prior = self.active_version
 
-        if mode == "double":
+        if self._sharded():
+            install = self._sharded_install(manifest, mode, prior)
+            _, pause_s = self.backend.run_quiesced(install)
+        elif mode == "double":
             # restore OUTSIDE the quiesced window: old params serve throughout
             with self.phases.phase("swap_load"):
                 staging = self._restore(manifest, engine.device)
@@ -238,6 +270,38 @@ class HotSwapper:
             "pause_s": pause_s,
             "mode": mode,
         }
+
+    def _source(self, manifest) -> dict:
+        """What a rank restores its block from (engine/local.rank_params)."""
+        return {"checkpoint_path": str(manifest.checkpoint_path), "quantize": self.quantize,
+                "seed": None}
+
+    def _sharded_install(self, manifest, mode: str, prior: int | None):
+        """The install a tp group runs at the barrier: each rank its own
+        block. `double` stages them first, outside the pause."""
+        from k8s_llm_scheduler_tpu_torch.parallel import launch
+
+        group = self.backend.engine.rank_group
+        source = self._source(manifest)
+        if mode == "double":
+            with self.phases.phase("swap_load"):
+                # every rank loads in a thread of its own while it serves;
+                # the driver waits for its own here, the install for all
+                group.on_ranks(launch.stage_swap, source, self.cfg)
+                launch.wait_staged(self.backend.engine)
+
+            def install():
+                with self.phases.phase("swap_install"):
+                    return group.on_ranks(launch.install_swap)
+
+            return install
+        fallback = self._source(self.registry.get(prior)) if prior is not None else None
+
+        def install():
+            with self.phases.phase("swap_install"):
+                return group.on_ranks(launch.donate_swap, source, self.cfg, fallback)
+
+        return install
 
     def rollback(self) -> dict:
         """Swap back to the version active before the last swap_to (burn-in

@@ -1,6 +1,10 @@
 """Synthetic clusters, fixture pods and an async deadline for tests, the
 chip smoke and `cli demo`.
 
+`clear_prefix_cache` and `tear_next_swap` act on one tp rank's engine,
+for a test to run on every rank through `RankGroup.on_ranks` (the
+followers import them from here).
+
 `chunk_draws` runs the fused decode loop's sampling alone over constant
 probabilities, on the CPU or captured on a card, for the tests and the chip
 smoke to hold against the softmax. `cap_torch_threads` caps a test
@@ -287,3 +291,38 @@ def chunk_draws(device: str = "cpu", *, slots: int = 64, steps: int = 16,
         "replays": runner.replays,
         "draws": draws.numel(),
     }
+
+
+def clear_prefix_cache(engine) -> None:
+    """Drop this rank's prefix cache and pins (what an adoption then has
+    to restore without a prefill)."""
+    engine._await_dispatch()
+    engine._prefix_cache.clear()
+    engine._pinned_prefix_keys.clear()
+    engine._prefix = None
+
+
+def tear_next_swap(engine, ranks: list[int]) -> None:
+    """On the tp ranks in `ranks`, make the next swap_params copy half of
+    the leaves, then raise OSError: a read error part way through a donate
+    restore."""
+    if engine.plane.rank not in ranks:
+        return
+
+    def torn(params):
+        del engine.swap_params  # the next call is the real one again
+        pairs = []
+
+        def walk(dst, src):
+            if isinstance(dst, dict):
+                for key in sorted(dst):
+                    walk(dst[key], src[key])
+            else:
+                pairs.append((dst, src))
+
+        walk(engine.params, params)
+        for dst, src in pairs[: len(pairs) // 2]:
+            dst.copy_(src)
+        raise OSError("read error half way through the candidate")
+
+    engine.swap_params = torn

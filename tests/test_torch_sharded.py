@@ -4,9 +4,10 @@ a tp=2 port engine (two processes over gloo) is token-identical, at f32
 and greedy, to the JAX engine off-mesh through generate, admit_packed +
 step_fused and a grammar-constrained decision through LocalLLMBackend;
 the refusals (ragged at tp>1, CUDA graphs over gloo, a dp serving mesh,
-indivisible heads, the paths item 9d ports); failures (a follower killed
-mid-wave, a wave that fails on one rank alone, a call every rank refuses);
-member_tp.
+indivisible heads, speculative decoding, which item 9d ports); failures (a
+follower killed mid-wave, a wave that fails on one rank alone, a call
+every rank refuses); member_tp. The hot swap, the prefix-KV plane and the
+persistent loop at tp=2 are tests/test_torch_tp_paths.py's.
 
 The micro config is served under its name from this process's registry
 (the driver resolves the model and hands its config to the follower), and
@@ -140,30 +141,26 @@ def test_decision_through_the_backend_equals_the_jax_backend(params, tp2):
 
 
 def test_unported_paths_raise_at_tp2_naming_item_9d(tp2):
+    """What tp > 1 still refuses: speculative decoding (the JAX entry
+    point keeps plain decode on a tp mesh), naming item 9d, and a
+    swap_params the driver makes alone (a swap goes through every rank)."""
     engine = tp2.engine
-    for call in (lambda: engine.swap_params(engine.params),
-                 lambda: engine.export_prefix_kv(tuple(PREFIX)),
-                 lambda: engine.adopt_prefix_pages(tuple(PREFIX), None, None),
-                 lambda: engine.enter_persistent(),
-                 lambda: engine.attach_spec(None)):
-        with pytest.raises(NotImplementedError, match="tp=2.*item 9d"):
-            call()
+    with pytest.raises(NotImplementedError, match="speculative decoding at tp=2.*item 9d"):
+        engine.attach_spec(None)
+    with pytest.raises(RuntimeError, match="swaps one rank"):
+        engine.swap_params(engine.params)
     # the group still serves after the refusals
     assert engine.generate(PROMPTS[2], max_new_tokens=2).token_ids
 
 
-@pytest.mark.parametrize("case", ["ragged", "persistent", "dp2", "indivisible"])
+@pytest.mark.parametrize("case", ["ragged", "dp2", "indivisible"])
 def test_build_refusals(case, micro):
     """Refused before a follower is spawned: ragged at tp>1 and a dp
     serving mesh in the JAX package's words, indivisible heads with the
-    JAX message, the persistent loop naming item 9d."""
+    JAX message."""
     if case == "ragged":
         with pytest.raises(ValueError, match="single-device-only"):
             _build(micro, decode_matmul="ragged")
-        return
-    if case == "persistent":
-        with pytest.raises(NotImplementedError, match="persistent loop at tp=2.*item 9d"):
-            _build(micro, persistent_loop=True)
         return
     axes = {"dp": 2} if case == "dp2" else {"tp": 4}
     with pytest.raises(ValueError) as jerr:
@@ -181,10 +178,10 @@ def test_engine_refusals_and_the_graphs_rule(params):
     with pytest.raises(ValueError, match="single-device-only"):
         InferenceEngine(shard, TMICRO, ByteTokenizer(), mesh=m, decode_matmul="ragged")
     with pytest.raises(ValueError, match="graphs=True over a gloo tp group on CUDA"):
-        check_tp_serving(2, "gloo", "cuda", True, "dense", False)
-    check_tp_serving(2, "nccl", "cuda", True, "dense", False)
-    check_tp_serving(2, "gloo", "cuda", False, "dense", False)
-    check_tp_serving(2, "gloo", "cpu", True, "dense", False)
+        check_tp_serving(2, "gloo", "cuda", True, "dense")
+    check_tp_serving(2, "nccl", "cuda", True, "dense")
+    check_tp_serving(2, "gloo", "cuda", False, "dense")
+    check_tp_serving(2, "gloo", "cpu", True, "dense")
     assert launch.choose_backend([0, 0]) == "gloo"
 
 

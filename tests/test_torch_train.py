@@ -12,6 +12,9 @@
   1e-3 * lr except where |JAX grad| < 1e-6 (there Adam's first step is
   +-lr and may flip sign: fewer than 0.1% of the elements). Three steps'
   losses within 1e-4.
+- One bf16 step's gradients against the same package's f32 ones: every
+  leaf of the port (the tied embedding first) within 1.5x the JAX step's
+  distance from f32 (both land near 0.02 at TINY).
 - The cosine schedule's learning rates equal optax's over 20 steps (rtol
   1e-6); `remat=True` against `remat=False`: losses and gradients within
   1e-6.
@@ -273,6 +276,56 @@ def test_remat_matches_plain_forward():
     assert abs(l0 - l1) <= 1e-6
     for a, b in zip(g0, g1):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+BF16_GRAD_FACTOR = 1.5  # the port's distance from f32 over the JAX step's
+
+
+def _rel(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.linalg.norm(a - b) / max(float(np.linalg.norm(b)), 1e-30))
+
+
+def test_bf16_embedding_gradient_lands_as_far_from_f32_as_the_jax_step():
+    """One bf16 step's gradients against the same package's f32 gradients,
+    on the same weights and batch (TINY ties its embeddings, so `embed`
+    sums the lookup's scatter and the head's product): every leaf of the
+    port, `embed` first, is no further from f32 than BF16_GRAD_FACTOR
+    times the JAX step's distance for that leaf, and `embed` no further
+    than the port's farthest other leaf (on this config both packages
+    land near 0.02 for every leaf)."""
+    np_params = _jax_params(seed=7)
+    batch = _batch(seed=8)
+
+    def jax_grads(dtype):
+        cfg = dataclasses.replace(JTINY, dtype=dtype)
+        params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), np_params)
+
+        def loss_fn(p):
+            logits, _, _ = jforward_prefill(p, cfg, batch[0], batch[1], remat=True)
+            return jts.causal_lm_loss(logits, batch[0], batch[1], batch[2], batch[3])
+
+        grads = jax.jit(jax.grad(loss_fn))(params)
+        return {k: np.asarray(v, np.float32) for k, v in _flat(grads).items()}
+
+    def port_grads(dtype):
+        cfg = dataclasses.replace(TTINY, dtype=dtype)
+        init_fn, step_fn = make_train_step(
+            cfg, "cpu", optimizer=lambda leaves: torch.optim.SGD(leaves, lr=0.0))
+        params = jax.tree_util.tree_map(lambda t: t.to(dtype),
+                                        params_from_jax(np_params, device="cpu"))
+        state, _ = step_fn(init_fn(params), *step_fn.place_batch(*batch))
+        return {k: v.grad.float().numpy() for k, v in _flat(state.params).items()}
+
+    j32, j16 = jax_grads(jnp.float32), jax_grads(jnp.bfloat16)
+    t32, t16 = port_grads(torch.float32), port_grads(torch.bfloat16)
+    assert sorted(t16) == sorted(j16)
+    jax_err = {k: _rel(j16[k], j32[k]) for k in j32}
+    port_err = {k: _rel(t16[k], t32[k]) for k in t32}
+    print("bf16 gradient's distance from f32 (JAX, port): "
+          + ", ".join(f"{k} {jax_err[k]:.4f} {port_err[k]:.4f}" for k in sorted(jax_err)))
+    for name in sorted(port_err, key=lambda k: k != "embed"):
+        assert port_err[name] <= BF16_GRAD_FACTOR * jax_err[name], (name, port_err, jax_err)
+    assert port_err["embed"] <= max(v for k, v in port_err.items() if k != "embed")
 
 
 def test_return_hidden_is_the_pre_norm_residual():
