@@ -406,11 +406,24 @@ Phases, each of which must pass:
    thread deciding each iteration): the TP_PODS suffixes through the
    command ring equal to decode_fused's streams, every rank's counter
    block equal, K1 and K2 launched in the admissions and equal across the
-   ranks.
-6n. Train parallel 1B (a child process started once the 8B backend is
-   closed, beside tp 8B, the TINY phases, cli complete's child, train 1B
-   and learn 1B; joined before the timed kernel phases): the
-   training mesh of train/train_step.py and train/pipeline.py, one
+   ranks. Between the plane and the loop, the plane's d2d transport between
+   two tp groups: once cli complete's 8B child has exited (waiting for it
+   if need be), a second tp group of the same model from seed 0 with its
+   paged KV cut to TP_D2D_PAGES (the card's free memory printed before its
+   build); the first group exports the pinned prefix `d2d` (each rank's
+   block left in its export table, rank 1's behind a CUDA IPC handle) and
+   the second adopts it (each rank copying the first's same-rank block
+   device to device): its wave equal to the local prefill's, no prefix
+   prefill on its ranks, no tp collective booked by either group for the
+   export or the adoption, K1 and K2 launched on both of its ranks (counts
+   zeroed just before its wave), and every first-group rank's export table
+   empty once the page set is dropped; export and adopt ms beside the host
+   arm's. tp 8B's reasoning cap of 8 (16) and resident streams of 4 tokens
+   (8) pay for part of it.
+6n. Train parallel 1B (a child process started once tp 8B's d2d arm has
+   closed its second group, beside tp 8B's resident loop, the TINY
+   phases, train 1B and learn 1B; joined before the timed kernel phases):
+   the training mesh of train/train_step.py and train/pipeline.py, one
    process a rank (parallel/launch.run_spmd: the child is rank 0 and
    spawns rank 1), both ranks on the one card over gloo staged through
    pinned host buffers (NCCL's branch, one card a rank, is written but
@@ -462,7 +475,8 @@ Phases, each of which must pass:
    the 8B decision path's geometry (`TP_K1_CASES`, `TP_K2_CASES`,
    `TP_K4_CASES`), held and timed as above; Llama-3.1-8B at tp 2 (16 over
    4), the tp 8B phase's shapes, held (`TP_HELD_*`). Each kernel's entry of
-   the result line gains `tp_launches` (each rank's, from the tp 8B phase)
+   the result line gains `tp_launches` (each rank's, from the tp 8B phase),
+   `tp_d2d_launches` (each adopter rank's, in the d2d arm's wave)
    and `tp_shapes` (these records).
 
 The last lines are a JSON object with per-kernel numbers, the card's name
@@ -6080,13 +6094,16 @@ TP_PODS = 4  # the burst
 TP_REF_TOKENS = 64  # the first call: a whole-prompt prefill of these tokens
 TP_LOGIT_TOL = 5e-2  # max |tp 2 - tp 1| over max |tp 1 logit|: bf16, one rounding moved
 TP_GEN_TOKENS = 16
-TP_REASON_TOKENS = 16  # the decisions' reasoning cap (320 by default): fewer model calls
+# the decisions' reasoning cap (320 by default): fewer model calls, which
+# pay for the swap, plane and loop checks and the d2d arm's second group
+TP_REASON_TOKENS = 8
 # The tp group's hot swap, prefix-KV plane and resident loop (PR 21):
 TP_SWAP_SEED = 1  # the second tree: seed 1's, each rank drawing its block
 TP_SWAP_TOKENS = 4  # the unconstrained wave compared before, between and after the swaps
 TP_SWAP_MARGIN = 2 << 30  # free memory kept beside the staged blocks
 TP_PLANE_NODES = 32  # the plane's prefix: the decision phase's 5,488 tokens
-TP_LOOP_TOKENS = 8  # each resident stream
+TP_LOOP_TOKENS = 4  # each resident stream
+TP_D2D_PAGES = 64  # the d2d adopter's paged KV (one wave, no paged decode): 0.25 GiB a rank
 TP_LOOP_BUCKET = 256  # the loop's admission bucket: the decision suffixes fit
 # K1/K2/K4 at one rank's shapes: Llama-3.3-70B at tp 8 (8 q heads over 1 kv
 # head, group 8, hd 128) at the 8B decision path's geometry, timed; and
@@ -6290,7 +6307,7 @@ def tp_plane_check(backend, prefix, suffixes) -> tuple[bool, dict]:
     adopted = _tp_wave(eng, prefix, suffixes, TP_SWAP_TOKENS)
     after = group.on_ranks(launch.engine_state)
     cfg = eng.model_config
-    rec = {"prefix_tokens": len(prefix), "pages_shape": list(pages.k.shape),
+    rec = {"local_wave": local, "prefix_tokens": len(prefix), "pages_shape": list(pages.k.shape),
            "geometry": pages.geometry.describe(), "bytes": pages.nbytes,
            "bytes_a_rank": pages.nbytes // TP, "pinned_host": bool(pages.k.is_pinned()),
            "local_prefill_ms": local_ms, "export_ms": export_ms, "adopt_ms": adopt_ms,
@@ -6306,6 +6323,96 @@ def tp_plane_check(backend, prefix, suffixes) -> tuple[bool, dict]:
           f"({pages.nbytes / 2**30:.2f} GiB), local prefill {local_ms:.1f} ms, export "
           f"{export_ms:.1f} ms, adopt {adopt_ms:.1f} ms; checks {rec['checks']} ok={ok}",
           flush=True)
+    return ok, rec
+
+
+def tp_d2d_check(backend, prefix, suffixes, plane, complete_started) -> tuple[bool, dict]:
+    """The plane's d2d transport between two tp groups: tp 8B's group (the
+    filler, `backend`, its pinned 5,488-token prefix and `suffixes` from
+    tp_plane_check, whose record is `plane`) and a second tp group of
+    TP_MODEL at full width and depth from seed 0, built as tp 8B's but with
+    TP_D2D_PAGES pages of paged KV, once cli complete's 8B child has exited
+    (the card's free memory printed first). The second adopts the prefix's
+    pages exported `d2d` by the first (each rank's 512 MiB block left in
+    its export table, rank 1's behind a CUDA IPC handle; each adopter rank
+    copies the filler's same-rank block device to device), then runs the
+    wave; the page set is dropped; the second group closes. Fails unless it
+    was built, the wave equals the first group's local prefill's, no
+    adopter rank prefilled, neither group booked a tp collective for the
+    export or the adoption, rank 1's handles were CUDA IPC, K1 and K2
+    launched on both adopter ranks in its wave (counts zeroed just before
+    it), and every filler rank's export table is empty once the page set
+    is gone. Prints export and adopt ms beside the host arm's."""
+    import torch
+    from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
+    from k8s_llm_scheduler_tpu_torch.fleet.kvplane import adopt_pages, export_pages
+    from k8s_llm_scheduler_tpu_torch.parallel import launch
+
+    rec = {"waited_s": 0.0}
+    if complete_started is not None:
+        rec["waited_s"] = _wait_complete_child(complete_started)
+    rec["free_before_build"] = torch.cuda.mem_get_info()[0]
+    print(f"tp 8B d2d: free {rec['free_before_build'] / 2**30:.2f} GiB before the "
+          f"adopter's build (waited {rec['waited_s']:.1f} s for cli complete's child)",
+          flush=True)
+    t0 = time.perf_counter()
+    try:
+        abackend = build_local_backend(
+            TP_MODEL, device="cuda", seed=0, mesh_axes={"tp": TP}, graphs=False,
+            temperature=0.0, packed_admission=False, num_pages=TP_D2D_PAGES,
+            max_pages_per_seq=TP_D2D_PAGES, paged_attn="pallas",
+            max_reason_tokens=TP_REASON_TOKENS, request_timeout_s=600.0,
+            prewarm_idle_delay_s=NO_PREWARM_S)
+    except Exception as exc:  # a check that failed, not the phase's end
+        rec["error"] = f"{type(exc).__name__}: {exc}"
+        print(f"tp 8B d2d: the adopter was not built ({rec['error']}) ok=False", flush=True)
+        return False, rec
+    rec["build_s"] = time.perf_counter() - t0
+    try:
+        eng, group = backend.engine, backend.engine.rank_group
+        aeng, agroup = abackend.engine, abackend.engine.rank_group
+        books = [g.on_ranks(launch.rank_collectives) for g in (group, agroup)]
+        before = agroup.on_ranks(launch.engine_state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pages = export_pages(eng, tuple(prefix), generation=0, filler="tp8b", transport="d2d")
+        rec["export_ms"] = (time.perf_counter() - t0) * 1000.0
+        t0 = time.perf_counter()
+        adopt_pages(aeng, pages)
+        torch.cuda.synchronize()
+        rec["adopt_ms"] = (time.perf_counter() - t0) * 1000.0
+        booked = [g.on_ranks(launch.rank_collectives) for g in (group, agroup)]
+        export_id = pages.k.export.export_id
+        rec.update(pages_shape=list(pages.k.shape), bytes=pages.nbytes,
+                   handles=[h["kind"] for pair in pages.k.export.handles for h in pair],
+                   tables_held=group.on_ranks(launch.export_table))
+        agroup.on_ranks(launch.reset_launch_counts)
+        wave = _tp_wave(aeng, prefix, suffixes, TP_SWAP_TOKENS)
+        rec["launches"] = agroup.on_ranks(launch.launch_counts)
+        after = agroup.on_ranks(launch.engine_state)
+        del pages
+        gc.collect()
+        rec["tables_after_drop"] = group.on_ranks(launch.export_table)
+    finally:
+        abackend.close()
+    rec["prefix_prefills_after_adopt"] = [a["prefix_prefills"] - b["prefix_prefills"]
+                                          for a, b in zip(after, before)]
+    counts = rec["launches"]
+    rec["checks"] = {"tokens_equal": wave == plane["local_wave"],
+                     "no_prefix_prefill": rec["prefix_prefills_after_adopt"] == [0] * TP,
+                     "no_collectives": booked == books,
+                     "cuda_ipc": rec["handles"] == ["cuda", "cuda"] * (TP - 1),
+                     "tables_held": rec["tables_held"] == [[export_id]] * TP,
+                     "k1_k2_launched": (counts[0] == counts[1] and counts[0]["K1"] > 0
+                                        and counts[0]["K2"] > 0),
+                     "tables_empty": rec["tables_after_drop"] == [[]] * TP}
+    ok = all(rec["checks"].values())
+    print(f"tp 8B d2d: pages {rec['pages_shape']} ({rec['bytes'] / 2**30:.2f} GiB, "
+          f"{rec['bytes'] // TP / 2**20:.0f} MiB a rank), adopter built in "
+          f"{rec['build_s']:.1f} s; export {rec['export_ms']:.1f} ms, adopt "
+          f"{rec['adopt_ms']:.1f} ms (host arm: export {plane['export_ms']:.1f}, adopt "
+          f"{plane['adopt_ms']:.1f}); adopter launches {counts} | {_smi()} | checks "
+          f"{rec['checks']} ok={ok}", flush=True)
     return ok, rec
 
 
@@ -6351,7 +6458,8 @@ def tp_loop_check(eng, prefix, suffixes) -> tuple[bool, dict]:
     return ok, rec
 
 
-def tp_8b_phase(ref, tp1_per_call, complete_started=None) -> tuple[bool, dict]:
+def tp_8b_phase(ref, tp1_per_call, complete_started=None,
+                after_d2d=None) -> tuple[bool, dict]:
     """Llama-3.1-8B at full width and depth served tensor parallel: TP
     ranks, this process and one it spawns, sharing the card over gloo,
     eager (gloo's host collectives cannot be captured), each rank's shard
@@ -6361,7 +6469,9 @@ def tp_8b_phase(ref, tp1_per_call, complete_started=None) -> tuple[bool, dict]:
     rank's K1/K2/K4 launches and K1 launches per model call against tp
     1's (`tp1_per_call`), wall time and each rank's peak memory. Then, in
     the same group: the hot swap (tp_swap_check), the prefix-KV plane
-    (tp_plane_check) and the resident loop (tp_loop_check)."""
+    (tp_plane_check), the plane's d2d transport to a second group
+    (tp_d2d_check; `after_d2d` is called once that group is closed) and
+    the resident loop (tp_loop_check)."""
     import torch
     from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
     from k8s_llm_scheduler_tpu_torch.parallel import launch
@@ -6444,9 +6554,16 @@ def tp_8b_phase(ref, tp1_per_call, complete_started=None) -> tuple[bool, dict]:
         rec["swap"]["s"] = time.perf_counter() - t4
         plane_items = [backend._prepare_item(p, synthetic_nodes(TP_PLANE_NODES)) for p in pods]
         t4 = time.perf_counter()
+        plane_suffixes = [it.suffix_ids for it in plane_items]
         plane_ok, rec["plane"] = tp_plane_check(backend, plane_items[0].prefix_ids,
-                                                [it.suffix_ids for it in plane_items])
+                                                plane_suffixes)
         rec["plane"]["s"] = time.perf_counter() - t4
+        t4 = time.perf_counter()
+        d2d_ok, rec["d2d"] = tp_d2d_check(backend, plane_items[0].prefix_ids, plane_suffixes,
+                                          rec["plane"], complete_started)
+        rec["d2d"]["s"] = time.perf_counter() - t4
+        if after_d2d is not None:
+            after_d2d()
         t4 = time.perf_counter()
         loop_ok, rec["persistent"] = tp_loop_check(eng, items[0].prefix_ids,
                                                    [it.suffix_ids for it in items])
@@ -6455,10 +6572,10 @@ def tp_8b_phase(ref, tp1_per_call, complete_started=None) -> tuple[bool, dict]:
     finally:
         backend.close()
     ok = (logits_ok and decide_ok and calls_ok and launch_ok and gen_ok and swap_ok
-          and plane_ok and loop_ok)
+          and plane_ok and d2d_ok and loop_ok)
     rec["checks"] = {"logits": logits_ok, "decisions": decide_ok, "k1_per_call": calls_ok,
                      "launches": launch_ok, "generate": gen_ok, "swap": swap_ok,
-                     "plane": plane_ok, "persistent": loop_ok}
+                     "plane": plane_ok, "d2d": d2d_ok, "persistent": loop_ok}
     print(f"tp 8B: first call rel err {rec['first_call']['rel_err']:.4g} (tol {TP_LOGIT_TOL}), "
           f"single {rec['single_s']:.1f} s, burst of {TP_PODS} {rec['burst_s']:.1f} s, "
           f"generate {rec['generate']['tokens']} tokens {rec['generate']['s']:.1f} s, "
@@ -6555,9 +6672,18 @@ def main() -> int:
     # child trains its layouts; tp 8B's two ranks, the TINY phases, train 1B
     # and learn 1B run beside them, the timed kernel phases after them
     complete_child = start_complete()
-    train_par_child = start_train_parallel()  # beside tp 8B and the TINY phases
+    # train parallel 1B's child starts once tp 8B's d2d arm has closed its
+    # second group: that group, tp 8B's and the training child's step do
+    # not fit on the card at once, nor the swap's staging beside cli
+    # complete's 8B child and that step
+    train_par = {}
+
+    def start_train_par():
+        train_par["child"] = start_train_parallel()
+
     tp_ok, tp8 = _timed_phase("tp 8B", tp_8b_phase, tp_ref, dec["k1_per_call_by_step"],
-                              complete_child)
+                              complete_child, after_d2d=start_train_par)
+    train_par_child = train_par["child"]
     gc.collect()
     torch.cuda.empty_cache()
     ck_ok, ckpt = _timed_phase("checkpoint", checkpoint_phase)
@@ -6577,9 +6703,12 @@ def main() -> int:
     tpk_ok, tpk = _timed_phase("tp kernels", tp_kernel_phase)
 
     def tp_fields(kernel):
-        # each rank's launches in the tp 8B phase's run, and the kernel at
-        # one rank's shapes (70B tp 8 timed, 8B tp 2 held)
+        # each rank's launches in the tp 8B phase's run and in its d2d
+        # adopter's wave, and the kernel at one rank's shapes (70B tp 8
+        # timed, 8B tp 2 held)
         return {"tp_launches": {f"rank{r}": c[kernel] for r, c in enumerate(tp8["launches"])},
+                "tp_d2d_launches": {f"rank{r}": c[kernel] for r, c in enumerate(
+                    tp8["d2d"].get("launches") or [])},
                 "tp_shapes": [{k: rec.get(k) for k in (
                     "step", "shape", "ok", "max_abs_err", "ms", "ms_hot", "plain_ms",
                     "bound_ms", "bound_by", "library_ms")} for rec in tpk.get(kernel, [])]}

@@ -94,23 +94,26 @@ engine/engine.py).
     donate_swap, run on every rank through RankGroup.on_ranks;
     rollout/hotswap.HotSwapper(mesh=)); `swap_params` itself takes a
     rank's block, and the driver refuses a call made of it alone;
-  - the prefix-KV plane ships the whole model's kv heads: an export
-    gathers the ranks' head blocks into the driver's host memory, an
+  - the prefix-KV plane ships the whole model's kv heads: a `host` export
+    gathers the ranks' head blocks into the driver's host memory, and its
     adoption hands each rank its own block over the tp group
-    (`_adopt_head_blocks`);
+    (`_adopt_head_blocks`); a `d2d` export leaves each rank's block in
+    that rank's export table (`export_prefix_blocks`), and its adoption
+    has each rank copy the filler's same-rank block device to device
+    (`_adopt_block`), no byte through the driver or a collective;
   - the persistent loop runs a resident thread on every rank, the
     driver's deciding every iteration (engine/persistent/server.py);
   - `decode_matmul="ragged"` is refused as in the JAX engine, CUDA graphs
     over a gloo group too, and speculative decoding (`attach_spec`) raises
     NotImplementedError naming ROADMAP queue 1 item 9d, as the JAX entry
-    point keeps plain decode on a tp mesh; the plane's `d2d` transport
-    raises naming item 9e (fleet/kvplane/pages.py).
+    point keeps plain decode on a tp mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import queue
 import threading
 import time
@@ -924,6 +927,11 @@ class InferenceEngine:
         # generation; a hot swap (swap_params) bumps it.
         self._pinned_prefix_keys: set[tuple[int, ...]] = set()
         self.prefix_epoch = 0
+        # At tp > 1, this rank's d2d exports (export_prefix_blocks): export
+        # id -> ((k, v) of the exported entry, the handles shared of them).
+        # The entry keeps living here after an eviction or a swap, until
+        # the driver releases it (parallel/launch.ExportBook).
+        self._kv_exports: dict[int, tuple[tuple[torch.Tensor, torch.Tensor], list]] = {}
         # Packed admission (admit_packed): the chunk width of the packed
         # prefill; the host buffers of decode chunks piggybacked between
         # pack chunks park here until the next step() harvest.
@@ -1248,7 +1256,8 @@ class InferenceEngine:
         gathered over the tp group into the driver's host memory (pinned
         when the ranks serve on a card), so the driver returns the whole
         model's [L, cap, n_kv, hd] host buffers, as the JAX engine's export
-        of a head-sharded entry holds every head, and a follower None."""
+        of a head-sharded entry holds every head, and a follower None. The
+        `d2d` transport at tp > 1 exports through export_prefix_blocks."""
         pfx = self._prefix_cache.get(tuple(key))
         if pfx is None:
             return None
@@ -1259,6 +1268,67 @@ class InferenceEngine:
         k = self.plane.group.gather_to_root(pfx.k, dim=2)
         v = self.plane.group.gather_to_root(pfx.v, dim=2)
         return None if k is None else (k, v)
+
+    def export_prefix_blocks(self, key: tuple[int, ...]) -> tuple[int, list] | None:
+        """The `d2d` export at tp > 1 (fleet/kvplane/pages.export_pages),
+        on the driver: every rank registers its block of `key`'s cached KV
+        in its own export table under a new export id, which keeps the
+        block alive whatever the rank's cache does next, and hands out
+        rank 0's (k, v) tensors and each other rank's (k, v) pair of
+        handles (parallel/ipc.py: CUDA IPC on a card, files under the
+        group's scratch directory on the CPU). Returns (export id, that
+        list, rank 0's first), or None when the entry is not resident. No
+        byte crosses a collective or the control channel.
+
+        The group's ExportBook decides when the ranks drop the block: once
+        the page set that holds it is collected (its finalizer tells the
+        book), or once this engine's prefix_epoch moves on (a swap), each
+        at the group's next call or right after the call that bumped it."""
+        group = self.rank_group
+        if group is None:
+            raise RuntimeError("export_prefix_blocks is a tp > 1 driver's call")
+        from k8s_llm_scheduler_tpu_torch.parallel.launch import export_kv_blocks
+
+        export_id = group.exports.open(self.prefix_epoch)
+        try:
+            out = group.on_ranks(export_kv_blocks, tuple(key), export_id, group.scratch.name)
+        except BaseException:
+            group.exports.dropped(export_id)  # whatever a rank registered goes
+            raise
+        if out[0] is None:
+            group.exports.dropped(export_id)
+            return None
+        return export_id, out
+
+    def _export_block(self, key: tuple[int, ...], export_id: int, scratch: str):
+        """This rank's part of export_prefix_blocks."""
+        from k8s_llm_scheduler_tpu_torch.parallel import ipc
+
+        self._await_dispatch()
+        pfx = self._prefix_cache.get(key)
+        if pfx is None:
+            return None
+        kv = (pfx.k, pfx.v)
+        rank = self.plane.rank
+        if rank == 0:
+            self._kv_exports[export_id] = (kv, [])
+            return kv
+        if self.device.type == "cuda":
+            with DEVICE_WIDE:  # another process reads the block: it must be whole
+                torch.cuda.synchronize(self.device)
+        handles = [ipc.share(t, os.path.join(scratch, f"kv-{export_id}-rank{rank}-{name}.bin"))
+                   for name, t in zip("kv", kv)]
+        self._kv_exports[export_id] = (kv, handles)
+        return tuple(handles)
+
+    def _release_exports(self, ids: list[int]) -> None:
+        """Drop the exports `ids` from this rank's export table."""
+        from k8s_llm_scheduler_tpu_torch.parallel import ipc
+
+        for export_id in ids:
+            _, handles = self._kv_exports.pop(export_id, (None, []))
+            for handle in handles:
+                ipc.discard(handle)
 
     @torch.no_grad()
     def adopt_prefix_pages(
@@ -1283,7 +1353,11 @@ class InferenceEngine:
         them, then every rank takes its contiguous block of heads over the
         tp group, 1/tp of the bytes each (parallel/launch.adopt_head_blocks
         through RankGroup.on_ranks: the buffers never cross the control
-        channel), so the adopted entry lands as a local prefill's does."""
+        channel), so the adopted entry lands as a local prefill's does.
+        A tp > 1 `d2d` page set (fleet/kvplane/pages.RankBlocks: the whole
+        model's shape, one block a rank) goes device to device instead:
+        each rank copies the filler's same-rank block (`_adopt_block`), and
+        the filler's ExportBook keeps the blocks from release meanwhile."""
         if not prompt_ids:
             raise ValueError("cannot adopt an empty prefix")
         key = tuple(prompt_ids)
@@ -1302,10 +1376,20 @@ class InferenceEngine:
                 f"this engine needs [L={want[0]}, cap>={n}, "
                 f"n_kv={want[1]}, hd={want[2]}]"
             )
+        from k8s_llm_scheduler_tpu_torch.fleet.kvplane.pages import RankBlocks
+
+        blocks = isinstance(k, RankBlocks)
+        if blocks and (not isinstance(v, RankBlocks) or v.export is not k.export
+                       or self.plane is None or k.export.tp != self.plane.tp):
+            raise ValueError(
+                f"d2d pages of a tp={k.export.tp} group adopt on an engine of the same tp "
+                f"only, their k and v of one export")
         if self.plane is not None:
             if self.rank_group is None:
                 raise RuntimeError(
                     "a tp rank adopts prefix pages through its driver's call")
+            if blocks:
+                return self._adopt_rank_blocks(list(prompt_ids), k.export)
             from k8s_llm_scheduler_tpu_torch.parallel.launch import adopt_head_blocks
 
             return self.rank_group.on_ranks(adopt_head_blocks, list(prompt_ids), kshape,
@@ -1318,6 +1402,53 @@ class InferenceEngine:
             for t in (k, v)
         )
         return self._install_adopted(key, k_d, v_d)
+
+    def _adopt_rank_blocks(self, prompt_ids: list[int], export) -> tuple[tuple[int, ...], int]:
+        """The driver's side of a d2d adoption at tp > 1: hold the filler's
+        export, then every rank copies its block (launch.adopt_kv_blocks)."""
+        from k8s_llm_scheduler_tpu_torch.parallel.launch import adopt_kv_blocks
+
+        book = export.group.exports
+        if not book.hold(export.export_id, export.group.engine.prefix_epoch):
+            raise RuntimeError(
+                f"the d2d prefix pages of {export.filler!r} were released (evicted from "
+                "the plane, the filler's weights swapped, or its group closed)")
+        try:
+            k0, v0 = export.local
+            return self.rank_group.on_ranks(
+                adopt_kv_blocks, prompt_ids, export.export_id, export.handles,
+                export.group is self.rank_group, export.filler,
+                driver_kwargs={"k": k0, "v": v0})[0]
+        finally:
+            book.unhold(export.export_id)
+
+    @torch.no_grad()
+    def _adopt_block(self, prompt_ids: list[int], export_id: int, handles: list, own: bool,
+                     filler: str, k=None, v=None) -> tuple[tuple[int, ...], int]:
+        """One tp rank's part of a d2d adoption: the filler's same-rank
+        block copied into buffers of this rank's own (rank 0 from `k`, `v`,
+        a rank of the filler's own group from its export table, any other
+        rank through the handles its filler rank shared)."""
+        from k8s_llm_scheduler_tpu_torch.parallel import ipc
+
+        self._await_dispatch()
+        rank = self.plane.rank
+        if k is None and own:
+            k, v = self._kv_exports[export_id][0]
+        if k is not None:
+            k_d, v_d = (torch.empty(t.shape, dtype=self.cfg.dtype, device=self.device).copy_(t)
+                        for t in (k, v))
+            return self._install_adopted(tuple(prompt_ids), k_d, v_d)
+        mine = list(handles[rank - 1])
+        k_d, v_d = (torch.empty(h["shape"], dtype=self.cfg.dtype, device=self.device)
+                    for h in mine)
+        try:
+            ipc.copy_shared(mine, [k_d, v_d])
+        except (OSError, RuntimeError, ValueError) as exc:
+            raise RuntimeError(
+                f"tp rank {rank} could not open the d2d prefix pages of {filler!r} "
+                f"(export {export_id}): {exc}") from exc
+        return self._install_adopted(tuple(prompt_ids), k_d, v_d)
 
     @torch.no_grad()
     def _adopt_head_blocks(self, prompt_ids: list[int], shape: tuple, k=None, v=None):
@@ -1712,6 +1843,7 @@ class InferenceEngine:
         self._prefix = self._empty_prefix = None
         self._prefix_cache.clear()
         self._pinned_prefix_keys.clear()
+        self._release_exports(list(self._kv_exports))
         self._static_prefix.clear()
         self._wave_variants.clear()
         self._wave_compiled.clear()

@@ -158,6 +158,14 @@ class CommandRing:
             self._cond.notify_all()
             return cmd
 
+    def put_back(self, cmd: Command) -> None:
+        """Return a command take() handed out, at the head: the loop was
+        stopped before it ran it (PersistentServer._poll)."""
+        with self._cond:
+            self._items.appendleft(cmd)
+            self.taken -= 1
+            self._cond.notify_all()
+
     def wait_nonempty(self, timeout_s: float) -> bool:
         """Park the poll callback briefly when the loop is idle (no
         active slots, no commands) so an idle resident loop doesn't

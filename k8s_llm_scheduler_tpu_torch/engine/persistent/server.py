@@ -385,6 +385,14 @@ class PersistentServer:
             self.heartbeat.beat()
             cmd = self.commands.take()
         if self._force_stop and (cmd is None or cmd.op != OP_QUIESCE):
+            if cmd is not None:
+                # the watchdog's stop landed between the take and the run: an
+                # ADMIT dropped here would leave its request live with no
+                # prefill (and at tp > 1 a follower's copy still on its
+                # ring). Back on the ring, exit_persistent finishes it
+                # truncated on every rank. (The JAX loop's _device_poll drops
+                # it.)
+                self.commands.put_back(cmd)
             cmd = Command(op=OP_QUIESCE)
         return cmd if cmd is not None else Command(op=OP_NOOP)
 

@@ -25,13 +25,19 @@ without recomputing or resharding:
   are torch tensors and not numpy arrays because numpy holds no bfloat16.
   `d2d` page sets carry the filler's device tensors by reference
   (in-process fleets on one card: adoption is a device-to-device copy
-  with no host round-trip). A tp > 1 filler exports the whole model's
-  heads gathered from its ranks into the driver's host memory, so it
-  ships `host` pages only: its `d2d` export raises (ROADMAP queue 1 item
-  9e: a peer's rank-r block would have to cross into another process's
-  rank r). Either way the adopter copies the pages into
-  a buffer it owns (engine.adopt_prefix_pages), so a later write to the
-  filler's buffer never reaches an adopted entry.
+  with no host round-trip). At tp > 1 a `host` export gathers the whole
+  model's heads from the ranks into the driver's host memory; a `d2d`
+  export leaves each rank's block on its rank, in that rank's export table
+  (engine.export_prefix_blocks), and the page set's `k` and `v` are
+  RankBlocks: the whole model's shape, dtype and bytes, holding rank 0's
+  tensors (the driver's own) and each other rank's handle (parallel/
+  ipc.py). An adopting tp group's rank r copies the filler's rank-r block
+  device to device; the bytes never pass through the driver, the control
+  channel, a collective or host memory. The blocks live until the page
+  set is collected or the filler's weights change (parallel/launch.
+  ExportBook). Either way the adopter copies the pages into a buffer it
+  owns (engine.adopt_prefix_pages), so a later write to the filler's
+  buffer never reaches an adopted entry.
 - the **store generation** they were published under (store.py): the
   fleet-wide twin of `engine.prefix_epoch` — a hot swap bumps it once
   and every replica's next lookup refuses pre-swap pages.
@@ -41,12 +47,11 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
+import weakref
 from typing import Any, Sequence
 
 import torch
-
-# The ROADMAP queue 1 item that ports the d2d transport to tp > 1 fillers.
-D2D_TP_ITEM = "9e"
 
 
 class KVGeometryError(RuntimeError):
@@ -126,7 +131,7 @@ class PrefixPageSet:
     digest: str                 # page_digest(token_ids)
     token_ids: tuple[int, ...]
     geometry: KVGeometry
-    k: Any                      # [L, cap, n_kv, hd]; torch.Tensor | np.ndarray
+    k: Any                      # [L, cap, n_kv, hd]; torch.Tensor | np.ndarray | RankBlocks
     v: Any
     transport: str              # "host" | "d2d"
     generation: int             # store generation at publish time
@@ -148,6 +153,32 @@ class PrefixPageSet:
         return len(self.token_ids)
 
 
+class D2DExport:
+    """One tp > 1 filler's `d2d` export of one entry: rank 0's (k, v)
+    tensors, each other rank's (k, v) handles in rank order, and the
+    filler's tp group, whose ExportBook is told when this object goes."""
+
+    def __init__(self, group: Any, export_id: int, blocks: list, filler: str) -> None:
+        self.group, self.export_id, self.filler = group, export_id, filler
+        self.local = tuple(blocks[0])
+        self.handles = [tuple(h) for h in blocks[1:]]
+        self.tp = len(blocks)
+        weakref.finalize(self, group.exports.dropped, export_id)
+
+
+class RankBlocks:
+    """The `k` or `v` of a tp > 1 `d2d` page set: the whole model's
+    [L, cap, n_kv, hd] as `shape`, `dtype` and `nbytes` tell the adopter's
+    check and the store, held as one block a rank (`export`)."""
+
+    def __init__(self, export: D2DExport, part: int) -> None:
+        local = export.local[part]
+        self.export = export
+        self.shape = (*local.shape[:2], local.shape[2] * export.tp, *local.shape[3:])
+        self.dtype = local.dtype
+        self.nbytes = math.prod(self.shape) * local.element_size()
+
+
 def export_pages(
     engine: Any,
     cache_key: tuple[int, ...],
@@ -164,15 +195,18 @@ def export_pages(
     `[:length]` slice: the adopter installs a buffer bit-identical to
     the filler's local one, so adopted-vs-local token identity holds by
     construction and no new pad-shape ever reaches the jitted programs.
-    A tp > 1 filler's `d2d` export raises before any rank is touched.
+    A tp > 1 filler's `d2d` export leaves every rank's block on its rank
+    (RankBlocks).
     """
     geometry = KVGeometry.of_engine(engine)
     if transport == "d2d" and geometry.tp > 1:
-        raise NotImplementedError(
-            f"the d2d kvplane transport at tp={geometry.tp} is not ported yet (ROADMAP "
-            f"queue 1 item {D2D_TP_ITEM}): a peer's rank-r block of kv heads would cross "
-            f"into another process; ship transport='host'")
-    kv = engine.export_prefix_kv(cache_key)
+        out = engine.export_prefix_blocks(cache_key)
+        if out is None:
+            return None
+        export = D2DExport(engine.rank_group, *out, filler)
+        kv = RankBlocks(export, 0), RankBlocks(export, 1)
+    else:
+        kv = engine.export_prefix_kv(cache_key)
     if kv is None:
         return None
     k, v = kv

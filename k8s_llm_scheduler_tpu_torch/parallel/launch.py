@@ -32,6 +32,16 @@ this module makes the process model explicit:
   followers see the calls in the order the driver makes them, and within
   an engine the dispatcher thread and `_await_dispatch` order the model
   calls, so each rank issues its collectives in the driver's order.
+- The prefix-KV plane's `d2d` pages (fleet/kvplane/pages.py). At tp > 1
+  each rank keeps its block of an exported entry in an export table of
+  its own and hands out a handle another process can open (parallel/
+  ipc.py); an adopting group's rank r copies the filler's rank-r block
+  from it. The driver's ExportBook says when a block may go: once the page
+  set is collected, or once the filler's prefix_epoch moved past it, and
+  never while an adoption holds it. The group releases such blocks on
+  every rank before and after each of its own calls, under its lock
+  (never from a finalizer, which may run while another group's lock is
+  held).
 - Failure. Every group has a timeout. After every mirrored call the ranks
   settle (`Control.settle`): each says whether its call raised, and when
   every call raised, how many tp collectives its engine has issued. The
@@ -46,6 +56,7 @@ this module makes the process model explicit:
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
 import logging
@@ -363,6 +374,73 @@ def _is_handle(value) -> bool:
     return type(value).__name__ == "WaveHandle"
 
 
+class ExportBook:
+    """The driver's book of its group's live `d2d` exports (one a tp > 1
+    page set, fleet/kvplane/pages.py), by export id: the prefix_epoch each
+    was exported under and the adoptions holding it.
+
+    An export is doomed once its page set is collected (`dropped`, which a
+    finalizer calls: it appends to a deque and takes no lock) or once the
+    filler's prefix_epoch moved past it; `releasable` hands the group the
+    doomed ones no adoption holds, and an adoption may `hold` only an
+    export that is neither doomed nor in a closed group's book."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._live: dict[int, list[int]] = {}  # id -> [prefix_epoch, holds]
+        self._dropped: collections.deque[int] = collections.deque()
+        self._doomed: set[int] = set()
+        self._next = 0
+        self.closed = False
+
+    def open(self, epoch: int) -> int:
+        """A new export's id, made under `epoch`."""
+        with self._lock:
+            export_id, self._next = self._next, self._next + 1
+            self._live[export_id] = [epoch, 0]
+            return export_id
+
+    def dropped(self, export_id: int) -> None:
+        """The export's page set is gone (a finalizer's call)."""
+        self._dropped.append(export_id)
+
+    def hold(self, export_id: int, epoch: int) -> bool:
+        """Keep the export from release while an adoption copies it; False
+        when it was released, is doomed, or the group is closed."""
+        with self._lock:
+            rec = self._live.get(export_id)
+            if self.closed or rec is None or rec[0] != epoch or export_id in self._doomed:
+                return False
+            rec[1] += 1
+            return True
+
+    def unhold(self, export_id: int) -> None:
+        with self._lock:
+            self._live[export_id][1] -= 1
+
+    def releasable(self, epoch: int) -> list[int]:
+        """The doomed exports no adoption holds, forgotten here: the caller
+        releases them on every rank."""
+        with self._lock:
+            while self._dropped:
+                self._doomed.add(self._dropped.popleft())
+            self._doomed.update(i for i, (e, _) in self._live.items() if e != epoch)
+            ready = sorted(i for i in self._doomed if self._live.get(i, [0, 0])[1] == 0)
+            for i in ready:
+                self._doomed.discard(i)
+                self._live.pop(i, None)
+            return ready
+
+    def live(self) -> list[int]:
+        """The ids not yet released."""
+        with self._lock:
+            return sorted(self._live)
+
+    def close(self) -> None:
+        with self._lock:
+            self.closed = True
+
+
 class RankGroup:
     """The driver's side of its host's tp group: the followers' processes,
     the control channel, and the mirror over the driver's engine."""
@@ -379,6 +457,7 @@ class RankGroup:
         self.broken: str | None = None  # why the group went down, if it did
         self.scratch = None  # a TemporaryDirectory the group's files live in
         self.engine = None  # the driver's engine, once mirrored
+        self.exports = ExportBook()  # the group's d2d page sets
 
     def inside(self) -> bool:
         """Whether this thread is inside a call the group mirrors."""
@@ -424,11 +503,13 @@ class RankGroup:
                 # the followers are gone (or going): closing and releasing
                 # the driver's own engine still work
                 return self._local_call(fn, args, kwargs)
+            self._release_exports()
             seq = self._open(name)
             self.control.send((seq, name, self._wire(args), self._wire(kwargs), self._sync()))
             out = self._settled(name, lambda: self._local_call(fn, args, kwargs))
             if _is_handle(out):
                 self._refs[id(out)] = seq
+            self._release_exports()
             return out
 
     def _open(self, name: str) -> int:
@@ -519,15 +600,30 @@ class RankGroup:
         (buffers that must not cross the control channel whole: the
         function hands each rank its share over the tp group)."""
         with self._lock:
-            seq = self._open(fn.__name__)
-            self.control.send((seq, _FN, (fn, args), {}, self._sync()))
-            out = [self._settled(fn.__name__, lambda: self._local_call(
-                fn, (self.engine, *args), driver_kwargs or {}))]
-            for rank in range(1, len(self.procs) + 1):
-                key = f"result/{seq}/{rank}"
-                self._wait_key(key)
-                out.append(pickle.loads(self.store.get(key)))
+            self._release_exports()
+            out = self._on_ranks(fn, args, driver_kwargs)
+            self._release_exports()
             return out
+
+    def _on_ranks(self, fn: Callable, args: tuple, driver_kwargs: dict | None) -> list:
+        seq = self._open(fn.__name__)
+        self.control.send((seq, _FN, (fn, args), {}, self._sync()))
+        out = [self._settled(fn.__name__, lambda: self._local_call(
+            fn, (self.engine, *args), driver_kwargs or {}))]
+        for rank in range(1, len(self.procs) + 1):
+            key = f"result/{seq}/{rank}"
+            self._wait_key(key)
+            out.append(pickle.loads(self.store.get(key)))
+        return out
+
+    def _release_exports(self) -> None:
+        """Under the lock: release on every rank the d2d exports the book
+        says may go (ExportBook.releasable)."""
+        if self.broken is not None or self.closed or self.engine is None:
+            return
+        ids = self.exports.releasable(self.engine.prefix_epoch)
+        if ids:
+            self._on_ranks(release_kv_exports, (ids,), None)
 
     def _wait_key(self, key: str) -> None:
         deadline = time.monotonic() + self.timeout_s
@@ -559,6 +655,7 @@ class RankGroup:
         self._reap(10.0)
 
     def _reap(self, timeout_s: float) -> None:
+        self.exports.close()
         stop_followers(self.procs, timeout_s)
         self.mesh.close()
         if self.scratch is not None:
@@ -1050,6 +1147,42 @@ def adopt_head_blocks(engine, prompt_ids: list[int], shape: tuple, k=None, v=Non
     its contiguous block of heads over the tp group; each rank copies its
     block into a buffer of its own (InferenceEngine.adopt_prefix_pages)."""
     return engine._adopt_head_blocks(prompt_ids, shape, k, v)
+
+
+# ------------------------------------------------- the plane's d2d pages
+def export_kv_blocks(engine, key: tuple, export_id: int, scratch: str):
+    """Register this rank's block of `key`'s cached KV in its export table
+    under `export_id` and return what the page set holds of it: rank 0
+    its (k, v) tensors, every other rank a (k, v) pair of handles another
+    process can open (parallel/ipc.py; on the CPU, files under `scratch`).
+    None on every rank when the entry is not resident."""
+    return engine._export_block(tuple(key), export_id, scratch)
+
+
+def adopt_kv_blocks(engine, prompt_ids: list[int], export_id: int, handles: list,
+                    own: bool, filler: str, k=None, v=None):
+    """Adopt a tp > 1 d2d page set on every rank: rank 0 copies the
+    filler's rank-0 tensors (`k`, `v`, the driver's alone, taken by
+    reference: the two groups' drivers are one process), every other rank
+    r opens `handles[r - 1]` and copies the filler's rank-r block into a
+    buffer of its own, or, when the filler is its own group (`own`), copies
+    it from its export table."""
+    return engine._adopt_block(prompt_ids, export_id, handles, own, filler, k, v)
+
+
+def release_kv_exports(engine, ids: list[int]) -> None:
+    """Drop the exports `ids` from this rank's export table."""
+    engine._release_exports(ids)
+
+
+def export_table(engine) -> list[int]:
+    """The export ids this rank's export table holds."""
+    return sorted(engine._kv_exports)
+
+
+def rank_collectives(engine) -> dict:
+    """collective_book of this rank's mesh: every group's counts and bytes."""
+    return collective_book(engine.mesh)
 
 
 if __name__ == "__main__":

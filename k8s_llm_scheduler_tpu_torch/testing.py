@@ -1,9 +1,11 @@
 """Synthetic clusters, fixture pods and an async deadline for tests, the
 chip smoke and `cli demo`.
 
-`clear_prefix_cache` and `tear_next_swap` act on one tp rank's engine,
+`clear_prefix_cache`, `tear_next_swap`, `cached_prefix_kv`,
+`scribble_prefix` and `swap_to_own_weights` act on one tp rank's engine,
 for a test to run on every rank through `RankGroup.on_ranks` (the
-followers import them from here).
+followers import them from here). `stop_at_next_admit` lands a watchdog
+stop inside a resident loop's iteration.
 
 `chunk_draws` runs the fused decode loop's sampling alone over constant
 probabilities, on the CPU or captured on a card, for the tests and the chip
@@ -17,11 +19,19 @@ zone label z(i % 4), Ready. `synthetic_cluster`, `pod_burst`,
 `async_deadline` and `fixture_raw_pods` are copies of the JAX package's
 testing.py (`fixture_raw_pods` is its `fixture_pods`: the reference's three
 graduated nginx pods, as RawPods); `fixture_pods(n)` here returns PodSpecs.
+
+`LockOrderSanitizer` (with `LockOrderViolation` and `_SanitizedLock`) is
+the JAX module's text: the runtime half of the concurrency rules `cli lint`
+checks. It wraps `threading.Lock` creation while installed, records the
+cross-thread acquisition-order graph and reports order cycles and locks
+held across an event-loop hop (`assert_clean`). Only this process's locks
+are wrapped: a tp group's followers are processes of their own.
 """
 
 from __future__ import annotations
 
 import asyncio
+import threading
 
 from k8s_llm_scheduler_tpu_torch.cluster.fake import FakeCluster, FakeNode
 from k8s_llm_scheduler_tpu_torch.cluster.interface import RawPod
@@ -101,6 +111,257 @@ def async_deadline(seconds: float):
     if native is not None:
         return native(seconds)
     return _Py310Deadline(seconds)
+
+
+# ------------------------------------------------------------------------
+# Runtime lock-order sanitizer
+# ------------------------------------------------------------------------
+
+
+class LockOrderViolation(AssertionError):
+    """A lock-discipline violation observed at runtime (order cycle or a
+    lock held across an event-loop hop)."""
+
+
+class _SanitizedLock:
+    """Drop-in wrapper around a real `_thread.lock` that reports acquire/
+    release events to its sanitizer. Identity for the order graph is the
+    CREATION SITE (file:line), not the instance — two instances of the
+    same class's `self._lock` are one graph node, so an ABBA cycle between
+    two objects of the same class is still a cycle."""
+
+    __slots__ = ("_real", "_san", "site", "_holder")
+
+    def __init__(self, real, sanitizer: "LockOrderSanitizer", site: str) -> None:
+        self._real = real
+        self._san = sanitizer
+        self.site = site
+        # ident of the thread currently holding this lock (None when free
+        # or released cross-thread) — lets the sanitizer purge hand-off
+        # residue from the acquirer's held stack (see _note_acquire)
+        self._holder: int | None = None
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        got = self._real.acquire(blocking, timeout)
+        if got:
+            self._holder = threading.get_ident()
+            self._san._note_acquire(self)
+        return got
+
+    def release(self) -> None:
+        self._san._note_release(self)
+        self._holder = None
+        self._real.release()
+
+    def locked(self) -> bool:
+        return self._real.locked()
+
+    def __enter__(self) -> bool:
+        return self.acquire()
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+    def _at_fork_reinit(self) -> None:  # threading internals call this
+        self._real._at_fork_reinit()
+
+    def __repr__(self) -> str:
+        return f"<SanitizedLock {self.site} {self._real!r}>"
+
+
+class LockOrderSanitizer:
+    """Wrap `threading.Lock` creation; record the acquisition graph; fail
+    on cycles and on locks held across an event-loop hop.
+
+    Checks (both are the runtime twin of a graftlint rule):
+
+    - **order cycle**: edge A->B is recorded when a thread acquires B
+      while holding A. A cycle in that graph is a latent deadlock even if
+      this run's interleaving never wedged — exactly the class the test
+      suite can only catch probabilistically.
+    - **event-loop hop**: acquiring a threading lock on a loop thread and
+      holding it across a loop iteration (detected via a patched
+      `asyncio.events.Handle._run` tick counter: if the loop ran any
+      OTHER callback between acquire and release, the holder suspended
+      mid-critical-section — the runtime shape of `lock-across-await`).
+
+    Violations are recorded, not raised at the fault site (raising inside
+    arbitrary third-party acquire paths corrupts the code under test);
+    `assert_clean()` — which the pytest fixture calls at teardown —
+    raises LockOrderViolation with every observation.
+
+    Scope: only locks CREATED while installed are tracked (the fixture
+    installs before the test body, so objects the test builds are
+    covered); `threading.RLock` is left alone (logging and interpreter
+    internals). Use as a context manager, or install()/uninstall()."""
+
+    def __init__(self) -> None:
+        self._orig_lock = None
+        self._orig_handle_run = None
+        self._meta = threading.Lock()  # guards graph/violations (real lock)
+        self._tls = threading.local()
+        self.edges: dict[str, set[str]] = {}
+        self.edge_where: dict[tuple[str, str], str] = {}
+        self.violations: list[str] = []
+        self.locks_created = 0
+
+    # ------------------------------------------------------------ lifecycle
+    def install(self) -> "LockOrderSanitizer":
+        if self._orig_lock is not None:
+            raise RuntimeError("sanitizer already installed")
+        self._orig_lock = threading.Lock
+        sanitizer = self
+
+        def make_lock():
+            sanitizer.locks_created += 1
+            return _SanitizedLock(
+                sanitizer._orig_lock(), sanitizer, sanitizer._creation_site()
+            )
+
+        threading.Lock = make_lock  # type: ignore[assignment]
+
+        # Event-loop tick counter: every callback the loop runs bumps the
+        # per-thread counter, so "held across a hop" is a counter delta.
+        handle_cls = asyncio.events.Handle
+        self._orig_handle_run = handle_cls._run
+        orig_run = self._orig_handle_run
+
+        def counting_run(handle_self):
+            tls = sanitizer._tls
+            tls.loop_ticks = getattr(tls, "loop_ticks", 0) + 1
+            return orig_run(handle_self)
+
+        handle_cls._run = counting_run  # type: ignore[assignment]
+        return self
+
+    def uninstall(self) -> None:
+        if self._orig_lock is None:
+            return
+        threading.Lock = self._orig_lock  # type: ignore[assignment]
+        asyncio.events.Handle._run = self._orig_handle_run  # type: ignore
+        self._orig_lock = None
+        self._orig_handle_run = None
+
+    def __enter__(self) -> "LockOrderSanitizer":
+        return self.install()
+
+    def __exit__(self, *exc) -> None:
+        self.uninstall()
+
+    # ------------------------------------------------------------ recording
+    @staticmethod
+    def _creation_site() -> str:
+        """file:line of the threading.Lock() caller — skipping any frames
+        from THIS module, so stacked sanitizers (suite-wide autouse plus
+        an explicit fixture: the inner factory calls the outer factory)
+        still attribute every lock to its real creation site instead of
+        collapsing all locks onto one make_lock line (which would zero
+        out edge recording — edges require distinct sites)."""
+        import sys
+
+        frame = sys._getframe(1)
+        while frame is not None and frame.f_code.co_filename == __file__:
+            frame = frame.f_back
+        if frame is None:  # pragma: no cover - interpreter-internal caller
+            return "<unknown>:0"
+        # last TWO path components: two files sharing a basename AND a
+        # line number must not collapse into one graph node (a collision
+        # could weld unrelated locks together and report a false cycle)
+        tail = "/".join(frame.f_code.co_filename.rsplit("/", 2)[-2:])
+        return f"{tail}:{frame.f_lineno}"
+
+    def _held(self) -> list:
+        stack = getattr(self._tls, "held", None)
+        if stack is None:
+            stack = self._tls.held = []
+        return stack
+
+    def _loop_running_here(self) -> bool:
+        try:
+            asyncio.get_running_loop()
+            return True
+        except RuntimeError:
+            return False
+
+    def _note_acquire(self, lock: _SanitizedLock) -> None:
+        held = self._held()
+        # Purge hand-off residue: a lock acquired HERE but released on
+        # another thread keeps its stack entry (the releasing thread's
+        # _note_release can't see this stack). Its _holder is by then
+        # None or another thread — treating it as still-held would record
+        # phantom edges and manufacture false cycles.
+        me = threading.get_ident()
+        if held:
+            held[:] = [e for e in held if e[0]._holder == me]
+        tick = (
+            getattr(self._tls, "loop_ticks", 0)
+            if self._loop_running_here() else None
+        )
+        new_edges = [
+            (h.site, lock.site) for h, _t in held if h.site != lock.site
+        ]
+        held.append((lock, tick))
+        if not new_edges:
+            return
+        with self._meta:
+            for a, b in new_edges:
+                if b in self.edges.setdefault(a, set()):
+                    continue
+                self.edges[a].add(b)
+                self.edge_where[(a, b)] = threading.current_thread().name
+                cycle = self._find_path(b, a)
+                if cycle is not None:
+                    self.violations.append(
+                        "lock-order cycle: "
+                        + " -> ".join([a] + cycle)
+                        + f" (edge {a} -> {b} closed the cycle on thread "
+                        f"{threading.current_thread().name}; a cross-thread "
+                        f"interleaving of these acquisitions deadlocks)"
+                    )
+
+    def _find_path(self, src: str, dst: str) -> list[str] | None:
+        """DFS path src -> ... -> dst in the edge graph (caller holds
+        _meta). Returns the node list after src, or None."""
+        seen = set()
+        stack: list[tuple[str, list[str]]] = [(src, [src])]
+        while stack:
+            node, path = stack.pop()
+            if node == dst:
+                return path
+            if node in seen:
+                continue
+            seen.add(node)
+            for nxt in self.edges.get(node, ()):
+                stack.append((nxt, path + [nxt]))
+        return None
+
+    def _note_release(self, lock: _SanitizedLock) -> None:
+        held = self._held()
+        for i in range(len(held) - 1, -1, -1):
+            if held[i][0] is lock:
+                _l, tick = held.pop(i)
+                if tick is not None:
+                    now = getattr(self._tls, "loop_ticks", 0)
+                    if now != tick:
+                        with self._meta:
+                            self.violations.append(
+                                f"lock {lock.site} was held across an "
+                                f"event-loop hop ({now - tick} other "
+                                f"callback(s) ran on the loop while it was "
+                                f"held) — a threading lock in a coroutine "
+                                f"must not span an await"
+                            )
+                return
+        # release of a lock acquired before install (or on another
+        # thread's stack for hand-off patterns): not ours to judge
+
+    # ------------------------------------------------------------ reporting
+    def assert_clean(self) -> None:
+        if self.violations:
+            raise LockOrderViolation(
+                f"{len(self.violations)} lock-discipline violation(s):\n"
+                + "\n".join(f"  - {v}" for v in self.violations)
+            )
 
 
 def synthetic_nodes(
@@ -326,3 +587,42 @@ def tear_next_swap(engine, ranks: list[int]) -> None:
         raise OSError("read error half way through the candidate")
 
     engine.swap_params = torn
+
+
+def cached_prefix_kv(engine, key: tuple[int, ...]):
+    """CPU copies of this rank's cached (k, v) of `key`, or None."""
+    engine._await_dispatch()
+    pfx = engine._prefix_cache.get(tuple(key))
+    return None if pfx is None else (pfx.k.cpu().clone(), pfx.v.cpu().clone())
+
+
+def scribble_prefix(engine, key: tuple[int, ...], value: float) -> None:
+    """Write `value` over this rank's cached KV of `key`, in place."""
+    engine._await_dispatch()
+    pfx = engine._prefix_cache[tuple(key)]
+    pfx.k.fill_(value)
+    pfx.v.fill_(value)
+
+
+def swap_to_own_weights(engine) -> None:
+    """Swap this rank to the weights it serves: no weight changes, but the
+    prefix cache clears and prefix_epoch bumps, as after any swap."""
+    engine.swap_params(engine.params)
+
+
+def stop_at_next_admit(server) -> None:
+    """Make the resident loop of `server` (engine/persistent/server.py) meet
+    the watchdog's stop right after it takes the next ADMIT off its command
+    ring, before it runs it."""
+    from k8s_llm_scheduler_tpu_torch.engine.persistent.ring import OP_ADMIT
+
+    take = server.commands.take
+
+    def take_then_stop():
+        cmd = take()
+        if cmd is not None and cmd.op == OP_ADMIT:
+            server.force_stop()
+        return cmd
+
+    server.commands.take = take_then_stop
+

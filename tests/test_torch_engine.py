@@ -409,6 +409,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "k8s_llm_scheduler_tpu_torch.fleet.autoscale, "
         "k8s_llm_scheduler_tpu_torch.fleet.kvplane, "
         "k8s_llm_scheduler_tpu_torch.fleet.kvplane.pages, "
+        "k8s_llm_scheduler_tpu_torch.parallel.launch, "
+        "k8s_llm_scheduler_tpu_torch.parallel.ipc, "
         "k8s_llm_scheduler_tpu_torch.chaos, "
         "k8s_llm_scheduler_tpu_torch.chaos.faults, "
         "k8s_llm_scheduler_tpu_torch.chaos.invariants, "

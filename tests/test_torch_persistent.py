@@ -58,6 +58,7 @@ from k8s_llm_scheduler_tpu_torch.models.convert import params_from_jax
 from k8s_llm_scheduler_tpu_torch.testing import (
     cap_torch_threads,
     fixture_pods,
+    stop_at_next_admit,
     synthetic_nodes,
 )
 
@@ -315,6 +316,30 @@ def test_wedge_watchdog_latches_and_finishes_on_the_dispatch_path(params):
         out.update(drain_fused(eng, 1))
     assert out[rid] == serial
     assert eng.persistent_blackbox()["reason"] == "wedge"
+
+
+def test_a_stop_between_an_admits_take_and_its_run_finishes_it_truncated(params):
+    """The watchdog's stop lands after the resident loop took a request's
+    ADMIT off the command ring and before it ran it: the ADMIT goes back
+    on the ring, so exit_persistent finishes the request truncated (it
+    never reached the device) and frees its slot, and the next request is
+    served token-identically on the dispatch path. (Dropped instead, as
+    the JAX loop's _device_poll drops it, the request stayed live with no
+    prefill and decoded garbage.)"""
+    eng = t_engine(params)
+    eng.set_prefix(TOK.encode("wedge prefix"))
+    prompt = TOK.encode("pod-wedge")
+    serial = eng.generate(prompt, max_new_tokens=16).token_ids
+    slots = eng.free_slots
+    assert eng.enter_persistent()
+    srv = eng._persistent
+    stop_at_next_admit(srv)
+    (rid,) = eng.add_requests([prompt], max_new_tokens=16)
+    assert srv._done.wait(WAIT_S)
+    eng.exit_persistent()
+    assert {f.req_id: f.token_ids for f in eng.step_persistent()} == {rid: []}
+    assert eng.free_slots == slots and not eng.has_active
+    assert eng.generate(prompt, max_new_tokens=16).token_ids == serial
 
 
 # ------------------------------------------- books, abort and telemetry

@@ -17,7 +17,6 @@ from a registry of native checkpoints (v1 seed 0, v2 seed 1).
 
 import dataclasses
 import time
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +39,6 @@ from k8s_llm_scheduler_tpu_torch import rollout as trollout
 from k8s_llm_scheduler_tpu_torch import testing as ttesting
 from k8s_llm_scheduler_tpu_torch.engine.engine import InferenceEngine
 from k8s_llm_scheduler_tpu_torch.engine.local import build_local_backend
-from k8s_llm_scheduler_tpu_torch.engine.persistent import ring as tring
 from k8s_llm_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
 from k8s_llm_scheduler_tpu_torch.fleet import kvplane as tkv
 from k8s_llm_scheduler_tpu_torch.models import configs as tconfigs
@@ -273,20 +271,26 @@ def test_exported_pages_equal_the_jax_export_and_adopt_without_a_prefill(plane_g
 
 def test_a_tp1_page_set_and_a_d2d_export_are_refused_before_any_rank_is_touched(
         plane_group, trees):
-    """A page set from a tp-1 engine of the same model is refused with
-    KVGeometryError, and the tp=2 engine's d2d export names ROADMAP item
-    9e: neither sends the followers a message."""
+    """A page set from a tp-1 engine of the same model is refused by the
+    tp=2 engine with KVGeometryError, and the tp=2 engine's d2d export
+    (one block a rank) by the tp-1 engine, through the plane and through
+    the engine's own check: no refusal sends the followers a message."""
     engine = plane_group.engine
     tp1 = InferenceEngine(trees[0][1], TMICRO, TOK, graphs=False, **ENGINE_KW)
     pages = tkv.export_pages(tp1, tp1.pin_prefix(PREFIX)[0], generation=0, filler="tp1")
     assert pages.geometry.tp == 1
-    engine.pin_prefix(PREFIX)
+    key, _ = engine.pin_prefix(PREFIX)
+    d2d = tkv.export_pages(engine, key, generation=0, filler="tp2", transport="d2d")
+    assert d2d.transport == "d2d" and d2d.geometry.tp == 2
     seq = engine.rank_group._seq
     with pytest.raises(tkv.KVGeometryError, match="tp1.*tp2"):
         tkv.adopt_pages(engine, pages)
-    with pytest.raises(NotImplementedError, match="d2d kvplane transport at tp=2.*item 9e"):
-        tkv.export_pages(engine, tuple(PREFIX), generation=0, filler="tp2", transport="d2d")
+    with pytest.raises(tkv.KVGeometryError, match="tp2.*tp1"):
+        tkv.adopt_pages(tp1, d2d)
+    with pytest.raises(ValueError, match="adopt on an engine of the same tp"):
+        tp1.adopt_prefix_pages(list(PREFIX), d2d.k, d2d.v)
     assert engine.rank_group._seq == seq
+    assert "adopted_prefixes" not in tp1.stats
     _in_step(engine)
 
 
@@ -344,12 +348,20 @@ def _drain_fused(engine, n: int, out: dict | None = None) -> dict:
     return out
 
 
-def _wait_emitted(engine, out: dict) -> None:
+def _admit_resident(engine, out: dict, max_new_tokens: int = 40) -> int:
+    """Admit PROMPTS[0] through the command ring and harvest until the loop
+    has run a step since (the request is on the device, not waiting in the
+    ring). The steps count is the engine's since it was built, and the
+    module's groups serve several tests, so it is read before the
+    admission."""
+    since = engine.stats["persistent_steps"]
+    (rid,) = engine.add_requests([PROMPTS[0]], max_new_tokens=max_new_tokens)
     deadline = time.monotonic() + WAIT_S
-    while engine.stats["persistent_steps"] < 1:
+    while engine.stats["persistent_steps"] <= since:
         assert time.monotonic() < deadline, "the loop never emitted"
         for fin in engine.step_persistent(timeout_s=0.05):
             out[fin.req_id] = fin.token_ids
+    return rid
 
 
 @pytest.fixture(scope="module")
@@ -399,9 +411,8 @@ def test_a_quiesce_mid_stream_continues_on_step_fused(loop_group, jax_resident):
     engine = loop_group.engine
     engine.set_prefix(PREFIX)
     assert engine.enter_persistent()
-    (rid,) = engine.add_requests([PROMPTS[0]], max_new_tokens=40)
     out = {}
-    _wait_emitted(engine, out)
+    rid = _admit_resident(engine, out)
     engine.exit_persistent()
     assert not any(s["persistent_active"] for s in _states(engine))
     out = _drain_fused(engine, 1, out)
@@ -418,9 +429,8 @@ def test_a_wave_and_a_swap_while_resident_keep_the_ranks_in_step(loop_group, reg
     engine = loop_group.engine
     engine.set_prefix(PREFIX)
     assert engine.enter_persistent()
-    (rid,) = engine.add_requests([PROMPTS[0]], max_new_tokens=40)
     out = {}
-    _wait_emitted(engine, out)
+    rid = _admit_resident(engine, out)
     wave = [f.token_ids for f in engine.decide_wave(PROMPTS, BUDGET)]
     assert wave == jax_tokens["v1"]["wave"]
     assert not any(s["persistent_active"] for s in _states(engine))
@@ -428,9 +438,8 @@ def test_a_wave_and_a_swap_while_resident_keep_the_ranks_in_step(loop_group, reg
     assert out[rid] == jax_resident["long"]
 
     assert engine.enter_persistent()
-    (rid,) = engine.add_requests([PROMPTS[0]], max_new_tokens=40)
     out = {}
-    _wait_emitted(engine, out)
+    rid = _admit_resident(engine, out)
     epochs = [s["prefix_epoch"] for s in _states(engine)]
     swapper = trollout.HotSwapper(loop_group, registry, engine.model_config,
                                   mesh=engine.mesh, mode="double")
@@ -473,20 +482,20 @@ def test_the_backend_serves_decisions_through_the_loop_like_jax(loop_group, tree
 
 
 def test_the_wedge_watchdog_drains_every_rank(loop_group, jax_resident, monkeypatch):
-    """A fake clock on the driver makes its heartbeat read wedged: the
-    watchdog drains the loop on every rank, every rank latches it off, and
-    the request finishes on the dispatch path with the JAX engine's
-    tokens."""
+    """The driver's heartbeat reads an hour idle: the watchdog drains the
+    loop on every rank, every rank latches it off, and the request finishes
+    on the dispatch path with the JAX engine's tokens. Only the watchdog's
+    read is aged (the `idle_s` of the driver's own Heartbeat): the resident
+    threads stamp their beats with the real clock, so a beat landing inside
+    the window cannot make the heartbeat look fresh again."""
     engine = loop_group.engine
     engine.set_grammar(None)  # the backend's decisions installed theirs
     engine.set_prefix(PREFIX)
     assert engine.enter_persistent()
-    (rid,) = engine.add_requests([PROMPTS[0]], max_new_tokens=40)
     out = {}
-    _wait_emitted(engine, out)
-    real = time.monotonic
-    monkeypatch.setattr(tring, "time", SimpleNamespace(
-        monotonic=lambda: real() + 3600.0, sleep=time.sleep, perf_counter=time.perf_counter))
+    rid = _admit_resident(engine, out)
+    server = engine._persistent
+    monkeypatch.setattr(server.heartbeat, "idle_s", lambda: server.wedge_timeout_s + 3600.0)
     for fin in engine.step_persistent(timeout_s=0.0):
         out[fin.req_id] = fin.token_ids
     monkeypatch.undo()
@@ -498,6 +507,32 @@ def test_the_wedge_watchdog_drains_every_rank(loop_group, jax_resident, monkeypa
     assert out[rid] == jax_resident["long"]
     assert engine.persistent_blackbox()["reason"] == "wedge"
     _in_step(engine)
+
+
+def test_a_stop_between_an_admits_take_and_its_run_keeps_the_ranks_in_step(registry,
+                                                                          jax_resident):
+    """The watchdog's stop lands after the driver's resident loop took a
+    request's ADMIT off its ring and before it ran it: the ADMIT goes back
+    on the driver's ring (each follower's copy is still on its own), so
+    exit_persistent finishes the request truncated on every rank, and the
+    group then generates the JAX engine's tokens in step."""
+    backend = _build(registry, **PERSISTENT_KW)
+    engine = backend.engine
+    try:
+        engine.set_prefix(PREFIX)
+        assert engine.enter_persistent()
+        server = engine._persistent
+        ttesting.stop_at_next_admit(server)
+        (rid,) = engine.add_requests([PROMPTS[0]], max_new_tokens=40)
+        assert server._done.wait(WAIT_S)
+        engine.exit_persistent()
+        assert {f.req_id: f.token_ids for f in engine.step_persistent()} == {rid: []}
+        states = _states(engine)
+        assert states[0] == states[1] and not engine.has_active
+        assert engine.generate(PROMPTS[0], max_new_tokens=40).token_ids == jax_resident["long"]
+        _in_step(engine)
+    finally:
+        backend.close()
 
 
 @pytest.mark.parametrize("which", ["plane_group", "loop_group"])
@@ -521,8 +556,7 @@ def test_a_follower_killed_mid_residency_makes_the_driver_raise(registry, monkey
     try:
         engine.set_prefix(PREFIX)
         assert engine.enter_persistent()
-        engine.add_requests([PROMPTS[0]], max_new_tokens=200)
-        _wait_emitted(engine, {})
+        _admit_resident(engine, {}, max_new_tokens=200)
         group.procs[0].kill()
         group.procs[0].join(30)
         t0 = time.monotonic()
